@@ -1,0 +1,98 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
+use, one ``nvcc`` per source and all sources at once::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/kernels/<name>.<hash>.so csrc/<name>.cu
+
+into ``build/kernels/`` beside the package (``.gitignore`` lists ``build/``).
+The file name carries a hash of the source and the flags, so an edited
+source is rebuilt and a stale library is never loaded.  Libraries load with
+``ctypes``; every C entry returns ``cudaGetLastError()`` and
+:func:`check` raises when it is not 0.  The hash covers the source and
+``NVCC_FLAGS``; ``build_all(verbose=True)`` only adds ``-Xptxas -v``, which
+does not change the code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent
+BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
+SOURCES = ("flash_attention", "resblock")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    for inc in sorted(CSRC.glob("*.cuh")):
+        src += inc.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}.{digest}.so"
+
+
+def build_all(verbose: bool = False) -> dict:
+    """Compile every missing kernel library in parallel; returns
+    {name: path}.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
+    memory, spills) and prints the compiler's report."""
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: _lib_path(name) for name in SOURCES}
+    todo = {name: p for name, p in paths.items() if not p.exists()}
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu failed ---\n{out}")
+            continue
+        os.replace(tmp, path)
+        if verbose and out:
+            print(f"--- nvcc {name}.cu ---\n{out}", flush=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built first if missing)."""
+    path = _lib_path(name)
+    if not path.exists():
+        path = build_all()[name]
+    lib = ctypes.CDLL(str(path))
+    lib.vtt_error_string.argtypes = [ctypes.c_int]
+    lib.vtt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry of ``lib`` returned a CUDA error."""
+    if err != 0:
+        msg = lib.vtt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

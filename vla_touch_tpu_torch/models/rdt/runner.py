@@ -1,0 +1,132 @@
+"""RDT runner: condition adaptors + DPM-Solver++ action sampling
+(counterpart of ``vla_touch_tpu/models/rdt/runner.py``, inference only).
+
+:func:`rdt_predict_action` adapts the conditions and computes every block's
+condition K/V once, then runs the solver loop where each step re-adapts the
+noisy chunk and runs :meth:`RDT.forward_cached`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vla_touch_tpu_torch.config import NoiseSchedulerConfig, RDTModelConfig
+from vla_touch_tpu_torch.models.rdt.model import RDT
+from vla_touch_tpu_torch.ops import schedulers as sched_lib
+
+
+class ConditionAdapter(nn.Module):
+    """``linear`` or ``mlp{N}x_gelu`` projector: fc0..fc{N-1}, tanh-GELU
+    between; the input is cast to the module's dtype first."""
+
+    def __init__(self, projector_type: str, in_features: int, out_features: int):
+        super().__init__()
+        if projector_type == "linear":
+            depth = 1
+        else:
+            m = re.match(r"^mlp(\d+)x_gelu$", projector_type)
+            if not m:
+                raise ValueError(f"Unknown projector type: {projector_type}")
+            depth = int(m.group(1))
+        for i in range(depth):
+            self.add_module(f"fc{i}", nn.Linear(in_features if i == 0
+                                                else out_features, out_features))
+        self.depth = depth
+
+    def forward(self, x):
+        x = x.to(self.fc0.weight.dtype)
+        for i in range(self.depth):
+            if i > 0:
+                x = F.gelu(x, approximate="tanh")
+            x = getattr(self, f"fc{i}")(x)
+        return x
+
+
+class RDTRunnerModule(nn.Module):
+    """RDT + its three adaptors (``model`` / ``lang_adaptor`` /
+    ``img_adaptor`` / ``state_adaptor``)."""
+
+    def __init__(self, cfg: RDTModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        H = cfg.hidden_size
+        self.model = RDT(cfg)
+        self.lang_adaptor = ConditionAdapter(cfg.lang_adaptor, cfg.lang_token_dim, H)
+        self.img_adaptor = ConditionAdapter(cfg.img_adaptor, cfg.img_token_dim, H)
+        self.state_adaptor = ConditionAdapter(cfg.state_adaptor,
+                                              2 * cfg.state_token_dim, H)
+
+    def adapt_conditions(self, lang_tokens, img_tokens, state_tokens):
+        return (self.lang_adaptor(lang_tokens), self.img_adaptor(img_tokens),
+                self.state_adaptor(state_tokens))
+
+    def adapt_state(self, state_tokens):
+        return self.state_adaptor(state_tokens)
+
+    def compute_cond_kv(self, lang_c, img_c):
+        return self.model.compute_cond_kv(lang_c, img_c)
+
+    def forward_cached(self, x, freq, t, cond_kv, lang_mask=None):
+        return self.model.forward_cached(x, freq, t, cond_kv, lang_mask=lang_mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class RDTRunnerConfig:
+    model: RDTModelConfig = dataclasses.field(default_factory=RDTModelConfig)
+    noise: NoiseSchedulerConfig = dataclasses.field(
+        default_factory=NoiseSchedulerConfig)
+
+
+def init_rdt(cfg: RDTRunnerConfig, seed: int = 0, device=None) -> RDTRunnerModule:
+    """A seeded random RDT runner in the compute dtype on ``device``
+    (default CUDA).  The positional embeddings start from their sincos
+    tables and ``final_ffn.fc2`` from zeros, as in the JAX init."""
+    from vla_touch_tpu_torch.utils.random_init import build_module
+
+    return build_module(lambda: RDTRunnerModule(cfg.model), seed, device,
+                        cfg.model.compute_dtype)
+
+
+@torch.inference_mode()
+def rdt_predict_action(cfg: RDTRunnerConfig, module: RDTRunnerModule,
+                       lang_tokens, lang_mask, img_tokens, state_tokens,
+                       action_mask, ctrl_freqs,
+                       num_inference_timesteps: Optional[int] = None,
+                       init_noise=None, generator: Optional[torch.Generator] = None):
+    """Action-chunk inference.
+
+    state_tokens (B, 1, 128); action_mask (B, 1, 128) float; returns
+    (B, horizon, 128) float32.  ``init_noise`` (B, horizon, 128) fixes the
+    starting noise; otherwise it is drawn with ``generator``.
+    """
+    m = cfg.model
+    steps = num_inference_timesteps or cfg.noise.num_inference_timesteps
+    schedule = sched_lib.DiffusionSchedule.create(cfg.noise.num_train_timesteps,
+                                                  cfg.noise.beta_schedule)
+    B = state_tokens.shape[0]
+    dev = state_tokens.device
+    state_in = torch.cat([state_tokens, action_mask.to(state_tokens.dtype)], dim=2)
+    lang_c, img_c, state_traj = module.adapt_conditions(lang_tokens, img_tokens,
+                                                        state_in)
+    cond_kv = module.compute_cond_kv(lang_c, img_c)
+    mask_h = action_mask.float().expand(B, m.horizon, m.output_dim)
+
+    def model_fn(noisy_action, t):
+        action_in = torch.cat([noisy_action, mask_h], dim=2)
+        x = torch.cat([state_traj, module.adapt_state(action_in)], dim=1)
+        return module.forward_cached(x, ctrl_freqs, t, cond_kv, lang_mask).float()
+
+    if init_noise is None:
+        noise = torch.randn((B, m.horizon, m.output_dim), generator=generator,
+                            dtype=torch.float32, device=dev)
+    else:
+        noise = torch.as_tensor(init_noise, dtype=torch.float32, device=dev)
+    action = sched_lib.sample_dpm_solver(model_fn, noise, schedule, steps,
+                                         prediction_type=cfg.noise.prediction_type)
+    return action * mask_h

@@ -1,0 +1,152 @@
+"""K2: the fused UNet-1D conditional residual block — the wrapper of
+``csrc/resblock.cu`` (counterpart of ``vla_touch_tpu/ops/pallas_unet.py``).
+
+A block's weights come as one dict of tensors with a leading stacked-network
+axis S (the v and s nets of the stochastic interpolant), in kernel layout::
+
+    w0 (S, k, Cin, C)  b0 (S, C)   g0w/g0b (S, C)      conv0 + GroupNorm0
+    fw (S, G, 2C)      fb (S, 2C)                       FiLM (scale | bias)
+    w1 (S, k, C, C)    b1 (S, C)   g1w/g1b (S, C)      conv1 + GroupNorm1
+    wr (S, Cin, C)     br (S, C)                        1x1 residual (Cin != C)
+
+:func:`resblock_fused` launches the kernel on CUDA tensors and computes
+:func:`resblock_ref` on CPU tensors; ``resblock_fused.launches`` counts
+calls that launched the kernel (three CUDA launches each).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_MAX_T = 16
+_CH = 16          # output channels per CTA in the kernel
+
+
+def mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+def conv1d_taps(x, w, b, stride: int = 1, padding: int = 0):
+    """Stacked 1-D conv as one tap-stacked matmul per network.
+    x (S, B, T, Ci), w (S, k, Ci, F), b (S, F) -> (S, B, T_out, F)."""
+    S, B, T, Ci = x.shape
+    k, Fo = w.shape[1], w.shape[3]
+    xp = F.pad(x, (0, 0, padding, padding))
+    T_out = (T + 2 * padding - k) // stride + 1
+    taps = torch.cat([xp[:, :, d: d + (T_out - 1) * stride + 1: stride]
+                      for d in range(k)], dim=-1)
+    y = torch.bmm(taps.reshape(S, B * T_out, k * Ci), w.reshape(S, k * Ci, Fo))
+    return y.reshape(S, B, T_out, Fo) + b[:, None, None, :]
+
+
+def group_norm(y, weight, bias, n_groups: int, eps: float):
+    """torch GroupNorm over channels-last (S, B, T, C): each group is
+    normalised over (T, C/G) jointly, biased variance."""
+    S, B, T, C = y.shape
+    yg = y.reshape(S, B, T, n_groups, C // n_groups)
+    mean = yg.mean(dim=(2, 4), keepdim=True)
+    var = yg.var(dim=(2, 4), keepdim=True, unbiased=False)
+    yn = ((yg - mean) * torch.rsqrt(var + eps)).reshape(S, B, T, C)
+    return yn * weight[:, None, None, :] + bias[:, None, None, :]
+
+
+def resblock_ref(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
+    """Plain version: the block's math in float32.  x (S, B, T, Cin), cond
+    (S, B, G) -> (S, B, T, C) float32."""
+    f = {name: t.float() for name, t in p.items()}
+    x, cond = x.float(), cond.float()
+    k = f["w0"].shape[1]
+    C = f["w0"].shape[-1]
+    h = conv1d_taps(x, f["w0"], f["b0"], padding=k // 2)
+    h = mish(group_norm(h, f["g0w"], f["g0b"], n_groups, eps))
+    film = torch.bmm(mish(cond), f["fw"]) + f["fb"][:, None, :]
+    h = film[:, :, None, :C] * h + film[:, :, None, C:]
+    h = conv1d_taps(h, f["w1"], f["b1"], padding=k // 2)
+    h = mish(group_norm(h, f["g1w"], f["g1b"], n_groups, eps))
+    if "wr" in f:
+        res = torch.bmm(x.reshape(x.shape[0], -1, x.shape[-1]), f["wr"])
+        res = res.reshape(h.shape) + f["br"][:, None, None, :]
+    else:
+        res = x
+    return h + res
+
+
+def _lib():
+    from vla_touch_tpu_torch.csrc import build
+
+    lib = build.library("resblock")
+    if lib.resblock_bf16.argtypes is None:
+        lib.resblock_bf16.argtypes = [_P] * 19 + [_I] * 8 + [ctypes.c_float, _P]
+        lib.resblock_bf16.restype = _I
+    return lib
+
+
+def _check(name, t, shape, device):
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"resblock_fused: {name} must be bfloat16, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"resblock_fused: {name} has shape {tuple(t.shape)}, "
+                         f"want {tuple(shape)}")
+    if not t.is_contiguous() or t.device != device:
+        raise ValueError(f"resblock_fused: {name} must be contiguous on {device}")
+
+
+def resblock_fused(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
+    """Fused conditional residual block over S stacked networks.
+
+    x (S, B, T, Cin), cond (S, B, G), ``p`` in the module's kernel layout
+    -> (S, B, T, C) in x's dtype.  CUDA: everything bf16 and contiguous,
+    T <= 16, C a multiple of 16 and of ``n_groups``; anything else raises.
+    """
+    if x.device.type == "cpu":
+        return resblock_ref(x, cond, p, n_groups=n_groups, eps=eps).to(x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"resblock_fused: unsupported device {x.device}")
+    S, B, T, Cin = x.shape
+    k, C = p["w0"].shape[1], p["w0"].shape[-1]
+    G = cond.shape[-1]
+    if T > _MAX_T or C % _CH or C % n_groups or k % 2 == 0:
+        raise ValueError(f"resblock_fused: unsupported T={T}, C={C}, k={k}, "
+                         f"groups={n_groups}")
+    dev = x.device
+    _check("x", x, (S, B, T, Cin), dev)
+    _check("cond", cond, (S, B, G), dev)
+    shapes = {"w0": (S, k, Cin, C), "b0": (S, C), "g0w": (S, C), "g0b": (S, C),
+              "fw": (S, G, 2 * C), "fb": (S, 2 * C), "w1": (S, k, C, C),
+              "b1": (S, C), "g1w": (S, C), "g1b": (S, C)}
+    has_res = "wr" in p
+    if has_res:
+        shapes.update(wr=(S, Cin, C), br=(S, C))
+    elif Cin != C:
+        raise ValueError("resblock_fused: Cin != C needs the residual conv")
+    for name, shape in shapes.items():
+        _check(name, p[name], shape, dev)
+    h0 = torch.empty((S, B, T, C), dtype=torch.float32, device=dev)
+    h1 = torch.empty_like(h0)
+    res = torch.empty_like(h0)
+    film = torch.empty((S, B, 2 * C), dtype=torch.float32, device=dev)
+    out = torch.empty((S, B, T, C), dtype=torch.bfloat16, device=dev)
+    wr = p["wr"].data_ptr() if has_res else None
+    br = p["br"].data_ptr() if has_res else None
+    lib = _lib()
+    from vla_touch_tpu_torch.csrc import build
+
+    err = lib.resblock_bf16(
+        x.data_ptr(), cond.data_ptr(), p["w0"].data_ptr(), p["b0"].data_ptr(),
+        p["g0w"].data_ptr(), p["g0b"].data_ptr(), p["fw"].data_ptr(),
+        p["fb"].data_ptr(), p["w1"].data_ptr(), p["b1"].data_ptr(),
+        p["g1w"].data_ptr(), p["g1b"].data_ptr(), wr, br, h0.data_ptr(),
+        film.data_ptr(), h1.data_ptr(), res.data_ptr(), out.data_ptr(),
+        S, B, T, Cin, C, G, k, n_groups, float(eps),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "resblock_fused")
+    resblock_fused.launches += 1
+    return out
+
+
+resblock_fused.launches = 0
