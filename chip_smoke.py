@@ -26,7 +26,24 @@
    times from ticks that synchronise after each stage.
    One more tick runs under ``torch.profiler``: the device's busy time,
    its idle share and the kernels with the most time.
-4. Prints one ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
+4. Holds the int8/int4 serving kernels against their plain versions at
+   every shape the quantized tick gives them (K6 a8w8 and K8 w4a8 at the
+   eight (M, K, N) linears; K3 and K4, flash attention over the int8 K/V
+   cache in its two layouts, at the image and ragged-language shapes plus
+   a fully masked row), timed as K1 is, with ``torch._int_mm`` (K6's GEMM
+   alone) and SDPA on the dequantized bf16 cache (K3/K4) as yardsticks.
+5. Runs the quantized tick (RDT-1B quantized on the card from the same
+   seeded bf16 runner, same inputs and noise) in five configurations:
+   (a) int8 weights + int8 K/V cache (K3), (b) int8 + transposed int8 cache
+   (K4), (c) int8 + int8x cache (dequantized, K1), (d) int4 fc1/fc2 and
+   int8 elsewhere + bf16 cache, (e) int4 weights, chunk only.  Each is run
+   with the launch counts zeroed before and read after (and asserted),
+   then through the plain versions (corr gates), then as a checked tick
+   (every K1-K4, K6, K8 call against its plain version on its own
+   operands); the int8 chunk is held to the bf16 tick's chunk (corr >
+   0.999).  One more tick goes through ``create_model(rdt=...).step``.
+   Configuration (a) is timed by stage and profiled.
+6. Prints one ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without a result line, when CUDA is absent, when the port
@@ -47,6 +64,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
+INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor cores
 L2_BYTES = 50 * 1024 * 1024
 
 # K1's max abs error is held to K1_TOL x max|plain| at each shape, since the
@@ -64,13 +82,25 @@ K2_TOL = 3e-2
 K2_TICK_TOL = 2e-2
 # Kernel tick vs plain tick.  SigLIP tokens and DinoV2 features read
 # 0.99993-0.99995 sound and 0.9991-0.9993 with K1's last KV tile dropped.
-# At random weights the chunk and refined actions barely depend on the
-# conditions: they read 0.99998-0.99999 sound and with either K1 fault, so
-# these two gates catch only faults outside K1; checked_tick holds every
-# kernel call of the tick to its plain version (tools/torch_k1_fault_control.py).
+# The chunk and refined actions are compared divided by the action scale
+# (action_corr); on robot units the gripper's 255 hid a K6 fault that cost
+# the chunk 3.5 % of its corr with the bf16 chunk
+# (tools/torch_quant_fault_control.py).  checked_tick holds every kernel
+# call of the tick to its plain version.
 TOKEN_CORR_MIN = 0.9998
 CHUNK_CORR_MIN = 0.9995
 REFINED_CORR_MIN = 0.9995
+# K6/K8 max abs error <= QMM_TOL x max|plain| at each shape and on the
+# tick's own operands: the int8 codes and int32 sums are exact, so only the
+# bf16 rounding of the output (2^-8 relative) and the float32 order of K8's
+# cross-group sum separate kernel and plain version.
+QMM_TOL = 1e-2
+# K3/K4 as K1: bf16 p and output against the float32 plain version.
+Q8_TOL = 2e-2
+# The int8 chunk (configurations a-c) against the bf16 tick's chunk, on the
+# actions divided by the policy's action scale: the JAX package's parity
+# gate for its int8 tier (quant_serve.py:83-85).
+INT8_CHUNK_CORR_MIN = 0.999
 
 
 def log(*a):
@@ -137,34 +167,107 @@ def corr(a, b) -> float:
     return float(np.corrcoef(a, b)[0, 1])
 
 
+def action_corr(t, a, b) -> float:
+    """corr of two action arrays (..., 10) divided by the policy's action
+    scale: in robot units the gripper (scale 255) would stand for the
+    whole chunk."""
+    scale = np.asarray(t["pcfg"].state_scale, np.float32)
+    return corr(a / scale, b / scale)
+
+
+def hold(what, got, want, rel_tol, mask=None):
+    """(max abs error, tolerance) of a kernel's ``got`` against its plain
+    ``want``, the tolerance ``rel_tol`` x max|want|; raises on a miss, and
+    when a query row that ``mask`` leaves no key is not 0."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got.float() - want).abs().max())
+    tol = rel_tol * float(want.abs().max())
+    if not np.isfinite(err) or err > tol:
+        raise AssertionError(f"{what}: max abs err {err} > {tol} ({rel_tol} x max|plain|)")
+    empty = mask is not None and not bool(mask.any(dim=1).all())
+    if empty and float(got[~mask.any(dim=1)].float().abs().max()) != 0.0:
+        raise AssertionError(f"{what}: fully masked rows must be 0")
+    return err, tol
+
+
+# kernel number -> (module under vla_touch_tpu_torch.ops, wrapper name)
+WRAPPERS = {"K1": ("flash_attention", "flash_attention"),
+            "K2": ("unet_kernels", "resblock_fused"),
+            "K3": ("flash_attention_q8", "flash_attention_q8"),
+            "K4": ("flash_attention_q8", "flash_attention_q8t"),
+            "K6": ("quant_matmul", "a8w8_matmul"),
+            "K8": ("quant_matmul", "w4a8_matmul")}
+
+
+def wrapper_home(kernel):
+    """(module, attribute name) of a kernel's wrapper."""
+    import importlib
+
+    mod, name = WRAPPERS[kernel]
+    return importlib.import_module(f"vla_touch_tpu_torch.ops.{mod}"), name
+
+
+def kernel_fns() -> dict:
+    """The six kernel wrappers by kernel number (each carries ``launches``)."""
+    return {k: getattr(*wrapper_home(k)) for k in WRAPPERS}
+
+
+def zero_counts():
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_fns().items()}
+
+
+@contextlib.contextmanager
+def swapped(**fns):
+    """Put ``fns`` (kernel number -> stand-in) in the wrappers' places in
+    their modules for the block."""
+    where = {k: wrapper_home(k) for k in fns}
+    orig = {k: getattr(*where[k]) for k in fns}
+    for k, fn in fns.items():
+        setattr(*where[k], fn)
+    try:
+        yield
+    finally:
+        for k, fn in orig.items():
+            setattr(*where[k], fn)
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Route both wrappers to their plain versions (comparison runs only)."""
+    """Route every wrapper to its plain version (comparison runs only)."""
     from vla_touch_tpu_torch.ops import flash_attention as FA
+    from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
     from vla_touch_tpu_torch.ops import unet_kernels as UK
-
-    orig = FA.flash_attention, UK.resblock_fused
-    FA.flash_attention = FA.attention_plain
 
     def ref(x, cond, p, *, n_groups=8, eps=1e-5):
         return UK.resblock_ref(x, cond, p, n_groups=n_groups, eps=eps).to(x.dtype)
 
-    UK.resblock_fused = ref
-    try:
+    with swapped(K1=FA.attention_plain, K2=ref, K3=FQ.attention_q8_plain,
+                 K4=FQ.attention_q8t_plain, K6=QM.a8w8_plain, K8=QM.w4a8_plain):
         yield
-    finally:
-        FA.flash_attention, UK.resblock_fused = orig
 
 
-def checked_tick(t) -> dict:
-    """One tick in which every K1 and K2 call also runs its plain version on
-    the same operands: the main path's own data, strides and masks.  Per
-    kernel: the calls, and the call whose max abs error takes the largest
-    share of its tolerance, rel_tol x max|plain| (K1_TOL, K2_TICK_TOL)."""
+def checked_tick(t, **tick_kw) -> dict:
+    """One tick (``run_tick(t, **tick_kw)``) in which every kernel call also
+    runs its plain version on the same operands: the main path's own data,
+    strides and masks.  Per kernel: the calls, and the call whose max abs
+    error takes the largest share of its tolerance, rel_tol x max|plain|
+    (K1_TOL, K2_TICK_TOL, Q8_TOL for K3/K4, QMM_TOL for K6/K8)."""
     from vla_touch_tpu_torch.ops import flash_attention as FA
+    from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
     from vla_touch_tpu_torch.ops import unet_kernels as UK
 
-    seen = {"K1": dict(calls=0, share=0.0), "K2": dict(calls=0, share=0.0)}
+    import torch
+
+    seen = {k: dict(calls=0, share=0.0) for k in ("K1", "K2", "K3", "K4", "K6", "K8")}
 
     def note(kernel, got, want, rel_tol):
         err = float((got.float() - want).abs().max())
@@ -177,6 +280,8 @@ def checked_tick(t) -> dict:
             s.update(share=share, err=err, max_plain=scale, tol=rel_tol * scale)
 
     k1, k2 = FA.flash_attention, UK.resblock_fused
+    k3, k4 = FQ.flash_attention_q8, FQ.flash_attention_q8t
+    k6, k8 = QM.a8w8_matmul, QM.w4a8_matmul
 
     def k1_checked(q, k, v, kv_mask=None, scale=None):
         got = k1(q, k, v, kv_mask=kv_mask, scale=scale)
@@ -190,15 +295,35 @@ def checked_tick(t) -> dict:
              K2_TICK_TOL)
         return got
 
+    def k3_checked(q, *cache, kv_mask=None, scale=None):
+        got = k3(q, *cache, kv_mask=kv_mask, scale=scale)
+        note("K3", got, FQ.attention_q8_plain(q.float(), *cache, kv_mask, scale), Q8_TOL)
+        return got
+
+    def k4_checked(q, *cache, kv_mask=None, scale=None):
+        got = k4(q, *cache, kv_mask=kv_mask, scale=scale)
+        note("K4", got, FQ.attention_q8t_plain(q.float(), *cache, kv_mask, scale), Q8_TOL)
+        return got
+
+    def k6_checked(x, *leaf):
+        got = k6(x, *leaf)
+        note("K6", got, QM.a8w8_plain(x, *leaf, out_dtype=torch.float32), QMM_TOL)
+        return got
+
+    def k8_checked(x, *leaf):
+        got = k8(x, *leaf)
+        note("K8", got, QM.w4a8_plain(x, *leaf, out_dtype=torch.float32), QMM_TOL)
+        return got
+
     # each wrapper bumps the count of the function its module name holds,
     # so the stand-ins carry counts of their own and the kernels' stay as
     # the main path left them
-    k1_checked.launches = k2_checked.launches = 0
-    FA.flash_attention, UK.resblock_fused = k1_checked, k2_checked
-    try:
-        run_tick(t)
-    finally:
-        FA.flash_attention, UK.resblock_fused = k1, k2
+    stand_ins = dict(K1=k1_checked, K2=k2_checked, K3=k3_checked, K4=k4_checked,
+                     K6=k6_checked, K8=k8_checked)
+    for fn in stand_ins.values():
+        fn.launches = 0
+    with swapped(**stand_ins):
+        run_tick(t, **tick_kw)
     return seen
 
 
@@ -254,22 +379,11 @@ def k1_mask(B, Lkv, kind):
 def k1_check(name, q, k, v, mask):
     """K1 against its plain version on the same operands; returns (max abs
     error, tolerance) and raises on a miss."""
-    import torch
-
     from vla_touch_tpu_torch.ops import flash_attention as FA
 
     got = FA.flash_attention(q, k, v, kv_mask=mask)
-    want = FA.attention_plain(q, k, v, kv_mask=mask).float()
-    torch.cuda.synchronize()
-    err = float((got.float() - want).abs().max())
-    tol = K1_TOL * float(want.abs().max())
-    if not np.isfinite(err) or err > tol:
-        raise AssertionError(f"K1 {name}: max abs err {err} > {tol} "
-                             f"({K1_TOL} x max|plain|)")
-    empty = mask is not None and not bool(mask.any(dim=1).all())
-    if empty and float(got[~mask.any(dim=1)].float().abs().max()) != 0.0:
-        raise AssertionError(f"K1 {name}: fully masked rows must be 0")
-    return err, tol
+    return hold(f"K1 {name}", got, FA.attention_plain(q, k, v, kv_mask=mask).float(),
+                K1_TOL, mask)
 
 
 def k1_bound_ms(B, Lq, Lkv, H, D, masked):
@@ -433,6 +547,218 @@ def check_k2(gen):
     return rows, tot
 
 
+# ---- K3 / K4 -----------------------------------------------------------------
+
+# (name, B, Lq, Lkv, H, D, mask kind, calls per tick) of the quantized tick's
+# cross-attentions over the int8 condition cache: q is the q_norm output
+# (contiguous), the cache is quantize_kv(_t) of a normed k copy and a
+# strided v view of the fused kv projection
+Q8_SHAPES = [
+    ("rdt_image_cross", 1, 67, 4374, 32, 64, None, 70),
+    ("rdt_lang_cross", 1, 67, 64, 32, 64, "ragged", 70),
+    ("rdt_lang_cross_empty_row", 2, 67, 64, 32, 64, "empty", 0),
+]
+
+
+def q8_operands(gen, B, Lq, Lkv, H, D, transposed):
+    """(q, k_i8, k_scale, v_i8, v_scale) on the card, the cache in K3's
+    (B, L, H, D) or K4's (B, H, D, L) layout."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+
+    q = torch.randn((B, Lq, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kv = torch.randn((B, Lkv, 2, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    quant = FQ.quantize_kv_t if transposed else FQ.quantize_kv
+    return (q,) + quant(kv[:, :, 0].contiguous(), kv[:, :, 1])
+
+
+def q8_check(kernel, ops, mask):
+    """K3 or K4 against its plain version on ``ops``; returns (max abs
+    error, tolerance) and raises on a miss."""
+    from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+
+    fn, plain = ((FQ.flash_attention_q8t, FQ.attention_q8t_plain) if kernel == "K4" else
+                 (FQ.flash_attention_q8, FQ.attention_q8_plain))
+    got = fn(*ops, kv_mask=mask)
+    return hold(kernel, got, plain(ops[0].float(), *ops[1:], kv_mask=mask), Q8_TOL, mask)
+
+
+def q8_bound_ms(B, Lq, Lkv, H, D, masked):
+    """(bytes ms, operations ms): bf16 q and out, int8 K and V, their float32
+    scales and the mask moved once; the two products' 4 B H Lq Lkv D
+    operations at the bf16 peak (the int8 tiles feed bf16 tensor cores)."""
+    nbytes = (2 * 2 * B * Lq * H * D + 2 * B * Lkv * H * D + 2 * 4 * B * H * D
+              + (B * Lkv if masked else 0))
+    flops = 4.0 * B * H * Lq * Lkv * D
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS
+
+
+def check_q8(gen, kernel):
+    import torch
+    import torch.nn.functional as F
+
+    from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+
+    transposed = kernel == "K4"
+    fn, plain = ((FQ.flash_attention_q8t, FQ.attention_q8t_plain) if transposed else
+                 (FQ.flash_attention_q8, FQ.attention_q8_plain))
+    rows = []
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
+               bytes_ms=0.0, ops_ms=0.0)
+    for name, B, Lq, Lkv, H, D, mask_kind, calls in Q8_SHAPES:
+        n_sets = max(1, min(8, -(-2 * L2_BYTES // (2 * B * Lkv * H * D))))
+        sets = [q8_operands(gen, B, Lq, Lkv, H, D, transposed) for _ in range(n_sets)]
+        mask = k1_mask(B, Lkv, mask_kind)
+        err, tol = q8_check(kernel, sets[0], mask)
+        tot["err"] = max(tot["err"], err)
+        where = f"{kernel} {name:26s} B{B} Lq{Lq} Lkv{Lkv} H{H} D{D}"
+        if calls == 0:
+            log(f"{where}: err {err:.3e} (tol {tol:.3e}), fully masked rows 0; check only")
+            continue
+        it = [0]
+
+        def nxt():
+            it[0] = (it[0] + 1) % n_sets
+            return sets[it[0]]
+
+        # the yardstick: SDPA on the cache dequantized to bf16 beforehand
+        deq = []
+        for q, k8, sk, v8, sv in sets:
+            if transposed:
+                k8, v8 = k8.permute(0, 3, 1, 2), v8.permute(0, 3, 1, 2)
+            deq.append((q.transpose(1, 2),
+                        (k8.float() * sk[:, None]).to(torch.bfloat16).transpose(1, 2),
+                        (v8.float() * sv[:, None]).to(torch.bfloat16).transpose(1, 2)))
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+
+        def run_library():
+            F.scaled_dot_product_attention(*deq[it[0]], attn_mask=sdpa_mask)
+            nxt()
+
+        ms = graph_time_ms(lambda: fn(*nxt(), kv_mask=mask))
+        eager_ms = cuda_time_ms(lambda: fn(*nxt(), kv_mask=mask))
+        plain_ms = graph_time_ms(lambda: plain(*nxt(), kv_mask=mask), calls=5)
+        lib_ms = graph_time_ms(run_library)
+        b_ms, o_ms = q8_bound_ms(B, Lq, Lkv, H, D, mask is not None)
+        bound = max(b_ms, o_ms)
+        rows.append(dict(shape=name, B=B, Lq=Lq, Lkv=Lkv, H=H, D=D, calls=calls,
+                         max_abs_err=err, tol=tol, ms=ms, eager_ms=eager_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound))
+        log(f"{where}: err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms (eager loop "
+            f"{eager_ms:.4f}) plain {plain_ms:.4f} ms sdpa-on-dequantized {lib_ms:.4f} ms "
+            f"bound {bound:.4f} ms x{calls}/tick")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bound_ms", bound), ("bytes_ms", b_ms), ("ops_ms", o_ms)):
+            tot[key] += calls * v
+    return rows, tot
+
+
+# ---- K6 / K8 -----------------------------------------------------------------
+
+# (M, K, N, calls per tick) of the quantized chunk's linears at M <= 512: per
+# denoise step (x5) the 28 blocks' qkv (67, 2048, 6144) and proj, q, cross
+# proj, fc1, fc2 (67, 2048, 2048), the final head (67, 2048, 2048) and
+# (67, 2048, 128), the action adaptor (64, 256 | 2048, 2048); once per chunk
+# the language adaptor (64, 4096 | 2048, 2048) and the state adaptor
+# (1, 256 | 2048, 2048).  870 calls; the image adaptor (M = 4374) takes the
+# plain route.
+QMM_SHAPES = [
+    (67, 2048, 6144, 140), (67, 2048, 2048, 705), (67, 2048, 128, 5),
+    (64, 4096, 2048, 1), (64, 2048, 2048, 11), (64, 256, 2048, 5),
+    (1, 256, 2048, 1), (1, 2048, 2048, 2),
+]
+
+
+def qmm_bound_ms(kernel, M, K, N):
+    """(bytes ms, operations ms): bf16 x in and out written once; int8
+    weights (K6) or 0.5 byte per weight plus scale4 (K8); scale and bias;
+    2 M K N int8 operations at the int8 peak."""
+    from vla_touch_tpu_torch.ops.quant import pick_group_size
+
+    wbytes = N * K if kernel == "K6" else N * K // 2 + 4 * N * (K // pick_group_size(K))
+    nbytes = 2 * M * K + wbytes + 2 * 4 * N + 2 * M * N
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 2.0 * M * K * N / INT8_OPS
+
+
+def qmm_check(gen, kernel, M, K, N):
+    """K6 or K8 against its plain version at (M, K, N) on a quantized random
+    linear and x ~ N(0, 4) in bf16; returns (x, weights, max abs error,
+    tolerance) and raises on a miss."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import quant as Q
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    fn, plain = ((QM.a8w8_matmul, QM.a8w8_plain) if kernel == "K6" else
+                 (QM.w4a8_matmul, QM.w4a8_plain))
+    lin = torch.nn.Linear(K, N, device="cuda")
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5)
+        lin.bias.copy_(torch.randn((N,), generator=gen, device="cuda") * 0.1)
+    leaf = Q.quantize_linear(lin) if kernel == "K6" else Q.quantize_linear_w4(lin)
+    wts = ((leaf.w_i8, leaf.scale, leaf.bias) if kernel == "K6" else
+           (leaf.w4_pack, leaf.scale4, leaf.bias))
+    x = (torch.randn((M, K), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    got = fn(x, *wts)
+    err, tol = hold(f"{kernel} ({M}, {K}, {N})", got, plain(x, *wts, out_dtype=torch.float32),
+                    QMM_TOL)
+    return x, wts, err, tol
+
+
+def check_qmm(gen, kernel):
+    import torch
+
+    from vla_touch_tpu_torch.ops import quant as Q
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    fn, plain = ((QM.a8w8_matmul, QM.a8w8_plain) if kernel == "K6" else
+                 (QM.w4a8_matmul, QM.w4a8_plain))
+    rows = []
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
+               bytes_ms=0.0, ops_ms=0.0)
+    for M, K, N, calls in QMM_SHAPES:
+        x, wts, err, tol = qmm_check(gen, kernel, M, K, N)
+        tot["err"] = max(tot["err"], err)
+        # distinct weight sets, >= 2x the L2 cache in all, so that the
+        # timing loop streams the weights from device memory as the tick does
+        wbytes = wts[0].numel() + 4 * wts[1].numel()
+        n_sets = max(1, min(64, -(-2 * L2_BYTES // wbytes)))
+        sets = [tuple(torch.randint(-127, 128, w.shape, generator=gen, device="cuda",
+                                    dtype=torch.int8) if w.dtype == torch.int8 else
+                      w.clone() for w in wts) for _ in range(n_sets)]
+        it = [0]
+
+        def nxt():
+            it[0] = (it[0] + 1) % n_sets
+            return sets[it[0]]
+
+        xq = Q.quantize_rows(x)[0]
+        xq = torch.nn.functional.pad(xq, (0, 0, 0, max(0, 32 - M)))
+        ms = graph_time_ms(lambda: fn(x, *nxt()))
+        eager_ms = cuda_time_ms(lambda: fn(x, *nxt()))
+        plain_ms = graph_time_ms(lambda: plain(x, *nxt()), calls=5)
+        lib_ms = (graph_time_ms(lambda: torch._int_mm(xq, nxt()[0].t()))
+                  if kernel == "K6" else None)
+        b_ms, o_ms = qmm_bound_ms(kernel, M, K, N)
+        bound = max(b_ms, o_ms)
+        rows.append(dict(M=M, K=K, N=N, calls=calls, max_abs_err=err, tol=tol, ms=ms,
+                         eager_ms=eager_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound))
+        lib = "" if lib_ms is None else f" torch._int_mm (GEMM only) {lib_ms:.4f} ms"
+        log(f"{kernel} M{M:3d} K{K:5d} N{N:5d}: err {err:.3e} (tol {tol:.3e}) kernel "
+            f"{ms:.4f} ms (eager loop {eager_ms:.4f}) plain {plain_ms:.4f} ms{lib} "
+            f"bound {bound:.4f} ms x{calls}/tick")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                       ("bytes_ms", b_ms), ("ops_ms", o_ms)):
+            tot[key] += calls * v
+        if lib_ms is not None:
+            tot["library_ms"] += calls * lib_ms
+    if kernel == "K8":
+        tot["library_ms"] = None
+    return rows, tot
+
+
 def bound_by(tot) -> str:
     return "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
 
@@ -487,16 +813,34 @@ def build_tick(seed: int = 0):
                 stacked=stacked, stats=stats, inp=inp)
 
 
-def run_tick(t, stage_ms=None) -> dict:
+def policy_inputs(t):
+    """The tensors ``step`` hands ``policy_step`` for this tick's inputs
+    (all six frames present, already 384 square)."""
+    import torch
+
+    inp = t["inp"]
+    return dict(
+        proprio=torch.as_tensor(inp["proprio"].reshape(1, -1), device="cuda"),
+        images=torch.as_tensor(np.stack(inp["frames"])[None], device="cuda"),
+        image_mask=torch.ones((1, 6), dtype=torch.bool, device="cuda"),
+        text_embeds=torch.as_tensor(inp["text"], device="cuda"),
+        text_mask=torch.as_tensor(inp["text_mask"], device="cuda"))
+
+
+def run_tick(t, stage_ms=None, rdt=None, kv_cache="bf16", refine=True, model=None) -> dict:
     """One cold control tick through the user entry points.
 
-    With a ``stage_ms`` dict, every stage ends in a synchronise and its host
-    ms is appended to ``stage_ms[stage]``; SigLIP's end inside ``step`` is
-    marked by a forward hook on the vision tower."""
+    ``rdt`` None: ``model.step`` (default ``t["model"]``, whose runner
+    decides the chunk's path).  A quantized runner: ``policy_step(...,
+    kv_cache=...)`` on it with ``t["model"]``'s vision tower.  ``refine``
+    False stops after the chunk.  With a ``stage_ms`` dict, every stage ends
+    in a synchronise and its host ms is appended to ``stage_ms[stage]``;
+    SigLIP's end is marked by a forward hook on the vision tower."""
     import torch
 
     from vla_touch_tpu_torch.models.controllers import bridge as BR
     from vla_touch_tpu_torch.ops import marker_tracking as MT
+    from vla_touch_tpu_torch.runtime import policy as P
     from vla_touch_tpu_torch.utils.image import imagenet_normalize
 
     marks = []
@@ -507,33 +851,41 @@ def run_tick(t, stage_ms=None) -> dict:
             marks.append((stage, time.perf_counter()))
 
     inp = t["inp"]
+    model = t["model"] if model is None else model
     hook = None
     if stage_ms is not None:
-        hook = t["model"].vision.register_forward_hook(
-            lambda *_: mark("siglip_6_frames"))
+        hook = model.vision.register_forward_hook(lambda *_: mark("siglip_6_frames"))
     mark("start")
     try:
-        actions = t["model"].step(inp["proprio"], inp["frames"], inp["text"],
-                                  inp["text_mask"], init_noise=inp["init_noise"])
+        if rdt is None:
+            actions = model.step(inp["proprio"], inp["frames"], inp["text"],
+                                 inp["text_mask"], init_noise=inp["init_noise"])
+        else:
+            actions = P.policy_step(t["pcfg"], rdt, model.vision, **policy_inputs(t),
+                                    init_noise=inp["init_noise"],
+                                    kv_cache=kv_cache).cpu().numpy()
     finally:
         if hook is not None:
             hook.remove()
     mark("rdt_chunk_5_steps")
-    with torch.inference_mode():
-        feats = t["dino"](imagenet_normalize(inp["dino_frames"]).to(torch.bfloat16)).float()
-    mark("dinov2_pair")
-    force = MT.estimate_force(inp["gel"], inp["baseline"])["force"]
-    mark("marker_force")
-    vla10 = torch.as_tensor(actions[:, : t["bcfg"].horizon], device="cuda")
-    refined = BR.bridge_predict(t["bcfg"], t["bridge"], t["stats"], inp["state10"], vla10,
-                                feats[:1], feats[1:], force[None], stacked=t["stacked"],
-                                noise_seq=inp["noise_seq"])
-    mark("bridger_refine_10_steps")
+    out = dict(actions=actions)
+    if refine:
+        with torch.inference_mode():
+            feats = t["dino"](imagenet_normalize(inp["dino_frames"]).to(torch.bfloat16)).float()
+        mark("dinov2_pair")
+        force = MT.estimate_force(inp["gel"], inp["baseline"])["force"]
+        mark("marker_force")
+        vla10 = torch.as_tensor(actions[:, : t["bcfg"].horizon], device="cuda")
+        refined = BR.bridge_predict(t["bcfg"], t["bridge"], t["stats"], inp["state10"],
+                                    vla10, feats[:1], feats[1:], force[None],
+                                    stacked=t["stacked"], noise_seq=inp["noise_seq"])
+        mark("bridger_refine_10_steps")
+        out.update(dino=feats.cpu().numpy(), force=force.cpu().numpy(),
+                   refined=refined.cpu().numpy())
     torch.cuda.synchronize()
     for (_, t0), (stage, t1) in zip(marks, marks[1:]):
         stage_ms.setdefault(stage, []).append(1e3 * (t1 - t0))
-    return dict(actions=actions, dino=feats.cpu().numpy(), force=force.cpu().numpy(),
-                refined=refined.cpu().numpy())
+    return out
 
 
 def siglip_tokens(t):
@@ -546,36 +898,163 @@ def siglip_tokens(t):
     return P.encode_frames(t["pcfg"], t["model"].vision, frames, mask).float().cpu().numpy()
 
 
-def profile_tick(t, top: int = 12) -> dict:
-    """One tick under ``torch.profiler``: the device's busy time (kernel
-    durations summed; one stream, so they do not overlap), its idle share
-    of the tick's host wall time, and the kernels with the most device
-    time."""
+PROFILE_GROUPS = (("K1 flash_fwd_kernel", "flash_fwd_kernel"),
+                  ("K2 resblock_*", "resblock_"),
+                  ("K3/K4 flash_q8_kernel", "flash_q8_kernel"),
+                  ("K6 a8w8_gemm_kernel", "a8w8_gemm_kernel"),
+                  ("K8 w4a8_gemm_kernel", "w4a8_gemm_kernel"),
+                  ("K6/K8 quantize_rows_kernel", "quantize_rows_kernel"))
+
+
+def profile_tick(t, top: int = 12, **tick_kw) -> dict:
+    """One tick (``run_tick(t, **tick_kw)``) under ``torch.profiler``: the
+    device's busy time (kernel durations summed; one stream, so they do not
+    overlap), its idle share of the tick's host wall time, the device time
+    of each kernel of the port (PROFILE_GROUPS) and of everything else, the
+    kernels with the most device time, and the host's waits on the device
+    (``host_syncs``: CUDA runtime synchronise calls; ``htod_copies``: host
+    to device copies, each a wait when its source is pageable)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_tick(t)
+        run_tick(t, **tick_kw)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
+    host_syncs = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaEventSynchronize"):
+            host_syncs += 1
+    htod = sum(n for name, (_, n) in by_name.items() if "HtoD" in name)
     busy = sum(ms for ms, _ in by_name.values())
     if busy == 0.0:
         raise AssertionError("the profiler saw no CUDA kernel: device time not measured")
-    groups = {"K1 flash_fwd_kernel": 0.0, "K2 resblock_*": 0.0, "other": 0.0}
+    groups = {g: 0.0 for g, _ in PROFILE_GROUPS}
+    groups["other"] = 0.0
     for name, (ms, _) in by_name.items():
-        key = ("K1 flash_fwd_kernel" if "flash_fwd_kernel" in name else
-               "K2 resblock_*" if "resblock_" in name else "other")
+        key = next((g for g, pat in PROFILE_GROUPS if pat in name), "other")
         groups[key] += ms
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
-                groups_ms=groups,
+                host_syncs=host_syncs, htod_copies=htod, groups_ms=groups,
                 top=[dict(name=n[:90], ms=ms, calls=c) for n, (ms, c) in ranked])
+
+
+# ---- the quantized tick ----------------------------------------------------------
+
+# (name, weights, kv_cache, refine, launches the tick must make; every other
+# kernel must make none).  Per chunk: 870 quantized linears at M <= 512
+# (K6 for int8 leaves, K8 for int4), 140 cross-attentions over the
+# condition cache (K3 for int8, K4 for int8t, K1 for bf16 and int8x), 140
+# self-attentions (K1); SigLIP's 27 and DinoV2's 12 layers (K1) and the
+# 120 UNet blocks of the refine (K2).
+QUANT_CONFIGS = [
+    ("a", "int8", "int8", True, {"K1": 179, "K2": 120, "K3": 140, "K6": 870}),
+    ("b", "int8", "int8t", True, {"K1": 179, "K2": 120, "K4": 140, "K6": 870}),
+    ("c", "int8", "int8x", True, {"K1": 319, "K2": 120, "K6": 870}),
+    ("d", "mixed", "bf16", True, {"K1": 319, "K2": 120, "K6": 590, "K8": 280}),
+    ("e", "int4", "bf16", False, {"K1": 307, "K8": 870}),
+]
+
+
+def check_outputs(out, refine=True):
+    shapes = {"actions": (1, 64, 10)}
+    if refine:
+        shapes.update(dino=(2, 384), force=(3,), refined=(1, 16, 10))
+    for key, shape in shapes.items():
+        if out[key].shape != shape or not np.all(np.isfinite(out[key])):
+            raise AssertionError(f"{key}: shape {out[key].shape}, finite "
+                                 f"{np.all(np.isfinite(out[key]))}")
+    if float(np.abs(out["actions"]).max()) == 0.0:
+        raise AssertionError("actions are all zero")
+
+
+def check_counts(what, counts, need):
+    want = {k: need.get(k, 0) for k in counts}
+    log(f"{what} launches: " + json.dumps(counts) + " (need " + json.dumps(want) + ")")
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, need {want}")
+
+
+def check_chk(what, chk, need):
+    log(f"{what}: each kernel call against its plain version on the same operands "
+        "(worst call): " + json.dumps({k: v for k, v in chk.items() if v["calls"]}))
+    for kernel, s in chk.items():
+        if s["calls"] != need.get(kernel, 0) or not s["share"] <= 1.0:
+            raise AssertionError(f"{what}: {kernel} on the tick's own operands: {s}")
+
+
+def quant_ticks(t, bf16_actions) -> dict:
+    """Every configuration of QUANT_CONFIGS: the counted tick, the plain
+    tick and its corr gates, the checked tick, the corr against the bf16
+    chunk and the p50 of three ticks; then one tick through
+    ``create_model(rdt=...).step``."""
+    from vla_touch_tpu_torch.models.rdt import quant_serve as QS
+    from vla_touch_tpu_torch.runtime import policy as P
+
+    t0 = time.perf_counter()
+    rdt = t["model"].rdt
+    runners = {"int8": QS.quantize_rdt_params(rdt, "int8"),
+               "int4": QS.quantize_rdt_params(rdt, "int4"),
+               "mixed": QS.quantize_rdt_params(rdt, "mixed",
+                                               w4_select=QS.make_w4_select(kinds=("fc1", "fc2")))}
+    log(f"quantized the bf16 RDT-1B runner three ways on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = {}
+    for name, weights, kv, refine, need in QUANT_CONFIGS:
+        kw = dict(rdt=runners[weights], kv_cache=kv, refine=refine)
+        what = f"quant tick ({name}) weights={weights} kv_cache={kv}"
+        run_tick(t, **kw)                            # warm-up
+        zero_counts()
+        out = run_tick(t, **kw)
+        counts = read_counts()
+        check_counts(what, counts, need)
+        check_outputs(out, refine)
+        with plain_kernels():
+            out_p = run_tick(t, **kw)
+        c_chunk = action_corr(t, out["actions"], out_p["actions"])
+        c_ref = action_corr(t, out["refined"], out_p["refined"]) if refine else None
+        c_bf16 = action_corr(t, out["actions"], bf16_actions)
+        log(f"{what}: kernel vs plain chunk corr {c_chunk:.6f} (min {CHUNK_CORR_MIN})"
+            + (f", refined corr {c_ref:.6f} (min {REFINED_CORR_MIN})" if refine else "")
+            + f"; chunk vs the bf16 tick's chunk corr {c_bf16:.6f}"
+            + (f" (min {INT8_CHUNK_CORR_MIN})" if weights == "int8" else " (no gate)"))
+        if not (c_chunk > CHUNK_CORR_MIN and (not refine or c_ref > REFINED_CORR_MIN)):
+            raise AssertionError(f"{what}: kernel tick disagrees with the plain tick")
+        if weights == "int8" and not c_bf16 > INT8_CHUNK_CORR_MIN:
+            raise AssertionError(f"{what}: int8 chunk vs bf16 chunk corr {c_bf16}")
+        chk = checked_tick(t, **kw)
+        check_chk(what, chk, need)
+        ticks = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            run_tick(t, **kw)
+            ticks.append(1e3 * (time.perf_counter() - t1))
+        log(f"{what}: tick p50 {np.median(ticks):.2f} ms (ticks "
+            f"{[round(x, 2) for x in ticks]})")
+        res[name] = dict(weights=weights, kv_cache=kv, refine=refine, launches=counts,
+                         corr_vs_plain=c_chunk, refined_corr_vs_plain=c_ref,
+                         corr_vs_bf16_chunk=c_bf16, p50_ms=float(np.median(ticks)),
+                         checked={k: v for k, v in chk.items() if v["calls"]})
+    # the user entry point: a model built on the int8 runner dispatches to
+    # the twin from step() (bf16 condition cache: step passes no kv_cache)
+    qmodel = P.create_model(t["pcfg"], rdt=runners["int8"], vision=t["model"].vision,
+                            cache_frames=False)
+    run_tick(t, model=qmodel)
+    zero_counts()
+    out = run_tick(t, model=qmodel)
+    check_counts("create_model(rdt=int8 runner).step tick", read_counts(),
+                 {"K1": 319, "K2": 120, "K6": 870})
+    check_outputs(out)
+    res["step"] = dict(launches=read_counts())
+    res["runners"] = runners
+    return res
 
 
 def main() -> int:
@@ -586,8 +1065,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from vla_touch_tpu_torch.csrc import build
-    from vla_touch_tpu_torch.ops import flash_attention as FA
-    from vla_touch_tpu_torch.ops import unet_kernels as UK
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -601,78 +1078,87 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1_rows, k1 = check_k1(gen)
     k2_rows, k2 = check_k2(gen)
+    k3_rows, k3 = check_q8(gen, "K3")
+    k4_rows, k4 = check_q8(gen, "K4")
+    k6_rows, k6 = check_qmm(gen, "K6")
+    k8_rows, k8 = check_qmm(gen, "K8")
 
+    # ---- the bf16 tick
     t = build_tick(seed=0)
     run_tick(t)                                  # warm-up (allocator, cuBLAS)
-    FA.flash_attention.launches = 0
-    UK.resblock_fused.launches = 0
+    zero_counts()
     out = run_tick(t)
-    n1, n2 = FA.flash_attention.launches, UK.resblock_fused.launches
-    log(f"main path launches: K1 {n1} (need >= 319), K2 {n2} (need 120)")
-    if n1 < 319 or n2 != 120:
-        raise AssertionError(f"main path launches K1 {n1}, K2 {n2}")
-    shapes = {"actions": (1, 64, 10), "dino": (2, 384), "force": (3,), "refined": (1, 16, 10)}
-    for key, shape in shapes.items():
-        if out[key].shape != shape or not np.all(np.isfinite(out[key])):
-            raise AssertionError(f"{key}: shape {out[key].shape}, finite "
-                                 f"{np.all(np.isfinite(out[key]))}")
-    if float(np.abs(out["actions"]).max()) == 0.0:
-        raise AssertionError("actions are all zero")
+    counts = read_counts()
+    check_counts("bf16 tick", counts, {"K1": 319, "K2": 120})
+    check_outputs(out)
 
     tok_k = siglip_tokens(t)
     with plain_kernels():
         tok_p = siglip_tokens(t)
         out_p = run_tick(t)
     c_tok = corr(tok_k, tok_p)
-    c_chunk = corr(out["actions"], out_p["actions"])
+    c_chunk = action_corr(t, out["actions"], out_p["actions"])
     c_dino = corr(out["dino"], out_p["dino"])
-    c_ref = corr(out["refined"], out_p["refined"])
+    c_ref = action_corr(t, out["refined"], out_p["refined"])
     log(f"kernel vs plain tick: siglip token corr {c_tok:.6f} (min {TOKEN_CORR_MIN}), "
         f"chunk corr {c_chunk:.6f} (min {CHUNK_CORR_MIN}), dinov2 corr {c_dino:.6f} "
         f"(min {TOKEN_CORR_MIN}), refined corr {c_ref:.6f} (min {REFINED_CORR_MIN})")
     if not (c_tok > TOKEN_CORR_MIN and c_dino > TOKEN_CORR_MIN
             and c_chunk > CHUNK_CORR_MIN and c_ref > REFINED_CORR_MIN):
         raise AssertionError("kernel tick disagrees with the plain tick")
-    chk = checked_tick(t)
-    log("one tick's kernel calls, each against its plain version on the same "
-        "operands (worst call): " + json.dumps(chk))
-    for kernel, need in (("K1", n1), ("K2", n2)):
-        if chk[kernel]["calls"] != need or not chk[kernel]["share"] <= 1.0:
-            raise AssertionError(f"{kernel} on the tick's own operands: {chk[kernel]}")
+    check_chk("bf16 checked tick", checked_tick(t), {"K1": 319, "K2": 120})
 
     ticks = []
-    for _ in range(5):
+    for _ in range(3):
         t1 = time.perf_counter()
         run_tick(t)
         ticks.append(1e3 * (time.perf_counter() - t1))
     with plain_kernels():
-        plain_ticks = []
-        for _ in range(3):
-            t1 = time.perf_counter()
-            run_tick(t)
-            plain_ticks.append(1e3 * (time.perf_counter() - t1))
+        t1 = time.perf_counter()
+        run_tick(t)
+        plain_tick = 1e3 * (time.perf_counter() - t1)
     stages = {}
-    for _ in range(5):
+    for _ in range(3):
         run_tick(t, stage_ms=stages)
     log(f"cold tick p50 {np.median(ticks):.2f} ms (ticks {[round(x, 2) for x in ticks]}); "
-        f"plain-version tick p50 {np.median(plain_ticks):.2f} ms")
+        f"plain-version tick {plain_tick:.2f} ms")
     log("stage p50 ms (ticks with a synchronise after each stage): " + json.dumps(
         {k: round(float(np.median(v)), 3) for k, v in stages.items()}))
     log("tick profile: " + json.dumps(profile_tick(t)))
-    log("k1 shapes: " + json.dumps(k1_rows))
-    log("k2 shapes: " + json.dumps(k2_rows))
+
+    # ---- the quantized tick
+    q = quant_ticks(t, out["actions"])
+    qa = dict(rdt=q["runners"]["int8"], kv_cache="int8")
+    stages = {}
+    for _ in range(3):
+        run_tick(t, stage_ms=stages, **qa)
+    log("quant tick (a) stage p50 ms (ticks with a synchronise after each stage): "
+        + json.dumps({k: round(float(np.median(v)), 3) for k, v in stages.items()}))
+    log("quant tick (a) profile: " + json.dumps(profile_tick(t, **qa)))
+    log("quant ticks: " + json.dumps({k: v for k, v in q.items() if k != "runners"}))
+    for name, rows in (("k1", k1_rows), ("k2", k2_rows), ("k3", k3_rows), ("k4", k4_rows),
+                       ("k6", k6_rows), ("k8", k8_rows)):
+        log(f"{name} shapes: " + json.dumps(rows))
+
+    def entry(name, source, replaces, launches, tot):
+        return dict(name=name, route="cuda", source=f"vla_touch_tpu_torch/csrc/{source}",
+                    replaces=f"vla_touch_tpu/{replaces}", launches=launches,
+                    max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+                    bound_ms=tot["bound_ms"], bound_by=bound_by(tot),
+                    library_ms=tot.get("library_ms"))
 
     kernels = [
-        dict(name="flash_attention", route="cuda",
-             source="vla_touch_tpu_torch/csrc/flash_attention.cu",
-             replaces="vla_touch_tpu/ops/pallas_attention.py:126",
-             launches=n1, max_abs_err=k1["err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
-             bound_ms=k1["bound_ms"], bound_by=bound_by(k1), library_ms=k1["library_ms"]),
-        dict(name="resblock_fused", route="cuda",
-             source="vla_touch_tpu_torch/csrc/resblock.cu",
-             replaces="vla_touch_tpu/ops/pallas_unet.py:203",
-             launches=n2, max_abs_err=k2["err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
-             bound_ms=k2["bound_ms"], bound_by=bound_by(k2), library_ms=None),
+        entry("flash_attention", "flash_attention.cu", "ops/pallas_attention.py:126",
+              counts["K1"], k1),
+        entry("resblock_fused", "resblock.cu", "ops/pallas_unet.py:203", counts["K2"], k2),
+        entry("flash_attention_q8", "flash_attention_q8.cu", "ops/pallas_attention.py:275",
+              q["a"]["launches"]["K3"], k3),
+        entry("flash_attention_q8t", "flash_attention_q8.cu", "ops/pallas_attention.py:424",
+              q["b"]["launches"]["K4"], k4),
+        entry("a8w8_matmul", "a8w8_matmul.cu", "ops/pallas_matmul.py:192",
+              q["a"]["launches"]["K6"], k6),
+        entry("w4a8_matmul", "w4a8_matmul.cu", "ops/pallas_matmul.py:395",
+              q["e"]["launches"]["K8"], k8),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

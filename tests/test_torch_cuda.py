@@ -1,5 +1,6 @@
-"""PyTorch port, on the card: kernels K1 (flash attention) and K2 (fused
-residual block) against their plain versions on CUDA tensors.
+"""PyTorch port, on the card: kernels K1 (flash attention), K2 (fused
+residual block), K3/K4 (flash attention over an int8 K/V cache), K6 (a8w8
+matmul) and K8 (w4a8 matmul) against their plain versions on CUDA tensors.
 
 These build the CUDA sources with nvcc and need an NVIDIA GPU; without one
 they skip (the ``cuda`` marker).  On a machine with a card run them with
@@ -102,3 +103,139 @@ def test_resblock_kernel_matches_plain(cuda, T, Cin, C):
     assert np.isfinite(err) and err < 3e-2, err
     with pytest.raises(TypeError):
         UK.resblock_fused(x.float(), cond, p)
+
+
+# ---- K6 / K8: the int8 and int4 serving matmuls --------------------------------
+
+def _int8_linear(g, N, K, device):
+    from vla_touch_tpu_torch.ops import quant as Q
+
+    lin = torch.nn.Linear(K, N).to(device)
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn((N, K), generator=g, device=device) * K ** -0.5)
+        lin.bias.copy_(torch.randn((N,), generator=g, device=device) * 0.1)
+    return lin, Q
+
+
+@pytest.mark.parametrize("M,K,N,x_dtype", [
+    (67, 2048, 6144, torch.bfloat16),
+    (1, 256, 2048, torch.bfloat16),
+    (64, 4096, 2048, torch.float32),
+    (130, 48, 200, torch.bfloat16),
+])
+def test_a8w8_kernel_matches_plain(cuda, M, K, N, x_dtype):
+    """K6 vs the plain qdense on the same operands.  The int8 codes and the
+    int32 sums are exact and the float32 epilogue runs in the same order,
+    so the kernel's bf16 out is the plain float32 out rounded: one bf16
+    step (2^-8 relative)."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    lin, Q = _int8_linear(g, N, K, cuda)
+    qp = Q.quantize_linear(lin)
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(x_dtype)
+    before = QM.a8w8_matmul.launches
+    got = QM.a8w8_matmul(x, qp.w_i8, qp.scale, qp.bias)
+    assert QM.a8w8_matmul.launches == before + 1
+    want = QM.a8w8_plain(x, qp.w_i8, qp.scale, qp.bias, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    tol = 2 ** -8 * float(want.abs().max())
+    assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("M,K,N,x_dtype", [
+    (67, 2048, 2048, torch.bfloat16),
+    (1, 256, 2048, torch.bfloat16),
+    (64, 4096, 2048, torch.float32),
+    (90, 320, 136, torch.bfloat16),
+])
+def test_w4a8_kernel_matches_plain(cuda, M, K, N, x_dtype):
+    """K8 vs the plain qdense_w4 (group sizes 128, 128, 128 and 160; N 136
+    leaves a partial column tile).  The group sums are exact; only the
+    float32 sum across groups runs in another order, so the kernel's bf16
+    out is within one bf16 step (2^-8 relative) of the plain float32 out."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    lin, Q = _int8_linear(g, N, K, cuda)
+    qp = Q.quantize_linear_w4(lin)
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(x_dtype)
+    before = QM.w4a8_matmul.launches
+    got = QM.w4a8_matmul(x, qp.w4_pack, qp.scale4, qp.bias)
+    assert QM.w4a8_matmul.launches == before + 1
+    want = QM.w4a8_plain(x, qp.w4_pack, qp.scale4, qp.bias, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    tol = 2 ** -8 * float(want.abs().max())
+    assert float((got.float() - want).abs().max()) <= tol
+
+
+def test_int8_matmul_kernels_refuse_what_they_do_not_take(cuda):
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    x = torch.zeros((4, 40), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((8, 40), device=cuda, dtype=torch.int8)
+    s = torch.ones((8,), device=cuda)
+    with pytest.raises(ValueError):
+        QM.a8w8_matmul(x, w, s)                          # K not a multiple of 16
+    with pytest.raises(TypeError):
+        QM.a8w8_matmul(x[:, :32].half(), w[:, :32].contiguous(), s)   # fp16 x
+    with pytest.raises(ValueError):
+        QM.w4a8_matmul(x[:, :32], w[:, :16], torch.ones((3, 8), device=cuda))  # odd G
+
+
+# ---- K3 / K4: flash attention over an int8 K/V cache ---------------------------
+
+@pytest.mark.parametrize("B,Lq,Lkv,H,mask_kind", [
+    (1, 67, 4374, 32, None),
+    (1, 67, 64, 32, "ragged"),
+    (2, 35, 300, 4, "fully_masked"),
+])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_flash_attention_q8_kernels_match_plain(cuda, B, Lq, Lkv, H, mask_kind, transposed):
+    """K3 (B, L, H, D cache) and K4 (B, H, D, L cache) vs the plain version:
+    max abs error <= 2e-2 x max|plain| (bf16 p and output); fully masked
+    rows exactly 0."""
+    from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    D = 64
+
+    def mk(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, kv = mk(B, Lq, H, D), mk(B, Lkv, 2, H, D)
+    quant = FQ.quantize_kv_t if transposed else FQ.quantize_kv
+    cache = quant(kv[:, :, 0], kv[:, :, 1])
+    mask = None
+    if mask_kind:
+        mask = torch.ones((B, Lkv), dtype=torch.bool, device=cuda)
+        mask[0, Lkv * 3 // 4:] = False
+        if mask_kind == "fully_masked":
+            mask[-1] = False
+    fn = FQ.flash_attention_q8t if transposed else FQ.flash_attention_q8
+    plain = FQ.attention_q8t_plain if transposed else FQ.attention_q8_plain
+    before = fn.launches
+    got = fn(q, *cache, kv_mask=mask)
+    assert fn.launches == before + 1
+    want = plain(q.float(), *cache, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    if mask_kind == "fully_masked":
+        assert float(got[-1].float().abs().max()) == 0.0
+
+
+def test_flash_attention_q8_refuses_what_it_does_not_take(cuda):
+    from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+
+    q = torch.zeros((1, 4, 2, 64), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 20, 2, 64), device=cuda, dtype=torch.int8)
+    s = torch.ones((1, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        FQ.flash_attention_q8(q.float(), k, s, k, s)     # float32 q
+    with pytest.raises(ValueError):
+        FQ.flash_attention_q8t(q, k, s, k, s)            # K3's layout given to K4
+    kt = torch.zeros((1, 2, 64, 20), device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        FQ.flash_attention_q8t(q, kt, s, kt, s)          # rows not 16-byte aligned

@@ -65,9 +65,10 @@ def child(fault: str) -> None:
     with CS.plain_kernels():
         out_p = CS.run_tick(t)
         tok_p = CS.siglip_tokens(t)
-    corrs = dict(siglip=CS.corr(tok, tok_p), chunk=CS.corr(out["actions"], out_p["actions"]),
+    corrs = dict(siglip=CS.corr(tok, tok_p),
+                 chunk=CS.action_corr(t, out["actions"], out_p["actions"]),
                  dinov2=CS.corr(out["dino"], out_p["dino"]),
-                 refined=CS.corr(out["refined"], out_p["refined"]))
+                 refined=CS.action_corr(t, out["refined"], out_p["refined"]))
     finite = all(bool(np.all(np.isfinite(out[key]))) for key in ("actions", "refined"))
     print(f"{fault}: tick corr " + json.dumps(corrs) + f" finite {finite}; gates: tokens > "
           f"{CS.TOKEN_CORR_MIN}, chunk > {CS.CHUNK_CORR_MIN}, refined > "

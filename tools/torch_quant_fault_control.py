@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Fault controls for the K3/K4/K6/K8 gates of ``chip_smoke.py``: plant a
+known fault in a throwaway copy of a kernel source and read what each gate
+sees.
+
+    python3 tools/torch_quant_fault_control.py [fault ...]
+
+For each entry of ``FAULTS`` (``none`` is the sound kernels; default: all)
+the script copies ``vla_touch_tpu_torch/`` and ``chip_smoke.py`` into a
+temporary directory, edits the named ``csrc/*.cu`` there, and in a child
+process that imports the copy:
+
+1. runs chip_smoke's correctness check of the faulted kernel(s) at every
+   shape of the quantized tick and prints, per shape, the max abs error
+   against its tolerance, or the miss;
+2. runs the full-width quantized tick in the configuration(s) that use the
+   kernel, with the kernels and through the plain versions, and prints the
+   chunk (and refined-action) correlations beside chip_smoke's gates, and
+   the chunk's correlation with the bf16 tick's;
+3. runs chip_smoke's checked tick there (every kernel call against its
+   plain version on the same operands) and prints the worst call per
+   kernel against its tolerance (share <= 1 passes).
+
+The checkout itself is never edited.  Needs one NVIDIA GPU.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# name: (source, text in it, its replacement, kernels to check, configurations)
+FAULTS = {
+    "none": (None, None, None, ("K3", "K4", "K6", "K8"), ("a", "b", "e")),
+    # K6: the last 64-wide K chunk of every row is never multiplied
+    "k6_drop_last_k_chunk": ("a8w8_matmul.cu", "const int n_chunks = (K + KC - 1) / KC;",
+                             "const int n_chunks = (K + KC - 1) / KC - 1;", ("K6",), ("a",)),
+    # K8: the two nibble planes swapped (rows j and K/2 + j exchanged)
+    "k8_swap_nibble_planes": ("w4a8_matmul.cu",
+                              "lo[j] = low_plane(p);\n        hi[j] = high_plane(p);",
+                              "lo[j] = high_plane(p);\n        hi[j] = low_plane(p);",
+                              ("K8",), ("e",)),
+    # K8: nibbles taken as 0..15, without sign extension
+    "k8_no_sign_extension": ("w4a8_matmul.cu",
+                             "return (int)__vsub4(v ^ 0x08080808u, 0x08080808u);",
+                             "return (int)v;", ("K8",), ("e",)),
+    # K3/K4: the V channel scale never applied at finalize
+    "q8_no_v_scale": ("flash_attention_q8.cu", "os[row * D + c] / l * vsc[c]",
+                      "os[row * D + c] / l", ("K3", "K4"), ("a", "b")),
+    # K3/K4: the last KV tile (partial at the 4374-key image shape) never read
+    "q8_drop_last_kv_tile": ("flash_attention_q8.cu",
+                             "const int n_tiles = (Lkv + BK - 1) / BK;",
+                             "const int n_tiles = Lkv / BK;", ("K3", "K4"), ("a", "b")),
+}
+
+
+def child(fault: str) -> None:
+    import numpy as np
+    import torch
+
+    import chip_smoke as CS
+    from vla_touch_tpu_torch.csrc import build
+    from vla_touch_tpu_torch.models.rdt import quant_serve as QS
+
+    build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, _, _, kernels, configs = FAULTS[fault]
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    for kernel in kernels:
+        if kernel in ("K6", "K8"):
+            cases = [(f"M{M} K{K} N{N}", (M, K, N)) for M, K, N, _ in CS.QMM_SHAPES]
+        else:
+            cases = [(name, shape) for name, *shape, _ in CS.Q8_SHAPES]
+        for name, shape in cases:
+            try:
+                if kernel in ("K6", "K8"):
+                    _, _, err, tol = CS.qmm_check(gen, kernel, *shape)
+                else:
+                    B, Lq, Lkv, H, D, mask_kind = shape
+                    ops = CS.q8_operands(gen, B, Lq, Lkv, H, D, kernel == "K4")
+                    err, tol = CS.q8_check(kernel, ops, CS.k1_mask(B, Lkv, mask_kind))
+                print(f"{fault}: {kernel} {name}: pass, err {err:.3e} tol {tol:.3e}",
+                      flush=True)
+            except AssertionError as e:
+                print(f"{fault}: {kernel} {name}: {e}: MISS", flush=True)
+    t = CS.build_tick(seed=0)
+    bf16 = CS.run_tick(t, refine=False)["actions"]
+    weights = {"a": "int8", "b": "int8", "e": "int4"}
+    kv = {"a": "int8", "b": "int8t", "e": "bf16"}
+    runners = {w: QS.quantize_rdt_params(t["model"].rdt, w) for w in
+               {weights[c] for c in configs}}
+    for c in configs:
+        kw = dict(rdt=runners[weights[c]], kv_cache=kv[c], refine=c != "e")
+        out = CS.run_tick(t, **kw)
+        with CS.plain_kernels():
+            out_p = CS.run_tick(t, **kw)
+        corrs = dict(chunk=CS.action_corr(t, out["actions"], out_p["actions"]),
+                     chunk_vs_bf16=CS.action_corr(t, out["actions"], bf16))
+        if kw["refine"]:
+            corrs["refined"] = CS.action_corr(t, out["refined"], out_p["refined"])
+        finite = bool(np.all(np.isfinite(out["actions"])))
+        print(f"{fault}: config ({c}) weights={weights[c]} kv_cache={kv[c]}: corr "
+              + json.dumps(corrs) + f" finite {finite}; gates: chunk > {CS.CHUNK_CORR_MIN}, "
+              f"refined > {CS.REFINED_CORR_MIN}, int8 chunk vs bf16 > "
+              f"{CS.INT8_CHUNK_CORR_MIN}", flush=True)
+        chk = CS.checked_tick(t, **kw)
+        print(f"{fault}: config ({c}) checked tick (gate: share <= 1) "
+              + json.dumps({k: v for k, v in chk.items() if v["calls"]}), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--child":
+        child(sys.argv[2])
+        return 0
+    picked = sys.argv[1:] or list(FAULTS)
+    rc = 0
+    for fault in picked:
+        src, text, repl, _, _ = FAULTS[fault]
+        tmp = tempfile.mkdtemp(prefix=f"quant_{fault}_")
+        try:
+            shutil.copytree(os.path.join(ROOT, "vla_touch_tpu_torch"),
+                            os.path.join(tmp, "vla_touch_tpu_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp)
+            if src is not None:
+                path = os.path.join(tmp, "vla_touch_tpu_torch", "csrc", src)
+                code = open(path).read()
+                if code.count(text) != 1:
+                    raise RuntimeError(f"{fault}: the text to replace is not in {src} "
+                                       f"exactly once")
+                with open(path, "w") as f:
+                    f.write(code.replace(text, repl))
+            env = dict(os.environ, PYTHONPATH=tmp)
+            r = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", fault],
+                               cwd=tmp, env=env)
+            rc = rc or r.returncode
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,7 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
-SOURCES = ("flash_attention", "resblock")
+SOURCES = ("flash_attention", "resblock", "a8w8_matmul", "w4a8_matmul",
+           "flash_attention_q8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -89,6 +90,18 @@ def library(name: str) -> ctypes.CDLL:
     lib.vtt_error_string.argtypes = [ctypes.c_int]
     lib.vtt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def entry(name: str, argtypes: list, symbol: str | None = None):
+    """(library, C entry) of kernel library ``name``: the entry ``symbol``
+    (default ``name``) with ``argtypes`` declared, returning a CUDA error
+    code for :func:`check`."""
+    lib = library(name)
+    f = getattr(lib, symbol or name)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib, f
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -60,6 +60,21 @@ def _check_operand(name, t, B, H, D):
                          f"aligned start (strides {t.stride()})")
 
 
+def mask_arg(what, kv_mask, B, Lkv, device):
+    """(pointer or None, row stride) of a (B, Lkv) bool/uint8 key mask with
+    contiguous rows on ``device``, as the attention kernels take it."""
+    if kv_mask is None:
+        return None, 0
+    if kv_mask.shape != (B, Lkv) or kv_mask.device != device:
+        raise ValueError(f"{what}: mask shape {tuple(kv_mask.shape)}"
+                         f" on {kv_mask.device}, want ({B}, {Lkv})")
+    if kv_mask.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"{what}: mask dtype {kv_mask.dtype}")
+    if kv_mask.stride(1) != 1:
+        raise ValueError(f"{what}: mask rows must be contiguous")
+    return kv_mask.data_ptr(), kv_mask.stride(0)
+
+
 def flash_attention(q, k, v, kv_mask=None, scale=None):
     """Attention q (B, Lq, H, D), k/v (B, Lkv, H, D) -> (B, Lq, H, D).
 
@@ -81,16 +96,7 @@ def flash_attention(q, k, v, kv_mask=None, scale=None):
         _check_operand(name, t, B, H, D)
     if v.shape[1] != Lkv:
         raise ValueError("flash_attention: k and v lengths differ")
-    mask_ptr, m_sb = None, 0
-    if kv_mask is not None:
-        if kv_mask.shape != (B, Lkv) or kv_mask.device != q.device:
-            raise ValueError(f"flash_attention: mask shape {tuple(kv_mask.shape)}"
-                             f" on {kv_mask.device}, want ({B}, {Lkv})")
-        if kv_mask.dtype not in (torch.bool, torch.uint8):
-            raise TypeError(f"flash_attention: mask dtype {kv_mask.dtype}")
-        if kv_mask.stride(1) != 1:
-            raise ValueError("flash_attention: mask rows must be contiguous")
-        mask_ptr, m_sb = kv_mask.data_ptr(), kv_mask.stride(0)
+    mask_ptr, m_sb = mask_arg("flash_attention", kv_mask, B, Lkv, q.device)
     scale = D ** -0.5 if scale is None else float(scale)
     out = torch.empty((B, Lq, H, D), dtype=torch.bfloat16, device=q.device)
     if out.numel() == 0:

@@ -5,7 +5,10 @@
 128-D unified vector with its availability mask, SigLIP-encodes the
 6-image window (2 frames x [exterior, right wrist, left wrist]; missing
 cameras become the SigLIP-mean background), runs the DPM-Solver++
-``rdt_predict_action`` and unpacks the chunk back to robot units.
+``rdt_predict_action`` and unpacks the chunk back to robot units.  A
+:class:`QuantRDTRunner` (``models/rdt/quant_serve.py``) as ``rdt`` routes
+the chunk to the int8/int4 serving twin, with ``kv_cache`` picking its
+condition cache.
 
 The JAX PRNG key becomes an explicit ``init_noise`` tensor or a
 ``torch.Generator``.
@@ -14,6 +17,7 @@ The JAX PRNG key becomes an explicit ``init_noise`` tensor or a
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import zlib
 from typing import Optional, Sequence
 
@@ -22,6 +26,7 @@ import torch
 
 from vla_touch_tpu_torch.models.encoders.vit import (
     SIGLIP_SO400M, SiglipVisionEncoder, ViTConfig, init_vit)
+from vla_touch_tpu_torch.models.rdt import quant_serve as Q
 from vla_touch_tpu_torch.models.rdt import runner as R
 from vla_touch_tpu_torch.utils import state_vec as SV
 from vla_touch_tpu_torch.utils.device import resolve_device
@@ -98,10 +103,12 @@ def encode_frames(cfg: PolicyConfig, vision, images, image_mask, absent=(),
                           bg_tokens=bg_tokens)
 
 
-def _predict_from_tokens(cfg: PolicyConfig, rdt: R.RDTRunnerModule, proprio,
-                         img_tokens, text_embeds, text_mask, init_noise=None,
-                         generator=None):
-    """State pack + denoise + unpack."""
+def _predict_from_tokens(cfg: PolicyConfig, rdt, proprio, img_tokens, text_embeds,
+                         text_mask, init_noise=None, generator=None,
+                         kv_cache: str = "bf16"):
+    """State pack + denoise + unpack.  A :class:`QuantRDTRunner` goes to the
+    quantized twin (``kv_cache`` picks its condition cache), anything else
+    to the bf16 runner, whose cache is bf16."""
     m = cfg.rdt.model
     B = proprio.shape[0]
     dev = proprio.device
@@ -114,36 +121,41 @@ def _predict_from_tokens(cfg: PolicyConfig, rdt: R.RDTRunnerModule, proprio,
     mask[:, idx] = 1.0
     out_scale = torch.tensor(cfg.action_scale if cfg.action_scale is not None
                              else cfg.state_scale, dtype=torch.float32, device=dev)
-    chunk = R.rdt_predict_action(
-        cfg.rdt, rdt, text_embeds.to(dtype), text_mask, img_tokens.to(dtype),
-        state[:, None, :].to(dtype), mask[:, None, :],
-        torch.full((B,), cfg.control_frequency, dtype=torch.float32, device=dev),
-        init_noise=init_noise, generator=generator)
+    args = (cfg.rdt, rdt, text_embeds.to(dtype), text_mask, img_tokens.to(dtype),
+            state[:, None, :].to(dtype), mask[:, None, :],
+            torch.full((B,), cfg.control_frequency, dtype=torch.float32, device=dev))
+    if isinstance(rdt, Q.QuantRDTRunner):
+        chunk = Q.rdt_predict_action_quant(*args, init_noise=init_noise,
+                                           generator=generator, kv_cache=kv_cache)
+    else:
+        chunk = R.rdt_predict_action(*args, init_noise=init_noise, generator=generator)
     return chunk[:, :, idx] * out_scale
 
 
 @torch.inference_mode()
 def policy_step(cfg: PolicyConfig, rdt, vision, proprio, images, image_mask,
                 text_embeds, text_mask, absent=(), bg_tokens=None,
-                init_noise=None, generator=None):
+                init_noise=None, generator=None, kv_cache: str = "bf16"):
     """One action-chunk inference.
 
     proprio (B, D_low) raw robot state; images (B, 6, S, S, 3) uint8 frames
     [ext_{t-1}, right_{t-1}, left_{t-1}, ext_t, right_t, left_t];
-    image_mask (B, 6) bool; text_embeds (B, L, 4096); text_mask (B, L) bool.
-    Returns (B, horizon, D_low) actions in raw robot units.
+    image_mask (B, 6) bool; text_embeds (B, L, 4096); text_mask (B, L) bool;
+    ``kv_cache`` ('bf16' | 'int8' | 'int8t' | 'int8x') the condition cache
+    of a quantized ``rdt``.  Returns (B, horizon, D_low) actions in raw
+    robot units.
     """
     tokens = _encode_frames(cfg, vision, images, image_mask,
                             cfg.rdt.model.compute_dtype, absent, bg_tokens)
     return _predict_from_tokens(cfg, rdt, proprio, tokens, text_embeds,
-                                text_mask, init_noise, generator)
+                                text_mask, init_noise, generator, kv_cache)
 
 
 @torch.inference_mode()
 def policy_step_cached(cfg: PolicyConfig, rdt, vision, proprio, new_images,
                        new_image_mask, prev_tokens, text_embeds, text_mask,
                        absent=(), bg_tokens=None, init_noise=None,
-                       generator=None):
+                       generator=None, kv_cache: str = "bf16"):
     """Replan reusing the previous call's tokens of the t-1 frames; SigLIP
     runs on the 3 new frames only.  Returns ``(actions, cur_tokens)``."""
     dtype = cfg.rdt.model.compute_dtype
@@ -151,7 +163,7 @@ def policy_step_cached(cfg: PolicyConfig, rdt, vision, proprio, new_images,
                          absent, bg_tokens)
     tokens = torch.cat([prev_tokens.to(dtype), cur], dim=1)
     actions = _predict_from_tokens(cfg, rdt, proprio, tokens, text_embeds,
-                                   text_mask, init_noise, generator)
+                                   text_mask, init_noise, generator, kv_cache)
     return actions, cur
 
 
@@ -173,7 +185,8 @@ class RoboticDiffusionTransformerModel:
         self.cfg = cfg
         self.rdt = rdt
         self.vision = vision
-        self.device = next(rdt.parameters()).device
+        # a QuantRDTRunner holds its weights as buffers
+        self.device = next(itertools.chain(rdt.parameters(), rdt.buffers())).device
         self.cache_frames = cache_frames
         self.absent_cameras = tuple(sorted(absent_cameras))
         self._bg_tokens = None

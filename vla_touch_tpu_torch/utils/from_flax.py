@@ -104,3 +104,80 @@ def bridge_controller(params: dict, ema_shadow: dict) -> dict:
     "s_net"}``).  The auxiliary force decoder (training only) is dropped."""
     enc = {k: v for k, v in params.items() if k.startswith("se_fc")}
     return to_state_dict({**enc, "si": ema_shadow})
+
+
+def _port_path(path) -> list:
+    out = []
+    for p in path:
+        m = re.match(r"^block(\d+)$", p)
+        out += ["blocks", m.group(1)] if m else [p]
+    return out
+
+
+def quant_rdt_runner(qparams: dict, cfg, device=None):
+    """A JAX quantized runner tree (``quant_serve.quantize_rdt_params``:
+    ``w_i8``/``scale`` and ``w4_pack``/``scale4`` leaves, bf16 ``kv``
+    kernels, float embedders, norms and positional tables) -> the port's
+    ``QuantRDTRunner`` for ``cfg`` (an ``RDTModelConfig``), on ``device``
+    (``None`` means CUDA, as for every entry point of the port).
+
+    Integer codes and scales are taken as they are, only re-laid out for
+    the kernels: ``w_i8`` (K, N) -> (N, K), ``w4_pack`` (K/2, N) -> (N, K/2)
+    (the plane packing is kept: byte j of row n holds rows j and K/2 + j);
+    ``scale4`` stays (G, N)."""
+    from vla_touch_tpu_torch.models.rdt.quant_serve import BF16Linear, QuantRDTRunner
+    from vla_touch_tpu_torch.models.rdt.runner import RDTRunnerModule
+    from vla_touch_tpu_torch.ops.quant import QLinear, QLinearW4
+    from vla_touch_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    with torch.device("meta"):
+        module = RDTRunnerModule(cfg)
+    module = module.to_empty(device=device)
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    def leaf(node, path):
+        bias = f32(node["bias"]) if "bias" in node else None
+        if "w_i8" in node:
+            w = torch.from_numpy(np.ascontiguousarray(np.asarray(node["w_i8"]).T))
+            return QLinear(w.to(device), f32(node["scale"]), bias)
+        if "w4_pack" in node:
+            w = torch.from_numpy(np.ascontiguousarray(np.asarray(node["w4_pack"]).T))
+            return QLinearW4(w.to(device), f32(node["scale4"]), bias)
+        if path[-2:] == ("cross_attn", "kv"):
+            return BF16Linear(f32(np.asarray(node["kernel"], np.float32).T).to(torch.bfloat16)
+                              .contiguous(), bias)
+        return None
+
+    def rec(node, path):
+        """Install the quantized leaves; return the rest of the tree."""
+        rest = {}
+        for k, v in node.items():
+            if not isinstance(v, dict):
+                rest[k] = v
+                continue
+            q = leaf(v, path + (k,))
+            if q is None:
+                sub = rec(v, path + (k,))
+                if sub:
+                    rest[k] = sub
+                continue
+            *parent, name = _port_path(path + (k,))
+            setattr(module.get_submodule(".".join(parent)), name, q)
+        return rest
+
+    state = to_state_dict(rec(qparams, ()), lists=("block",))
+    own = dict(module.named_parameters())
+    if set(own) != set(state):
+        raise KeyError(f"quantized tree mismatch: missing {sorted(set(own) - set(state))[:8]},"
+                       f" unexpected {sorted(set(state) - set(own))[:8]}")
+    with torch.no_grad():
+        for name, p in own.items():
+            src = f32(state[name])
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(p.shape)}")
+            p.copy_(src)
+    return QuantRDTRunner(cfg, module.model, module.lang_adaptor, module.img_adaptor,
+                          module.state_adaptor).eval().requires_grad_(False)
