@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's cold control tick on one NVIDIA GPU.
+"""Drive the PyTorch port's cold control tick and planner on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -43,7 +43,23 @@
    operands); the int8 chunk is held to the bf16 tick's chunk (corr >
    0.999).  One more tick goes through ``create_model(rdt=...).step``.
    Configuration (a) is timed by stage and profiled.
-6. Prints one ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
+6. The planner: holds K9 (w4 SwiGLU MLP) and K10 (w4 post-attention) at
+   Qwen2.5-7B width (M 1, 8, 24 and 1, 8), K8 at the planner's w4 linears
+   (decode and prompt-pass M), K6 at the int8 request's linears and K1 at
+   CLIP ViT-B/16's self-attention against their plain versions, timed as
+   above; builds the planner at full width from seeded weights
+   (Qwen2.5-7B in grouped int4, quantized layer by layer, its fused twin and
+   an int8 tree; CLIP ViT-B/16 with adapters and classifier; the
+   projector) and serves ``describe``, ``guess``, ``ask`` (a 24-token
+   prompt, so K9 runs in the prompt pass) and ``reason_llm`` (a greedy
+   turn, then best-of-8 sampling) on the fused tree with ``MEGAKERNELS`` on,
+   64 new tokens each, with the K1/K8/K9/K10 launches asserted from the
+   code, plus one int8 request (K6); then the tactile feature corr and the
+   teacher-forced per-step logits corr against the plain versions; every
+   request again at 4 tokens (and the int8 request at 2) with each kernel
+   call held to its plain version on its own operands; the decode tiers (unfused, fused, fused + megakernels),
+   best-of-8 throughput and a profiled decode.
+7. Prints one ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without a result line, when CUDA is absent, when the port
@@ -97,6 +113,22 @@ REFINED_CORR_MIN = 0.9995
 QMM_TOL = 1e-2
 # K3/K4 as K1: bf16 p and output against the float32 plain version.
 Q8_TOL = 2e-2
+# K9/K10 max abs error <= MK_TOL x max|plain| at each shape and on the
+# planner's own operands: the x, att and h codes are exact, but the bf16
+# g/u and activation round where the float32 sums of kernel and plain
+# version (in other orders) straddle a rounding edge, the activation's int8
+# quantization can move such an element by one code, and K10's bf16
+# residual add makes one-ulp differences of up to 2^-7 of the output's max.
+# Sound reads at most 0.41 of it; the nearest planted fault (K10's norm
+# weight ignored) reads 1.4 x per shape at M 8
+# (tools/torch_quant_fault_control.py).  The per-shape gate may sit that
+# close because the same fault fails the checked decode (6 x) and the
+# teacher-forced logits gate (0.976).
+MK_TOL = 2e-2
+# Planner, kernel run vs plain run: the tactile feature corr (K1 in the CLIP
+# tower) and the teacher-forced per-step logits corr (K8/K9/K10).
+FEATURE_CORR_MIN = 0.9998
+LOGITS_CORR_MIN = 0.995
 # The int8 chunk (configurations a-c) against the bf16 tick's chunk, on the
 # actions divided by the policy's action scale: the JAX package's parity
 # gate for its int8 tier (quant_serve.py:83-85).
@@ -198,7 +230,9 @@ WRAPPERS = {"K1": ("flash_attention", "flash_attention"),
             "K3": ("flash_attention_q8", "flash_attention_q8"),
             "K4": ("flash_attention_q8", "flash_attention_q8t"),
             "K6": ("quant_matmul", "a8w8_matmul"),
-            "K8": ("quant_matmul", "w4a8_matmul")}
+            "K8": ("quant_matmul", "w4a8_matmul"),
+            "K9": ("w4_fused", "w4_swiglu_mlp"),
+            "K10": ("w4_fused", "w4_postattn_fused")}
 
 
 def wrapper_home(kernel):
@@ -210,7 +244,7 @@ def wrapper_home(kernel):
 
 
 def kernel_fns() -> dict:
-    """The six kernel wrappers by kernel number (each carries ``launches``)."""
+    """The kernel wrappers by kernel number (each carries ``launches``)."""
     return {k: getattr(*wrapper_home(k)) for k in WRAPPERS}
 
 
@@ -245,33 +279,55 @@ def plain_kernels():
     from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
     from vla_touch_tpu_torch.ops import quant_matmul as QM
     from vla_touch_tpu_torch.ops import unet_kernels as UK
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
 
     def ref(x, cond, p, *, n_groups=8, eps=1e-5):
         return UK.resblock_ref(x, cond, p, n_groups=n_groups, eps=eps).to(x.dtype)
 
     with swapped(K1=FA.attention_plain, K2=ref, K3=FQ.attention_q8_plain,
-                 K4=FQ.attention_q8t_plain, K6=QM.a8w8_plain, K8=QM.w4a8_plain):
+                 K4=FQ.attention_q8t_plain, K6=QM.a8w8_plain, K8=QM.w4a8_plain,
+                 K9=k9_plain, K10=k10_plain):
         yield
 
 
-def checked_tick(t, **tick_kw) -> dict:
-    """One tick (``run_tick(t, **tick_kw)``) in which every kernel call also
-    runs its plain version on the same operands: the main path's own data,
-    strides and masks.  Per kernel: the calls, and the call whose max abs
-    error takes the largest share of its tolerance, rel_tol x max|plain|
-    (K1_TOL, K2_TICK_TOL, Q8_TOL for K3/K4, QMM_TOL for K6/K8)."""
+def k9_plain(x, gu, down):
+    """K9's plain version on the operands its wrapper takes (x as bf16)."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    return W4F.w4_swiglu_plain(x.to(torch.bfloat16), gu, down)
+
+
+def k10_plain(x, att, o, gu, down, norm_w, eps=1e-6):
+    """K10's plain version on the operands its wrapper takes."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    bf16 = torch.bfloat16
+    return W4F.w4_postattn_plain(x.to(bf16), att.to(bf16), o, gu, down, norm_w, eps)
+
+
+def checked_run(run) -> dict:
+    """``run()`` with every kernel call also running its plain version on
+    the same operands: the main path's own data, strides and masks.  Per
+    kernel: the calls, and the call whose max abs error takes the largest
+    share of its tolerance, rel_tol x max|plain| (K1_TOL, K2_TICK_TOL,
+    Q8_TOL for K3/K4, QMM_TOL for K6/K8, MK_TOL for K9/K10)."""
     from vla_touch_tpu_torch.ops import flash_attention as FA
     from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
     from vla_touch_tpu_torch.ops import quant_matmul as QM
     from vla_touch_tpu_torch.ops import unet_kernels as UK
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
 
     import torch
 
-    seen = {k: dict(calls=0, share=0.0) for k in ("K1", "K2", "K3", "K4", "K6", "K8")}
+    seen = {k: dict(calls=0, share=0.0) for k in WRAPPERS}
 
     def note(kernel, got, want, rel_tol):
-        err = float((got.float() - want).abs().max())
-        scale = float(want.abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
         s = seen[kernel]
         s["calls"] += 1
         share = err / (rel_tol * scale) if np.isfinite(err) and scale > 0 else (
@@ -282,6 +338,7 @@ def checked_tick(t, **tick_kw) -> dict:
     k1, k2 = FA.flash_attention, UK.resblock_fused
     k3, k4 = FQ.flash_attention_q8, FQ.flash_attention_q8t
     k6, k8 = QM.a8w8_matmul, QM.w4a8_matmul
+    k9, k10 = W4F.w4_swiglu_mlp, W4F.w4_postattn_fused
 
     def k1_checked(q, k, v, kv_mask=None, scale=None):
         got = k1(q, k, v, kv_mask=kv_mask, scale=scale)
@@ -315,16 +372,32 @@ def checked_tick(t, **tick_kw) -> dict:
         note("K8", got, QM.w4a8_plain(x, *leaf, out_dtype=torch.float32), QMM_TOL)
         return got
 
+    def k9_checked(x, gu, down):
+        got = k9(x, gu, down)
+        note("K9", got, W4F.w4_swiglu_plain(x.to(torch.bfloat16), gu, down,
+                                            out_dtype=torch.float32), MK_TOL)
+        return got
+
+    def k10_checked(x, att, o, gu, down, norm_w, eps=1e-6):
+        got = k10(x, att, o, gu, down, norm_w, eps=eps)
+        note("K10", got, k10_plain(x, att, o, gu, down, norm_w, eps), MK_TOL)
+        return got
+
     # each wrapper bumps the count of the function its module name holds,
     # so the stand-ins carry counts of their own and the kernels' stay as
     # the main path left them
     stand_ins = dict(K1=k1_checked, K2=k2_checked, K3=k3_checked, K4=k4_checked,
-                     K6=k6_checked, K8=k8_checked)
+                     K6=k6_checked, K8=k8_checked, K9=k9_checked, K10=k10_checked)
     for fn in stand_ins.values():
         fn.launches = 0
     with swapped(**stand_ins):
-        run_tick(t, **tick_kw)
+        run()
     return seen
+
+
+def checked_tick(t, **tick_kw) -> dict:
+    """One tick (``run_tick(t, **tick_kw)``) under :func:`checked_run`."""
+    return checked_run(lambda: run_tick(t, **tick_kw))
 
 
 # ---- K1 ----------------------------------------------------------------------
@@ -394,7 +467,7 @@ def k1_bound_ms(B, Lq, Lkv, H, D, masked):
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS
 
 
-def check_k1(gen):
+def check_k1(gen, shapes=None):
     import torch.nn.functional as F
 
     from vla_touch_tpu_torch.ops import flash_attention as FA
@@ -402,7 +475,7 @@ def check_k1(gen):
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
                bytes_ms=0.0, ops_ms=0.0)
-    for name, B, Lq, Lkv, H, D, layout, mask_kind, calls in K1_SHAPES:
+    for name, B, Lq, Lkv, H, D, layout, mask_kind, calls in shapes or K1_SHAPES:
         # enough distinct operand sets that a timing loop misses the L2 cache
         n_sets = max(1, min(8, -(-2 * L2_BYTES // (2 * 2 * B * Lkv * H * D))))
         sets = [k1_operands(gen, B, Lq, Lkv, H, D, layout) for _ in range(n_sets)]
@@ -706,7 +779,7 @@ def qmm_check(gen, kernel, M, K, N):
     return x, wts, err, tol
 
 
-def check_qmm(gen, kernel):
+def check_qmm(gen, kernel, shapes=None):
     import torch
 
     from vla_touch_tpu_torch.ops import quant as Q
@@ -717,7 +790,7 @@ def check_qmm(gen, kernel):
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
                bytes_ms=0.0, ops_ms=0.0)
-    for M, K, N, calls in QMM_SHAPES:
+    for M, K, N, calls in shapes or QMM_SHAPES:
         x, wts, err, tol = qmm_check(gen, kernel, M, K, N)
         tot["err"] = max(tot["err"], err)
         # distinct weight sets, >= 2x the L2 cache in all, so that the
@@ -903,13 +976,20 @@ PROFILE_GROUPS = (("K1 flash_fwd_kernel", "flash_fwd_kernel"),
                   ("K3/K4 flash_q8_kernel", "flash_q8_kernel"),
                   ("K6 a8w8_gemm_kernel", "a8w8_gemm_kernel"),
                   ("K8 w4a8_gemm_kernel", "w4a8_gemm_kernel"),
-                  ("K6/K8 quantize_rows_kernel", "quantize_rows_kernel"))
+                  ("K6/K8 quantize_rows_kernel", "quantize_rows_kernel"),
+                  ("K9 w4_swiglu_kernel", "w4_swiglu_kernel"),
+                  ("K10 w4_postattn_kernel", "w4_postattn_kernel"))
 
 
 def profile_tick(t, top: int = 12, **tick_kw) -> dict:
-    """One tick (``run_tick(t, **tick_kw)``) under ``torch.profiler``: the
+    """One tick (``run_tick(t, **tick_kw)``) under :func:`profile_run`."""
+    return profile_run(lambda: run_tick(t, **tick_kw), top)
+
+
+def profile_run(run, top: int = 12) -> dict:
+    """``run()`` under ``torch.profiler``: the
     device's busy time (kernel durations summed; one stream, so they do not
-    overlap), its idle share of the tick's host wall time, the device time
+    overlap), its idle share of the run's host wall time, the device time
     of each kernel of the port (PROFILE_GROUPS) and of everything else, the
     kernels with the most device time, and the host's waits on the device
     (``host_syncs``: CUDA runtime synchronise calls; ``htod_copies``: host
@@ -920,7 +1000,8 @@ def profile_tick(t, top: int = 12, **tick_kw) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_tick(t, **tick_kw)
+        run()
+        torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
     host_syncs = 0
@@ -1057,6 +1138,459 @@ def quant_ticks(t, bf16_actions) -> dict:
     return res
 
 
+# ---- the planner: K9 / K10, and K8 and K1 at its shapes ---------------------------
+
+QWEN_D, QWEN_F = 3584, 18944        # Qwen2.5-7B hidden and MLP widths
+K9_MS = (1, 8, 24)
+K10_MS = (1, 8)
+# (M, K, N, calls per decode token or prompt pass) of the planner's w4
+# linears through K8: the unfused tree's q and o (3584 -> 3584), k and v
+# (-> 512), gate and up (-> 18944) and down (18944 -> 3584, 148 groups);
+# the fused tree's qkv (-> 4608) and gateup (-> 37888); the lm_head (->
+# 152064).  M = 1 greedy, M = 8 the best-of-8 decode; M = 72 and 442 the
+# prompt passes of describe and guess (qkv, o, gateup and down, rolled G).
+K8_LLM_SHAPES = [
+    (1, 3584, 3584, 56), (1, 3584, 512, 56), (1, 3584, 18944, 56), (1, 18944, 3584, 28),
+    (1, 3584, 4608, 28), (1, 3584, 37888, 28), (1, 3584, 152064, 1),
+    (8, 3584, 4608, 28), (8, 3584, 152064, 1),
+] + [(M, K, N, 28) for M in (72, 442)
+     for K, N in ((3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584))]
+# (M, K, N, calls per prompt pass or decode token) of the int8 request's
+# linears through K6 (the unfused int8 tree, a 24-token prompt): q and o,
+# k and v, gate and up, down; the lm_head at M = 1.
+K6_LLM_SHAPES = [(M, K, N, n) for M in (24, 1)
+                 for K, N, n in ((3584, 3584, 56), (3584, 512, 56), (3584, 18944, 56),
+                                 (18944, 3584, 28))] + [(1, 3584, 152064, 1)]
+# CLIP ViT-B/16 self-attention: the frames of one encode, 197 tokens
+K1_CLIP_SHAPES = [("clip_self", 4, 197, 197, 12, 64, "vit", None, 12)]
+ASK_QUERY = "Which feels softer, A/B?"      # 24 byte tokens: K9 in the prompt pass
+assert len(ASK_QUERY.encode()) == 24
+PLAN_TOKENS = 64
+PLAN_SAMPLES = 8
+
+
+def mk_leaf(gen, N, K):
+    """A grouped-int4 leaf (N, K) of a random linear ~ N(0, 1/K)."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import quant as Q
+
+    lin = torch.nn.Linear(K, N, bias=False, device="cuda")
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5)
+    return Q.quantize_linear_w4(lin)
+
+
+def mk_bound_ms(kernel, M):
+    """(bytes ms, operations ms) of K9 or K10 at Qwen2.5-7B width: x (and
+    att, norm weight) read and out written once; 0.5 byte per weight and 4
+    per (group, column) of scale4; the int8 products at the int8 peak."""
+    from vla_touch_tpu_torch.ops.quant import pick_group_size
+
+    D, F = QWEN_D, QWEN_F
+
+    def w4(N, K):
+        return N * K // 2 + 4 * N * (K // pick_group_size(K))
+
+    nbytes = 2 * M * D + w4(2 * F, D) + w4(D, F) + 2 * M * D
+    ops = 2.0 * M * (D * 2 * F + F * D)
+    if kernel == "K10":
+        nbytes += 2 * M * D + w4(D, D) + 4 * D
+        ops += 2.0 * M * D * D
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS
+
+
+def mk_operands(gen, kernel, M, leaves):
+    import torch
+
+    x = (torch.randn((M, QWEN_D), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    if kernel == "K9":
+        return (x, leaves["gu"], leaves["down"])
+    att = (torch.randn((M, QWEN_D), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    return (x, att, leaves["o"], leaves["gu"], leaves["down"], leaves["norm_w"])
+
+
+def mk_leaves(gen):
+    import torch
+
+    return dict(gu=mk_leaf(gen, 2 * QWEN_F, QWEN_D), down=mk_leaf(gen, QWEN_D, QWEN_F),
+                o=mk_leaf(gen, QWEN_D, QWEN_D),
+                norm_w=1 + 0.1 * torch.randn((QWEN_D,), generator=gen, device="cuda"))
+
+
+def mk_check(kernel, ops):
+    """K9 or K10 against its plain version on ``ops``; (max abs error,
+    tolerance), raising on a miss."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    if kernel == "K9":
+        got = W4F.w4_swiglu_mlp(*ops)
+        want = W4F.w4_swiglu_plain(*ops, out_dtype=torch.float32)
+    else:
+        got = W4F.w4_postattn_fused(*ops)
+        want = W4F.w4_postattn_plain(*ops, out_dtype=torch.float32)
+    return hold(f"{kernel} M{ops[0].shape[0]}", got, want, MK_TOL)
+
+
+def check_mk(gen, kernel, leaves):
+    """K9 (M in K9_MS) or K10 (K10_MS) at Qwen2.5-7B width against the plain
+    version, timed: kernel (graph replay; the eager loop beside it), plain,
+    bound.  No single PyTorch call computes either function."""
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    fn, plain = ((W4F.w4_swiglu_mlp, W4F.w4_swiglu_plain) if kernel == "K9" else
+                 (W4F.w4_postattn_fused, W4F.w4_postattn_plain))
+    rows = {}
+    for M in (K9_MS if kernel == "K9" else K10_MS):
+        ops = mk_operands(gen, kernel, M, leaves)
+        err, tol = mk_check(kernel, ops)
+        ms = graph_time_ms(lambda: fn(*ops))
+        eager_ms = cuda_time_ms(lambda: fn(*ops))
+        plain_ms = graph_time_ms(lambda: plain(*ops), calls=2, replays=2)
+        b_ms, o_ms = mk_bound_ms(kernel, M)
+        rows[M] = dict(M=M, max_abs_err=err, tol=tol, ms=ms, eager_ms=eager_ms,
+                       plain_ms=plain_ms, bound_ms=max(b_ms, o_ms), bytes_ms=b_ms, ops_ms=o_ms,
+                       library_ms=None)
+        log(f"{kernel} M{M:2d} D{QWEN_D} F{QWEN_F}: err {err:.3e} (tol {tol:.3e}) kernel "
+            f"{ms:.4f} ms (eager loop {eager_ms:.4f}) plain {plain_ms:.4f} ms bound "
+            f"{max(b_ms, o_ms):.4f} ms")
+    return rows
+
+
+def write_video(path, seed, n=8, size=224):
+    """A synthetic GelSight press as PNG frames: a textured field, then a
+    contact blob that grows over frames 3..6 (the salient span)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(path, exist_ok=True)
+    yy, xx = np.mgrid[:size, :size] / size
+    base = 110 + 40 * np.sin(12 * xx) * np.cos(9 * yy)
+    frames = []
+    for i in range(n):
+        amp = 90.0 * min(max(i - 2, 0), 4) / 4
+        blob = amp * np.exp(-((xx - 0.5) ** 2 + (yy - 0.45) ** 2) / 0.02)
+        img = base[..., None] + blob[..., None] * np.array([1.0, 0.6, 0.3])
+        img = np.clip(img + rng.normal(0, 2, img.shape), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(path, f"{i:03d}.png"))
+        frames.append(img)
+    return np.stack(frames)
+
+
+def build_planner(seed: int = 0) -> dict:
+    """The planner at full width from seeded weights, on the card: the
+    Qwen2.5-7B decoder in grouped int4 (quantized layer by layer), its fused
+    twin (shared embedding and lm_head) and an int8 tree from the same
+    draw; CLIP ViT-B/16 with adapters and classifier; the projector; and a
+    tactile video written as PNG frames to a temporary directory."""
+    import tempfile
+
+    import torch
+
+    from vla_touch_tpu_torch.planning import encoder as PE
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.planning.llm_splice import init_tactile_projector
+
+    cfg = L.qwen25_7b()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    w4 = L.init_llm(cfg, seed, dtype=torch.bfloat16, weights="int4")
+    fused = L.fuse_quantized_layers(w4)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    i8 = L.init_llm(cfg, seed, dtype=torch.bfloat16, weights="int8")
+    # norm weights of a trained model are not all 1: draw them, so that a
+    # kernel that ignores its norm weight shows on the main path
+    for tree in (w4, i8):
+        g = torch.Generator(device="cuda").manual_seed(seed + 3)
+        with torch.no_grad():
+            for w in [p for lp in tree.layers for p in (lp.input_norm, lp.post_norm)] + [
+                    tree.final_norm]:
+                w.copy_(1 + 0.1 * torch.randn(w.shape, generator=g, device="cuda"))
+    enc = PE.init_tactile_encoder(seed=seed + 1)
+    proj = init_tactile_projector(enc.feature_dim, cfg.hidden_size, seed=seed + 2)
+    tmp = tempfile.mkdtemp(prefix="planner_")
+    video = os.path.join(tmp, "cup_0", "tactile")
+    frames = write_video(video, seed)
+    torch.cuda.synchronize()
+    log(f"planner built: Qwen2.5-7B w4 + fused twin {t1 - t0:.1f} s, int8 tree, CLIP "
+        f"ViT-B/16, projector {time.perf_counter() - t1:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    return dict(cfg=cfg, w4=w4, fused=fused, i8=i8, enc=enc, proj=proj, tmp=tmp,
+                video=video, frames=frames)
+
+
+@contextlib.contextmanager
+def recording_generate():
+    """Record every decode (B, Lp, N, T, prompt embeds, tokens) and the
+    logits of each step, by wrapping ``planning/llm.py``'s
+    ``_generate_impl`` and ``lm_logits``."""
+    import torch
+
+    from vla_touch_tpu_torch.planning import llm as L
+
+    calls = []
+    gen_impl, logits_fn = L._generate_impl, L.lm_logits
+
+    def lm_logits(cfg, params, hidden):
+        out = logits_fn(cfg, params, hidden)
+        if calls and isinstance(calls[-1]["logits"], list):
+            calls[-1]["logits"].append(out.float())
+        return out
+
+    def generate_impl(cfg, params, prompt_embeds, max_new_tokens, *args, **kw):
+        B, Lp, _ = prompt_embeds.shape
+        rec = dict(B=B, Lp=Lp, N=kw.get("num_return_sequences", 1), T=max_new_tokens,
+                   embeds=prompt_embeds, params=params, logits=[])
+        calls.append(rec)
+        out = gen_impl(cfg, params, prompt_embeds, max_new_tokens, *args, **kw)
+        rec["tokens"] = out[0]
+        # (B, T, V) for a greedy decode; a sampled one's first logits are
+        # the prompt's (B rows), the steps' B * N
+        rec["logits"] = torch.stack(rec["logits"], dim=1) if rec["N"] == 1 else None
+        return out
+
+    L._generate_impl, L.lm_logits = generate_impl, lm_logits
+    try:
+        yield calls
+    finally:
+        L._generate_impl, L.lm_logits = gen_impl, logits_fn
+
+
+def planner_launches(calls, layers: int, encodes: int, clip_layers: int = 12) -> list:
+    """(kernel, M, launches) that the planner requests must make on the
+    fused w4 tree with MEGAKERNELS on, from the code.  Per decode of T
+    tokens over B prompts of Lp <= 512 tokens, N samples each: the prompt
+    pass (M = B Lp) runs qkv and o through K8 and the MLP through K9 (M <=
+    32) or K8's gateup and down, then the lm_head (K8, M = B); each of the
+    T - 1 steps (M = B N) runs qkv through K8 and K10 per layer, plus the
+    lm_head.  K1: one per CLIP layer per tactile encode."""
+    out = [("K1", None, clip_layers * encodes)]
+    for c in calls:
+        Mp, Ms, steps = c["B"] * c["Lp"], c["B"] * c["N"], c["T"] - 1
+        if Mp > 512:
+            raise AssertionError(f"a prompt of {c['Lp']} tokens leaves the kernels' M <= 512")
+        out += [("K8", Mp, 2 * layers),
+                ("K9", Mp, layers) if Mp <= 32 else ("K8", Mp, 2 * layers),
+                ("K8", c["B"], 1),
+                ("K8", Ms, steps * (layers + 1)), ("K10", Ms, steps * layers)]
+    return out
+
+
+def planner_need(launches) -> dict:
+    """Launches per kernel of a :func:`planner_launches` list."""
+    need = {}
+    for kernel, _, n in launches:
+        need[kernel] = need.get(kernel, 0) + n
+    return need
+
+
+def planner_requests(P, T=PLAN_TOKENS):
+    """The user's requests through the entry points, on the fused w4 tree:
+    ``describe`` and ``guess`` (TactileDescriptionService over
+    ``make_llm_interface``), one ``ask`` of 24 tokens, and ``reason_llm`` on
+    one scenario (a greedy description turn, then a best-of-8 final turn at
+    temperature 0.7).  Returns (results, per-request outputs)."""
+    from vla_touch_tpu_torch.planning import run_llm as RL
+    from vla_touch_tpu_torch.planning.serving import TactileDescriptionService
+
+    iface = RL.make_llm_interface(P["cfg"], P["fused"], max_new_tokens=T)
+    svc = TactileDescriptionService(P["enc"],
+                                    llm_fn=lambda s: iface.generate_fn(iface.embed_text(s)))
+    row = {"info": {"scenario": "pick", "target": "sponge", "tactile": [P["video"]],
+                    "num_candidates": 3},
+           "chat": [{"role": "user", "content": "Object 1: <tact_tokens>. Describe it."},
+                    {"role": "assistant", "content": "It feels soft and smooth."},
+                    {"role": "user", "content": "Which is it? A) sponge B) mug C) towel"},
+                    {"role": "assistant", "content": "A) sponge"}]}
+    out = dict(describe=svc.describe(P["frames"]),
+               guess=svc.guess(P["frames"], ["sponge", "mug", "towel"]),
+               ask=svc.ask(ASK_QUERY),
+               reason=RL.reason_llm(P["enc"], iface, P["proj"], [row], P["tmp"],
+                                    reasoning_sampling_num=PLAN_SAMPLES,
+                                    reasoning_temperature=0.7,
+                                    reasoning_selection_type="best_of_n"))
+    return out, iface
+
+
+def teacher_forced(P, call):
+    """Per-step logits corr of a recorded greedy decode against the plain
+    versions fed the kernel run's tokens (one forward over prompt + tokens),
+    and how many greedy tokens the plain logits would pick alike."""
+    import torch
+
+    from vla_touch_tpu_torch.planning import llm as L
+
+    cfg, params = P["cfg"], call["params"]
+    toks = call["tokens"][0]
+    with plain_kernels():
+        seq = torch.cat([call["embeds"][0], L.embed_tokens(params, toks[:-1])], dim=0)
+        hidden = L.llm_forward(cfg, params, seq[None])[0, call["Lp"] - 1:]
+        plain = L.lm_logits(cfg, params, hidden).float()
+    kern = call["logits"][0]
+    corrs = [corr(kern[t].cpu().numpy(), plain[t].cpu().numpy()) for t in range(len(toks))]
+    agree = float((plain.argmax(-1) == toks).float().mean())
+    return min(corrs), agree, corrs[0], float(np.median(corrs))
+
+
+def planner_phase(gen) -> dict:
+    """Everything of the planner slice; returns what the kernels line and
+    the log need."""
+    import torch
+
+    from vla_touch_tpu_torch.planning import encoder as PE
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.planning import run_llm as RL
+    from vla_touch_tpu_torch.planning.datasets import clip_preprocess
+
+    t_phase = time.perf_counter()
+    default_megakernels = L.MEGAKERNELS
+    res = {}
+    # ---- per-shape checks at the planner's widths
+    leaves = mk_leaves(gen)
+    res["k9_rows"] = check_mk(gen, "K9", leaves)
+    res["k10_rows"] = check_mk(gen, "K10", leaves)
+    del leaves
+    res["k8_llm_rows"], _ = check_qmm(gen, "K8", K8_LLM_SHAPES)
+    res["k6_llm_rows"], _ = check_qmm(gen, "K6", K6_LLM_SHAPES)
+    res["k1_clip_rows"], _ = check_k1(gen, K1_CLIP_SHAPES)
+
+    # ---- the requests at full width, counted
+    P = build_planner(seed=0)
+    cfg = P["cfg"]
+    L.MEGAKERNELS = True
+    planner_requests(P, T=4)                                 # warm-up
+    zero_counts()
+    t0 = time.perf_counter()
+    with recording_generate() as calls:
+        out, iface = planner_requests(P)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    clip_layers = P["enc"].cfg.num_layers
+    res["launches"] = planner_launches(calls, cfg.num_layers, encodes=3, clip_layers=clip_layers)
+    check_counts("planner requests (fused w4, MEGAKERNELS)", counts,
+                 planner_need(res["launches"]))
+    res["counts"] = counts
+    res["calls"] = [dict(B=c["B"], Lp=c["Lp"], N=c["N"], T=c["T"]) for c in calls]
+    log(f"planner requests: {len(calls)} decodes {res['calls']} in {wall:.2f} s; describe "
+        f"{json.dumps(out['describe'])[:160]}; guess option {out['guess']['option']}; "
+        f"reason final {json.dumps(next(iter(out['reason'].values()))[0]['final_generation'])[:80]}")
+    for c in calls:
+        finite = c["logits"] is None or bool(torch.isfinite(c["logits"]).all())
+        if not finite or c["tokens"].shape != (c["B"] * c["N"], c["T"]):
+            raise AssertionError(f"planner decode: tokens {tuple(c['tokens'].shape)}, "
+                                 f"finite logits {finite}")
+
+    # ---- the int8 tree: one short request through K6, then checked
+    nl = cfg.num_layers
+    i8 = RL.make_llm_interface(cfg, P["i8"], max_new_tokens=16)
+    i8.generate_fn(i8.embed_text(ASK_QUERY))
+    zero_counts()
+    i8.generate_fn(i8.embed_text(ASK_QUERY))
+    check_counts("int8 request (16 tokens)", read_counts(), {"K6": 16 * (7 * nl + 1)})
+    i8 = RL.make_llm_interface(cfg, P["i8"], max_new_tokens=2)
+    chk8 = checked_run(lambda: i8.generate_fn(i8.embed_text(ASK_QUERY)))
+    check_chk("int8 checked request (2 tokens)", chk8, {"K6": 2 * (7 * nl + 1)})
+
+    # ---- kernel vs plain on the same requests
+    pre = clip_preprocess(P["frames"][2:6], 224)[None]
+    feats_k = PE.encode_tactile_video(P["enc"], pre)
+    props_k = PE.classify_properties(P["enc"], feats_k)
+    with plain_kernels():
+        feats_p = PE.encode_tactile_video(P["enc"], pre)
+        props_p = PE.classify_properties(P["enc"], feats_p)
+    c_feat = corr(feats_k.cpu().numpy(), feats_p.cpu().numpy())
+    d_props = float((props_k - props_p).abs().max())
+    log(f"planner kernel vs plain: tactile feature corr {c_feat:.6f} (min {FEATURE_CORR_MIN}); "
+        f"classifier {props_k.tolist()} vs {props_p.tolist()} (max diff {d_props:.3e}, "
+        f"limit {2e-2 * float(props_p.abs().max()) + 1e-3:.3e})")
+    if not (c_feat > FEATURE_CORR_MIN and d_props <= 2e-2 * float(props_p.abs().max()) + 1e-3):
+        raise AssertionError("tactile encoder: kernel run disagrees with the plain run")
+    # greedy decodes whose prompt + tokens stay within the kernels' M <= 512
+    tf = [(c["Lp"],) + teacher_forced(P, c) for c in calls
+          if c["N"] == 1 and c["Lp"] + c["T"] - 1 <= 512]
+    log("teacher-forced logits, per greedy decode (prompt tokens, min per-step corr, "
+        f"token agreement, first-step corr, median corr): {tf} (corr min {LOGITS_CORR_MIN}; "
+        "agreement not gated)")
+    if not all(t[1] > LOGITS_CORR_MIN for t in tf):
+        raise AssertionError("planner: kernel logits disagree with the plain versions'")
+    # every request again, 4 tokens each, with every kernel call held to its
+    # plain version on its own operands: each prompt pass's M, both decode M
+    with recording_generate() as calls4:
+        chk = checked_run(lambda: planner_requests(P, T=4))
+    check_chk("planner checked requests (4 tokens each)", chk,
+              planner_need(planner_launches(calls4, nl, encodes=3, clip_layers=clip_layers)))
+    res.update(feature_corr=c_feat, teacher_forced=tf,
+               checked={k: v for k, v in chk.items() if v["calls"]},
+               checked_int8={k: v for k, v in chk8.items() if v["calls"]})
+
+    # ---- timing: three tiers, best-of-8, one profiled decode
+    def timed(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t1))
+        return float(np.median(ts))
+
+    eos = iface.tokenizer.EOS
+    ask = iface.embed_text(ASK_QUERY)[None]
+    long_prompt = iface.embed_text("x" * 430)[None]
+    tiers = {}
+    for name, tree, mega in (("unfused", P["w4"], False), ("fused", P["fused"], False),
+                             ("fused+megakernels", P["fused"], True)):
+        L.MEGAKERNELS = mega
+        L.greedy_generate(cfg, tree, ask, max_new_tokens=PLAN_TOKENS, eos_id=eos)
+        ttft = timed(lambda: L.greedy_generate(cfg, tree, ask, max_new_tokens=1, eos_id=eos))
+        ttft_long = timed(lambda: L.greedy_generate(cfg, tree, long_prompt, max_new_tokens=1,
+                                                    eos_id=eos))
+        full = timed(lambda: L.greedy_generate(cfg, tree, ask, max_new_tokens=PLAN_TOKENS,
+                                               eos_id=eos))
+        tiers[name] = dict(ttft_ms_24_tokens=ttft, ttft_ms_430_tokens=ttft_long,
+                           decode_ms_per_token=(full - ttft) / (PLAN_TOKENS - 1),
+                           decode_tok_s=1e3 * (PLAN_TOKENS - 1) / (full - ttft),
+                           request_ms=full)
+        log(f"tier {name}: " + json.dumps(tiers[name]))
+    fastest = min(tiers, key=lambda k: tiers[k]["decode_ms_per_token"])
+    L.MEGAKERNELS = True
+    best8 = timed(lambda: L.sample_generate(cfg, P["fused"], ask, seed=1,
+                                            max_new_tokens=PLAN_TOKENS, eos_id=eos,
+                                            temperature=0.7, num_return_sequences=PLAN_SAMPLES),
+                  reps=2)
+    prof = profile_run(lambda: L.greedy_generate(cfg, P["fused"], ask, max_new_tokens=16,
+                                                 eos_id=eos))
+    log(f"decode tiers (batch 1, 24-token prompt, {PLAN_TOKENS} tokens): fastest {fastest}; "
+        f"best-of-{PLAN_SAMPLES} sampled: {best8:.2f} ms, aggregate "
+        f"{1e3 * PLAN_SAMPLES * PLAN_TOKENS / best8:.1f} tok/s")
+    log("planner decode profile (fused w4, MEGAKERNELS, 16 tokens): " + json.dumps(prof))
+    res.update(tiers=tiers, fastest=fastest, best_of_8_ms=best8, profile=prof)
+    L.MEGAKERNELS = default_megakernels
+    log(f"planner phases: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def planner_kernel_totals(res, kernel) -> dict:
+    """K9's or K10's per-shape figures summed over the calls of the planner
+    requests (each call at its own M), as the kernels line reports them."""
+    rows = res["k9_rows"] if kernel == "K9" else res["k10_rows"]
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, library_ms=None,
+               err=max(r["max_abs_err"] for r in rows.values()))
+    for k, M, n in res["launches"]:
+        if k != kernel or n == 0:
+            continue
+        if M not in rows:
+            raise AssertionError(f"{kernel}: no per-shape row at M = {M}")
+        for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+            tot[key] += n * rows[M][key]
+    return tot
+
+
 def main() -> int:
     import torch
 
@@ -1136,9 +1670,20 @@ def main() -> int:
         + json.dumps({k: round(float(np.median(v)), 3) for k, v in stages.items()}))
     log("quant tick (a) profile: " + json.dumps(profile_tick(t, **qa)))
     log("quant ticks: " + json.dumps({k: v for k, v in q.items() if k != "runners"}))
+    del q["runners"], qa, t
+
+    # ---- the planner
+    pl = planner_phase(gen)
     for name, rows in (("k1", k1_rows), ("k2", k2_rows), ("k3", k3_rows), ("k4", k4_rows),
-                       ("k6", k6_rows), ("k8", k8_rows)):
+                       ("k6", k6_rows), ("k8", k8_rows), ("k8 llm", pl["k8_llm_rows"]),
+                       ("k6 llm", pl["k6_llm_rows"]),
+                       ("k1 clip", pl["k1_clip_rows"]), ("k9", list(pl["k9_rows"].values())),
+                       ("k10", list(pl["k10_rows"].values()))):
         log(f"{name} shapes: " + json.dumps(rows))
+    log("planner: " + json.dumps({k: pl[k] for k in ("counts", "calls", "feature_corr",
+                                                     "teacher_forced", "checked",
+                                                     "checked_int8", "tiers",
+                                                     "fastest", "best_of_8_ms")}))
 
     def entry(name, source, replaces, launches, tot):
         return dict(name=name, route="cuda", source=f"vla_touch_tpu_torch/csrc/{source}",
@@ -1159,6 +1704,10 @@ def main() -> int:
               q["a"]["launches"]["K6"], k6),
         entry("w4a8_matmul", "w4a8_matmul.cu", "ops/pallas_matmul.py:395",
               q["e"]["launches"]["K8"], k8),
+        entry("w4_swiglu_mlp", "w4_swiglu.cu", "ops/pallas_matmul.py:648",
+              pl["counts"]["K9"], planner_kernel_totals(pl, "K9")),
+        entry("w4_postattn_fused", "w4_postattn.cu", "ops/pallas_matmul.py:858",
+              pl["counts"]["K10"], planner_kernel_totals(pl, "K10")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

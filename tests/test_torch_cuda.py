@@ -1,6 +1,7 @@
 """PyTorch port, on the card: kernels K1 (flash attention), K2 (fused
 residual block), K3/K4 (flash attention over an int8 K/V cache), K6 (a8w8
-matmul) and K8 (w4a8 matmul) against their plain versions on CUDA tensors.
+matmul), K8 (w4a8 matmul), K9 (w4 SwiGLU MLP) and K10 (w4 post-attention)
+against their plain versions on CUDA tensors.
 
 These build the CUDA sources with nvcc and need an NVIDIA GPU; without one
 they skip (the ``cuda`` marker).  On a machine with a card run them with
@@ -122,6 +123,7 @@ def _int8_linear(g, N, K, device):
     (1, 256, 2048, torch.bfloat16),
     (64, 4096, 2048, torch.float32),
     (130, 48, 200, torch.bfloat16),
+    (24, 18944, 512, torch.bfloat16),
 ])
 def test_a8w8_kernel_matches_plain(cuda, M, K, N, x_dtype):
     """K6 vs the plain qdense on the same operands.  The int8 codes and the
@@ -149,10 +151,12 @@ def test_a8w8_kernel_matches_plain(cuda, M, K, N, x_dtype):
     (1, 256, 2048, torch.bfloat16),
     (64, 4096, 2048, torch.float32),
     (90, 320, 136, torch.bfloat16),
+    (442, 18944, 512, torch.bfloat16),
 ])
 def test_w4a8_kernel_matches_plain(cuda, M, K, N, x_dtype):
-    """K8 vs the plain qdense_w4 (group sizes 128, 128, 128 and 160; N 136
-    leaves a partial column tile).  The group sums are exact; only the
+    """K8 vs the plain qdense_w4 (group sizes 128, 128, 128, 160 and 128;
+    N 136 leaves a partial column tile; 148 rolled groups over 442 rows is
+    the planner's down projection in a long prompt pass).  The group sums are exact; only the
     float32 sum across groups runs in another order, so the kernel's bf16
     out is within one bf16 step (2^-8 relative) of the plain float32 out."""
     from vla_touch_tpu_torch.ops import quant_matmul as QM
@@ -239,3 +243,100 @@ def test_flash_attention_q8_refuses_what_it_does_not_take(cuda):
     kt = torch.zeros((1, 2, 64, 20), device=cuda, dtype=torch.int8)
     with pytest.raises(ValueError):
         FQ.flash_attention_q8t(q, kt, s, kt, s)          # rows not 16-byte aligned
+
+
+def _w4_leaf(g, N, K, device, bias=False):
+    from vla_touch_tpu_torch.ops import quant as Q
+
+    lin = torch.nn.Linear(K, N, bias=bias, device=device)
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn((N, K), generator=g, device=device) * K ** -0.5)
+        if bias:
+            lin.bias.copy_(torch.randn((N,), generator=g, device=device) * 0.1)
+    return Q.quantize_linear_w4(lin)
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K10"])
+@pytest.mark.parametrize("M,D,F,gs_down", [(1, 512, 1024, 128), (5, 512, 1024, 32),
+                                           (17, 384, 640, 128), (32, 3584, 18944, 128)])
+def test_w4_megakernels_match_plain(cuda, kernel, M, D, F, gs_down):
+    """K9 / K10 vs their plain versions: max abs error <= 1e-2 x max|plain|
+    (the codes of x, att and h are exact; a bf16 g/u or activation whose
+    float32 sums, taken in other orders, straddle a rounding edge can move
+    one activation code).  Unrolled and rolled group counts, one and two
+    16-row tiles, biases on gate|up, Qwen2.5-7B width at M = 32."""
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    gu = _w4_leaf(g, 2 * F, D, cuda, bias=True)
+    down = _w4_leaf(g, D, F, cuda)
+    if gs_down != 128:
+        from vla_touch_tpu_torch.ops import quant as Q
+
+        lin = torch.nn.Linear(F, D, bias=False, device=cuda)
+        with torch.no_grad():
+            lin.weight.copy_(torch.randn((D, F), generator=g, device=cuda) * F ** -0.5)
+        down = Q.quantize_linear_w4(lin, group_size=gs_down)
+    x = (torch.randn((M, D), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    if kernel == "K9":
+        fn, ops = W4F.w4_swiglu_mlp, (x, gu, down)
+        want = W4F.w4_swiglu_plain(*ops, out_dtype=torch.float32)
+    else:
+        att = (torch.randn((M, D), generator=g, device=cuda) * 2).to(torch.bfloat16)
+        o = _w4_leaf(g, D, D, cuda)
+        nw = 1 + 0.1 * torch.randn((D,), generator=g, device=cuda)
+        fn, ops = W4F.w4_postattn_fused, (x, att, o, gu, down, nw)
+        want = W4F.w4_postattn_plain(*ops, out_dtype=torch.float32)
+    before = fn.launches
+    got = fn(*ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert float((got.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_w4_megakernels_compose_what_they_do_not_take(cuda):
+    """M > 32 and widths that are not multiples of 128 take the composed
+    route (K8 or plain) and launch no megakernel; the dispatcher sends
+    M <= 32 to K9."""
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    D, F = 256, 512
+    gu, down, o = _w4_leaf(g, 2 * F, D, cuda), _w4_leaf(g, D, F, cuda), _w4_leaf(g, D, D, cuda)
+    nw = torch.ones((D,), device=cuda)
+    x = torch.randn((40, D), generator=g, device=cuda).to(torch.bfloat16)
+    n9, n10 = W4F.w4_swiglu_mlp.launches, W4F.w4_postattn_fused.launches
+    y = W4F.w4_postattn_fused(x, x, o, gu, down, nw)
+    z = W4F.qdense_kernel_swiglu(x, gu, down)
+    torch.cuda.synchronize()
+    assert (W4F.w4_swiglu_mlp.launches, W4F.w4_postattn_fused.launches) == (n9, n10)
+    want = W4F.w4_postattn_plain(x, x, o, gu, down, nw, out_dtype=torch.float32)
+    assert float((y.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())
+    assert z.shape == (40, D)
+    W4F.qdense_kernel_swiglu(x[:3], gu, down)
+    assert W4F.w4_swiglu_mlp.launches == n9 + 1
+
+
+def test_w4_megakernels_route_on_the_librarys_shared_memory_budget(cuda):
+    """The routing guard asks the kernel library (``w4_megakernel_fits``):
+    one 16-row tile of width 8192 fits an H100 block, two do not; so K9 at
+    M = 24 and width 8192 composes (K8) and launches no megakernel, and at
+    M = 16 it launches."""
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    dev = torch.device(cuda)
+    assert W4F._fits(32, 3584, dev) and W4F._fits(16, 8192, dev)
+    assert not W4F._fits(24, 8192, dev) and not W4F._fits(33, 256, dev)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    D, F = 8192, 256
+    gu, down = _w4_leaf(g, 2 * F, D, cuda), _w4_leaf(g, D, F, cuda)
+    x = torch.randn((24, D), generator=g, device=cuda).to(torch.bfloat16)
+    n9 = W4F.w4_swiglu_mlp.launches
+    y = W4F.w4_swiglu_mlp(x, gu, down)
+    torch.cuda.synchronize()
+    assert W4F.w4_swiglu_mlp.launches == n9
+    want = W4F.w4_swiglu_plain(x, gu, down, out_dtype=torch.float32)
+    assert float((y.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())
+    W4F.w4_swiglu_mlp(x[:16], gu, down)
+    assert W4F.w4_swiglu_mlp.launches == n9 + 1

@@ -41,8 +41,7 @@ def _fields(cfg):
 
 def test_configs_equal_jax_field_for_field():
     """The port's dataclasses hold the JAX package's values; the only JAX
-    fields left out are training-only (``remat_blocks``) or encoders off
-    the ported path (CLIP's ViT options)."""
+    field left out is training-only (``remat_blocks``)."""
     from vla_touch_tpu import config as JC
     from vla_touch_tpu.models.encoders import vit as JV
     from vla_touch_tpu.runtime import policy as JP
@@ -69,9 +68,8 @@ def test_configs_equal_jax_field_for_field():
         same(t, j)
         same(t.interpolant, j.interpolant)
         assert t.raw_obs_dim == j.raw_obs_dim and t.visual_dim == j.visual_dim
-    for name in ("DINOV2_SMALL", "SIGLIP_SO400M"):
-        same(getattr(TV, name), getattr(JV, name),
-             left_out={"quick_gelu", "use_pre_norm", "patch_bias"})
+    for name in ("DINOV2_SMALL", "SIGLIP_SO400M", "CLIP_VIT_B16"):
+        same(getattr(TV, name), getattr(JV, name))
     t, j = TP.franka_eef_policy_config(), JP.franka_eef_policy_config()
     same(t, j)
     same(t.rdt.model, j.rdt.model, left_out={"remat_blocks"})

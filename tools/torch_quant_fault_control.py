@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Fault controls for the K3/K4/K6/K8 gates of ``chip_smoke.py``: plant a
-known fault in a throwaway copy of a kernel source and read what each gate
-sees.
+"""Fault controls for the K3/K4/K6/K8/K9/K10 gates of ``chip_smoke.py``:
+plant a known fault in a throwaway copy of a kernel source and read what
+each gate sees.
 
     python3 tools/torch_quant_fault_control.py [fault ...]
 
@@ -11,15 +11,19 @@ temporary directory, edits the named ``csrc/*.cu`` there, and in a child
 process that imports the copy:
 
 1. runs chip_smoke's correctness check of the faulted kernel(s) at every
-   shape of the quantized tick and prints, per shape, the max abs error
-   against its tolerance, or the miss;
+   shape of the quantized tick (K9/K10: of the planner, at Qwen2.5-7B
+   width) and prints, per shape, the max abs error against its tolerance,
+   or the miss;
 2. runs the full-width quantized tick in the configuration(s) that use the
    kernel, with the kernels and through the plain versions, and prints the
    chunk (and refined-action) correlations beside chip_smoke's gates, and
    the chunk's correlation with the bf16 tick's;
 3. runs chip_smoke's checked tick there (every kernel call against its
    plain version on the same operands) and prints the worst call per
-   kernel against its tolerance (share <= 1 passes).
+   kernel against its tolerance (share <= 1 passes);
+4. for K9/K10, builds the full-width planner and prints the ask request's
+   teacher-forced logits corr against the plain versions and a checked
+   4-token decode, beside chip_smoke's gates.
 
 The checkout itself is never edited.  Needs one NVIDIA GPU.
 """
@@ -37,17 +41,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # name: (source, text in it, its replacement, kernels to check, configurations)
 FAULTS = {
-    "none": (None, None, None, ("K3", "K4", "K6", "K8"), ("a", "b", "e")),
+    "none": (None, None, None, ("K3", "K4", "K6", "K8", "K9", "K10"), ("a", "b", "e")),
     # K6: the last 64-wide K chunk of every row is never multiplied
     "k6_drop_last_k_chunk": ("a8w8_matmul.cu", "const int n_chunks = (K + KC - 1) / KC;",
                              "const int n_chunks = (K + KC - 1) / KC - 1;", ("K6",), ("a",)),
     # K8: the two nibble planes swapped (rows j and K/2 + j exchanged)
-    "k8_swap_nibble_planes": ("w4a8_matmul.cu",
+    "k8_swap_nibble_planes": ("w4_group.cuh",
                               "lo[j] = low_plane(p);\n        hi[j] = high_plane(p);",
                               "lo[j] = high_plane(p);\n        hi[j] = low_plane(p);",
                               ("K8",), ("e",)),
     # K8: nibbles taken as 0..15, without sign extension
-    "k8_no_sign_extension": ("w4a8_matmul.cu",
+    "k8_no_sign_extension": ("w4_group.cuh",
                              "return (int)__vsub4(v ^ 0x08080808u, 0x08080808u);",
                              "return (int)v;", ("K8",), ("e",)),
     # K3/K4: the V channel scale never applied at finalize
@@ -57,7 +61,46 @@ FAULTS = {
     "q8_drop_last_kv_tile": ("flash_attention_q8.cu",
                              "const int n_tiles = (Lkv + BK - 1) / BK;",
                              "const int n_tiles = Lkv / BK;", ("K3", "K4"), ("a", "b")),
+    # K9: down reads the activation codes without waiting for every block
+    # to have written them (the grid barrier after the requantization gone)
+    "k9_skip_act_requant_barrier": (
+        "w4_swiglu.cu", "  quantize_act_phase(a.act, a.amax, a.M, a.F, a.aq);\n  grid.sync();\n",
+        "  quantize_act_phase(a.act, a.amax, a.M, a.F, a.aq);\n", ("K9",), ()),
+    # K10: the RMSNorm's weight never applied
+    "k10_norm_weight_ignored": (
+        "w4_postattn.cu", "return bf16_round(__fmul_rn(__fmul_rn(ld_bf16_l2(row + k), r), w[k]));",
+        "return bf16_round(__fmul_rn(ld_bf16_l2(row + k), r));", ("K10",), ()),
+    # K10: the last 16 output columns of down never written
+    "k10_drop_last_down_tile": (
+        "w4_postattn.cu", "a.out[e] = __float2bfloat16(__fadd_rn(res, bf16_round(y)));",
+        "if (n < D - W4_BN) a.out[e] = __float2bfloat16(__fadd_rn(res, bf16_round(y)));",
+        ("K10",), ()),
 }
+
+
+def planner_gates(fault: str) -> None:
+    """The full-width planner's ask request (K9 in the prompt pass, K10 in
+    every decode step): teacher-forced logits corr against the plain
+    versions, and a checked 4-token decode."""
+    import chip_smoke as CS
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.planning import run_llm as RL
+
+    P = CS.build_planner(seed=0)
+    cfg = P["cfg"]
+    L.MEGAKERNELS = True
+    iface = RL.make_llm_interface(cfg, P["fused"], max_new_tokens=CS.PLAN_TOKENS)
+    with CS.recording_generate() as calls:
+        iface.generate_fn(iface.embed_text(CS.ASK_QUERY))
+    c, agree, first, median = CS.teacher_forced(P, calls[0])
+    print(f"{fault}: planner ask: teacher-forced logits per-step corr min {c:.6f} (gate > "
+          f"{CS.LOGITS_CORR_MIN}), first step {first:.6f}, median {median:.6f}; token "
+          f"agreement {agree:.3f}", flush=True)
+    ask = iface.embed_text(CS.ASK_QUERY)[None]
+    chk = CS.checked_run(lambda: L.greedy_generate(cfg, P["fused"], ask, max_new_tokens=4,
+                                                   eos_id=iface.tokenizer.EOS))
+    print(f"{fault}: planner checked decode (gate: share <= 1) "
+          + json.dumps({k: v for k, v in chk.items() if v["calls"]}), flush=True)
 
 
 def child(fault: str) -> None:
@@ -73,14 +116,20 @@ def child(fault: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     _, _, _, kernels, configs = FAULTS[fault]
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    leaves = None
     for kernel in kernels:
         if kernel in ("K6", "K8"):
             cases = [(f"M{M} K{K} N{N}", (M, K, N)) for M, K, N, _ in CS.QMM_SHAPES]
+        elif kernel in ("K9", "K10"):
+            leaves = leaves or CS.mk_leaves(gen)
+            cases = [(f"M{M}", M) for M in (CS.K9_MS if kernel == "K9" else CS.K10_MS)]
         else:
             cases = [(name, shape) for name, *shape, _ in CS.Q8_SHAPES]
         for name, shape in cases:
             try:
-                if kernel in ("K6", "K8"):
+                if kernel in ("K9", "K10"):
+                    err, tol = CS.mk_check(kernel, CS.mk_operands(gen, kernel, shape, leaves))
+                elif kernel in ("K6", "K8"):
                     _, _, err, tol = CS.qmm_check(gen, kernel, *shape)
                 else:
                     B, Lq, Lkv, H, D, mask_kind = shape
@@ -90,6 +139,11 @@ def child(fault: str) -> None:
                       flush=True)
             except AssertionError as e:
                 print(f"{fault}: {kernel} {name}: {e}: MISS", flush=True)
+    del leaves
+    if {"K9", "K10"} & set(kernels):
+        planner_gates(fault)
+    if not configs:
+        return
     t = CS.build_tick(seed=0)
     bf16 = CS.run_tick(t, refine=False)["actions"]
     weights = {"a": "int8", "b": "int8", "e": "int4"}

@@ -1,0 +1,167 @@
+// Shared by the grouped-int4 kernels (w4a8_matmul.cu: K8, w4_swiglu.cu: K9,
+// w4_postattn.cu: K10): the nibble unpacking and one warp's share of a
+// grouped int4 x int8 product over 16 output columns.
+//
+// Weight layout (ops/quant.py::QLinearW4): w4_pack (N, K/2) int8, K
+// contiguous; byte j of row n holds w[n, j] in its low nibble and
+// w[n, K/2 + j] in its high nibble (plane packing); scale4 (G, N) float32,
+// G = K / gs, G even, gs % 32 == 0.  So packed bytes [u*gs, (u+1)*gs) of a
+// row carry group u of the low plane and group u + G/2 of the high plane:
+// one pass over them ("unit" u) feeds two int32 group accumulators.
+//
+// Nibbles become int8 in registers, four per 32-bit word with per-byte SIMD:
+// the low nibble as (int8)(b << 4) >> 4 and the high nibble as b >> 4 are
+// both "take 4 bits, sign-extend", computed as ((v ^ 8) - 8) per byte
+// (__vsub4 keeps the bytes apart).  A 128-bit load of 16 packed bytes then
+// gives the thread 16 low-plane and 16 high-plane values in the K order of
+// int8_mma.cuh's 64-wide chunk.
+//
+// Each group's int32 sum is scaled by scale4 BEFORE the float32 sum across
+// groups, as ops/quant.py::qdense_w4 and the JAX package do.
+
+#pragma once
+
+#include "int8_mma.cuh"
+
+namespace vtt_int8 {
+
+constexpr int W4_NT = 2;              // 8-column mma tiles per warp
+constexpr int W4_BN = W4_NT * 8;      // output columns of one work item
+
+// four packed 4-bit fields (one per byte, in bits 0..3) -> four int8
+__device__ __forceinline__ int sext_nibbles(unsigned v) {
+  return (int)__vsub4(v ^ 0x08080808u, 0x08080808u);
+}
+
+__device__ __forceinline__ int4 low_plane(const int4& p) {
+  return make_int4(sext_nibbles((unsigned)p.x & 0x0F0F0F0Fu),
+                   sext_nibbles((unsigned)p.y & 0x0F0F0F0Fu),
+                   sext_nibbles((unsigned)p.z & 0x0F0F0F0Fu),
+                   sext_nibbles((unsigned)p.w & 0x0F0F0F0Fu));
+}
+
+__device__ __forceinline__ int4 high_plane(const int4& p) {
+  return make_int4(sext_nibbles(((unsigned)p.x >> 4) & 0x0F0F0F0Fu),
+                   sext_nibbles(((unsigned)p.y >> 4) & 0x0F0F0F0Fu),
+                   sext_nibbles(((unsigned)p.z >> 4) & 0x0F0F0F0Fu),
+                   sext_nibbles(((unsigned)p.w >> 4) & 0x0F0F0F0Fu));
+}
+
+// Loads of 16 int8 activation codes.  Codes written by an earlier launch go
+// through the read-only cache; codes that other blocks of the same launch
+// wrote before a grid barrier are read from L2 (ld.global.cg), never from a
+// stale L1 or read-only line; codes in this block's shared memory need a
+// row stride that is a multiple of 16 bytes.
+struct GlobalCodes {
+  static __device__ __forceinline__ int4 load(const int8_t* p) { return ld128(p); }
+};
+struct L2Codes {
+  static __device__ __forceinline__ int4 load(const int8_t* p) {
+    return __ldcg(reinterpret_cast<const int4*>(p));
+  }
+};
+struct SharedCodes {
+  static __device__ __forceinline__ int4 load(const int8_t* p) {
+    return *reinterpret_cast<const int4*>(p);
+  }
+};
+
+// One warp's share of y[m, n] = sum_g scale4[g, n] * (sum_{k in g} x_i8[m, k] w[n, k])
+// for rows m0 + [0, MT*16) and columns n0 + [0, W4_BN): the units u = u0,
+// u0 + du, ... < G/2, folded into accf (the mma accumulator layout: tile
+// (i, j), register r holds row i*16 + lane/4 + (r/2)*8, column j*8 +
+// (lane%4)*2 + r%2).  x_i8 (M, K) has row stride ldx bytes (rows >= M give
+// 0) and is read through Codes::load; N is the weight's row count (columns
+// past N give 0).
+template <int MT, typename Codes>
+__device__ __forceinline__ void w4_warp_units(float (&accf)[MT][W4_NT][4],
+                                              const int8_t* __restrict__ xq, int ldx, int M,
+                                              const int8_t* __restrict__ wp,
+                                              const float* __restrict__ scale4, int N, int K,
+                                              int G, int n0, int m0, int u0, int du) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int KH = K / 2;               // packed bytes per row
+  const int gs = K / G;
+  const int HG = G / 2;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  for (int u = u0; u < HG; u += du) {
+    int acc_lo[MT][W4_NT][4], acc_hi[MT][W4_NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < W4_NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc_lo[i][j][r] = acc_hi[i][j][r] = 0;
+
+    for (int c = 0; c < gs; c += 64) {
+      const bool kin = c + t * 16 < gs;   // gs % 32 == 0: whole 16 bytes or none
+      const int k = u * gs + c + t * 16;  // low-plane K index = packed byte index
+      int4 lo[W4_NT], hi[W4_NT];
+#pragma unroll
+      for (int j = 0; j < W4_NT; ++j) {
+        const int n = n0 + j * 8 + g;
+        const int4 p = (kin && n < N) ? ld128(wp + (long long)n * KH + k) : zero;
+        lo[j] = low_plane(p);
+        hi[j] = high_plane(p);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r0 = m0 + i * 16 + g, r1 = r0 + 8;
+        const bool in0 = kin && r0 < M, in1 = kin && r1 < M;
+        const int8_t* x0 = xq + (long long)r0 * ldx + k;
+        const int8_t* x1 = xq + (long long)r1 * ldx + k;
+        int4 a_lo = in0 ? Codes::load(x0) : zero, a_hi = in1 ? Codes::load(x1) : zero;
+#pragma unroll
+        for (int j = 0; j < W4_NT; ++j) mma_chunk64(acc_lo[i][j], a_lo, a_hi, lo[j]);
+        a_lo = in0 ? Codes::load(x0 + KH) : zero;
+        a_hi = in1 ? Codes::load(x1 + KH) : zero;
+#pragma unroll
+        for (int j = 0; j < W4_NT; ++j) mma_chunk64(acc_hi[i][j], a_lo, a_hi, hi[j]);
+      }
+    }
+    // fold the unit's two groups into the float32 sums
+#pragma unroll
+    for (int j = 0; j < W4_NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + j * 8 + t * 2 + e;
+        const float s_lo = n < N ? scale4[(long long)u * N + n] : 0.f;
+        const float s_hi = n < N ? scale4[(long long)(u + HG) * N + n] : 0.f;
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float& acc = accf[i][j][h * 2 + e];
+            acc = __fadd_rn(acc, __fmul_rn((float)acc_lo[i][j][h * 2 + e], s_lo));
+            acc = __fadd_rn(acc, __fmul_rn((float)acc_hi[i][j][h * 2 + e], s_hi));
+          }
+      }
+  }
+}
+
+// Each warp's partial sums into red[warp][row][col] (MT*16 rows, W4_BN
+// columns), for a fixed-order sum across warps after a __syncthreads.
+template <int MT>
+__device__ __forceinline__ void w4_store_partials(float* red, const float (&accf)[MT][W4_NT][4],
+                                                  int warp) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < W4_NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        red[(warp * MT * 16 + i * 16 + g + (r >> 1) * 8) * W4_BN + j * 8 + t * 2 + (r & 1)] =
+            accf[i][j][r];
+}
+
+template <int MT>
+__device__ __forceinline__ float w4_sum_partials(const float* red, int nwarps, int row, int col) {
+  float s = red[row * W4_BN + col];
+  for (int w = 1; w < nwarps; ++w) s = __fadd_rn(s, red[(w * MT * 16 + row) * W4_BN + col]);
+  return s;
+}
+
+}  // namespace vtt_int8

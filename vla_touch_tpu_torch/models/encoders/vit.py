@@ -1,8 +1,11 @@
-"""Vision transformers: DinoV2 (controller conditioning) and SigLIP (RDT
-image conditioning) — counterpart of ``vla_touch_tpu/models/encoders/vit.py``.
+"""Vision transformers: DinoV2 (controller conditioning), SigLIP (RDT
+image conditioning) and CLIP ViT-B/16 (the planner's tactile encoder) —
+counterpart of ``vla_touch_tpu/models/encoders/vit.py``.
 
 Outputs: DinoV2 the final-layernormed CLS token (B, D); SigLIP the
-post-layernormed patch tokens (B, N, D).  Self-attention goes through K1
+post-layernormed patch tokens (B, N, D); CLIP (``planning/encoder.py``)
+the final-layernormed CLS token, after a pre-LayerNorm, quick GELU and a
+patch projection without bias.  Self-attention goes through K1
 (:func:`ops.attention.dot_product_attention`); the additive-mask variant
 (CLIP text only) stays on the plain einsum.
 
@@ -44,6 +47,9 @@ class ViTConfig:
     use_cls_token: bool = True     # DinoV2 yes, SigLIP no
     use_layerscale: bool = True    # DinoV2 yes, SigLIP no
     gelu_tanh: bool = False        # SigLIP uses gelu_pytorch_tanh
+    quick_gelu: bool = False       # CLIP uses x*sigmoid(1.702x)
+    use_pre_norm: bool = False     # CLIP applies LayerNorm before the blocks
+    patch_bias: bool = True        # CLIP's patch conv has no bias
 
 
 DINOV2_SMALL = ViTConfig(hidden_size=384, num_layers=12, num_heads=6,
@@ -51,6 +57,11 @@ DINOV2_SMALL = ViTConfig(hidden_size=384, num_layers=12, num_heads=6,
 SIGLIP_SO400M = ViTConfig(hidden_size=1152, num_layers=27, num_heads=16,
                           mlp_dim=4304, image_size=384, use_cls_token=False,
                           use_layerscale=False, gelu_tanh=True)
+CLIP_VIT_B16 = ViTConfig(hidden_size=768, num_layers=12, num_heads=12,
+                         mlp_dim=3072, patch_size=16, image_size=224,
+                         use_layerscale=False, quick_gelu=True,
+                         use_pre_norm=True, layernorm_eps=1e-5,
+                         patch_bias=False)
 
 
 @functools.lru_cache(maxsize=16)
@@ -137,26 +148,31 @@ class ViTBlock(nn.Module):
             h = h * self.layerscale1
         x = x + h
         h = self.fc1(self.norm2(x))
-        h = self.fc2(F.gelu(h, approximate="tanh" if c.gelu_tanh else "none"))
+        if c.quick_gelu:
+            h = h * torch.sigmoid(1.702 * h)
+        else:
+            h = F.gelu(h, approximate="tanh" if c.gelu_tanh else "none")
+        h = self.fc2(h)
         if c.use_layerscale:
             h = h * self.layerscale2
         return x + h
 
 
 class ViTEncoder(nn.Module):
-    """Patchify -> [CLS] -> +pos -> blocks -> final LayerNorm (the DinoV2
-    and SigLIP towers; the JAX package's CLIP-only options are not
-    ported)."""
+    """Patchify -> [CLS] -> +pos -> [pre LayerNorm] -> blocks -> final
+    LayerNorm."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.cfg = cfg
         D, p = cfg.hidden_size, cfg.patch_size
-        self.patch_embed = nn.Linear(p * p * cfg.num_channels, D)
+        self.patch_embed = nn.Linear(p * p * cfg.num_channels, D, bias=cfg.patch_bias)
         n_pos = (cfg.image_size // p) ** 2 + (1 if cfg.use_cls_token else 0)
         self.pos_embed = nn.Parameter(torch.empty(1, n_pos, D))
         if cfg.use_cls_token:
             self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
+        if cfg.use_pre_norm:
+            self.pre_norm = nn.LayerNorm(D, eps=cfg.layernorm_eps)
         self.blocks = nn.ModuleList(ViTBlock(cfg) for _ in range(cfg.num_layers))
         self.final_norm = nn.LayerNorm(D, eps=cfg.layernorm_eps)
 
@@ -181,6 +197,8 @@ class ViTEncoder(nn.Module):
             x = torch.cat([self.cls_token.expand(B, 1, -1), x], dim=1)
         x = x + interpolate_pos_embed(self.pos_embed, gh, c.image_size // p,
                                       c.use_cls_token)
+        if c.use_pre_norm:
+            x = self.pre_norm(x)
         for blk in self.blocks:
             x = blk(x)
         return self.final_norm(x)

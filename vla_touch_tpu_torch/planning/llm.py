@@ -1,0 +1,662 @@
+"""The planner's decoder-only LLM (counterpart of
+``vla_touch_tpu/planning/llm.py``): the Qwen2 architecture (GQA attention
+with rotary embeddings and qkv bias, RMSNorm, SwiGLU MLP) over input
+embeddings, served in float, int8 or grouped int4, with greedy and sampled
+decoding over a preallocated KV cache.
+
+The parameters are an :class:`LLM` module: ``embed`` (V, D), ``layers`` (a
+``ModuleList`` of :class:`DecoderLayer`, each with float32 ``input_norm`` /
+``post_norm`` and the projection leaves ``q k v o gate up down``),
+``final_norm`` and, untied, ``lm_head``.  A leaf is an ``nn.Linear`` or a
+quantized leaf of ``ops/quant.py`` (:func:`quantize_llm_params`); a fused
+tree (:func:`fuse_quantized_layers`) holds ``qkv`` and ``gateup`` instead.
+LoRA factors are plain dicts as in the JAX package: ``{"layers": [{target:
+{"A": (din, r), "B": (r, dout)}}], "scale": alpha / r}``.
+
+Kernels on the serving path: every quantized leaf at M <= 512 goes through
+``ops/quant_matmul.py::qdense_kernel_w4`` (int8 -> K6, grouped int4 -> K8);
+with :data:`MEGAKERNELS` on, bf16 activations on the card and w4 leaves,
+the prompt pass's SwiGLU MLP goes to K9 (``ops/w4_fused.py::
+qdense_kernel_swiglu``) and each decode step's post-attention half to K10
+(``w4_postattn_fused``), where the JAX package takes them on a TPU.
+Attention stays a float32 einsum outside any kernel, as in the JAX package.
+
+JAX's type promotion is kept where it shows: a float leaf multiplies in
+the promoted type of x and the kernel and adds its bias with promotion, and
+a LoRA residual runs in float32.  Greedy decoding takes the first maximal
+index of the logits in their own dtype; sampling is ``argmax(logits /
+temperature + gumbel)``, which is exactly ``jax.random.categorical``, so a
+caller can hand in the Gumbel noise (a test replays JAX's keys).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vla_touch_tpu_torch.ops import quant as Q
+from vla_touch_tpu_torch.ops import quant_matmul as QM
+from vla_touch_tpu_torch.ops import w4_fused as W4F
+from vla_touch_tpu_torch.utils.device import resolve_device
+
+
+# --------------------------------------------------------------------------
+# Config
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LLMConfig:
+    vocab_size: int = 384
+    hidden_size: int = 128
+    num_layers: int = 2
+    num_heads: int = 4
+    num_kv_heads: int = 2
+    mlp_dim: int = 256
+    rope_theta: float = 1e6
+    rms_eps: float = 1e-6
+    tie_embeddings: bool = True
+    qkv_bias: bool = True              # Qwen2 convention
+    # Qwen2-VL multimodal rotary: per-frequency-slot (temporal, height,
+    # width) split of head_dim // 2; None = standard RoPE.
+    mrope_section: Optional[tuple] = None
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+def qwen2_tiny(**kw) -> LLMConfig:
+    return LLMConfig(**kw)
+
+
+def qwen25_7b() -> LLMConfig:
+    """Qwen2.5-7B-Instruct's dimensions."""
+    return LLMConfig(vocab_size=152064, hidden_size=3584, num_layers=28,
+                     num_heads=28, num_kv_heads=4, mlp_dim=18944,
+                     rope_theta=1e6, tie_embeddings=False)
+
+
+def llama31_8b() -> LLMConfig:
+    """LLaMA-3.1-8B's dimensions (no qkv bias)."""
+    return LLMConfig(vocab_size=128256, hidden_size=4096, num_layers=32,
+                     num_heads=32, num_kv_heads=8, mlp_dim=14336,
+                     rope_theta=5e5, tie_embeddings=False, qkv_bias=False)
+
+
+def backbone(model_type: str) -> LLMConfig:
+    """The planner's text backbones by name: 'llama-3.1-8b' or
+    'qwen2.5-7b'.  The Qwen2-VL variant is not ported yet."""
+    if model_type == "llama-3.1-8b":
+        return llama31_8b()
+    if model_type == "qwen2.5-7b":
+        return qwen25_7b()
+    if model_type == "qwen2-vl-7b":
+        raise NotImplementedError("the Qwen2-VL backbone is not ported yet")
+    raise ValueError(f"unknown model_type {model_type!r} (expected "
+                     "'llama-3.1-8b', 'qwen2.5-7b' or 'qwen2-vl-7b')")
+
+
+# --------------------------------------------------------------------------
+# Parameters
+# --------------------------------------------------------------------------
+
+class DecoderLayer(nn.Module):
+    """One decoder block's parameters.  ``DecoderLayer(cfg)`` builds the
+    float leaves (uninitialised); ``DecoderLayer(**parts)`` holds the given
+    norms and leaves (quantized, fused or merged trees)."""
+
+    def __init__(self, cfg: Optional[LLMConfig] = None, **parts):
+        super().__init__()
+        if cfg is not None:
+            D, hd = cfg.hidden_size, cfg.head_dim
+            parts = dict(
+                input_norm=nn.Parameter(torch.ones(D)),
+                q=nn.Linear(D, cfg.num_heads * hd, bias=cfg.qkv_bias),
+                k=nn.Linear(D, cfg.num_kv_heads * hd, bias=cfg.qkv_bias),
+                v=nn.Linear(D, cfg.num_kv_heads * hd, bias=cfg.qkv_bias),
+                o=nn.Linear(cfg.num_heads * hd, D, bias=False),
+                post_norm=nn.Parameter(torch.ones(D)),
+                gate=nn.Linear(D, cfg.mlp_dim, bias=False),
+                up=nn.Linear(D, cfg.mlp_dim, bias=False),
+                down=nn.Linear(cfg.mlp_dim, D, bias=False))
+        for name, part in parts.items():
+            setattr(self, name, part)
+
+    def leaves(self) -> dict:
+        return dict(self.named_children())
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._modules
+
+
+class LLM(nn.Module):
+    """The parameter tree: ``embed``, ``layers``, ``final_norm`` and, when
+    the embeddings are untied, ``lm_head``."""
+
+    def __init__(self, cfg: LLMConfig, embed: nn.Parameter, layers, final_norm: nn.Parameter,
+                 lm_head: Optional[nn.Module] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = embed
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = final_norm
+        if lm_head is not None:
+            self.lm_head = lm_head
+
+    def with_layers(self, layers, lm_head=None) -> "LLM":
+        """The same embedding and final norm (shared, not copied) over
+        ``layers``; ``lm_head`` replaces this tree's when given."""
+        head = lm_head if lm_head is not None else getattr(self, "lm_head", None)
+        return LLM(self.cfg, self.embed, layers, self.final_norm, head)
+
+
+def _quantize_leaf(lin: nn.Linear, weights: str):
+    if weights == "int4":
+        try:
+            return Q.quantize_linear_w4(lin)
+        except ValueError:                 # no valid int4 group size: int8
+            return Q.quantize_linear(lin)
+    return Q.quantize_linear(lin)
+
+
+def _quantize_layer(lp: DecoderLayer, weights: str) -> DecoderLayer:
+    parts = {}
+    for name in ("input_norm", "post_norm"):
+        parts[name] = getattr(lp, name)
+    for name, m in lp.leaves().items():
+        parts[name] = _quantize_leaf(m, weights) if isinstance(m, nn.Linear) else m
+    return DecoderLayer(**parts)
+
+
+def _check_weights(weights):
+    if weights not in ("int8", "int4"):
+        raise ValueError(f"weights must be 'int8' or 'int4', got {weights!r}")
+
+
+@torch.no_grad()
+def init_llm(cfg: LLMConfig, seed: int = 0, device=None, dtype=torch.float32,
+             weights: Optional[str] = None) -> LLM:
+    """A seeded random decoder on ``device`` (default CUDA): projection
+    weights ~ N(0, 1/fan_in) and the embedding (and an untied ``lm_head``)
+    ~ N(0, 0.02^2) in ``dtype``, biases 0, norms 1 in float32, as the JAX
+    package's ``init_llm`` draws them (other numbers: torch's generator).
+    ``weights='int8'|'int4'`` quantizes each layer as soon as it is made,
+    so the peak is the quantized tree plus one float layer."""
+    if weights is not None:
+        _check_weights(weights)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D = cfg.hidden_size
+
+    def normal_(t, std):
+        return t.normal_(0.0, std, generator=gen)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        with torch.device("meta"):
+            lp = DecoderLayer(cfg)
+        lp = lp.to_empty(device=dev)
+        for name, m in lp.leaves().items():
+            m.weight.data = m.weight.data.to(dtype)
+            normal_(m.weight, m.in_features ** -0.5)
+            if m.bias is not None:
+                m.bias.zero_()
+        lp.input_norm.fill_(1.0)
+        lp.post_norm.fill_(1.0)
+        layers.append(_quantize_layer(lp, weights) if weights else lp)
+    embed = nn.Parameter(normal_(torch.empty((cfg.vocab_size, D), device=dev, dtype=dtype), 0.02))
+    lm_head = None
+    if not cfg.tie_embeddings:
+        lm_head = nn.Linear(D, cfg.vocab_size, bias=False, device=dev, dtype=dtype)
+        normal_(lm_head.weight, 0.02)
+        if weights:
+            lm_head = _quantize_leaf(lm_head, weights)
+    model = LLM(cfg, embed, layers, nn.Parameter(torch.ones(D, device=dev)), lm_head)
+    return model.eval().requires_grad_(False)
+
+
+def merge_lora(params: LLM, lora: dict) -> LLM:
+    """Fold LoRA factors into the float kernels, ``W' = W + A @ B * scale``
+    in float32 (the JAX package's ``merge_lora``).  Returns a new tree that
+    shares every untouched parameter; quantize it afterwards."""
+    scale = lora["scale"]
+    layers = []
+    for lp, lol in zip(params.layers, lora["layers"]):
+        parts = dict(input_norm=lp.input_norm, post_norm=lp.post_norm, **lp.leaves())
+        for t, ab in (lol or {}).items():
+            old = parts[t]
+            lin = nn.Linear(old.in_features, old.out_features, bias=old.bias is not None,
+                            device=old.weight.device)
+            with torch.no_grad():
+                lin.weight.copy_(old.weight.float() + (ab["A"].float() @ ab["B"].float()
+                                                       * scale).t())
+                if old.bias is not None:
+                    lin.bias.copy_(old.bias.float())
+            parts[t] = lin.requires_grad_(False)
+        layers.append(DecoderLayer(**parts))
+    return params.with_layers(layers)
+
+
+@torch.no_grad()
+def quantize_llm_params(params: LLM, weights: str = "int8") -> LLM:
+    """Every decoder projection and an untied ``lm_head`` in int8
+    (per-channel) or grouped int4 (``ops/quant.py``; a width with no valid
+    group size stays int8).  Embedding and norms are shared with
+    ``params``.  Merge LoRA first, or keep the adapters as a float32
+    residual."""
+    _check_weights(weights)
+    head = getattr(params, "lm_head", None)
+    return params.with_layers([_quantize_layer(lp, weights) for lp in params.layers],
+                              None if head is None else _quantize_leaf(head, weights))
+
+
+def _cat_leaves(leaves):
+    """Output-axis concatenation of quantized leaves (exact: their scales
+    are per output column), or None when they cannot share one leaf."""
+    first = leaves[0]
+    if any(type(lf) is not type(first) or (lf.bias is None) != (first.bias is None)
+           for lf in leaves):
+        return None
+    bias = None if first.bias is None else torch.cat([lf.bias for lf in leaves])
+    if isinstance(first, Q.QLinearW4):
+        if len({lf.scale4.shape[0] for lf in leaves}) != 1:
+            return None                    # differing group grids
+        return Q.QLinearW4(torch.cat([lf.w4_pack for lf in leaves]),
+                           torch.cat([lf.scale4 for lf in leaves], dim=1).contiguous(), bias)
+    if isinstance(first, Q.QLinear):
+        return Q.QLinear(torch.cat([lf.w_i8 for lf in leaves]),
+                         torch.cat([lf.scale for lf in leaves]), bias)
+    return None                            # not a quantized leaf
+
+
+def fuse_quantized_layers(params: LLM) -> LLM:
+    """q/k/v into one ``qkv`` leaf and gate/up into ``gateup`` (rows [0, F)
+    gate, [F, 2F) up), for a quantized tree: one launch where there were
+    three and two.  Exact.  Merge LoRA before fusing; a runtime LoRA
+    residual still works on the fused tree."""
+    layers = []
+    for lp in params.layers:
+        parts = dict(input_norm=lp.input_norm, post_norm=lp.post_norm, **lp.leaves())
+        qkv = _cat_leaves([parts["q"], parts["k"], parts["v"]])
+        if qkv is not None:
+            parts["qkv"] = qkv
+            for t in ("q", "k", "v"):
+                del parts[t]
+        gu = _cat_leaves([parts["gate"], parts["up"]])
+        if gu is not None:
+            parts["gateup"] = gu
+            del parts["gate"], parts["up"]
+        layers.append(DecoderLayer(**parts))
+    return params.with_layers(layers)
+
+
+# --------------------------------------------------------------------------
+# Forward
+# --------------------------------------------------------------------------
+
+# Dispatch policy of the decode: False keeps every quantized matmul on its
+# own kernel (K6/K8); True sends the SwiGLU MLP of the prompt pass to K9 and
+# the post-attention half of each decode step to K10.  Read at call time.
+# Set from the H100 measurement of the three tiers (unfused, fused, fused +
+# megakernels) in chip_smoke.py; PERF.md gives the numbers that chose it.
+MEGAKERNELS = True
+
+
+def _kernel_device(t) -> bool:
+    """Whether the megakernel routes apply to activations on t's device (the
+    JAX package takes them on a TPU; the port on the card)."""
+    return t.device.type == "cuda"
+
+
+def _mm(a, b):
+    """``a @ b`` in the promoted dtype, as ``jnp`` promotes."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def _is_quantized(p) -> bool:
+    return isinstance(p, (Q.QLinear, Q.QLinearW4))
+
+
+def _lora_res(y, ab, h, scale):
+    """The float LoRA residual over a (possibly fused or quantized) base."""
+    return y if ab is None else y + _mm(_mm(h, ab["A"]), ab["B"]) * scale
+
+
+def _dense(x, p, lora=None, scale=1.0):
+    if _is_quantized(p):
+        if x.dtype == torch.bfloat16:
+            # the serving path: int8 -> K6, grouped int4 -> K8, M > 512 plain
+            y = QM.qdense_kernel_w4(x, p)
+        else:
+            # the kernels write bf16: float32 activation trees stay plain
+            y = Q.qdense_any(x, p, out_dtype=x.dtype)
+    else:
+        y = _mm(x, p.weight.t())
+        if p.bias is not None:
+            y = y + p.bias
+    return _lora_res(y, lora, x, scale)
+
+
+_rmsnorm = W4F.rmsnorm
+
+
+def _rope(x, positions, theta, mrope_section=None):
+    """x (B, L, H, hd), positions (B, L) -> rotated (NEOX half-split), float32
+    angles, cast to x's dtype.  M-RoPE: positions (3, B, L) and
+    ``mrope_section`` (t, h, w) summing to hd // 2; frequency slot i takes its
+    angle from the component its section assigns."""
+    return _apply_rope(x, _rope_tables(positions, x.shape[-1], theta, mrope_section))
+
+
+def _rope_tables(positions, hd, theta, mrope_section=None):
+    """(cos, sin) (B, L, 1, hd/2) float32 of :func:`_rope`, computed once for
+    every layer and both of q and k."""
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    if positions.dim() == 3:
+        assert mrope_section is not None and sum(mrope_section) == half
+        ang3 = positions.float()[..., None] * freqs            # (3, B, L, half)
+        pieces, lo = [], 0
+        for c, sec in enumerate(mrope_section):
+            pieces.append(ang3[c, :, :, lo:lo + sec])
+            lo += sec
+        ang = torch.cat(pieces, dim=-1)
+    else:
+        ang = positions.float()[:, :, None] * freqs
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def _apply_rope(x, tables):
+    cos, sin = tables
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
+
+
+def _attend(q, k, v, mask):
+    """q (B, Lq, H, hd); k/v (B, Lk, Hkv, hd); mask (B, Lq, Lk) bool, True =
+    attend.  Query head h reads KV head h // (H / Hkv) (``jnp.repeat``)."""
+    B, Lq, H, hd = q.shape
+    Hkv = k.shape[2]
+    if Hkv != H:
+        k = k.repeat_interleave(H // Hkv, dim=2)
+        v = v.repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (hd ** -0.5)
+    s = torch.where(mask[:, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype).reshape(B, Lq, H * hd)
+
+
+def _proj_qkv(cfg: LLMConfig, lp, lo, lscale, h, B, L):
+    """q/k/v, through the fused ``qkv`` leaf when the tree has one."""
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if "qkv" in lp:
+        nq, nkv = H * hd, Hkv * hd
+        q, k, v = torch.split(_dense(h, lp.qkv), [nq, nkv, nkv], dim=-1)
+        q = _lora_res(q, lo.get("q"), h, lscale)
+        k = _lora_res(k, lo.get("k"), h, lscale)
+        v = _lora_res(v, lo.get("v"), h, lscale)
+    else:
+        q = _dense(h, lp.q, lo.get("q"), lscale)
+        k = _dense(h, lp.k, lo.get("k"), lscale)
+        v = _dense(h, lp.v, lo.get("v"), lscale)
+    return q.reshape(B, L, H, hd), k.reshape(B, L, Hkv, hd), v.reshape(B, L, Hkv, hd)
+
+
+def _swiglu_megakernel_ok(lp, lo) -> bool:
+    """K9 applies: both MLP leaves grouped int4 in the fused ``gateup``
+    layout, and no LoRA residual on them."""
+    return ("gateup" in lp and isinstance(lp.gateup, Q.QLinearW4)
+            and isinstance(getattr(lp, "down", None), Q.QLinearW4)
+            and not any(lo.get(k) for k in ("gate", "up", "down")))
+
+
+def _postattn_megakernel_ok(lp, lo) -> bool:
+    """K10 applies: K9's conditions and a LoRA-free w4 ``o``."""
+    return (isinstance(getattr(lp, "o", None), Q.QLinearW4) and not lo.get("o")
+            and _swiglu_megakernel_ok(lp, lo))
+
+
+def _mlp(lp, lo, lscale, h):
+    """The SwiGLU MLP, through ``gateup`` when the tree has it."""
+    if (MEGAKERNELS and _swiglu_megakernel_ok(lp, lo) and _kernel_device(h)
+            and h.dtype == torch.bfloat16):
+        return W4F.qdense_kernel_swiglu(h, lp.gateup, lp.down)
+    if "gateup" in lp:
+        g, u = torch.chunk(_dense(h, lp.gateup), 2, dim=-1)
+        g = _lora_res(g, lo.get("gate"), h, lscale)
+        u = _lora_res(u, lo.get("up"), h, lscale)
+    else:
+        g = _dense(h, lp.gate, lo.get("gate"), lscale)
+        u = _dense(h, lp.up, lo.get("up"), lscale)
+    return _dense(F.silu(g) * u, lp.down, lo.get("down"), lscale)
+
+
+def _layer(cfg: LLMConfig, lp, x, rope, mask, lora, lscale):
+    """One decoder block at the rotary tables ``rope``; returns (x, (k, v))."""
+    B, L, _ = x.shape
+    h = _rmsnorm(x, lp.input_norm, cfg.rms_eps)
+    lo = lora or {}
+    q, k, v = _proj_qkv(cfg, lp, lo, lscale, h, B, L)
+    q = _apply_rope(q, rope)
+    k = _apply_rope(k, rope)
+    att = _attend(q, k, v, mask)
+    x = x + _dense(att, lp.o, lo.get("o"), lscale)
+    h = _rmsnorm(x, lp.post_norm, cfg.rms_eps)
+    x = x + _mlp(lp, lo, lscale, h)
+    return x, (k, v)
+
+
+@torch.no_grad()
+def llm_forward(cfg: LLMConfig, params: LLM, embeds, positions=None, attn_mask=None,
+                lora: Optional[dict] = None, return_kv: bool = False):
+    """Causal forward over input embeddings (B, L, D); positions (B, L) or
+    M-RoPE (3, B, L), default arange; attn_mask (B, L) True = real token.
+    Returns hidden (B, L, D) (and the per-layer (k, v) if ``return_kv``)."""
+    B, L, _ = embeds.shape
+    dev = embeds.device
+    if positions is None:
+        positions = torch.arange(L, device=dev)[None].expand(B, L)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None]
+    mask = causal if attn_mask is None else causal & attn_mask[:, None, :].bool()
+    lscale = (lora or {}).get("scale", 0.0)
+    llayers = (lora or {}).get("layers", [None] * cfg.num_layers)
+    x = embeds
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
+    kvs = []
+    for lp, lol in zip(params.layers, llayers):
+        x, kv = _layer(cfg, lp, x, rope, mask, lol, lscale)
+        kvs.append(kv)
+    x = _rmsnorm(x, params.final_norm, cfg.rms_eps)
+    return (x, kvs) if return_kv else x
+
+
+def lm_logits(cfg: LLMConfig, params: LLM, hidden):
+    if cfg.tie_embeddings:
+        return _mm(hidden, params.embed.t())
+    return _dense(hidden, params.lm_head)
+
+
+def embed_tokens(params: LLM, ids):
+    return F.embedding(torch.as_tensor(ids, device=params.embed.device), params.embed)
+
+
+def token_entropy(logits):
+    """Shannon entropy (nats) of the next-token distribution."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.sum(torch.exp(logp) * logp, dim=-1)
+
+
+def token_surprisal(logits, tok, temperature=None):
+    """-log2 p(tok) under the (tempered) distribution the token came from."""
+    lg = logits.float()
+    if temperature is not None:
+        lg = lg / temperature
+    logp = torch.log_softmax(lg, dim=-1)
+    return -torch.gather(logp, -1, tok[..., None].long())[..., 0] / math.log(2.0)
+
+
+def sequence_avg_surprisal(surprisals, lengths):
+    """Average -log2 p per emitted token over the first ``lengths[i]`` steps."""
+    T = surprisals.shape[1]
+    mask = (torch.arange(T, device=surprisals.device)[None] < lengths[:, None]).float()
+    return (surprisals * mask).sum(1) / lengths.clamp_min(1).float()
+
+
+def gumbel_noise(shape, generator, device):
+    """Standard Gumbel noise ``-log(-log(u))``, u uniform on [tiny, 1), as
+    ``jax.random.gumbel`` draws it (other numbers: torch's generator)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+@torch.no_grad()
+def _generate_impl(cfg: LLMConfig, params: LLM, prompt_embeds, max_new_tokens: int,
+                   eos_id: int, lora: Optional[dict], temperature: Optional[float],
+                   gumbel, seed: int, num_return_sequences: int, prompt_positions=None):
+    """Prompt pass, then T - 1 decode steps over a preallocated KV cache.
+
+    ``temperature`` None: greedy argmax.  Otherwise step t draws
+    ``argmax(logits / temperature + gumbel[t])`` with ``gumbel`` (T, B*N, V)
+    given, or drawn from a generator seeded by ``seed``.  The prompt pass
+    runs once at B and its K/V repeat N times (rows [b*N, (b+1)*N) sample
+    input b).  ``prompt_positions`` ((B, Lp) or M-RoPE (3, B, Lp)) rotate the
+    prompt; decode continues at max(position) + 1.  Every step runs, also
+    after EOS (later tokens are EOS), as the JAX scan does.  Returns
+    (tokens (B*N, T), entropies, surprisals, lengths)."""
+    B, Lp, D = prompt_embeds.shape
+    dev = prompt_embeds.device
+    T, N = max_new_tokens, num_return_sequences
+    sampling = temperature is not None
+    gen = None
+    if sampling and gumbel is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def select(logits, t):
+        if not sampling:
+            return torch.argmax(logits, dim=-1)
+        g = (torch.as_tensor(gumbel[t], device=dev) if gumbel is not None
+             else gumbel_noise(logits.shape, gen, dev))
+        return torch.argmax(logits.float() / temperature + g, dim=-1)
+
+    hidden, kvs = llm_forward(cfg, params, prompt_embeds, lora=lora,
+                              positions=prompt_positions, return_kv=True)
+    if prompt_positions is None:
+        pos_start = torch.full((B,), Lp, dtype=torch.long, device=dev)
+    else:
+        pp = prompt_positions
+        pos_start = (pp.amax(dim=(0, 2)) if pp.dim() == 3 else pp.amax(dim=1)).long() + 1
+    logits = lm_logits(cfg, params, hidden[:, -1])
+    if N > 1:
+        logits = logits.repeat_interleave(N, dim=0)
+        kvs = [(k.repeat_interleave(N, dim=0), v.repeat_interleave(N, dim=0)) for k, v in kvs]
+        pos_start = pos_start.repeat_interleave(N)
+    BN = B * N
+    Lmax = Lp + T
+    cache = []
+    for k, v in kvs:
+        kc = k.new_zeros((BN, Lmax) + tuple(k.shape[2:]))
+        vc = v.new_zeros((BN, Lmax) + tuple(v.shape[2:]))
+        kc[:, :Lp] = k
+        vc[:, :Lp] = v
+        cache.append((kc, vc))
+    rope_delta = pos_start - Lp                   # decode position = kv_len + delta
+    lscale = (lora or {}).get("scale", 0.0)
+    llayers = (lora or {}).get("layers", [None] * cfg.num_layers)
+
+    tok = select(logits, 0)
+    toks, ents, surps = [tok], [token_entropy(logits)], [token_surprisal(logits, tok, temperature)]
+    done = tok == eos_id
+    ar = torch.arange(Lmax, device=dev)
+    for t in range(1, T):
+        kv_len = Lp + t - 1
+        x = embed_tokens(params, tok)[:, None]                 # (BN, 1, D)
+        rope = _rope_tables((kv_len + rope_delta)[:, None], cfg.head_dim, cfg.rope_theta)
+        valid = (ar < kv_len + 1)[None, None].expand(BN, 1, Lmax)
+        for li, (lp, lol) in enumerate(zip(params.layers, llayers)):
+            kc, vc = cache[li]
+            h = _rmsnorm(x, lp.input_norm, cfg.rms_eps)
+            lo = lol or {}
+            q, k, v = _proj_qkv(cfg, lp, lo, lscale, h, BN, 1)
+            q = _apply_rope(q, rope)
+            k = _apply_rope(k, rope)
+            kc[:, kv_len] = k[:, 0]
+            vc[:, kv_len] = v[:, 0]
+            att = _attend(q, kc, vc, valid)
+            if (MEGAKERNELS and _postattn_megakernel_ok(lp, lo) and _kernel_device(x)
+                    and x.dtype == torch.bfloat16):
+                x = W4F.w4_postattn_fused(x, att, lp.o, lp.gateup, lp.down, lp.post_norm,
+                                      eps=cfg.rms_eps)
+            else:
+                x2 = x + _dense(att, lp.o, lo.get("o"), lscale)
+                h2 = _rmsnorm(x2, lp.post_norm, cfg.rms_eps)
+                x = x2 + _mlp(lp, lo, lscale, h2)
+        x = _rmsnorm(x, params.final_norm, cfg.rms_eps)
+        logits = lm_logits(cfg, params, x[:, 0])
+        nxt = torch.where(done, eos_id, select(logits, t))
+        ents.append(token_entropy(logits))
+        surps.append(token_surprisal(logits, nxt, temperature))
+        toks.append(nxt)
+        done = done | (nxt == eos_id)
+        tok = nxt
+    tokens = torch.stack(toks, dim=1)
+    lengths = (tokens != eos_id).sum(1) + (tokens == eos_id).any(1).long()
+    return tokens, torch.stack(ents, dim=1), torch.stack(surps, dim=1), lengths
+
+
+def greedy_generate(cfg: LLMConfig, params: LLM, prompt_embeds, max_new_tokens: int = 32,
+                    eos_id: int = 1, lora: Optional[dict] = None, prompt_positions=None):
+    """Greedy decode: (tokens (B, T), entropies (B, T), lengths (B,));
+    positions after EOS hold EOS."""
+    tokens, entropies, _, lengths = _generate_impl(
+        cfg, params, prompt_embeds, max_new_tokens, eos_id, lora, temperature=None,
+        gumbel=None, seed=0, num_return_sequences=1, prompt_positions=prompt_positions)
+    return tokens, entropies, lengths
+
+
+def sample_generate(cfg: LLMConfig, params: LLM, prompt_embeds, seed: int = 0,
+                    max_new_tokens: int = 32, eos_id: int = 1, lora: Optional[dict] = None,
+                    temperature: float = 1.0, num_return_sequences: int = 1,
+                    prompt_positions=None, gumbel=None):
+    """Temperature sampling with N return sequences per input: rows [b*N,
+    (b+1)*N) sample input b.  ``gumbel`` (T, B*N, V): the noise of each
+    step (default: drawn from a generator seeded by ``seed``).  Returns
+    (tokens, entropies, surprisals (-log2 p under the tempered
+    distribution), lengths)."""
+    return _generate_impl(cfg, params, prompt_embeds, max_new_tokens, eos_id, lora,
+                          temperature=float(temperature), gumbel=gumbel, seed=seed,
+                          num_return_sequences=int(num_return_sequences),
+                          prompt_positions=prompt_positions)
+
+
+# --------------------------------------------------------------------------
+# Byte-level tokenizer (network-free; a HF tokenizer drops in by duck typing)
+# --------------------------------------------------------------------------
+
+
+class ByteTokenizer:
+    """bytes 0..255 -> ids 0..255; specials above."""
+
+    BOS = 256
+    EOS = 257
+    TACTILE_START = 258
+    TACTILE_END = 259
+    PAD = 260
+    vocab_size = 384
+
+    def encode(self, text: str, add_bos: bool = False) -> list:
+        ids = list(text.encode("utf-8", errors="replace"))
+        return ([self.BOS] if add_bos else []) + ids
+
+    def decode(self, ids) -> str:
+        bs = bytes(int(i) for i in np.asarray(ids).reshape(-1) if 0 <= int(i) < 256)
+        return bs.decode("utf-8", errors="replace")

@@ -181,3 +181,138 @@ def quant_rdt_runner(qparams: dict, cfg, device=None):
             p.copy_(src)
     return QuantRDTRunner(cfg, module.model, module.lang_adaptor, module.img_adaptor,
                           module.state_adaptor).eval().requires_grad_(False)
+
+
+# ---- the planner -------------------------------------------------------------------
+
+
+def _tensor(a, device):
+    """A numpy (or ml_dtypes bfloat16) array as a tensor of the same dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _llm_leaf(node: dict, device):
+    """One projection leaf of a JAX LLM tree, popping what it uses: a float
+    ``kernel`` (K, N) -> ``nn.Linear``; int8 ``w_i8`` (K, N) -> ``QLinear``
+    (N, K); grouped-int4 ``w4_pack`` (K/2, N) -> ``QLinearW4`` (N, K/2)
+    with ``scale4`` (G, N) as is (the plane packing is kept)."""
+    from vla_touch_tpu_torch.ops.quant import QLinear, QLinearW4
+
+    b = node.pop("bias", None)
+    bias = None if b is None else _tensor(np.asarray(b, np.float32), device)
+    if "w_i8" in node:
+        w = np.ascontiguousarray(np.asarray(node.pop("w_i8")).T)
+        return QLinear(torch.from_numpy(w).to(device), _tensor(node.pop("scale"), device), bias)
+    if "w4_pack" in node:
+        w = np.ascontiguousarray(np.asarray(node.pop("w4_pack")).T)
+        return QLinearW4(torch.from_numpy(w).to(device),
+                         _tensor(node.pop("scale4"), device).contiguous(), bias)
+    # the kernel keeps its dtype and the bias stays float32, as in the tree
+    w = _tensor(node.pop("kernel"), device)
+    with torch.device("meta"):
+        lin = torch.nn.Linear(w.shape[0], w.shape[1], bias=bias is not None)
+    lin.weight = torch.nn.Parameter(w.t().contiguous(), requires_grad=False)
+    if bias is not None:
+        lin.bias = torch.nn.Parameter(bias, requires_grad=False)
+    return lin
+
+
+def _consumed(what: str, tree: dict) -> None:
+    """Raise if a converter left any leaf of ``tree`` unread."""
+    left = [".".join(map(str, p)) for p, _ in _flatten(tree)]
+    if left:
+        raise KeyError(f"{what}: leaves not converted: {left[:8]}")
+
+
+def llm(params: dict, cfg, device=None):
+    """A JAX LLM tree (``planning/llm.py``: float, ``quantize_llm_params``
+    int8 / int4, or ``fuse_quantized_layers`` with ``qkv`` / ``gateup``)
+    -> the port's ``LLM`` for ``cfg`` on ``device`` (default CUDA).  Every
+    leaf must be consumed.  The names follow the JAX package's
+    ``hf_key_map``: the port's ``layers.{i}.q.weight`` (out, in) is HF's
+    ``model.layers.{i}.self_attn.q_proj.weight``, ``embed`` HF's
+    ``model.embed_tokens.weight``."""
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    tree = {k: (dict(v) if isinstance(v, dict) else v) for k, v in params.items()}
+    layers = []
+    for i, lp in enumerate(tree.pop("layers")):
+        lp = {k: (dict(v) if isinstance(v, dict) else v) for k, v in lp.items()}
+        parts = {n: torch.nn.Parameter(_tensor(np.asarray(lp.pop(n), np.float32), device),
+                                       requires_grad=False)
+                 for n in ("input_norm", "post_norm")}
+        for name in list(lp):
+            if not isinstance(lp[name], dict):
+                raise KeyError(f"layers.{i}.{name}: not a projection leaf")
+            parts[name] = _llm_leaf(lp[name], device)
+            _consumed(f"layers.{i}.{name}", lp.pop(name))
+        layers.append(L.DecoderLayer(**parts))
+    embed = torch.nn.Parameter(_tensor(tree.pop("embed"), device), requires_grad=False)
+    final_norm = torch.nn.Parameter(_tensor(np.asarray(tree.pop("final_norm"), np.float32),
+                                            device), requires_grad=False)
+    lm_head = None
+    if "lm_head" in tree:
+        head = tree.pop("lm_head")
+        lm_head = _llm_leaf(head, device)
+        _consumed("lm_head", head)
+    _consumed("llm", tree)
+    return L.LLM(cfg, embed, layers, final_norm, lm_head).eval()
+
+
+def llm_lora(lora: dict, device=None) -> dict:
+    """JAX LoRA factors ``{"layers": [{target: {"A", "B"}}], "scale"}`` ->
+    the same structure of float32 tensors on ``device`` (default CUDA)."""
+    from vla_touch_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    layers = [{t: {k: _tensor(np.asarray(ab[k], np.float32), device) for k in ("A", "B")}
+               for t, ab in (lp or {}).items()} for lp in lora["layers"]]
+    return {"layers": layers, "scale": float(lora["scale"])}
+
+
+def tactile_encoder(state, device=None, dtype=torch.float32):
+    """A JAX ``TactileEncoderState`` (its ``cfg``, ``clip_params``,
+    ``adapter_params`` per sensor and ``classifier_params``) -> the port's,
+    the CLIP tower in ``dtype``, on ``device`` (default CUDA).  CLIP's patch
+    conv (HWIO, no bias) becomes the tower's bias-free patch Linear."""
+    import dataclasses
+
+    from vla_touch_tpu_torch.models.encoders.vit import ViTConfig
+    from vla_touch_tpu_torch.planning import encoder as PE
+    from vla_touch_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    cfg = ViTConfig(**dataclasses.asdict(state.cfg))
+
+    def build(factory, tree, dt):
+        with torch.device("meta"):
+            m = factory()
+        m = m.to_empty(device=device).to(dt)
+        return load_into(m, to_state_dict(tree, lists=("block",))).eval().requires_grad_(False)
+
+    D = cfg.hidden_size
+    clip = build(lambda: PE.ViFiCLIPVideo(cfg), state.clip_params, dtype)
+    adapters = torch.nn.ModuleDict({
+        s: build(lambda: PE.Adapter(D, D), p, torch.float32)
+        for s, p in state.adapter_params.items()})
+    classifier = build(lambda: PE.PropertyClassifier(D), state.classifier_params, torch.float32)
+    return PE.TactileEncoderState(cfg=cfg, clip=clip, adapters=adapters, classifier=classifier,
+                                  feature_dim=state.feature_dim)
+
+
+def tactile_projector(params: dict, device=None):
+    """A JAX ``TactileProjector`` tree (fc1, fc2) -> the port's, float32."""
+    from vla_touch_tpu_torch.planning.llm_splice import TactileProjector
+    from vla_touch_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    k1 = np.asarray(params["fc1"]["kernel"])
+    with torch.device("meta"):
+        m = TactileProjector(k1.shape[0], k1.shape[1])
+    m = m.to_empty(device=device).float()
+    return load_into(m, to_state_dict(params)).eval().requires_grad_(False)
