@@ -32,17 +32,27 @@
    cache in its two layouts, at the image and ragged-language shapes plus
    a fully masked row), timed as K1 is, with ``torch._int_mm`` (K6's GEMM
    alone) and SDPA on the dequantized bf16 cache (K3/K4) as yardsticks.
+   Then the two kernels no module dispatches, as the JAX package
+   dispatches neither: K7 (``a8w8_matmul_large``) at the 4374-token
+   condition products (the image adaptor and the image K/V projection),
+   with ``torch._int_mm`` as yardstick, and K5 (``w8a16_matmul``) at the
+   eight linears and the planner's M = 1 int8 linears, with ``F.linear``
+   on bf16 weights dequantized ahead of time as yardstick.
 5. Runs the quantized tick (RDT-1B quantized on the card from the same
-   seeded bf16 runner, same inputs and noise) in five configurations:
+   seeded bf16 runner, same inputs and noise) in six configurations:
    (a) int8 weights + int8 K/V cache (K3), (b) int8 + transposed int8 cache
    (K4), (c) int8 + int8x cache (dequantized, K1), (d) int4 fc1/fc2 and
-   int8 elsewhere + bf16 cache, (e) int4 weights, chunk only.  Each is run
-   with the launch counts zeroed before and read after (and asserted),
-   then through the plain versions (corr gates), then as a checked tick
-   (every K1-K4, K6, K8 call against its plain version on its own
-   operands); the int8 chunk is held to the bf16 tick's chunk (corr >
-   0.999).  One more tick goes through ``create_model(rdt=...).step``.
-   Configuration (a) is timed by stage and profiled.
+   int8 elsewhere + bf16 cache, (e) int4 weights, chunk only, (f) as (a)
+   with int8 condition K/V projections (``kv_proj='int8'``).  Each is run
+   with the launch counts zeroed before and read after (and asserted; K5
+   and K7 must make none), then through the plain versions (corr gates),
+   then as a checked tick (every K1-K4, K6, K8 call against its plain
+   version on its own operands; in (a) and (f) also K5 on every K6 call's
+   operands and K7 on every plain ``qdense`` call at M > 512, 870 and 2 or
+   16 shadow calls); the int8 chunks are held to the bf16 tick's chunk
+   (corr > 0.999).  One more tick goes through
+   ``create_model(rdt=...).step``.  Configuration (a) is timed by stage and
+   profiled.
 6. The planner: holds K9 (w4 SwiGLU MLP) and K10 (w4 post-attention) at
    Qwen2.5-7B width (M 1, 8, 24 and 1, 8), K8 at the planner's w4 linears
    (decode and prompt-pass M), K6 at the int8 request's linears and K1 at
@@ -59,8 +69,9 @@
    request again at 4 tokens (and the int8 request at 2) with each kernel
    call held to its plain version on its own operands; the decode tiers (unfused, fused, fused + megakernels),
    best-of-8 throughput and a profiled decode.
-7. Prints one ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+7. Prints one ``kernels`` JSON line (ten kernels; K5's and K7's launches
+   are the shadow calls of (f)'s checked tick), the ``nvidia-smi`` line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without a result line, when CUDA is absent, when the port
 package is not beside this script, or when any phase fails.
@@ -106,11 +117,20 @@ K2_TICK_TOL = 2e-2
 TOKEN_CORR_MIN = 0.9998
 CHUNK_CORR_MIN = 0.9995
 REFINED_CORR_MIN = 0.9995
-# K6/K8 max abs error <= QMM_TOL x max|plain| at each shape and on the
+# K5-K8 max abs error <= QMM_TOL x max|plain| at each shape and on the
 # tick's own operands: the int8 codes and int32 sums are exact, so only the
 # bf16 rounding of the output (2^-8 relative) and the float32 order of K8's
-# cross-group sum separate kernel and plain version.
+# cross-group sum (K5's float32 sum) separate kernel and plain version.
 QMM_TOL = 1e-2
+# K6 and K7 compute what their plain versions compute, operation for
+# operation: exact int8 codes and int32 sums, then the plain version's
+# float32 epilogue in its order.  So every bf16 output must equal the plain
+# float32 output rounded to bf16, per shape and on the tick's own operands
+# (none unlike in any of 70 M outputs on an H100 at 700 W).  That sees a
+# one-ulp fault QMM_TOL cannot: K7's rows scaled by amax / 127 in place of
+# amax * (1/127) move 5-20 outputs per shape
+# (tools/torch_quant_fault_control.py).
+EXACT_KERNELS = ("K6", "K7")
 # K3/K4 as K1: bf16 p and output against the float32 plain version.
 Q8_TOL = 2e-2
 # K9/K10 max abs error <= MK_TOL x max|plain| at each shape and on the
@@ -129,7 +149,7 @@ MK_TOL = 2e-2
 # tower) and the teacher-forced per-step logits corr (K8/K9/K10).
 FEATURE_CORR_MIN = 0.9998
 LOGITS_CORR_MIN = 0.995
-# The int8 chunk (configurations a-c) against the bf16 tick's chunk, on the
+# The int8 chunk (configurations a-c, f) against the bf16 tick's chunk, on the
 # actions divided by the policy's action scale: the JAX package's parity
 # gate for its int8 tier (quant_serve.py:83-85).
 INT8_CHUNK_CORR_MIN = 0.999
@@ -229,7 +249,9 @@ WRAPPERS = {"K1": ("flash_attention", "flash_attention"),
             "K2": ("unet_kernels", "resblock_fused"),
             "K3": ("flash_attention_q8", "flash_attention_q8"),
             "K4": ("flash_attention_q8", "flash_attention_q8t"),
+            "K5": ("quant_matmul", "w8a16_matmul"),
             "K6": ("quant_matmul", "a8w8_matmul"),
+            "K7": ("quant_matmul", "a8w8_matmul_large"),
             "K8": ("quant_matmul", "w4a8_matmul"),
             "K9": ("w4_fused", "w4_swiglu_mlp"),
             "K10": ("w4_fused", "w4_postattn_fused")}
@@ -309,14 +331,24 @@ def k10_plain(x, att, o, gu, down, norm_w, eps=1e-6):
     return W4F.w4_postattn_plain(x.to(bf16), att.to(bf16), o, gu, down, norm_w, eps)
 
 
-def checked_run(run) -> dict:
+def checked_run(run, shadow: bool = False) -> dict:
     """``run()`` with every kernel call also running its plain version on
     the same operands: the main path's own data, strides and masks.  Per
     kernel: the calls, and the call whose max abs error takes the largest
     share of its tolerance, rel_tol x max|plain| (K1_TOL, K2_TICK_TOL,
-    Q8_TOL for K3/K4, QMM_TOL for K6/K8, MK_TOL for K9/K10)."""
+    Q8_TOL for K3/K4, QMM_TOL for K5-K8, MK_TOL for K9/K10); for
+    EXACT_KERNELS also the bf16 outputs unlike the plain version's.
+
+    ``shadow`` also holds K5 and K7, which no module dispatches, on the
+    run's operands in their regimes: every K6 call's through K5, and every
+    plain ``ops/quant.py::qdense`` call at M > 512 (the image adaptor, and
+    the condition K/V projections of an int8 ``kv_proj``) through K7.  The
+    run's own routing and outputs stay as they are."""
+    import math
+
     from vla_touch_tpu_torch.ops import flash_attention as FA
     from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+    from vla_touch_tpu_torch.ops import quant as Q
     from vla_touch_tpu_torch.ops import quant_matmul as QM
     from vla_touch_tpu_torch.ops import unet_kernels as UK
     from vla_touch_tpu_torch.ops import w4_fused as W4F
@@ -324,12 +356,16 @@ def checked_run(run) -> dict:
     import torch
 
     seen = {k: dict(calls=0, share=0.0) for k in WRAPPERS}
+    for k in EXACT_KERNELS:
+        seen[k]["unlike"] = 0
 
     def note(kernel, got, want, rel_tol):
         err = float((got.float() - want.float()).abs().max())
         scale = float(want.float().abs().max())
         s = seen[kernel]
         s["calls"] += 1
+        if kernel in EXACT_KERNELS:
+            s["unlike"] += int((got != want.to(got.dtype)).sum())
         share = err / (rel_tol * scale) if np.isfinite(err) and scale > 0 else (
             0.0 if err == 0.0 else float("inf"))
         if share >= s["share"]:
@@ -365,7 +401,22 @@ def checked_run(run) -> dict:
     def k6_checked(x, *leaf):
         got = k6(x, *leaf)
         note("K6", got, QM.a8w8_plain(x, *leaf, out_dtype=torch.float32), QMM_TOL)
+        if shadow:
+            note("K5", QM.w8a16_matmul(x, *leaf),
+                 QM.w8a16_plain(x, *leaf, out_dtype=torch.float32), QMM_TOL)
         return got
+
+    qdense = Q.qdense
+
+    def qdense_shadowed(x, qp, out_dtype=torch.bfloat16):
+        if math.prod(x.shape[:-1]) > 512:
+            leaf = (qp.w_i8, qp.scale, qp.bias)
+            if not QM.a8w8_large_takes(x.shape[-1], qp.w_i8.shape[0]):
+                raise AssertionError(f"K7 does not take a qdense call of {tuple(x.shape)} x "
+                                     f"{tuple(qp.w_i8.shape)}")
+            note("K7", QM.a8w8_matmul_large(x, *leaf),
+                 QM.a8w8_large_plain(x, *leaf, out_dtype=torch.float32), QMM_TOL)
+        return qdense(x, qp, out_dtype=out_dtype)
 
     def k8_checked(x, *leaf):
         got = k8(x, *leaf)
@@ -390,14 +441,19 @@ def checked_run(run) -> dict:
                      K6=k6_checked, K8=k8_checked, K9=k9_checked, K10=k10_checked)
     for fn in stand_ins.values():
         fn.launches = 0
-    with swapped(**stand_ins):
-        run()
+    if shadow:
+        Q.qdense = qdense_shadowed
+    try:
+        with swapped(**stand_ins):
+            run()
+    finally:
+        Q.qdense = qdense
     return seen
 
 
-def checked_tick(t, **tick_kw) -> dict:
+def checked_tick(t, shadow=False, **tick_kw) -> dict:
     """One tick (``run_tick(t, **tick_kw)``) under :func:`checked_run`."""
-    return checked_run(lambda: run_tick(t, **tick_kw))
+    return checked_run(lambda: run_tick(t, **tick_kw), shadow)
 
 
 # ---- K1 ----------------------------------------------------------------------
@@ -727,7 +783,7 @@ def check_q8(gen, kernel):
     return rows, tot
 
 
-# ---- K6 / K8 -----------------------------------------------------------------
+# ---- K5 / K6 / K7 / K8 ---------------------------------------------------------
 
 # (M, K, N, calls per tick) of the quantized chunk's linears at M <= 512: per
 # denoise step (x5) the 28 blocks' qkv (67, 2048, 6144) and proj, q, cross
@@ -741,57 +797,94 @@ QMM_SHAPES = [
     (64, 4096, 2048, 1), (64, 2048, 2048, 11), (64, 256, 2048, 5),
     (1, 256, 2048, 1), (1, 2048, 2048, 2),
 ]
+# (M, K, N, calls per chunk of configuration (f)) of the plain qdense calls
+# at M > 512 that K7 is held to: the image adaptor over 4374 tokens (1152 ->
+# 2048, 2048 -> 2048; every int8 configuration), and the 14 image K/V
+# projections of quantize_rdt_params(kv_proj='int8')
+K7_SHAPES = [(4374, 1152, 2048, 1), (4374, 2048, 2048, 1), (4374, 2048, 4096, 14)]
+
+
+def qmm_fns(kernel):
+    """(wrapper, plain version) of K5, K6, K7 or K8."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    return {"K5": (QM.w8a16_matmul, QM.w8a16_plain), "K6": (QM.a8w8_matmul, QM.a8w8_plain),
+            "K7": (QM.a8w8_matmul_large, QM.a8w8_large_plain),
+            "K8": (QM.w4a8_matmul, QM.w4a8_plain)}[kernel]
 
 
 def qmm_bound_ms(kernel, M, K, N):
     """(bytes ms, operations ms): bf16 x in and out written once; int8
-    weights (K6) or 0.5 byte per weight plus scale4 (K8); scale and bias;
-    2 M K N int8 operations at the int8 peak."""
+    weights (K5-K7) or 0.5 byte per weight plus scale4 (K8); scale and
+    bias; 2 M K N operations at the int8 peak, or the bf16 peak for K5,
+    whose int8 weights feed bf16 tensor cores."""
     from vla_touch_tpu_torch.ops.quant import pick_group_size
 
-    wbytes = N * K if kernel == "K6" else N * K // 2 + 4 * N * (K // pick_group_size(K))
+    wbytes = N * K if kernel != "K8" else N * K // 2 + 4 * N * (K // pick_group_size(K))
     nbytes = 2 * M * K + wbytes + 2 * 4 * N + 2 * M * N
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 2.0 * M * K * N / INT8_OPS
+    peak = BF16_FLOPS if kernel == "K5" else INT8_OPS
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 2.0 * M * K * N / peak
 
 
 def qmm_check(gen, kernel, M, K, N):
-    """K6 or K8 against its plain version at (M, K, N) on a quantized random
-    linear and x ~ N(0, 4) in bf16; returns (x, weights, max abs error,
-    tolerance) and raises on a miss."""
+    """K5, K6, K7 or K8 against its plain version at (M, K, N) on a
+    quantized random linear and x ~ N(0, 4) in bf16; returns (x, weights,
+    max abs error, tolerance, bf16 outputs unlike the plain version's
+    rounded to bf16) and raises on a miss."""
     import torch
 
     from vla_touch_tpu_torch.ops import quant as Q
-    from vla_touch_tpu_torch.ops import quant_matmul as QM
 
-    fn, plain = ((QM.a8w8_matmul, QM.a8w8_plain) if kernel == "K6" else
-                 (QM.w4a8_matmul, QM.w4a8_plain))
+    fn, plain = qmm_fns(kernel)
     lin = torch.nn.Linear(K, N, device="cuda")
     with torch.no_grad():
         lin.weight.copy_(torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5)
         lin.bias.copy_(torch.randn((N,), generator=gen, device="cuda") * 0.1)
-    leaf = Q.quantize_linear(lin) if kernel == "K6" else Q.quantize_linear_w4(lin)
-    wts = ((leaf.w_i8, leaf.scale, leaf.bias) if kernel == "K6" else
-           (leaf.w4_pack, leaf.scale4, leaf.bias))
+    leaf = Q.quantize_linear_w4(lin) if kernel == "K8" else Q.quantize_linear(lin)
+    wts = ((leaf.w4_pack, leaf.scale4, leaf.bias) if kernel == "K8" else
+           (leaf.w_i8, leaf.scale, leaf.bias))
+    del lin, leaf
     x = (torch.randn((M, K), generator=gen, device="cuda") * 2).to(torch.bfloat16)
     got = fn(x, *wts)
-    err, tol = hold(f"{kernel} ({M}, {K}, {N})", got, plain(x, *wts, out_dtype=torch.float32),
-                    QMM_TOL)
-    return x, wts, err, tol
+    want = plain(x, *wts, out_dtype=torch.float32)
+    err, tol = hold(f"{kernel} ({M}, {K}, {N})", got, want, QMM_TOL)
+    n_diff = int((got != want.to(torch.bfloat16)).sum())
+    if kernel in EXACT_KERNELS and n_diff:
+        raise AssertionError(f"{kernel} ({M}, {K}, {N}): {n_diff} bf16 outputs unlike the "
+                             f"plain version's rounded to bf16 (must be 0)")
+    return x, wts, err, tol, n_diff
+
+
+def qmm_library(kernel, x, sets):
+    """The yardstick of K5-K7 on ``x`` and the weight sets, as a function
+    of the set, or None (K8): ``torch._int_mm`` of x's int8 codes (the GEMM
+    alone) for K6/K7, ``F.linear`` on bf16 weights dequantized ahead of
+    time (twice K5's weight bytes) for K5."""
+    import torch
+    import torch.nn.functional as F
+
+    from vla_touch_tpu_torch.ops import quant as Q
+
+    if kernel == "K8":
+        return None
+    if kernel == "K5":
+        deq = [((w.float() * s[:, None]).to(torch.bfloat16), b.to(torch.bfloat16))
+               for w, s, b in sets]
+        return lambda i: F.linear(x, *deq[i])
+    xq = Q.quantize_rows(x)[0]
+    xq = torch.nn.functional.pad(xq, (0, 0, 0, max(0, 32 - x.shape[0])))   # cuBLASLt: M > 16
+    return lambda i: torch._int_mm(xq, sets[i][0].t())
 
 
 def check_qmm(gen, kernel, shapes=None):
     import torch
 
-    from vla_touch_tpu_torch.ops import quant as Q
-    from vla_touch_tpu_torch.ops import quant_matmul as QM
-
-    fn, plain = ((QM.a8w8_matmul, QM.a8w8_plain) if kernel == "K6" else
-                 (QM.w4a8_matmul, QM.w4a8_plain))
+    fn, plain = qmm_fns(kernel)
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
                bytes_ms=0.0, ops_ms=0.0)
     for M, K, N, calls in shapes or QMM_SHAPES:
-        x, wts, err, tol = qmm_check(gen, kernel, M, K, N)
+        x, wts, err, tol, n_diff = qmm_check(gen, kernel, M, K, N)
         tot["err"] = max(tot["err"], err)
         # distinct weight sets, >= 2x the L2 cache in all, so that the
         # timing loop streams the weights from device memory as the tick does
@@ -806,22 +899,29 @@ def check_qmm(gen, kernel, shapes=None):
             it[0] = (it[0] + 1) % n_sets
             return sets[it[0]]
 
-        xq = Q.quantize_rows(x)[0]
-        xq = torch.nn.functional.pad(xq, (0, 0, 0, max(0, 32 - M)))
+        library = qmm_library(kernel, x, sets)
+
+        def run_library():
+            library(it[0])
+            nxt()
+
         ms = graph_time_ms(lambda: fn(x, *nxt()))
         eager_ms = cuda_time_ms(lambda: fn(x, *nxt()))
         plain_ms = graph_time_ms(lambda: plain(x, *nxt()), calls=5)
-        lib_ms = (graph_time_ms(lambda: torch._int_mm(xq, nxt()[0].t()))
-                  if kernel == "K6" else None)
+        lib_ms = None if library is None else graph_time_ms(run_library)
+        del library
         b_ms, o_ms = qmm_bound_ms(kernel, M, K, N)
         bound = max(b_ms, o_ms)
-        rows.append(dict(M=M, K=K, N=N, calls=calls, max_abs_err=err, tol=tol, ms=ms,
-                         eager_ms=eager_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound))
-        lib = "" if lib_ms is None else f" torch._int_mm (GEMM only) {lib_ms:.4f} ms"
-        log(f"{kernel} M{M:3d} K{K:5d} N{N:5d}: err {err:.3e} (tol {tol:.3e}) kernel "
-            f"{ms:.4f} ms (eager loop {eager_ms:.4f}) plain {plain_ms:.4f} ms{lib} "
-            f"bound {bound:.4f} ms x{calls}/tick")
+        rows.append(dict(M=M, K=K, N=N, calls=calls, max_abs_err=err, tol=tol,
+                         bf16_unlike_plain=n_diff, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound, bound_by=bound_by(
+                             dict(bytes_ms=b_ms, ops_ms=o_ms))))
+        lib = "" if lib_ms is None else (
+            f" {'F.linear (bf16 weights)' if kernel == 'K5' else 'torch._int_mm (GEMM only)'} "
+            f"{lib_ms:.4f} ms")
+        log(f"{kernel} M{M:4d} K{K:5d} N{N:6d}: err {err:.3e} (tol {tol:.3e}; bf16 outputs "
+            f"unlike the plain version's {n_diff} of {M * N}) kernel {ms:.4f} ms (eager loop "
+            f"{eager_ms:.4f}) plain {plain_ms:.4f} ms{lib} bound {bound:.4f} ms x{calls}/tick")
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
                        ("bytes_ms", b_ms), ("ops_ms", o_ms)):
             tot[key] += calls * v
@@ -1029,19 +1129,28 @@ def profile_run(run, top: int = 12) -> dict:
 
 # ---- the quantized tick ----------------------------------------------------------
 
-# (name, weights, kv_cache, refine, launches the tick must make; every other
-# kernel must make none).  Per chunk: 870 quantized linears at M <= 512
-# (K6 for int8 leaves, K8 for int4), 140 cross-attentions over the
+# (name, runner, kv_cache, refine, launches the tick must make (every other
+# kernel must make none, K5 and K7 included: no module dispatches them),
+# shadow calls of its checked tick).  Per chunk: 870 quantized linears at
+# M <= 512 (K6 for int8 leaves, K8 for int4), 140 cross-attentions over the
 # condition cache (K3 for int8, K4 for int8t, K1 for bf16 and int8x), 140
 # self-attentions (K1); SigLIP's 27 and DinoV2's 12 layers (K1) and the
-# 120 UNet blocks of the refine (K2).
+# 120 UNet blocks of the refine (K2).  Runner "int8_kv" is int8 with int8
+# condition K/V projections (kv_proj='int8'), which run the plain qdense
+# and so launch nothing.  In (a) and (f) the checked tick also holds K5 on
+# the 870 K6 operands and K7 on the plain qdense calls at M > 512: the two
+# image-adaptor products, and in (f) the 14 image K/V projections.
 QUANT_CONFIGS = [
-    ("a", "int8", "int8", True, {"K1": 179, "K2": 120, "K3": 140, "K6": 870}),
-    ("b", "int8", "int8t", True, {"K1": 179, "K2": 120, "K4": 140, "K6": 870}),
-    ("c", "int8", "int8x", True, {"K1": 319, "K2": 120, "K6": 870}),
-    ("d", "mixed", "bf16", True, {"K1": 319, "K2": 120, "K6": 590, "K8": 280}),
-    ("e", "int4", "bf16", False, {"K1": 307, "K8": 870}),
+    ("a", "int8", "int8", True, {"K1": 179, "K2": 120, "K3": 140, "K6": 870},
+     {"K5": 870, "K7": 2}),
+    ("b", "int8", "int8t", True, {"K1": 179, "K2": 120, "K4": 140, "K6": 870}, {}),
+    ("c", "int8", "int8x", True, {"K1": 319, "K2": 120, "K6": 870}, {}),
+    ("d", "mixed", "bf16", True, {"K1": 319, "K2": 120, "K6": 590, "K8": 280}, {}),
+    ("e", "int4", "bf16", False, {"K1": 307, "K8": 870}, {}),
+    ("f", "int8_kv", "int8", True, {"K1": 179, "K2": 120, "K3": 140, "K6": 870},
+     {"K5": 870, "K7": 16}),
 ]
+INT8_RUNNERS = ("int8", "int8_kv")
 
 
 def check_outputs(out, refine=True):
@@ -1067,30 +1176,51 @@ def check_chk(what, chk, need):
     log(f"{what}: each kernel call against its plain version on the same operands "
         "(worst call): " + json.dumps({k: v for k, v in chk.items() if v["calls"]}))
     for kernel, s in chk.items():
-        if s["calls"] != need.get(kernel, 0) or not s["share"] <= 1.0:
+        if s["calls"] != need.get(kernel, 0) or not s["share"] <= 1.0 or s.get("unlike"):
             raise AssertionError(f"{what}: {kernel} on the tick's own operands: {s}")
+
+
+def quant_runners(rdt) -> dict:
+    """The quantized runners of QUANT_CONFIGS, from the bf16 runner."""
+    from vla_touch_tpu_torch.models.rdt import quant_serve as QS
+
+    return {"int8": QS.quantize_rdt_params(rdt, "int8"),
+            "int4": QS.quantize_rdt_params(rdt, "int4"),
+            "mixed": QS.quantize_rdt_params(rdt, "mixed",
+                                            w4_select=QS.make_w4_select(kinds=("fc1", "fc2"))),
+            "int8_kv": QS.quantize_rdt_params(rdt, "int8", kv_proj="int8")}
+
+
+def shadow_checked_tick(t, shadows, **kw):
+    """:func:`checked_tick` with K5 and K7 shadowed, their launch counts
+    zeroed before and read after; returns (checked, launches), each launch
+    one shadow call."""
+    fns = kernel_fns()
+    for k in ("K5", "K7"):
+        fns[k].launches = 0
+    chk = checked_tick(t, shadow=True, **kw)
+    launches = {k: fns[k].launches for k in ("K5", "K7")}
+    if launches != shadows or any(chk[k]["calls"] != n for k, n in shadows.items()):
+        raise AssertionError(f"shadow calls {launches}, checked "
+                             f"{ {k: chk[k]['calls'] for k in shadows} }, need {shadows}")
+    return chk, launches
 
 
 def quant_ticks(t, bf16_actions) -> dict:
     """Every configuration of QUANT_CONFIGS: the counted tick, the plain
-    tick and its corr gates, the checked tick, the corr against the bf16
-    chunk and the p50 of three ticks; then one tick through
-    ``create_model(rdt=...).step``."""
-    from vla_touch_tpu_torch.models.rdt import quant_serve as QS
+    tick and its corr gates, the checked tick (with K5 and K7 shadowed in
+    (a) and (f)), the corr against the bf16 chunk and the p50 of three
+    ticks; then one tick through ``create_model(rdt=...).step``."""
     from vla_touch_tpu_torch.runtime import policy as P
 
     t0 = time.perf_counter()
-    rdt = t["model"].rdt
-    runners = {"int8": QS.quantize_rdt_params(rdt, "int8"),
-               "int4": QS.quantize_rdt_params(rdt, "int4"),
-               "mixed": QS.quantize_rdt_params(rdt, "mixed",
-                                               w4_select=QS.make_w4_select(kinds=("fc1", "fc2")))}
-    log(f"quantized the bf16 RDT-1B runner three ways on the card: "
+    runners = quant_runners(t["model"].rdt)
+    log(f"quantized the bf16 RDT-1B runner four ways on the card: "
         f"{time.perf_counter() - t0:.1f} s")
     res = {}
-    for name, weights, kv, refine, need in QUANT_CONFIGS:
+    for name, weights, kv, refine, need, shadows in QUANT_CONFIGS:
         kw = dict(rdt=runners[weights], kv_cache=kv, refine=refine)
-        what = f"quant tick ({name}) weights={weights} kv_cache={kv}"
+        what = f"quant tick ({name}) runner={weights} kv_cache={kv}"
         run_tick(t, **kw)                            # warm-up
         zero_counts()
         out = run_tick(t, **kw)
@@ -1105,13 +1235,16 @@ def quant_ticks(t, bf16_actions) -> dict:
         log(f"{what}: kernel vs plain chunk corr {c_chunk:.6f} (min {CHUNK_CORR_MIN})"
             + (f", refined corr {c_ref:.6f} (min {REFINED_CORR_MIN})" if refine else "")
             + f"; chunk vs the bf16 tick's chunk corr {c_bf16:.6f}"
-            + (f" (min {INT8_CHUNK_CORR_MIN})" if weights == "int8" else " (no gate)"))
+            + (f" (min {INT8_CHUNK_CORR_MIN})" if weights in INT8_RUNNERS else " (no gate)"))
         if not (c_chunk > CHUNK_CORR_MIN and (not refine or c_ref > REFINED_CORR_MIN)):
             raise AssertionError(f"{what}: kernel tick disagrees with the plain tick")
-        if weights == "int8" and not c_bf16 > INT8_CHUNK_CORR_MIN:
+        if weights in INT8_RUNNERS and not c_bf16 > INT8_CHUNK_CORR_MIN:
             raise AssertionError(f"{what}: int8 chunk vs bf16 chunk corr {c_bf16}")
-        chk = checked_tick(t, **kw)
-        check_chk(what, chk, need)
+        if shadows:
+            chk, shadow_launches = shadow_checked_tick(t, shadows, **kw)
+        else:
+            chk, shadow_launches = checked_tick(t, **kw), {}
+        check_chk(what, chk, {**need, **shadows})
         ticks = []
         for _ in range(3):
             t1 = time.perf_counter()
@@ -1119,9 +1252,10 @@ def quant_ticks(t, bf16_actions) -> dict:
             ticks.append(1e3 * (time.perf_counter() - t1))
         log(f"{what}: tick p50 {np.median(ticks):.2f} ms (ticks "
             f"{[round(x, 2) for x in ticks]})")
-        res[name] = dict(weights=weights, kv_cache=kv, refine=refine, launches=counts,
+        res[name] = dict(runner=weights, kv_cache=kv, refine=refine, launches=counts,
                          corr_vs_plain=c_chunk, refined_corr_vs_plain=c_ref,
                          corr_vs_bf16_chunk=c_bf16, p50_ms=float(np.median(ticks)),
+                         shadow_launches=shadow_launches,
                          checked={k: v for k, v in chk.items() if v["calls"]})
     # the user entry point: a model built on the int8 runner dispatches to
     # the twin from step() (bf16 condition cache: step passes no kv_cache)
@@ -1161,6 +1295,11 @@ K8_LLM_SHAPES = [
 K6_LLM_SHAPES = [(M, K, N, n) for M in (24, 1)
                  for K, N, n in ((3584, 3584, 56), (3584, 512, 56), (3584, 18944, 56),
                                  (18944, 3584, 28))] + [(1, 3584, 152064, 1)]
+# K5 at the twin's linears (calls: the shadow calls of one checked tick),
+# and at the int8 request's M = 1 linears, all of whose K and N are
+# multiples of 128 (no call: the planner does not reach K5)
+K5_SHAPES = QMM_SHAPES + [(1, K, N, 0) for M, K, N, _ in K6_LLM_SHAPES
+                          if M == 1 and K % 128 == 0 and N % 128 == 0]
 # CLIP ViT-B/16 self-attention: the frames of one encode, 197 tokens
 K1_CLIP_SHAPES = [("clip_self", 4, 197, 197, 12, 64, "vit", None, 12)]
 ASK_QUERY = "Which feels softer, A/B?"      # 24 byte tokens: K9 in the prompt pass
@@ -1616,6 +1755,8 @@ def main() -> int:
     k4_rows, k4 = check_q8(gen, "K4")
     k6_rows, k6 = check_qmm(gen, "K6")
     k8_rows, k8 = check_qmm(gen, "K8")
+    k7_rows, k7 = check_qmm(gen, "K7", K7_SHAPES)
+    k5_rows, k5 = check_qmm(gen, "K5", K5_SHAPES)
 
     # ---- the bf16 tick
     t = build_tick(seed=0)
@@ -1675,7 +1816,8 @@ def main() -> int:
     # ---- the planner
     pl = planner_phase(gen)
     for name, rows in (("k1", k1_rows), ("k2", k2_rows), ("k3", k3_rows), ("k4", k4_rows),
-                       ("k6", k6_rows), ("k8", k8_rows), ("k8 llm", pl["k8_llm_rows"]),
+                       ("k5", k5_rows), ("k6", k6_rows), ("k7", k7_rows), ("k8", k8_rows),
+                       ("k8 llm", pl["k8_llm_rows"]),
                        ("k6 llm", pl["k6_llm_rows"]),
                        ("k1 clip", pl["k1_clip_rows"]), ("k9", list(pl["k9_rows"].values())),
                        ("k10", list(pl["k10_rows"].values()))):
@@ -1700,8 +1842,14 @@ def main() -> int:
               q["a"]["launches"]["K3"], k3),
         entry("flash_attention_q8t", "flash_attention_q8.cu", "ops/pallas_attention.py:424",
               q["b"]["launches"]["K4"], k4),
+        # K5 and K7: no module dispatches them (0 launches on every main path
+        # run above); their launches are the shadow calls of (f)'s checked tick
+        entry("w8a16_matmul", "w8a16_matmul.cu", "ops/pallas_matmul.py:98",
+              q["f"]["shadow_launches"]["K5"], k5),
         entry("a8w8_matmul", "a8w8_matmul.cu", "ops/pallas_matmul.py:192",
               q["a"]["launches"]["K6"], k6),
+        entry("a8w8_matmul_large", "a8w8_matmul_large.cu", "ops/pallas_matmul.py:272",
+              q["f"]["shadow_launches"]["K7"], k7),
         entry("w4a8_matmul", "w4a8_matmul.cu", "ops/pallas_matmul.py:395",
               q["e"]["launches"]["K8"], k8),
         entry("w4_swiglu_mlp", "w4_swiglu.cu", "ops/pallas_matmul.py:648",

@@ -1,7 +1,8 @@
 """PyTorch port, on the card: kernels K1 (flash attention), K2 (fused
-residual block), K3/K4 (flash attention over an int8 K/V cache), K6 (a8w8
-matmul), K8 (w4a8 matmul), K9 (w4 SwiGLU MLP) and K10 (w4 post-attention)
-against their plain versions on CUDA tensors.
+residual block), K3/K4 (flash attention over an int8 K/V cache), K5 (w8a16
+matmul), K6 (a8w8 matmul), K7 (a8w8 matmul for large M), K8 (w4a8 matmul),
+K9 (w4 SwiGLU MLP) and K10 (w4 post-attention) against their plain
+versions on CUDA tensors.
 
 These build the CUDA sources with nvcc and need an NVIDIA GPU; without one
 they skip (the ``cuda`` marker).  On a machine with a card run them with
@@ -187,6 +188,86 @@ def test_int8_matmul_kernels_refuse_what_they_do_not_take(cuda):
         QM.a8w8_matmul(x[:, :32].half(), w[:, :32].contiguous(), s)   # fp16 x
     with pytest.raises(ValueError):
         QM.w4a8_matmul(x[:, :32], w[:, :16], torch.ones((3, 8), device=cuda))  # odd G
+
+
+@pytest.mark.parametrize("M,K,N,x_dtype", [
+    (4374, 2048, 4096, torch.bfloat16),
+    (4374, 1152, 2048, torch.float32),
+    (300, 256, 512, torch.bfloat16),
+    (1, 128, 512, torch.float32),
+    (130, 2048, 1024, torch.bfloat16),
+])
+def test_a8w8_large_kernel_matches_plain(cuda, M, K, N, x_dtype):
+    """K7 vs its plain version (x quantized from float32 as given, rows
+    scaled by amax * (1/127)): the codes and int32 sums are exact and the
+    float32 epilogue runs in the same order, so the kernel's bf16 out is the
+    plain float32 out rounded, within one bf16 step (2^-8 relative); M 4374
+    is the image condition's length, with a partial 128-row tile."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    lin, Q = _int8_linear(g, N, K, cuda)
+    qp = Q.quantize_linear(lin)
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(x_dtype)
+    before = QM.a8w8_matmul_large.launches
+    got = QM.a8w8_matmul_large(x, qp.w_i8, qp.scale, qp.bias)
+    assert QM.a8w8_matmul_large.launches == before + 1
+    want = QM.a8w8_large_plain(x, qp.w_i8, qp.scale, qp.bias, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert float((got.float() - want).abs().max()) <= 2 ** -8 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("M,K,N,x_dtype", [
+    (67, 2048, 2048, torch.bfloat16),
+    (1, 256, 2048, torch.float32),
+    (33, 256, 512, torch.bfloat16),
+    (130, 384, 640, torch.bfloat16),
+    (1, 18944, 3584, torch.bfloat16),
+])
+def test_w8a16_kernel_matches_plain(cuda, M, K, N, x_dtype):
+    """K5 vs its plain version (the float32 product of the bf16 x and the
+    int8 weights): exact products, float32 sums in another order, so the
+    kernel's bf16 out is within one bf16 step (2^-8 relative) of the plain
+    float32 out.  M 130 takes two row blocks, the second partial."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    lin, Q = _int8_linear(g, N, K, cuda)
+    qp = Q.quantize_linear(lin)
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(x_dtype)
+    before = QM.w8a16_matmul.launches
+    got = QM.qdense_kernel_w8a16(x, qp)
+    assert QM.w8a16_matmul.launches == before + 1
+    want = QM.w8a16_plain(x, qp.w_i8, qp.scale, qp.bias, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert float((got.float() - want).abs().max()) <= 2 ** -8 * float(want.abs().max())
+
+
+def test_k5_k7_refuse_or_route_what_they_do_not_take(cuda):
+    """K7's entry sends N % 512 != 0 to the plain qdense (no launch); both
+    refuse fp16 x and a weight that is not 16-byte aligned; K5 refuses K
+    not a multiple of 128."""
+    from vla_touch_tpu_torch.ops import quant as Q
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    x = torch.randn((20, 256), device=cuda).to(torch.bfloat16)
+    w = torch.ones((384, 256), device=cuda, dtype=torch.int8)
+    s = torch.ones((384,), device=cuda)
+    n7 = QM.a8w8_matmul_large.launches
+    y = QM.a8w8_matmul_large(x, w, s)
+    assert QM.a8w8_matmul_large.launches == n7
+    assert torch.equal(y, Q.qdense(x, Q.QLinear(w, s)))
+    w = torch.ones((512, 256), device=cuda, dtype=torch.int8)
+    s = torch.ones((512,), device=cuda)
+    for fn in (QM.a8w8_matmul_large, QM.w8a16_matmul):
+        with pytest.raises(TypeError):
+            fn(x.half(), w, s)
+        with pytest.raises(ValueError):
+            fn(x[:, :128], w.reshape(-1)[1:1 + 512 * 128].view(512, 128), s)
+    with pytest.raises(ValueError):
+        QM.w8a16_matmul(x[:, :192], w[:, :192].contiguous(), s)
 
 
 # ---- K3 / K4: flash attention over an int8 K/V cache ---------------------------

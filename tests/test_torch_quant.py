@@ -406,6 +406,27 @@ def test_rdt_predict_action_quant_matches_jax(runners, weights, kv_cache):
     assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.999
 
 
+def test_rdt_predict_action_quant_int8_kv_proj_matches_jax(runners):
+    """Configuration (f) of ``chip_smoke.py``: int8 weights with int8
+    condition K/V projections (``kv_proj='int8'``, through the plain
+    ``qdense`` on both sides) and the int8 cache, the 3-step chunk vs JAX's
+    on the same weights and noise.  Gate as the chunk test's above:
+    <= 5e-2 x max|jax| and corr > 0.999."""
+    params, port = runners
+    jqp = JQS.quantize_rdt_params(params, weights="int8", kv_proj="int8")
+    tqp = TQS.quantize_rdt_params(port, weights="int8", kv_proj="int8")
+    assert all(isinstance(b.cross_attn.kv, TQ.QLinear) for b in tqp.model.blocks)
+    args, noise = _chunk_inputs()
+    with pltpu.force_tpu_interpret_mode():
+        want = _np(JQS.rdt_predict_action_quant(RCFG, jqp, jax.random.PRNGKey(1), *args,
+                                                kv_cache="int8", init_noise=noise))
+    got = TQS.rdt_predict_action_quant(TCFG, tqp, *(_t(a) for a in args), kv_cache="int8",
+                                       init_noise=_t(noise)).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.999
+
+
 def test_quant_chunk_golden_anchor():
     """The frozen ``quant_chunk.npz`` cold chunk (JAX int8 twin, 3 steps),
     reproduced from the converted JAX tree: <= 5e-2 x max|golden| and corr

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Fault controls for the K3/K4/K6/K8/K9/K10 gates of ``chip_smoke.py``:
+"""Fault controls for the K3-K10 gates of ``chip_smoke.py``:
 plant a known fault in a throwaway copy of a kernel source and read what
 each gate sees.
 
@@ -11,16 +11,20 @@ temporary directory, edits the named ``csrc/*.cu`` there, and in a child
 process that imports the copy:
 
 1. runs chip_smoke's correctness check of the faulted kernel(s) at every
-   shape of the quantized tick (K9/K10: of the planner, at Qwen2.5-7B
-   width) and prints, per shape, the max abs error against its tolerance,
-   or the miss;
+   shape of the quantized tick (K5: and of the planner's int8 request; K7:
+   the 4374-token condition products; K9/K10: of the planner, at
+   Qwen2.5-7B width) and prints, per shape, the max abs error against its
+   tolerance, or the miss, and for K5-K8 how many bf16 outputs differ
+   from the plain version's rounded to bf16;
 2. runs the full-width quantized tick in the configuration(s) that use the
    kernel, with the kernels and through the plain versions, and prints the
    chunk (and refined-action) correlations beside chip_smoke's gates, and
-   the chunk's correlation with the bf16 tick's;
+   the chunk's correlation with the bf16 tick's (K5 and K7 are on no main
+   path, so these cannot see their faults);
 3. runs chip_smoke's checked tick there (every kernel call against its
-   plain version on the same operands) and prints the worst call per
-   kernel against its tolerance (share <= 1 passes);
+   plain version on the same operands; in (a) and (f) with K5 and K7
+   shadowed on the tick's operands) and prints the worst call per kernel
+   against its tolerance (share <= 1 passes);
 4. for K9/K10, builds the full-width planner and prints the ask request's
    teacher-forced logits corr against the plain versions and a checked
    4-token decode, beside chip_smoke's gates.
@@ -41,7 +45,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # name: (source, text in it, its replacement, kernels to check, configurations)
 FAULTS = {
-    "none": (None, None, None, ("K3", "K4", "K6", "K8", "K9", "K10"), ("a", "b", "e")),
+    "none": (None, None, None, ("K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10"),
+             ("a", "b", "e", "f")),
+    # K5: the weight scale never applied in the first 32-column tile
+    "k5_scale_ignored_on_one_tile": (
+        "w8a16_matmul.cu", "float y = __fmul_rn(red[r][col], a.scale[n]);",
+        "float y = blockIdx.x == 0 ? red[r][col] : __fmul_rn(red[r][col], a.scale[n]);",
+        ("K5",), ("f",)),
+    # K7: the last 64-byte K chunk never multiplied
+    "k7_drop_last_k_chunk": ("a8w8_matmul_large.cu", "const int nk = K / KC;",
+                             "const int nk = K / KC - 1;", ("K7",), ("f",)),
+    # K7: rows scaled by qdense's amax / 127 where a8w8_matmul_large's
+    # amax * (1/127) belongs (one ulp apart for some amax)
+    "k7_row_scale_div_127": ("a8w8_matmul_large.cu", "/*rs_recip=*/1", "/*rs_recip=*/0",
+                             ("K7",), ("f",)),
     # K6: the last 64-wide K chunk of every row is never multiplied
     "k6_drop_last_k_chunk": ("a8w8_matmul.cu", "const int n_chunks = (K + KC - 1) / KC;",
                              "const int n_chunks = (K + KC - 1) / KC - 1;", ("K6",), ("a",)),
@@ -109,7 +126,6 @@ def child(fault: str) -> None:
 
     import chip_smoke as CS
     from vla_touch_tpu_torch.csrc import build
-    from vla_touch_tpu_torch.models.rdt import quant_serve as QS
 
     build.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -117,9 +133,11 @@ def child(fault: str) -> None:
     _, _, _, kernels, configs = FAULTS[fault]
     gen = torch.Generator(device="cuda").manual_seed(1234)
     leaves = None
+    qmm_shapes = {"K5": CS.K5_SHAPES, "K6": CS.QMM_SHAPES, "K7": CS.K7_SHAPES,
+                  "K8": CS.QMM_SHAPES}
     for kernel in kernels:
-        if kernel in ("K6", "K8"):
-            cases = [(f"M{M} K{K} N{N}", (M, K, N)) for M, K, N, _ in CS.QMM_SHAPES]
+        if kernel in qmm_shapes:
+            cases = [(f"M{M} K{K} N{N}", (M, K, N)) for M, K, N, _ in qmm_shapes[kernel]]
         elif kernel in ("K9", "K10"):
             leaves = leaves or CS.mk_leaves(gen)
             cases = [(f"M{M}", M) for M in (CS.K9_MS if kernel == "K9" else CS.K10_MS)]
@@ -129,8 +147,10 @@ def child(fault: str) -> None:
             try:
                 if kernel in ("K9", "K10"):
                     err, tol = CS.mk_check(kernel, CS.mk_operands(gen, kernel, shape, leaves))
-                elif kernel in ("K6", "K8"):
-                    _, _, err, tol = CS.qmm_check(gen, kernel, *shape)
+                elif kernel in qmm_shapes:
+                    _, _, err, tol, n_diff = CS.qmm_check(gen, kernel, *shape)
+                    M, _, N = shape
+                    name += f" (bf16 outputs unlike the plain version's: {n_diff} of {M * N})"
                 else:
                     B, Lq, Lkv, H, D, mask_kind = shape
                     ops = CS.q8_operands(gen, B, Lq, Lkv, H, D, kernel == "K4")
@@ -146,12 +166,12 @@ def child(fault: str) -> None:
         return
     t = CS.build_tick(seed=0)
     bf16 = CS.run_tick(t, refine=False)["actions"]
-    weights = {"a": "int8", "b": "int8", "e": "int4"}
-    kv = {"a": "int8", "b": "int8t", "e": "bf16"}
-    runners = {w: QS.quantize_rdt_params(t["model"].rdt, w) for w in
-               {weights[c] for c in configs}}
+    runners = CS.quant_runners(t["model"].rdt)
+    table = {name: (runner, kv, refine, shadows)
+             for name, runner, kv, refine, _, shadows in CS.QUANT_CONFIGS}
     for c in configs:
-        kw = dict(rdt=runners[weights[c]], kv_cache=kv[c], refine=c != "e")
+        runner, kv, refine, shadows = table[c]
+        kw = dict(rdt=runners[runner], kv_cache=kv, refine=refine)
         out = CS.run_tick(t, **kw)
         with CS.plain_kernels():
             out_p = CS.run_tick(t, **kw)
@@ -160,11 +180,11 @@ def child(fault: str) -> None:
         if kw["refine"]:
             corrs["refined"] = CS.action_corr(t, out["refined"], out_p["refined"])
         finite = bool(np.all(np.isfinite(out["actions"])))
-        print(f"{fault}: config ({c}) weights={weights[c]} kv_cache={kv[c]}: corr "
+        print(f"{fault}: config ({c}) runner={runner} kv_cache={kv}: corr "
               + json.dumps(corrs) + f" finite {finite}; gates: chunk > {CS.CHUNK_CORR_MIN}, "
               f"refined > {CS.REFINED_CORR_MIN}, int8 chunk vs bf16 > "
               f"{CS.INT8_CHUNK_CORR_MIN}", flush=True)
-        chk = CS.checked_tick(t, **kw)
+        chk = CS.checked_tick(t, shadow=bool(shadows), **kw)
         print(f"{fault}: config ({c}) checked tick (gate: share <= 1) "
               + json.dumps({k: v for k, v in chk.items() if v["calls"]}), flush=True)
 

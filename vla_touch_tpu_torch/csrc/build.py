@@ -28,7 +28,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
 SOURCES = ("flash_attention", "resblock", "a8w8_matmul", "w4a8_matmul",
-           "flash_attention_q8", "w4_swiglu", "w4_postattn")
+           "flash_attention_q8", "w4_swiglu", "w4_postattn", "a8w8_matmul_large",
+           "w8a16_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,8 +1,9 @@
-// Shared by the int8 matmul kernels (a8w8_matmul.cu, w4a8_matmul.cu): the
-// per-token activation quantization launch, the int8 tensor-core step, and
-// the host sequence "quantize x, then launch the GEMM" with its row tiling.
-// Each including .cu is a library of its own, so the header also defines
-// that library's vtt_error_string.
+// Shared by the int8 matmul kernels (a8w8_matmul.cu, w4a8_matmul.cu,
+// a8w8_matmul_large.cu; w8a16_matmul.cu takes ld128 and the error string):
+// the per-token activation quantization launch, the int8 tensor-core step,
+// and the host sequence "quantize x, then launch the GEMM" with its row
+// tiling.  Each including .cu is a library of its own, so the header also
+// defines that library's vtt_error_string.
 //
 // Quantization follows vla_touch_tpu/ops/quant.py::qdense exactly, so the
 // codes are those of the plain version and of the JAX package:
@@ -10,6 +11,9 @@
 //   x_i8 = clip(rint(x * (127 / amax)), -127, 127)   (round half to even)
 //   rs   = amax / 127                                 (the row's scale)
 // with IEEE division (nvcc's default -prec-div=true) and rintf, never roundf.
+// With rs_recip the row's scale is amax * (1/127) instead, as
+// pallas_matmul.py::a8w8_matmul_large computes it (:260): one ulp from
+// amax / 127 for some amax.
 //
 // The tensor-core step is mma.sync m16n8k32 s8 x s8 -> s32.  Both operands
 // are K-contiguous rows (x_i8 (M, K), w (N, K)), and each thread loads 16
@@ -37,11 +41,11 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // One CTA per row m: x (M, K) with row stride x_sm elements -> xq (M, K)
-// int8 contiguous and rs[m] = amax / 127.
+// int8 contiguous and rs[m] = amax / 127 (rs_recip: amax * (1/127)).
 template <typename T>
 __global__ void __launch_bounds__(QUANT_THREADS)
 quantize_rows_kernel(const T* __restrict__ x, long long x_sm, int K,
-                     int8_t* __restrict__ xq, float* __restrict__ rs) {
+                     int8_t* __restrict__ xq, float* __restrict__ rs, int rs_recip) {
   __shared__ float red[QUANT_THREADS / 32];
   const int m = blockIdx.x;
   const T* row = x + (long long)m * x_sm;
@@ -63,18 +67,19 @@ quantize_rows_kernel(const T* __restrict__ x, long long x_sm, int K,
     const float q = fminf(fmaxf(rintf(__fmul_rn(to_float(row[k]), inv)), -127.f), 127.f);
     out[k] = (int8_t)(int)q;
   }
-  if (threadIdx.x == 0) rs[m] = amax / 127.0f;
+  if (threadIdx.x == 0) rs[m] = rs_recip ? __fmul_rn(amax, 1.0f / 127.0f) : amax / 127.0f;
 }
 
 // Launch the quantization of x (bf16 when x_f32 == 0, else float32).
 inline cudaError_t quantize_rows(const void* x, int x_f32, long long x_sm, int M,
-                                 int K, int8_t* xq, float* rs, cudaStream_t stream) {
+                                 int K, int8_t* xq, float* rs, cudaStream_t stream,
+                                 int rs_recip = 0) {
   if (x_f32)
     quantize_rows_kernel<float><<<M, QUANT_THREADS, 0, stream>>>(
-        (const float*)x, x_sm, K, xq, rs);
+        (const float*)x, x_sm, K, xq, rs, rs_recip);
   else
     quantize_rows_kernel<__nv_bfloat16><<<M, QUANT_THREADS, 0, stream>>>(
-        (const __nv_bfloat16*)x, x_sm, K, xq, rs);
+        (const __nv_bfloat16*)x, x_sm, K, xq, rs, rs_recip);
   return cudaGetLastError();
 }
 

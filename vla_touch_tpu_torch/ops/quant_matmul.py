@@ -1,6 +1,11 @@
 """K6 (a8w8) and K8 (w4a8): the wrappers of ``csrc/a8w8_matmul.cu`` and
 ``csrc/w4a8_matmul.cu``, and the dispatchers of the serving path
-(counterpart of the serving part of ``vla_touch_tpu/ops/pallas_matmul.py``).
+(counterpart of the serving part of ``vla_touch_tpu/ops/pallas_matmul.py``);
+K7 (a8w8, large M) and K5 (w8a16): the wrappers of
+``csrc/a8w8_matmul_large.cu`` and ``csrc/w8a16_matmul.cu``, reached only
+through their own entries (:func:`a8w8_matmul_large`, :func:`w8a16_matmul`
+and :func:`qdense_kernel_w8a16`), since no module of the JAX package
+dispatches ``a8w8_matmul_large`` or ``w8a16_matmul`` either.
 
 :func:`a8w8_matmul` and :func:`w4a8_matmul` launch their CUDA kernel on
 CUDA tensors and compute their plain versions (``ops/quant.py::qdense`` /
@@ -60,6 +65,34 @@ def w4a8_plain(x, w4_pack, scale4, bias=None, out_dtype=torch.bfloat16):
     return Q.qdense_w4(x, _Int4Leaf(w4_pack, scale4, bias), out_dtype=out_dtype)
 
 
+def a8w8_large_plain(x, w_i8, scale, bias=None, out_dtype=torch.bfloat16):
+    """The plain version of K7: what ``pallas_matmul.py::a8w8_matmul_large``
+    computes (:257-260 and ``_i8mm_kernel``).  Not quite ``qdense``: x is
+    quantized from float32 as given, and a row scales by ``amax * (1/127)``
+    where ``qdense`` divides by 127 (one ulp apart for some amax); the
+    int32 sum is exact (``Q.int_matmul``), the rest float32 in the kernel's
+    order, ``(acc * rs) * scale + bias``."""
+    *lead, K = x.shape
+    x_i8, amax = Q.quantize_rows(x.reshape(-1, K))
+    y = Q.int_matmul(x_i8, w_i8).float() * (amax * (1.0 / 127.0)) * scale
+    if bias is not None:
+        y = y + bias
+    return y.to(out_dtype).reshape(*lead, -1)
+
+
+def w8a16_plain(x, w_i8, scale, bias=None, out_dtype=torch.bfloat16):
+    """The plain version of K5 (``pallas_matmul.py::_w8a16_kernel``): x
+    rounded to bf16, the int8 weights as they are, a float32 product of
+    those exact values (not ``Q.dense_f32acc``, which rounds the product to
+    bf16 on the card), then ``acc * scale + bias`` in float32."""
+    *lead, K = x.shape
+    y = x.reshape(-1, K).to(torch.bfloat16).float() @ w_i8.float().t()
+    y = y * scale
+    if bias is not None:
+        y = y + bias
+    return y.to(out_dtype).reshape(*lead, -1)
+
+
 def _check_x(name, x, K):
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: x must be bfloat16 or float32, got {x.dtype}")
@@ -76,19 +109,24 @@ def _check_vec(name, what, t, n, device):
                          f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _check_w_i8(name, w_i8, K, device):
+    if w_i8.dtype != torch.int8 or w_i8.dim() != 2 or w_i8.shape[1] != K \
+            or not w_i8.is_contiguous() or w_i8.device != device or w_i8.data_ptr() % 16:
+        raise ValueError(f"{name}: w_i8 must be a contiguous, 16-byte aligned int8 (N, {K}) "
+                         f"on {device}, got {w_i8.dtype} {tuple(w_i8.shape)} on {w_i8.device}")
+
+
 def a8w8_matmul(x, w_i8, scale, bias=None):
     """x (..., K) bf16/f32 . int8 W -> (..., N) bf16.  ``w_i8`` (N, K) int8
-    contiguous with K % 16 == 0, ``scale`` (N,) and ``bias`` (N,) float32.
+    contiguous and 16-byte aligned with K % 16 == 0, ``scale`` (N,) and
+    ``bias`` (N,) float32.
     CUDA: the K6 kernel; CPU: :func:`a8w8_plain`; anything else raises."""
     if x.device.type == "cpu":
         return a8w8_plain(x, w_i8, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"a8w8_matmul: unsupported device {x.device}")
     *lead, K = x.shape
-    if w_i8.dtype != torch.int8 or w_i8.dim() != 2 or w_i8.shape[1] != K \
-            or not w_i8.is_contiguous() or w_i8.device != x.device:
-        raise ValueError(f"a8w8_matmul: w_i8 must be a contiguous int8 (N, {K}) on "
-                         f"{x.device}, got {w_i8.dtype} {tuple(w_i8.shape)}")
+    _check_w_i8("a8w8_matmul", w_i8, K, x.device)
     if K % 16:
         raise ValueError(f"a8w8_matmul: K = {K} must be a multiple of 16")
     N = w_i8.shape[0]
@@ -159,6 +197,104 @@ def w4a8_matmul(x, w4_pack, scale4, bias=None):
 
 
 w4a8_matmul.launches = 0
+
+
+def a8w8_large_takes(K: int, N: int) -> bool:
+    """Whether :func:`a8w8_matmul_large` sends a (K, N) product to K7: K a
+    multiple of 128 and N of 512, as ``a8w8_matmul_large`` (:249, at its
+    default ``block_n``) sends it to its kernel and else to XLA's
+    ``qdense``."""
+    return K % 128 == 0 and N % 512 == 0
+
+
+def a8w8_matmul_large(x, w_i8, scale, bias=None):
+    """x (..., K) bf16/f32 . int8 W -> (..., N) bf16, for large M (the
+    once-per-chunk condition products over 4374 image tokens).  ``w_i8``
+    (N, K) int8 contiguous and 16-byte aligned, ``scale`` and ``bias`` (N,)
+    float32.
+
+    Routes on shape alone, as the JAX function does: K not a multiple of
+    128 or N not of 512 (:func:`a8w8_large_takes`) -> the plain
+    ``ops/quant.py::qdense`` on any device (JAX: ``_xla_int8_fallback``).
+    Else CUDA: the K7 kernel (a quantize launch, then the GEMM; counted
+    once); CPU: :func:`a8w8_large_plain`; anything else raises."""
+    *lead, K = x.shape
+    N = w_i8.shape[0]
+    if not a8w8_large_takes(K, N):
+        return Q.qdense(x, _Int8Leaf(w_i8, scale, bias))
+    if x.device.type == "cpu":
+        return a8w8_large_plain(x, w_i8, scale, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"a8w8_matmul_large: unsupported device {x.device}")
+    _check_w_i8("a8w8_matmul_large", w_i8, K, x.device)
+    _check_vec("a8w8_matmul_large", "scale", scale, N, x.device)
+    if bias is not None:
+        _check_vec("a8w8_matmul_large", "bias", bias, N, x.device)
+    x2 = _check_x("a8w8_matmul_large", x, K)
+    M = x2.shape[0]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0 or N == 0:
+        return out.reshape(*lead, N)
+    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    rs = torch.empty((M,), dtype=torch.float32, device=x.device)
+    lib, f = build.entry("a8w8_matmul_large",
+                         [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+    err = f(x2.data_ptr(), int(x2.dtype == torch.float32), x2.stride(0), w_i8.data_ptr(),
+            scale.data_ptr(), None if bias is None else bias.data_ptr(), xq.data_ptr(),
+            rs.data_ptr(), out.data_ptr(), M, N, K,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "a8w8_matmul_large")
+    a8w8_matmul_large.launches += 1
+    return out.reshape(*lead, N)
+
+
+a8w8_matmul_large.launches = 0
+
+
+def w8a16_matmul(x, w_i8, scale, bias=None):
+    """x (..., K) bf16/f32 . int8 W -> (..., N) bf16, weight-only int8: x
+    is rounded to bf16 and never quantized.  ``w_i8`` (N, K) int8
+    contiguous and 16-byte aligned, ``scale`` and ``bias`` (N,) float32.
+    K and N must be multiples of 128 on every device (the JAX function
+    asserts it, :80).  CUDA: the K5 kernel; CPU: :func:`w8a16_plain`;
+    anything else raises."""
+    *lead, K = x.shape
+    N = w_i8.shape[0]
+    if K % 128 or N % 128:
+        raise ValueError(f"w8a16_matmul: K = {K} and N = {N} must be multiples of 128")
+    if x.device.type == "cpu":
+        return w8a16_plain(x, w_i8, scale, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"w8a16_matmul: unsupported device {x.device}")
+    _check_w_i8("w8a16_matmul", w_i8, K, x.device)
+    _check_vec("w8a16_matmul", "scale", scale, N, x.device)
+    if bias is not None:
+        _check_vec("w8a16_matmul", "bias", bias, N, x.device)
+    x2 = _check_x("w8a16_matmul", x, K)
+    if x2.dtype != torch.bfloat16 or not x2.is_contiguous() or x2.data_ptr() % 16:
+        # the kernel reads whole 16-byte pieces of bf16 rows
+        x2 = x2.to(torch.bfloat16, memory_format=torch.contiguous_format, copy=True)
+    M = x2.shape[0]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0 or N == 0:
+        return out.reshape(*lead, N)
+    lib, f = build.entry("w8a16_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _P])
+    err = f(x2.data_ptr(), w_i8.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "w8a16_matmul")
+    w8a16_matmul.launches += 1
+    return out.reshape(*lead, N)
+
+
+w8a16_matmul.launches = 0
+
+
+def qdense_kernel_w8a16(x, qp: Q.QLinear):
+    """An int8 leaf through K5, bf16 out: the counterpart of
+    ``pallas_matmul.py::qdense_pallas`` (weight-only int8, lower error than
+    the a8w8 scheme).  No module of the serving path calls it."""
+    return w8a16_matmul(x, qp.w_i8, qp.scale, qp.bias)
 
 
 def qdense_kernel_a8w8(x, qp: Q.QLinear):
