@@ -29,8 +29,9 @@
 4. Holds the int8/int4 serving kernels against their plain versions at
    every shape the quantized tick gives them (K6 a8w8 and K8 w4a8 at the
    eight (M, K, N) linears; K3 and K4, flash attention over the int8 K/V
-   cache in its two layouts, at the image and ragged-language shapes plus
-   a fully masked row), timed as K1 is, with ``torch._int_mm`` (K6's GEMM
+   cache in its two layouts, at the image and ragged-language shapes, plus
+   check-only shapes at a fully masked row and at the kernel's split
+   boundaries), timed as K1 is, with ``torch._int_mm`` (K6's GEMM
    alone) and SDPA on the dequantized bf16 cache (K3/K4) as yardsticks.
    Then the two kernels no module dispatches, as the JAX package
    dispatches neither: K7 (``a8w8_matmul_large``) at the 4374-token
@@ -52,7 +53,7 @@
    16 shadow calls); the int8 chunks are held to the bf16 tick's chunk
    (corr > 0.999).  One more tick goes through
    ``create_model(rdt=...).step``.  Configuration (a) is timed by stage and
-   profiled.
+   profiled, and (b) profiled.
 6. The planner: holds K9 (w4 SwiGLU MLP) and K10 (w4 post-attention) at
    Qwen2.5-7B width (M 1, 8, 24 and 1, 8), K8 at the planner's w4 linears
    (decode and prompt-pass M), K6 at the int8 request's linears and K1 at
@@ -681,12 +682,42 @@ def check_k2(gen):
 # (name, B, Lq, Lkv, H, D, mask kind, calls per tick) of the quantized tick's
 # cross-attentions over the int8 condition cache: q is the q_norm output
 # (contiguous), the cache is quantize_kv(_t) of a normed k copy and a
-# strided v view of the fused kv projection
+# strided v view of the fused kv projection.  The check-only rows (0 calls)
+# hold the kernel's split boundaries: a ragged last tile at several splits
+# (1000 keys), a mask that kills one whole split, and B 2 where row 0 keeps
+# 50 keys (its other splits all masked) and row 1 none.
 Q8_SHAPES = [
     ("rdt_image_cross", 1, 67, 4374, 32, 64, None, 70),
     ("rdt_lang_cross", 1, 67, 64, 32, 64, "ragged", 70),
     ("rdt_lang_cross_empty_row", 2, 67, 64, 32, 64, "empty", 0),
+    ("split_ragged_1000", 1, 67, 1000, 32, 64, None, 0),
+    ("image_dead_split", 1, 67, 4374, 32, 64, "dead_split", 0),
+    ("image_b2_empty_row", 2, 67, 4374, 32, 64, "empty", 0),
 ]
+
+
+def q8_splits(B, Lq, Lkv, H):
+    """(splits, tiles per split) the K3/K4 wrapper picks on this card."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+
+    return FQ.split_plan(B, Lq, Lkv, H, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def q8_mask(B, Lq, Lkv, H, kind):
+    """:func:`k1_mask`'s kinds, or "dead_split": every key of the kernel's
+    second split masked."""
+    import torch
+
+    if kind != "dead_split":
+        return k1_mask(B, Lkv, kind)
+    splits, tps = q8_splits(B, Lq, Lkv, H)
+    if splits < 3:
+        raise AssertionError(f"dead_split needs 3 splits or more, the plan has {splits}")
+    mask = torch.ones((B, Lkv), dtype=torch.bool, device="cuda")
+    mask[:, tps * 64:2 * tps * 64] = False
+    return mask
 
 
 def q8_operands(gen, B, Lq, Lkv, H, D, transposed):
@@ -738,10 +769,12 @@ def check_q8(gen, kernel):
     for name, B, Lq, Lkv, H, D, mask_kind, calls in Q8_SHAPES:
         n_sets = max(1, min(8, -(-2 * L2_BYTES // (2 * B * Lkv * H * D))))
         sets = [q8_operands(gen, B, Lq, Lkv, H, D, transposed) for _ in range(n_sets)]
-        mask = k1_mask(B, Lkv, mask_kind)
+        mask = q8_mask(B, Lq, Lkv, H, mask_kind)
         err, tol = q8_check(kernel, sets[0], mask)
         tot["err"] = max(tot["err"], err)
-        where = f"{kernel} {name:26s} B{B} Lq{Lq} Lkv{Lkv} H{H} D{D}"
+        splits, tps = q8_splits(B, Lq, Lkv, H)
+        where = (f"{kernel} {name:26s} B{B} Lq{Lq} Lkv{Lkv} H{H} D{D} splits {splits} x "
+                 f"{tps} tiles")
         if calls == 0:
             log(f"{where}: err {err:.3e} (tol {tol:.3e}), fully masked rows 0; check only")
             continue
@@ -772,7 +805,7 @@ def check_q8(gen, kernel):
         b_ms, o_ms = q8_bound_ms(B, Lq, Lkv, H, D, mask is not None)
         bound = max(b_ms, o_ms)
         rows.append(dict(shape=name, B=B, Lq=Lq, Lkv=Lkv, H=H, D=D, calls=calls,
-                         max_abs_err=err, tol=tol, ms=ms, eager_ms=eager_ms,
+                         splits=splits, max_abs_err=err, tol=tol, ms=ms, eager_ms=eager_ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound))
         log(f"{where}: err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms (eager loop "
             f"{eager_ms:.4f}) plain {plain_ms:.4f} ms sdpa-on-dequantized {lib_ms:.4f} ms "
@@ -1074,6 +1107,7 @@ def siglip_tokens(t):
 PROFILE_GROUPS = (("K1 flash_fwd_kernel", "flash_fwd_kernel"),
                   ("K2 resblock_*", "resblock_"),
                   ("K3/K4 flash_q8_kernel", "flash_q8_kernel"),
+                  ("K3/K4 flash_q8_combine_kernel", "flash_q8_combine_kernel"),
                   ("K6 a8w8_gemm_kernel", "a8w8_gemm_kernel"),
                   ("K8 w4a8_gemm_kernel", "w4a8_gemm_kernel"),
                   ("K6/K8 quantize_rows_kernel", "quantize_rows_kernel"),
@@ -1810,6 +1844,8 @@ def main() -> int:
     log("quant tick (a) stage p50 ms (ticks with a synchronise after each stage): "
         + json.dumps({k: round(float(np.median(v)), 3) for k, v in stages.items()}))
     log("quant tick (a) profile: " + json.dumps(profile_tick(t, **qa)))
+    log("quant tick (b) profile: " + json.dumps(
+        profile_tick(t, rdt=q["runners"]["int8"], kv_cache="int8t")))
     log("quant ticks: " + json.dumps({k: v for k, v in q.items() if k != "runners"}))
     del q["runners"], qa, t
 

@@ -273,15 +273,21 @@ def test_k5_k7_refuse_or_route_what_they_do_not_take(cuda):
 # ---- K3 / K4: flash attention over an int8 K/V cache ---------------------------
 
 @pytest.mark.parametrize("B,Lq,Lkv,H,mask_kind", [
-    (1, 67, 4374, 32, None),
-    (1, 67, 64, 32, "ragged"),
+    (1, 67, 4374, 32, None),             # the image cache: 18 splits, combined
+    (2, 67, 4374, 32, "fully_masked"),   # row 0 loses its last quarter, row 1 all
+    (1, 67, 4374, 32, "dead_split"),     # every key of the second split masked
+    (1, 67, 64, 32, "ragged"),           # the language cache: one split
+    (1, 67, 1, 32, None),
+    (1, 67, 65, 32, "ragged"),           # two tiles, the second ragged
+    (1, 67, 1000, 32, None),             # a ragged last tile at 8 splits
+    (1, 200, 1000, 4, "ragged"),         # two query tiles, each split
     (2, 35, 300, 4, "fully_masked"),
 ])
 @pytest.mark.parametrize("transposed", [False, True])
 def test_flash_attention_q8_kernels_match_plain(cuda, B, Lq, Lkv, H, mask_kind, transposed):
     """K3 (B, L, H, D cache) and K4 (B, H, D, L cache) vs the plain version:
     max abs error <= 2e-2 x max|plain| (bf16 p and output); fully masked
-    rows exactly 0."""
+    rows exactly 0; one launch counted per call, combine included."""
     from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
 
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -294,7 +300,12 @@ def test_flash_attention_q8_kernels_match_plain(cuda, B, Lq, Lkv, H, mask_kind, 
     quant = FQ.quantize_kv_t if transposed else FQ.quantize_kv
     cache = quant(kv[:, :, 0], kv[:, :, 1])
     mask = None
-    if mask_kind:
+    if mask_kind == "dead_split":
+        splits, tps = FQ.split_plan(B, Lq, Lkv, H, FQ._sm_count(cuda.index or 0))
+        assert splits >= 3
+        mask = torch.ones((B, Lkv), dtype=torch.bool, device=cuda)
+        mask[:, tps * 64:2 * tps * 64] = False
+    elif mask_kind:
         mask = torch.ones((B, Lkv), dtype=torch.bool, device=cuda)
         mask[0, Lkv * 3 // 4:] = False
         if mask_kind == "fully_masked":

@@ -234,6 +234,46 @@ def test_rmsnorm_mlp_mish(rng):
     _close(tnn.gelu_tanh(_t(x)), jnn.gelu_tanh(jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("name", ["silu", "gelu_tanh", "quick_gelu"])
+def test_bf16_activations_match_jax_bit_for_bit(rng, name):
+    """On bf16 the port's activations equal JAX's jitted ones bit for bit:
+    XLA rounds each operation to bf16, so the port writes the operations
+    out.  The single-rounding torch forms (F.silu, F.gelu, torch.sigmoid)
+    differ on these inputs, so the test sees the fault it guards."""
+    import torch.nn.functional as F
+
+    jfn = {"silu": jax.nn.silu, "gelu_tanh": lambda h: jax.nn.gelu(h, approximate=True),
+           "quick_gelu": lambda h: h * jax.nn.sigmoid(1.702 * h)}[name]
+    once = {"silu": F.silu, "gelu_tanh": lambda h: F.gelu(h, approximate="tanh"),
+            "quick_gelu": lambda h: h * torch.sigmoid(1.702 * h)}[name]
+    x = jnp.asarray(rng.normal(size=(64, 512)) * 3, jnp.bfloat16)
+    want = np.asarray(jax.jit(jfn)(x).astype(jnp.float32))
+    xt = _t(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16)
+    np.testing.assert_array_equal(getattr(tnn, name)(xt).float().numpy(), want)
+    assert (once(xt).float().numpy() != want).mean() > 0.1
+
+
+@pytest.mark.parametrize("name", ["siglip_normalize", "imagenet_normalize"])
+def test_image_normalize_matches_jax_jit_bit_for_bit(rng, name):
+    """Every uint8 value, channels-last, bit for bit against the JAX
+    function under jit (where it runs: XLA multiplies by the float32
+    reciprocal and fuses the subtraction into an FMA).  Dividing as torch
+    does (x / 255.0 ...) differs."""
+    from vla_touch_tpu.utils import image as JI
+    from vla_touch_tpu_torch.utils import image as TI
+
+    img = np.concatenate([np.arange(256, dtype=np.uint8).repeat(3).reshape(1, 16, 16, 3),
+                          rng.integers(0, 256, size=(1, 16, 16, 3)).astype(np.uint8)])
+    want = np.asarray(jax.jit(getattr(JI, name))(jnp.asarray(img)))
+    np.testing.assert_array_equal(getattr(TI, name)(_t(img)).numpy(), want)
+    x = _t(img).float() / 255.0
+    if name == "siglip_normalize":
+        divided = (x - 0.5) / 0.5
+    else:
+        divided = (x - torch.tensor([0.485, 0.456, 0.406])) / torch.tensor([0.229, 0.224, 0.225])
+    assert (divided.numpy() != want).mean() > 0.1
+
+
 def test_self_and_cross_attention_modules(rng):
     B, N, L, C, H = 2, 7, 19, 64, 4
     x = rng.normal(size=(B, N, C)).astype(np.float32)

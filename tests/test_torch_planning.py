@@ -322,6 +322,26 @@ def test_w4_postattn_matches_jax_kernel(rng, Ka, D, F, M):
         np.testing.assert_allclose(got, want, rtol=3e-2, atol=5e-2)
 
 
+@pytest.mark.parametrize("tree", ["int8", "int4"])
+def test_swiglu_mlp_matches_jax_bit_for_bit(trees, monkeypatch, tree):
+    """The composed MLP of the int8 and unfused w4 trees (gate, up, SiLU *
+    up, per-token int8 requantization, down) on bf16 activations equals
+    JAX's bit for bit: the SiLU rounds after each operation, as XLA's
+    does.  ``F.silu``, which rounds once, moves the requantized product and
+    so the output on these inputs (g, u ~ N(0, 9))."""
+    import torch.nn.functional as F
+
+    jt, tt = trees[tree]
+    h = np.random.default_rng(7).normal(size=(4, 9, CFG.hidden_size)) * 3
+    hj = jnp.asarray(h, jnp.bfloat16)
+    ht = _t(_np(hj), torch.bfloat16)
+    want = _np(JL._mlp(jt["layers"][0], {}, 1.0, hj))
+    got = TL._mlp(tt.layers[0], {}, 1.0, ht).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    monkeypatch.setattr(TL, "silu", F.silu)
+    assert np.any(TL._mlp(tt.layers[0], {}, 1.0, ht).float().numpy() != want)
+
+
 def test_silu_mul_matches_jax(rng):
     g = rng.normal(size=(64,)).astype(np.float32) * 3
     u = rng.normal(size=(64,)).astype(np.float32)

@@ -250,6 +250,77 @@ def test_attention_q8_plain_matches_jax_kernels(rng, transposed):
     assert np.all(got[-1] == 0.0) and np.all(want[-1] == 0.0)
 
 
+def _split_merged(q, k_i8, k_scale, v_i8, v_scale, mask, bounds):
+    """``attention_q8_plain`` cut along Lkv at ``bounds`` and merged with
+    the combine launch's rule: per split the unnormalised acc = p.v, m (the
+    split's max, -1e30 when it has no valid key) and l = sum p with p =
+    exp(s - m); then m* = max m_s, l* = sum e^(m_s - m*) l_s and out = sum
+    e^(m_s - m*) acc_s / max(l*, 1e-30) x v_scale.  float32 throughout."""
+    qs = FQ.prescale_q(q, k_scale).float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", qs, k_i8.float())
+    scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
+    parts = []
+    for a, b in zip(bounds, bounds[1:]):
+        s = scores[..., a:b]
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None]) * mask[:, None, None, a:b]
+        parts.append((torch.einsum("bhqk,bkhd->bhqd", p, v_i8[:, a:b].float()), m, p.sum(-1)))
+    m_star = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    acc = l_star = 0.0
+    for a, m, l in parts:
+        w = torch.exp(m - m_star)
+        l_star = l_star + w * l
+        acc = acc + w[..., None] * a
+    out = acc / torch.clamp_min(l_star, 1e-30)[..., None] * v_scale[:, :, None]
+    return out.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_split_merge_rule_matches_plain_and_jax(rng, transposed):
+    """The combine's rule over 64-key-tile splits (3 tiles each, the last
+    split ragged) equals ``attention_q8_plain`` to float32 rounding (1e-5 x
+    max|plain|) and JAX's ``flash_cross_attention_q8`` / ``_q8t`` in
+    interpret mode to 2e-2 x max|jax| (the Pallas kernel rounds p and the
+    output to bf16).  Row 0 keeps only keys of the first split, so every
+    later split of it is all masked; the last row is fully masked and
+    comes out exactly 0."""
+    q, k, v, mask = _kv_case(rng, 2, 67, 600, 2, 64)
+    mask[0, 150:] = False
+    jq, tq = (JPA.quantize_kv_t, FQ.quantize_kv_t) if transposed else \
+        (JPA.quantize_kv, FQ.quantize_kv)
+    kern = JPA.flash_cross_attention_q8t if transposed else JPA.flash_cross_attention_q8
+    want_jax = _np(kern(q, *jq(k, v), kv_mask=jnp.asarray(mask), interpret=True))
+    k_i8, ks, v_i8, vs = tq(_t(_np(k)).to(torch.bfloat16), _t(_np(v)).to(torch.bfloat16))
+    if transposed:
+        k_i8, v_i8 = k_i8.permute(0, 3, 1, 2), v_i8.permute(0, 3, 1, 2)
+    qt = _t(_np(q)).to(torch.bfloat16)
+    got = _split_merged(qt.float(), k_i8, ks, v_i8, vs, _t(mask), [0, 192, 384, 576, 600])
+    plain = FQ.attention_q8_plain(qt.float(), k_i8, ks, v_i8, vs, kv_mask=_t(mask))
+    assert float((got - plain).abs().max()) <= 1e-5 * float(plain.abs().max())
+    got = got.numpy()
+    assert np.abs(got - want_jax).max() <= 2e-2 * np.abs(want_jax).max()
+    assert np.all(got[-1] == 0.0)
+
+
+@pytest.mark.parametrize("B,Lq,Lkv,H,want", [
+    (1, 67, 4374, 32, (18, 4)),     # the image cross-attention: 576 CTAs
+    (2, 67, 4374, 32, (9, 8)),
+    (1, 67, 64, 32, (1, 1)),        # the language cache: one tile, no combine
+    (1, 67, 65, 32, (1, 2)),
+    (1, 67, 1000, 32, (8, 2)),
+    (1, 200, 1000, 4, (8, 2)),
+    (1, 67, 1, 32, (1, 1)),
+    (1, 67, 0, 32, (1, 1)),
+])
+def test_split_plan_covers_every_tile_once(B, Lq, Lkv, H, want):
+    """At 132 SMs: the plan named, no split empty, every tile in one."""
+    splits, tps = FQ.split_plan(B, Lq, Lkv, H, 132)
+    assert (splits, tps) == want
+    n_tiles = -(-Lkv // FQ.BK)
+    assert (splits - 1) * tps < max(n_tiles, 1) <= max(splits * tps, 1)
+    assert splits == 1 or tps >= 2
+
+
 # ---- the quantized runner --------------------------------------------------------
 
 RCFG = JR.RDTRunnerConfig(model=rdt_tiny(), noise=NoiseSchedulerConfig(num_inference_timesteps=3))

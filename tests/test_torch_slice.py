@@ -88,6 +88,38 @@ def test_policy_step_matches_jax(golden_policy):
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-4)
 
 
+def test_state_pack_matches_jax_jit_bit_for_bit(golden_policy, monkeypatch):
+    """The float32 packed state (proprio / state_scale, scattered into the
+    128-wide state token) of ``_predict_from_tokens`` equals the JAX one
+    under jit, bit for bit: XLA multiplies by the scale's float32
+    reciprocal, and so does the port.  The RDT call is replaced by one that
+    returns the state token, and the action scale by ones, so the chunk is
+    the packed state itself.  Torch's division differs at the gripper."""
+    import dataclasses
+
+    from vla_touch_tpu.runtime import policy as P
+    from vla_touch_tpu_torch.runtime import policy as TP
+
+    _, jmodel, tmodel, _, _ = golden_policy
+    rng = np.random.default_rng(5)
+    proprio = rng.normal(size=(64, 10)).astype(np.float32)
+    proprio[:, -1] = rng.uniform(0, 255, size=64).astype(np.float32)
+    ones = (1.0,) * 10
+    jcfg = dataclasses.replace(jmodel.cfg, action_scale=ones)
+    tcfg = dataclasses.replace(tmodel.cfg, action_scale=ones)
+    monkeypatch.setattr(P.R, "rdt_predict_action", lambda *a, **kw: a[6])
+    monkeypatch.setattr(TP.R, "rdt_predict_action", lambda *a, **kw: a[5])
+    m = jcfg.rdt.model
+    img = np.zeros((64, 2, m.img_token_dim), np.float32)
+    txt = np.zeros((64, 3, m.lang_token_dim), np.float32)
+    tmask = np.ones((64, 3), bool)
+    want = jax.jit(P._predict_from_tokens, static_argnames=("cfg",))(
+        jcfg, {}, jax.random.PRNGKey(0), proprio, img, txt, tmask)
+    got = TP._predict_from_tokens(tcfg, None, _t(proprio), _t(img), _t(txt), _t(tmask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.any(proprio[:, -1] / np.float32(255) != np.asarray(want)[:, 0, -1])
+
+
 def test_policy_chunk_golden_anchor(golden_policy):
     """The port reproduces the frozen recorded chunk (MSE < 1e-6)."""
     fx, _, tmodel, d, noise = golden_policy

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vla_touch_tpu_torch.ops import attention as A
+from vla_touch_tpu_torch.ops.nn import gelu_tanh, quick_gelu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,9 +150,13 @@ class ViTBlock(nn.Module):
         x = x + h
         h = self.fc1(self.norm2(x))
         if c.quick_gelu:
-            h = h * torch.sigmoid(1.702 * h)
+            h = quick_gelu(h)
+        elif c.gelu_tanh:
+            h = gelu_tanh(h)
         else:
-            h = F.gelu(h, approximate="tanh" if c.gelu_tanh else "none")
+            # XLA's erfc is its own float32 polynomial: no rounding chain
+            # matches JAX's exact GELU (F.gelu leaves fewest bf16 outputs unlike)
+            h = F.gelu(h)
         h = self.fc2(h)
         if c.use_layerscale:
             h = h * self.layerscale2

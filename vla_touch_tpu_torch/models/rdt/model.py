@@ -15,12 +15,11 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vla_touch_tpu_torch.config import RDTModelConfig
 from vla_touch_tpu_torch.ops import attention as A
-from vla_touch_tpu_torch.ops.nn import Mlp, RmsNorm, SelfAttention
+from vla_touch_tpu_torch.ops.nn import Mlp, RmsNorm, SelfAttention, silu
 from vla_touch_tpu_torch.ops.pos_embed import (
     get_1d_sincos_pos_embed_from_grid,
     get_multimodal_cond_pos_embed,
@@ -40,7 +39,7 @@ class TimestepEmbedder(nn.Module):
     def forward(self, t):
         freq = timestep_embedding(t, self.frequency_embedding_size,
                                   dtype=self.fc1.weight.dtype)
-        return self.fc2(F.silu(self.fc1(freq)))
+        return self.fc2(silu(self.fc1(freq)))
 
 
 class CrossAttentionSized(nn.Module):

@@ -27,15 +27,14 @@ from __future__ import annotations
 import copy
 from typing import Optional
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vla_touch_tpu_torch.config import RDTModelConfig
 from vla_touch_tpu_torch.models.rdt import runner as R
 from vla_touch_tpu_torch.ops import attention as A
 from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+from vla_touch_tpu_torch.ops import nn as NN
 from vla_touch_tpu_torch.ops import quant as Q
 from vla_touch_tpu_torch.ops import quant_matmul as QM
 from vla_touch_tpu_torch.ops import schedulers as sched_lib
@@ -154,31 +153,9 @@ def _timestep_embed(p, t):
     copies of its weights, bf16 out (``quant_serve.py:134-139``)."""
     freq = timestep_embedding(t, 256, dtype=torch.float32)
     x = freq @ p.fc1.weight.float().t() + p.fc1.bias.float()
-    x = F.silu(x)
+    x = NN.silu(x)
     x = x @ p.fc2.weight.float().t() + p.fc2.bias.float()
     return x.to(torch.bfloat16)
-
-
-def _bf16(v: float) -> float:
-    return float(torch.tensor(v, dtype=torch.bfloat16))
-
-
-# the GELU constants rounded to bf16 once, kept as Python floats: a bf16
-# tensor times a Python scalar computes in float32 and rounds to bf16, as
-# JAX's bf16 op does, and makes no host-to-device copy
-_GELU_SQRT_2_PI = _bf16(float(np.sqrt(2 / np.pi)))
-_GELU_A = _bf16(0.044715)
-
-
-def gelu_tanh_bf16(x):
-    """tanh-GELU in bf16 arithmetic, each operation rounded to bf16 as the
-    JAX package's ``jax.nn.gelu(approximate=True)`` on a bf16 array is
-    (with bf16 constants).  ``F.gelu`` rounds only once, which moves ~40 %
-    of the outputs by one bf16 step and, through the next layer's per-token
-    int8 quantization, the chunk by ~2 % of its scale."""
-    x = x.to(torch.bfloat16)
-    inner = _GELU_SQRT_2_PI * (x + _GELU_A * (x * x * x))
-    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 def _qd(x, leaf):
@@ -186,7 +163,10 @@ def _qd(x, leaf):
 
 
 def _mlp_tanh_gelu(p, x):
-    return _qd(gelu_tanh_bf16(_qd(x, p.fc1)), p.fc2)
+    # bf16 in, each operation rounded to bf16 as JAX's: F.gelu rounds once,
+    # which moves ~40 % of the outputs by one bf16 step and, through the next
+    # layer's per-token int8 quantization, the chunk by ~2 % of its scale
+    return _qd(NN.gelu_tanh(_qd(x, p.fc1)), p.fc2)
 
 
 def _self_attn(p, x, num_heads):
@@ -222,7 +202,7 @@ def _adaptor(p, x):
     """mlp{N}x_gelu / linear condition adaptor on quantized leaves."""
     for i in range(p.depth):
         if i > 0:
-            x = gelu_tanh_bf16(x)
+            x = NN.gelu_tanh(x)
         x = _qd(x, getattr(p, f"fc{i}"))
     return x
 

@@ -13,12 +13,12 @@ import re
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vla_touch_tpu_torch.config import NoiseSchedulerConfig, RDTModelConfig
 from vla_touch_tpu_torch.models.rdt.model import RDT
 from vla_touch_tpu_torch.ops import schedulers as sched_lib
+from vla_touch_tpu_torch.ops.nn import gelu_tanh
 
 
 class ConditionAdapter(nn.Module):
@@ -43,7 +43,7 @@ class ConditionAdapter(nn.Module):
         x = x.to(self.fc0.weight.dtype)
         for i in range(self.depth):
             if i > 0:
-                x = F.gelu(x, approximate="tanh")
+                x = gelu_tanh(x)
             x = getattr(self, f"fc{i}")(x)
         return x
 

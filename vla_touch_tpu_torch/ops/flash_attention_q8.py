@@ -14,13 +14,20 @@ the KV length / 127 (:func:`quantize_kv`).  Two layouts:
 Both compute ``softmax(q' k_i8^T) v_i8 * v_scale`` with ``q' = bf16(q *
 D^-0.5 * k_scale)`` formed in float32 by the wrapper, as the TPU wrappers
 do; a fully masked query row gives 0.  On CUDA tensors the wrappers launch
-the kernel (``.launches`` counts them); on CPU tensors they compute
-:func:`attention_q8_plain`; anything else raises.
+the kernel (``.launches`` counts them, one per call); on CPU tensors they
+compute :func:`attention_q8_plain`; anything else raises.
+
+The kernel cuts the keys into :func:`split_plan`'s splits of 64-key tiles.
+With more than one split, each writes its partial softmax state into
+float32 scratch the wrapper allocates, and a second launch of the same call
+merges them: m* = max_s m_s, l* = sum_s e^(m_s - m*) l_s, out = sum_s
+e^(m_s - m*) acc_s / max(l*, 1e-30) x v_scale.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,6 +36,8 @@ from vla_touch_tpu_torch.ops.flash_attention import mask_arg
 from vla_touch_tpu_torch.ops.quant import true_div
 
 _NEG_INF = -1e30
+BK = 64              # keys per tile of the kernel
+MAX_ROWS = 128       # query rows per CTA of the kernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -97,6 +106,25 @@ def attention_q8t_plain(q, k_t, k_scale, v_t, v_scale, kv_mask=None, scale=None)
                               v_t.permute(0, 3, 1, 2), v_scale, kv_mask, scale)
 
 
+def split_plan(B, Lq, Lkv, H, n_sms):
+    """(splits, tiles per split) of the kernel's keys: 64-key tiles, at
+    least two per split, and enough splits that B x H x q tiles x splits
+    CTAs give about 4 per SM (two resident, two waves).  Every split holds
+    ``tiles per split`` tiles but the last; one split when that many tiles
+    already fill the card or the cache is one tile."""
+    n_tiles = -(-Lkv // BK)
+    ctas = B * H * -(-Lq // MAX_ROWS)
+    tps = max(2, n_tiles * ctas // (4 * n_sms))
+    if n_tiles <= tps:
+        return 1, max(1, n_tiles)
+    return -(-n_tiles // tps), tps
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(name, transposed, q, k, k_scale, v, v_scale, kv_mask, scale):
     B, Lq, H, D = q.shape
     if q.dtype != torch.bfloat16:
@@ -121,7 +149,7 @@ def _launch(name, transposed, q, k, k_scale, v, v_scale, kv_mask, scale):
         if tuple(t.shape) != (B, H, D) or t.device != q.device:
             raise ValueError(f"{name}: {what} must be ({B}, {H}, {D}) on {q.device}")
     mask_ptr, m_sb = mask_arg(name, kv_mask, B, Lkv, q.device)
-    out =torch.empty((B, Lq, H, D), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((B, Lq, H, D), dtype=torch.bfloat16, device=q.device)
     if out.numel() == 0:
         return out
     qs = prescale_q(q, k_scale, scale)
@@ -132,10 +160,18 @@ def _launch(name, transposed, q, k, k_scale, v, v_scale, kv_mask, scale):
     else:
         ks_, vs_ = (k.stride(0), k.stride(2), k.stride(1)), (v.stride(0), v.stride(2),
                                                               v.stride(1))
-    lib, f = build.entry("flash_attention_q8", [_I] + [_P] * 6 + [_I] * 5 + [_L] * 7 + [_P])
+    splits, tps = split_plan(B, Lq, Lkv, H, _sm_count(q.device.index))
+    scratch = None
+    if splits > 1:
+        # per split: acc (B, H, splits, Lq, D), then m and l (B, H, splits, Lq)
+        scratch = torch.empty(B * H * splits * Lq * (D + 2), dtype=torch.float32,
+                              device=q.device)
+    lib, f = build.entry("flash_attention_q8",
+                         [_I] + [_P] * 6 + [_I] * 5 + [_L] * 7 + [_I] * 2 + [_P] * 2)
     err = f(
         int(transposed), qs.data_ptr(), k.data_ptr(), v.data_ptr(), vs.data_ptr(),
-        mask_ptr, out.data_ptr(), B, Lq, Lkv, H, D, *ks_, *vs_, m_sb,
+        mask_ptr, out.data_ptr(), B, Lq, Lkv, H, D, *ks_, *vs_, m_sb, splits, tps,
+        None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, name)
     return out

@@ -11,16 +11,45 @@ plus layout transforms.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vla_touch_tpu_torch.ops import attention as A
 
+# The activations below are written out operation by operation, as XLA
+# computes JAX's: each operation rounds to the array's dtype.  F.silu and
+# F.gelu round once; on bf16 they leave 25-45 % of outputs a bf16 step away
+# from JAX's.  Both sides are the same arithmetic on the CPU and the card:
+# a bf16 op computes in float32 and rounds, and a Python scalar enters a
+# bf16 op unrounded, so JAX's constants (cast to the array's dtype) are
+# rounded here first.
+
+
+@functools.cache
+def _const(value: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def silu(x):
+    """``jax.nn.silu``: x * logistic(x), logistic as 1 / (1 + exp(-x))."""
+    return x * (1 / (1 + torch.exp(-x)))
+
 
 def gelu_tanh(x):
-    """GELU, tanh approximation (``nn.GELU(approximate='tanh')``)."""
-    return F.gelu(x, approximate="tanh")
+    """``jax.nn.gelu(approximate=True)`` (``nn.GELU(approximate='tanh')``):
+    x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3)))."""
+    c, a = _const(math.sqrt(2 / math.pi), x.dtype), _const(0.044715, x.dtype)
+    inner = c * (x + a * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def quick_gelu(x):
+    """CLIP's x * sigmoid(1.702 x), the sigmoid as :func:`silu`'s."""
+    return x * (1 / (1 + torch.exp(-(_const(1.702, x.dtype) * x))))
 
 
 def mish(x):

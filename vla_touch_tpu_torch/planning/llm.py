@@ -43,6 +43,7 @@ from torch import nn
 from vla_touch_tpu_torch.ops import quant as Q
 from vla_touch_tpu_torch.ops import quant_matmul as QM
 from vla_touch_tpu_torch.ops import w4_fused as W4F
+from vla_touch_tpu_torch.ops.nn import silu
 from vla_touch_tpu_torch.utils.device import resolve_device
 
 
@@ -438,7 +439,7 @@ def _mlp(lp, lo, lscale, h):
     else:
         g = _dense(h, lp.gate, lo.get("gate"), lscale)
         u = _dense(h, lp.up, lo.get("up"), lscale)
-    return _dense(F.silu(g) * u, lp.down, lo.get("down"), lscale)
+    return _dense(silu(g) * u, lp.down, lo.get("down"), lscale)
 
 
 def _layer(cfg: LLMConfig, lp, x, rope, mask, lora, lscale):

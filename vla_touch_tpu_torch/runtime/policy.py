@@ -113,10 +113,12 @@ def _predict_from_tokens(cfg: PolicyConfig, rdt, proprio, img_tokens, text_embed
     B = proprio.shape[0]
     dev = proprio.device
     dtype = m.compute_dtype
-    scale = torch.tensor(cfg.state_scale, dtype=torch.float32, device=dev)
+    # JAX's jit divides by the constant scale as a product with its float32
+    # reciprocal; so does the port, on the CPU and the card alike
+    recip = torch.tensor(np.float32(1) / np.asarray(cfg.state_scale, np.float32), device=dev)
     idx = torch.tensor(cfg.state_indices, dtype=torch.long, device=dev)
     state = torch.zeros((B, m.state_token_dim), dtype=torch.float32, device=dev)
-    state[:, idx] = proprio.float() / scale
+    state[:, idx] = proprio.float() * recip
     mask = torch.zeros((B, m.state_token_dim), dtype=torch.float32, device=dev)
     mask[:, idx] = 1.0
     out_scale = torch.tensor(cfg.action_scale if cfg.action_scale is not None

@@ -31,16 +31,23 @@ def pad_and_resize_for_siglip(image: np.ndarray, target_size: int = 384) -> np.n
                       interpolation=cv2.INTER_AREA)
 
 
+# The JAX package's normalizations run under jit, where XLA turns x / c into
+# x * (1 / c) (the reciprocal rounded to float32) and the CPU backend fuses
+# x * r - m into one fused multiply-add.  The port does the same arithmetic:
+# x * r - m in float64 is exact for uint8 pixels (8 x 24 bits, one add) and
+# rounds once to float32, as the FMA does, on the CPU and the card alike.
+_RECIP_255 = float(np.float32(1) / np.float32(255))
+_IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+_IMAGENET_RECIP_STD = np.float32(1) / np.array([0.229, 0.224, 0.225], np.float32)
+
+
 def imagenet_normalize(images: torch.Tensor) -> torch.Tensor:
     """/255 + ImageNet mean/std normalize, channels-last (DinoV2 input)."""
-    mean = torch.tensor([0.485, 0.456, 0.406], dtype=torch.float32,
-                        device=images.device)
-    std = torch.tensor([0.229, 0.224, 0.225], dtype=torch.float32,
-                       device=images.device)
-    return (images.float() / 255.0 - mean) / std
+    mean = torch.tensor(_IMAGENET_MEAN, dtype=torch.float64, device=images.device)
+    rstd = torch.tensor(_IMAGENET_RECIP_STD, device=images.device)
+    return (images.double() * _RECIP_255 - mean).float() * rstd
 
 
 def siglip_normalize(images: torch.Tensor) -> torch.Tensor:
     """SigLIP preprocessing: /255 then rescale to [-1, 1] (mean=std=0.5)."""
-    x = images.float() / 255.0
-    return (x - 0.5) / 0.5
+    return (images.double() * _RECIP_255 - 0.5).float() * 2.0
