@@ -83,6 +83,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -472,6 +473,14 @@ K1_SHAPES = [
     ("rdt_image_cross", 1, 67, 4374, 32, 64, "cross", None, 70),
     ("rdt_lang_cross", 1, 67, 64, 32, 64, "cross", "ragged", 70),
     ("rdt_lang_cross_empty_row", 2, 67, 64, 32, 64, "cross", "empty", 0),
+    # check only: the kernel's split boundaries (a ragged last tile at
+    # several splits, a mask that kills one whole split, B 2 where row 0
+    # keeps its first third of keys, across several splits and ending inside
+    # a tile, and row 1 none) and a split long-query call
+    ("split_ragged_1000", 1, 67, 1000, 32, 64, "cross", None, 0),
+    ("image_dead_split", 1, 67, 4374, 32, 64, "cross", "dead_split", 0),
+    ("image_b2_empty_row", 2, 67, 4374, 32, 64, "cross", "empty_wide", 0),
+    ("dinov2_dead_split", 2, 730, 730, 6, 64, "vit", "dead_split", 0),
 ]
 
 
@@ -492,16 +501,40 @@ def k1_operands(gen, B, Lq, Lkv, H, D, layout):
     return mk(B, Lq, H, D), kv[:, :, 0].contiguous(), kv[:, :, 1]
 
 
-def k1_mask(B, Lkv, kind):
+def k1_splits(B, Lq, Lkv, H, D=64):
+    """(splits, tiles per split) the K1 wrapper picks on this card."""
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+
+    return FA.card_plan(B, Lq, Lkv, H, D)[1:]
+
+
+def dead_split_mask(B, Lkv, plan):
+    """A (B, Lkv) mask with every key of the second split of ``plan``
+    (splits, tiles per split) masked."""
+    import torch
+
+    splits, tps = plan
+    if splits < 3:
+        raise AssertionError(f"dead_split needs 3 splits or more, the plan has {splits}")
+    mask = torch.ones((B, Lkv), dtype=torch.bool, device="cuda")
+    mask[:, tps * 64:2 * tps * 64] = False
+    return mask
+
+
+def k1_mask(B, Lq, Lkv, H, kind):
     """None, or a (B, Lkv) mask: row 0 keeps 50 keys ("ragged"), and row 1
-    keeps none as well ("empty")."""
+    keeps none as well ("empty"); row 0 keeps its first Lkv // 3 keys and
+    row 1 none ("empty_wide"); or "dead_split", every key of K1's second
+    split (at D 64) masked."""
     import torch
 
     if kind is None:
         return None
+    if kind == "dead_split":
+        return dead_split_mask(B, Lkv, k1_splits(B, Lq, Lkv, H))
     mask = torch.ones((B, Lkv), dtype=torch.bool, device="cuda")
-    mask[0, 50:] = False
-    if kind == "empty":
+    mask[0, Lkv // 3 if kind == "empty_wide" else 50:] = False
+    if kind in ("empty", "empty_wide"):
         mask[1, :] = False
     return mask
 
@@ -536,10 +569,12 @@ def check_k1(gen, shapes=None):
         # enough distinct operand sets that a timing loop misses the L2 cache
         n_sets = max(1, min(8, -(-2 * L2_BYTES // (2 * 2 * B * Lkv * H * D))))
         sets = [k1_operands(gen, B, Lq, Lkv, H, D, layout) for _ in range(n_sets)]
-        mask = k1_mask(B, Lkv, mask_kind)
+        mask = k1_mask(B, Lq, Lkv, H, mask_kind)
         err, tol = k1_check(name, *sets[0], mask)
         tot["err"] = max(tot["err"], err)
-        where = f"K1 {name:26s} B{B} Lq{Lq} Lkv{Lkv} H{H} D{D} {layout:5s}"
+        splits, tps = k1_splits(B, Lq, Lkv, H, D)
+        where = (f"K1 {name:26s} B{B} Lq{Lq} Lkv{Lkv} H{H} D{D} {layout:5s} splits {splits} x "
+                 f"{tps} tiles")
         if calls == 0:
             log(f"{where}: err {err:.3e} (tol {tol:.3e}), fully masked rows 0; "
                 f"check only")
@@ -570,7 +605,7 @@ def check_k1(gen, shapes=None):
         b_ms, o_ms = k1_bound_ms(B, Lq, Lkv, H, D, mask is not None)
         bound = max(b_ms, o_ms)
         rows.append(dict(shape=name, B=B, Lq=Lq, Lkv=Lkv, H=H, D=D, layout=layout,
-                         calls=calls, max_abs_err=err, tol=tol, ms=ms, eager_ms=eager_ms,
+                         calls=calls, splits=splits, max_abs_err=err, tol=tol, ms=ms, eager_ms=eager_ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound))
         log(f"{where}: err {err:.3e} "
             f"(tol {tol:.3e}) kernel {ms:.4f} ms (eager loop {eager_ms:.4f}) "
@@ -706,18 +741,10 @@ def q8_splits(B, Lq, Lkv, H):
 
 
 def q8_mask(B, Lq, Lkv, H, kind):
-    """:func:`k1_mask`'s kinds, or "dead_split": every key of the kernel's
-    second split masked."""
-    import torch
-
+    """:func:`k1_mask`'s kinds, "dead_split" by the K3/K4 plan."""
     if kind != "dead_split":
-        return k1_mask(B, Lkv, kind)
-    splits, tps = q8_splits(B, Lq, Lkv, H)
-    if splits < 3:
-        raise AssertionError(f"dead_split needs 3 splits or more, the plan has {splits}")
-    mask = torch.ones((B, Lkv), dtype=torch.bool, device="cuda")
-    mask[:, tps * 64:2 * tps * 64] = False
-    return mask
+        return k1_mask(B, Lq, Lkv, H, kind)
+    return dead_split_mask(B, Lkv, q8_splits(B, Lq, Lkv, H))
 
 
 def q8_operands(gen, B, Lq, Lkv, H, D, transposed):
@@ -1094,6 +1121,24 @@ def run_tick(t, stage_ms=None, rdt=None, kv_cache="bf16", refine=True, model=Non
     return out
 
 
+def k1_ptxas():
+    """Print ptxas's register and spill lines for K1's kernels (from the
+    report kept beside the built library); raise if any spills."""
+    from vla_touch_tpu_torch.csrc import build
+
+    report = build.ptxas_report("flash_attention")
+    lines = [ln.strip() for ln in report.splitlines()
+             if "Compiling entry function" in ln or "spill" in ln or "registers" in ln]
+    if not any("Compiling entry function" in ln for ln in lines):
+        raise AssertionError("K1's ptxas report names no kernel")
+    for ln in lines:
+        log(f"K1 ptxas: {ln}")
+    spills = [ln for ln in lines
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))]
+    if spills:
+        raise AssertionError(f"K1 spills registers: {spills}")
+
+
 def siglip_tokens(t):
     import torch
 
@@ -1105,6 +1150,7 @@ def siglip_tokens(t):
 
 
 PROFILE_GROUPS = (("K1 flash_fwd_kernel", "flash_fwd_kernel"),
+                  ("K1 flash_combine_kernel", "flash_combine_kernel"),
                   ("K2 resblock_*", "resblock_"),
                   ("K3/K4 flash_q8_kernel", "flash_q8_kernel"),
                   ("K3/K4 flash_q8_combine_kernel", "flash_q8_combine_kernel"),
@@ -1777,6 +1823,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    k1_ptxas()
     card = gpu_line()
     log(f"gpu: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1833,7 +1880,10 @@ def main() -> int:
         f"plain-version tick {plain_tick:.2f} ms")
     log("stage p50 ms (ticks with a synchronise after each stage): " + json.dumps(
         {k: round(float(np.median(v)), 3) for k, v in stages.items()}))
-    log("tick profile: " + json.dumps(profile_tick(t)))
+    prof = profile_tick(t)
+    log("tick profile: " + json.dumps(prof))
+    if not prof["groups_ms"]["K1 flash_combine_kernel"] > 0.0:
+        raise AssertionError("the bf16 tick ran no K1 combine launch: no split call")
 
     # ---- the quantized tick
     q = quant_ticks(t, out["actions"])

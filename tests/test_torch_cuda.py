@@ -30,12 +30,22 @@ def cuda():
     (1, 129, 64, 3, 128, None, "separate"),
     (1, 67, 67, 32, 64, None, "fused_qkv"),
     (2, 67, 300, 4, 64, "ragged", "fused_kv"),
+    (1, 67, 4374, 32, 64, None, "fused_kv"),          # the image call: split by
+                                                      # card_plan (12 x 6 on an H100)
+    (1, 67, 1000, 32, 64, None, "fused_kv"),          # ragged last split
+    (1, 67, 4374, 32, 64, "dead_split", "fused_kv"),  # one split all masked
+    (2, 67, 4374, 32, 64, "fully_masked", "fused_kv"),
+    (6, 729, 729, 16, 72, None, "separate"),          # SigLIP: D 72, one split
+    (2, 730, 730, 6, 64, "dead_split", "separate"),   # DinoV2: 128-row tiles, split
+    (1, 129, 200, 4, 64, "ragged", "separate"),       # Lq 129: two q tiles
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Lq, Lkv, H, D, mask_kind, layout):
     """bf16 kernel vs the plain version: max abs error <= 2e-2 x max|plain|
     (bf16 output and bf16 p, 2^-8 relative each).  The fused layouts pass
     q/k/v as the modules do: strided views of one (B, L, 3 or 2, H, D)
-    projection."""
+    projection.  The split cases cross the kernel's split boundaries: a
+    ragged last split, and ("dead_split") every key of its second split
+    masked."""
     from vla_touch_tpu_torch.ops import flash_attention as FA
 
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -50,7 +60,12 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Lq, Lkv, H, D, mask_kind,
     else:
         q, k, v = mk(B, Lq, H, D), mk(B, Lkv, H, D), mk(B, Lkv, H, D)
     mask = None
-    if mask_kind:
+    if mask_kind == "dead_split":
+        _, splits, tps = FA.card_plan(B, Lq, Lkv, H, D, cuda.index or 0)
+        assert splits >= 3
+        mask = torch.ones((B, Lkv), dtype=torch.bool, device=cuda)
+        mask[:, tps * FA.BK:2 * tps * FA.BK] = False
+    elif mask_kind:
         mask = torch.ones((B, Lkv), dtype=torch.bool, device=cuda)
         mask[0, Lkv // 3:] = False
         if mask_kind == "fully_masked":
@@ -63,6 +78,25 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Lq, Lkv, H, D, mask_kind,
     assert float((got.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
     if mask_kind == "fully_masked":
         assert float(got[-1].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("plan", [(80, 1, 69), (80, 9, 8), (80, 18, 4), (80, 23, 3),
+                                  (80, 35, 2), (128, 18, 4)])
+def test_flash_attention_kernel_plans_agree(cuda, plan):
+    """Every plan (rows per CTA, splits, tiles per split) of the image call
+    agrees with the plain version within 2e-2 x max|plain|, and a split
+    call counts one launch."""
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((1, 67, 32, 64), generator=g, device=cuda).to(torch.bfloat16)
+    k, v = torch.randn((1, 4374, 2, 32, 64), generator=g, device=cuda).to(torch.bfloat16).unbind(2)
+    before = FA.flash_attention.launches
+    got = FA._launch(q, k, v, None, None, lambda *_: plan)
+    assert FA.flash_attention.launches == before + 1
+    want = FA.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):

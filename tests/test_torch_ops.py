@@ -253,6 +253,149 @@ def test_bf16_activations_match_jax_bit_for_bit(rng, name):
     assert (once(xt).float().numpy() != want).mean() > 0.1
 
 
+_jax_gelu = jax.jit(lambda h: jax.nn.gelu(h, approximate=False))
+_jax_exp = jax.jit(jnp.exp)
+
+
+def _xla_exp(t):
+    """XLA:CPU's float32 exp, the one operation gelu_erf writes otherwise."""
+    return _t(np.asarray(_jax_exp(t.numpy())))
+
+
+def _ulps(a, b):
+    """float32 ulps between a and b of one sign (0 where they are equal)."""
+    d = np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32))
+    return np.where(a == b, 0, d)
+
+
+def test_gelu_erf_bf16_matches_jax_jit_bit_for_bit(rng):
+    """On bf16, ``gelu_erf`` equals the jitted ``jax.nn.gelu(approximate=False)``
+    on every one of the 65536 bf16 values (NaN where JAX gives NaN), both
+    through its table and through the program it is built from with XLA's
+    exp passed in; and on 200 000 N(0, 9) samples.  F.gelu, the
+    single-rounding form, leaves more than 10 % of the samples unlike, so
+    the test sees the fault it guards."""
+    import torch.nn.functional as F
+
+    every = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    sample = _t((rng.normal(size=200_000) * 3).astype(np.float32)).to(torch.bfloat16)
+    for xt in (every, sample):
+        want = np.asarray(_jax_gelu(jnp.asarray(xt.float().numpy(), jnp.bfloat16))
+                          .astype(jnp.float32))
+        np.testing.assert_array_equal(tnn.gelu_erf(xt).float().numpy(), want)
+        np.testing.assert_array_equal(tnn._gelu_erf_program(xt, _xla_exp).float().numpy(), want)
+    assert (F.gelu(sample).float().numpy() != want).mean() > 0.1
+
+
+def test_gelu_erf_float32_matches_jax_jit(rng):
+    """On float32 (the planning encoder, the splice projector, BRIDGeR's
+    observation encoder), ``gelu_erf`` is XLA:CPU's program: written out
+    with XLA's exp, bit for bit over |x| up to 20 (both erfc branches, the
+    underflow select and flushed denormals).  With torch's exp, as
+    ``gelu_erf`` runs, about 2 % of outputs differ, each by at most 4
+    float32 ulps."""
+    x = np.concatenate([rng.normal(size=100_000) * 3,
+                        rng.uniform(-20, 20, size=20_000)]).astype(np.float32)
+    want = np.asarray(_jax_gelu(jnp.asarray(x)))
+    np.testing.assert_array_equal(tnn._gelu_erf_program(_t(x), _xla_exp).numpy(), want)
+    got = tnn.gelu_erf(_t(x)).numpy()
+    unlike = got != want
+    assert unlike.mean() < 0.05
+    assert _ulps(got[unlike], want[unlike]).max() <= 4
+    with pytest.raises(TypeError):
+        tnn.gelu_erf(_t(x).half())
+
+
+def _gelu_site(site):
+    """(JAX function of x, port module, port module's home, x, number of
+    exact GELUs per call) of one exact-GELU site at its own dtype, the port
+    module holding the converted flax weights."""
+    r = np.random.default_rng(11)
+    if site == "dinov2_mlp":
+        from vla_touch_tpu.models.encoders import vit as JV
+        from vla_touch_tpu_torch.models.encoders import vit as TV
+
+        kw = dict(hidden_size=48, num_layers=1, num_heads=6, mlp_dim=192, patch_size=14)
+        x = jnp.asarray(r.normal(size=(2, 17, 48)), jnp.bfloat16)
+        jm = JV.ViTBlock(JV.ViTConfig(**kw), dtype=jnp.bfloat16)
+        p = jm.init(jax.random.PRNGKey(3), x)["params"]
+        return (lambda x: jm.apply({"params": p}, x), _port(TV.ViTBlock(TV.ViTConfig(**kw)), p)
+                .to(torch.bfloat16), TV, x, 1)
+    if site in ("adapter_align", "projector"):
+        from vla_touch_tpu.planning import encoder as JE
+        from vla_touch_tpu.planning import llm_splice as JS
+        from vla_touch_tpu_torch.planning import encoder as TE
+        from vla_touch_tpu_torch.planning import llm_splice as TS
+
+        x = jnp.asarray(r.normal(size=(3, 64)), jnp.float32)
+        if site == "adapter_align":
+            jm, tm, home, n = JE.Adapter(64, 40), TE.Adapter(64, 40), TE, 2
+        else:
+            jm, tm, home, n = JS.TactileProjector(96), TS.TactileProjector(64, 96), TS, 1
+        p = jm.init(jax.random.PRNGKey(4), x)["params"]
+        # spread the near-identity adapter kernels so the GELUs see O(1) inputs
+        p = jax.tree.map(lambda a: a * 300 if a.ndim == 2 and site == "adapter_align" else a, p)
+        return lambda x: jm.apply({"params": p}, x), _port(tm, p), home, x, n
+    from vla_touch_tpu.config import BridgeControllerConfig as JBC
+    from vla_touch_tpu.models.controllers import bridge as JB
+    from vla_touch_tpu_torch.config import BridgeControllerConfig as TBC
+    from vla_touch_tpu_torch.models.controllers import bridge as TB
+
+    kw = dict(hidden_dim=32, horizon=8, unet_down_dims=(32, 64, 64))
+    parts = [jnp.asarray(r.normal(size=(2, n)), jnp.float32) for n in (384, 384, 10, 3)]
+    jm = JB.BridgeControllerModule(JBC(**kw))
+    p = jm.init(jax.random.PRNGKey(6), *parts, method=JB.BridgeControllerModule.encode_obs)
+    tm = TB.BridgeControllerModule(TBC(**kw)).eval().requires_grad_(False)
+    sd = FF.to_state_dict(p["params"])
+    with torch.no_grad():
+        for name, a in sd.items():
+            tm.get_parameter(name).copy_(_t(a))
+    return (lambda x: jm.apply(p, *x, method=JB.BridgeControllerModule.encode_obs),
+            lambda x: tm.encode_obs(*x), TB, parts, 2)
+
+
+@pytest.mark.parametrize("site", ["dinov2_mlp", "adapter_align", "projector", "bridge_se"])
+def test_exact_gelu_sites_match_jax(site, monkeypatch):
+    """Every exact-GELU site of the port runs ``gelu_erf`` at the dtype of
+    its JAX counterpart: DinoV2's MLP (bf16; models/encoders/vit.py), the
+    tactile adapter's rfc and align GELUs (planning/encoder.py), the splice
+    projector (planning/llm_splice.py) and BRIDGeR's observation encoder
+    (models/controllers/bridge.py), all float32.  The module's output
+    matches the jitted flax module's (bf16: 2e-2 x max|jax|, the bf16
+    LayerNorm and Linear round elsewhere; float32: 1e-5), and each GELU's
+    output equals the jitted ``jax.nn.gelu`` on the same input: bit for bit
+    on bf16, and on float32 with XLA's exp passed in."""
+    jfn, tfn, home, x, n_gelu = _gelu_site(site)
+    want = np.asarray(jax.jit(jfn)(x).astype(jnp.float32))
+    seen = []
+
+    def recording(h):
+        out = tnn.gelu_erf(h)
+        seen.append((h, out))
+        return out
+
+    monkeypatch.setattr(home, "gelu_erf", recording)
+    xt = [_t(np.asarray(a.astype(jnp.float32))).to(a.dtype == jnp.bfloat16 and torch.bfloat16
+                                                    or torch.float32)
+          for a in (x if isinstance(x, list) else [x])]
+    got = tfn(xt if isinstance(x, list) else xt[0]).float().numpy()
+    assert len(seen) == n_gelu
+    dtype = torch.bfloat16 if site == "dinov2_mlp" else torch.float32
+    if dtype == torch.bfloat16:
+        assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+    else:
+        _close(got, want)
+    for h, out in seen:
+        assert h.dtype == out.dtype == dtype
+        jh = jnp.asarray(h.float().numpy(), jnp.bfloat16 if dtype == torch.bfloat16 else None)
+        ref = np.asarray(_jax_gelu(jh).astype(jnp.float32))
+        if dtype == torch.bfloat16:
+            np.testing.assert_array_equal(out.float().numpy(), ref)
+        else:
+            np.testing.assert_array_equal(tnn._gelu_erf_program(h, _xla_exp).numpy(), ref)
+            assert _ulps(out.numpy(), ref).max() <= 4
+
+
 @pytest.mark.parametrize("name", ["siglip_normalize", "imagenet_normalize"])
 def test_image_normalize_matches_jax_jit_bit_for_bit(rng, name):
     """Every uint8 value, channels-last, bit for bit against the JAX

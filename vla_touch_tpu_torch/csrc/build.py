@@ -11,8 +11,10 @@ The file name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.  Libraries load with
 ``ctypes``; every C entry returns ``cudaGetLastError()`` and
 :func:`check` raises when it is not 0.  The hash covers the source and
-``NVCC_FLAGS``; ``build_all(verbose=True)`` only adds ``-Xptxas -v``, which
-does not change the code.
+``NVCC_FLAGS``.  Every build adds ``-Xptxas -v``, which does not change the
+code, and keeps the compiler's report (registers, shared memory, spills)
+beside the library as ``<name>.<hash>.ptxas``: :func:`ptxas_report` reads
+it whether this process compiled the library or found it built.
 """
 
 from __future__ import annotations
@@ -52,14 +54,19 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}.{digest}.so"
 
 
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas")
+
+
 def build_all(verbose: bool = False) -> dict:
-    """Compile every missing kernel library in parallel; returns
-    {name: path}.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
-    memory, spills) and prints the compiler's report."""
-    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    """Compile every kernel library whose library or report is missing, in
+    parallel; returns {name: path}.  ``verbose`` prints the compiler's
+    report of each source it compiles."""
+    flags = NVCC_FLAGS + ("-Xptxas", "-v")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _lib_path(name) for name in SOURCES}
-    todo = {name: p for name, p in paths.items() if not p.exists()}
+    todo = {name: p for name, p in paths.items()
+            if not (p.exists() and _report_path(p).exists())}
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
@@ -73,12 +80,24 @@ def build_all(verbose: bool = False) -> dict:
         if proc.returncode != 0:
             failed.append(f"--- nvcc {name}.cu failed ---\n{out}")
             continue
+        report_tmp = tmp.with_suffix(".ptxas")
+        report_tmp.write_text(out)
+        os.replace(report_tmp, _report_path(path))
         os.replace(tmp, path)
-        if verbose and out:
+        if verbose:
             print(f"--- nvcc {name}.cu ---\n{out}", flush=True)
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
+
+
+def ptxas_report(name: str) -> str:
+    """The ``-Xptxas -v`` report of kernel library ``name``'s build (built
+    first if missing)."""
+    path = _report_path(_lib_path(name))
+    if not path.exists():
+        build_all()
+    return path.read_text()
 
 
 @functools.cache

@@ -12,13 +12,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vla_touch_tpu_torch.config import BridgeControllerConfig
 from vla_touch_tpu_torch.models.controllers import interpolants as SI
 from vla_touch_tpu_torch.models.controllers import unet1d_serve as US
 from vla_touch_tpu_torch.models.controllers.unet1d import SITripleUnet
+from vla_touch_tpu_torch.ops.nn import gelu_erf
 from vla_touch_tpu_torch.utils.normalization import (denormalize_actions,
                                                      normalize_actions)
 
@@ -46,8 +46,8 @@ class BridgeControllerModule(nn.Module):
         if self.cfg.use_force:
             parts.append(forces)
         x = torch.cat([p.to(self.se_fc1.weight.dtype) for p in parts], dim=-1)
-        x = F.gelu(self.se_fc1(x))
-        x = F.gelu(self.se_fc2(x))
+        x = gelu_erf(self.se_fc1(x))
+        x = gelu_erf(self.se_fc2(x))
         return self.se_fc3(x)
 
 

@@ -28,11 +28,10 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vla_touch_tpu_torch.ops import attention as A
-from vla_touch_tpu_torch.ops.nn import gelu_tanh, quick_gelu
+from vla_touch_tpu_torch.ops.nn import gelu_erf, gelu_tanh, quick_gelu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,9 +153,7 @@ class ViTBlock(nn.Module):
         elif c.gelu_tanh:
             h = gelu_tanh(h)
         else:
-            # XLA's erfc is its own float32 polynomial: no rounding chain
-            # matches JAX's exact GELU (F.gelu leaves fewest bf16 outputs unlike)
-            h = F.gelu(h)
+            h = gelu_erf(h)
         h = self.fc2(h)
         if c.use_layerscale:
             h = h * self.layerscale2

@@ -3,16 +3,27 @@
 
 :func:`flash_attention` launches the CUDA kernel on CUDA tensors and
 computes :func:`attention_plain` on CPU tensors.  ``flash_attention.launches``
-counts kernel launches (plain calls are not counted).
+counts wrapper calls that launch (plain calls are not counted): one per call,
+with or without a combine launch.
+
+The kernel cuts the keys into :func:`split_plan`'s splits of 64-key tiles,
+the plan K3/K4 (``ops/flash_attention_q8.py``) share.  With more than one
+split, each writes its partial softmax state into float32 scratch the
+wrapper allocates, and a second launch of the same call merges them: m* =
+max_s m_s, l* = sum_s e^(m_s - m*) l_s, out = sum_s e^(m_s - m*) acc_s /
+max(l*, 1e-30).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 _NEG_INF = -1e30
+BK = 64              # keys per tile of the attention kernels
+MAX_ROWS = 128       # query rows per CTA of the attention kernels
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -37,15 +48,68 @@ def attention_plain(q, k, v, kv_mask=None, scale=None):
     return out.to(q.dtype)
 
 
-def _lib():
+def split_plan(B, Lq, Lkv, H, n_sms, rows=MAX_ROWS, resident=None, min_tiles=2):
+    """(splits, tiles per split) of an attention kernel's keys, cut into
+    64-key tiles, for B x H x q tiles (of ``rows`` query rows) CTAs.
+
+    ``resident`` None (K3/K4): about 4 CTAs per SM, at least two tiles per
+    split.  ``resident`` = the CTAs one SM holds at once (K1): one wave,
+    as many splits as fit beside the other CTAs, at least ``min_tiles``
+    tiles per split.  Every split holds ``tiles per split`` tiles but the
+    last; one split when that many tiles already fill the card or the cache
+    is that short."""
+    n_tiles = -(-Lkv // BK)
+    ctas = B * H * -(-Lq // rows)
+    if resident is None:
+        tps = max(min_tiles, n_tiles * ctas // (4 * n_sms))
+    else:
+        tps = max(min_tiles, -(-n_tiles // max(1, resident * n_sms // ctas)))
+    if n_tiles <= tps:
+        return 1, max(1, n_tiles)
+    return -(-n_tiles // tps), tps
+
+
+# K1's splits hold at least 4 tiles: a combine launch costs more than a
+# 2-tile split saves (on an H100, CLIP's 4-tile call took 0.0105 ms whole
+# and 0.0143 ms in 2 splits)
+K1_MIN_TILES = 4
+
+
+def cta_rows(Lq):
+    """Query rows per CTA of K1: every row of a short-query call (Lq <= 128)
+    in one CTA, in warps of 16 rows, at least 4 warps; 128-row q tiles for
+    longer calls."""
+    return 16 * max(4, -(-Lq // 16)) if Lq <= MAX_ROWS else MAX_ROWS
+
+
+def k1_plan(B, Lq, Lkv, H, n_sms, resident):
+    """(rows per CTA, splits, tiles per split) of a K1 call, ``resident``
+    CTAs of that many rows to an SM."""
+    rows = cta_rows(Lq)
+    return (rows,) + split_plan(B, Lq, Lkv, H, n_sms, rows, resident, K1_MIN_TILES)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _resident(D: int, rows: int) -> int:
+    """CTAs of K1 at head dim D and ``rows`` query rows one SM holds at once
+    (CUDA's occupancy calculator on the built kernel)."""
     from vla_touch_tpu_torch.csrc import build
 
-    lib = build.library("flash_attention")
-    if lib.flash_attention_bf16.argtypes is None:
-        lib.flash_attention_bf16.argtypes = (
-            [_P] * 5 + [_I] * 5 + [_L] * 10 + [ctypes.c_float, _P])
-        lib.flash_attention_bf16.restype = _I
-    return lib
+    lib, f = build.entry("flash_attention", [_I, _I, ctypes.POINTER(_I)],
+                         "flash_attention_resident")
+    n = _I(0)
+    build.check(lib, f(D, rows, ctypes.byref(n)), "flash_attention_resident")
+    return n.value
+
+
+def card_plan(B, Lq, Lkv, H, D, index=0):
+    """:func:`k1_plan` on CUDA device ``index``."""
+    return k1_plan(B, Lq, Lkv, H, _sm_count(index), _resident(D, cta_rows(Lq)))
 
 
 def _check_operand(name, t, B, H, D):
@@ -83,6 +147,12 @@ def flash_attention(q, k, v, kv_mask=None, scale=None):
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_mask=kv_mask, scale=scale)
+    return _launch(q, k, v, kv_mask, scale, card_plan)
+
+
+def _launch(q, k, v, kv_mask, scale, plan):
+    """Check the operands and launch K1 on CUDA tensors with ``plan(B, Lq,
+    Lkv, H, D, device index)`` -> (rows per CTA, splits, tiles per split)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Lq, H, D = q.shape
@@ -101,13 +171,21 @@ def flash_attention(q, k, v, kv_mask=None, scale=None):
     out = torch.empty((B, Lq, H, D), dtype=torch.bfloat16, device=q.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    rows, splits, tps = plan(B, Lq, Lkv, H, D, q.device.index)
+    scratch = None
+    if splits > 1:
+        # per split: acc (B, H, splits, Lq, D), then m and l (B, H, splits, Lq)
+        scratch = torch.empty(B * H * splits * Lq * (D + 2), dtype=torch.float32,
+                              device=q.device)
     from vla_touch_tpu_torch.csrc import build
 
-    err = lib.flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
-        B, Lq, Lkv, H, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        m_sb, scale, torch.cuda.current_stream(q.device).cuda_stream)
+    lib, f = build.entry("flash_attention", [_P] * 5 + [_I] * 5 + [_L] * 10
+                         + [ctypes.c_float] + [_I] * 3 + [_P] * 2, "flash_attention_bf16")
+    err = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+            B, Lq, Lkv, H, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            m_sb, scale, rows, splits, tps,
+            None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -17,7 +17,8 @@ do; a fully masked query row gives 0.  On CUDA tensors the wrappers launch
 the kernel (``.launches`` counts them, one per call); on CPU tensors they
 compute :func:`attention_q8_plain`; anything else raises.
 
-The kernel cuts the keys into :func:`split_plan`'s splits of 64-key tiles.
+The kernel cuts the keys into :func:`split_plan`'s splits (the plan of
+``ops/flash_attention.py``, which K1 shares) of 64-key tiles.
 With more than one split, each writes its partial softmax state into
 float32 scratch the wrapper allocates, and a second launch of the same call
 merges them: m* = max_s m_s, l* = sum_s e^(m_s - m*) l_s, out = sum_s
@@ -27,17 +28,15 @@ e^(m_s - m*) acc_s / max(l*, 1e-30) x v_scale.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from vla_touch_tpu_torch.csrc import build
-from vla_touch_tpu_torch.ops.flash_attention import mask_arg
+from vla_touch_tpu_torch.ops.flash_attention import (BK, _sm_count,  # noqa: F401
+                                                     mask_arg, split_plan)
 from vla_touch_tpu_torch.ops.quant import true_div
 
 _NEG_INF = -1e30
-BK = 64              # keys per tile of the kernel
-MAX_ROWS = 128       # query rows per CTA of the kernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -104,25 +103,6 @@ def attention_q8t_plain(q, k_t, k_scale, v_t, v_scale, kv_mask=None, scale=None)
     """The plain version of K4 on the (B, H, D, L) cache."""
     return attention_q8_plain(q, k_t.permute(0, 3, 1, 2), k_scale,
                               v_t.permute(0, 3, 1, 2), v_scale, kv_mask, scale)
-
-
-def split_plan(B, Lq, Lkv, H, n_sms):
-    """(splits, tiles per split) of the kernel's keys: 64-key tiles, at
-    least two per split, and enough splits that B x H x q tiles x splits
-    CTAs give about 4 per SM (two resident, two waves).  Every split holds
-    ``tiles per split`` tiles but the last; one split when that many tiles
-    already fill the card or the cache is one tile."""
-    n_tiles = -(-Lkv // BK)
-    ctas = B * H * -(-Lq // MAX_ROWS)
-    tps = max(2, n_tiles * ctas // (4 * n_sms))
-    if n_tiles <= tps:
-        return 1, max(1, n_tiles)
-    return -(-n_tiles // tps), tps
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(name, transposed, q, k, k_scale, v, v_scale, kv_mask, scale):

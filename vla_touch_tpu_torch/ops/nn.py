@@ -7,6 +7,10 @@ per use); normalisation statistics are float32; channels-last (B, T, C)
 for the 1-D convolutions, (B, L, H, D) for attention.  Parameter names
 mirror the JAX package's flax names so :mod:`utils.from_flax` is a rename
 plus layout transforms.
+
+:func:`gelu_erf` is the exact GELU as XLA:CPU compiles
+``jax.jit(jax.nn.gelu(x, approximate=False))`` in jax 0.9.0, read off that
+program's HLO text (``.lower(x).compile().as_text()``).
 """
 
 from __future__ import annotations
@@ -50,6 +54,86 @@ def gelu_tanh(x):
 def quick_gelu(x):
     """CLIP's x * sigmoid(1.702 x), the sigmoid as :func:`silu`'s."""
     return x * (1 / (1 + torch.exp(-(_const(1.702, x.dtype) * x))))
+
+
+# XLA:CPU's erfc(z) in float32, as the compiled HLO writes it out: for |z| < 1,
+# 1 - z P(z^2); else e^(-z^2) / |z| Q(1 / z^2), Q one polynomial below |z| = 2
+# and another above, 0 once -z^2 < -88.7228394, and 2 minus that for z < 0.
+# The CPU backend contracts each multiply-add of the polynomials into an FMA
+# and flushes denormal results to 0.
+_ERFC_NEAR = (7.85386146e-05, -8.01019371e-04, 5.18832775e-03, -2.68538129e-02,
+              1.12835854e-01, -3.76126260e-01, 1.12837911)
+_ERFC_MID = (2.32682e-02, -1.38703942e-01, 3.68742466e-01, -5.82473278e-01,
+             6.21000469e-01, -4.94451523e-01, 3.40488e-01, -2.74112701e-01,
+             5.63825965e-01)
+_ERFC_FAR = (-1.0477664e+01, 1.29772e+01, -7.49551868, 2.92101908, -1.01526523,
+             4.2184633e-01, -2.82076746e-01, 5.64189494e-01)
+_F32_TINY = 2.0 ** -126
+
+
+def _ftz(x):
+    return x.masked_fill(x.abs() < _F32_TINY, 0.0)
+
+
+def _fma_horner(t, coeffs):
+    """Horner's rule in float32 with each multiply-add rounded once, as the
+    FMA does: the float64 product of two float32 values is exact."""
+    c = [_const(v, torch.float32) for v in coeffs]
+    t64 = t.double()
+    y = (t64 * c[0] + c[1]).float()
+    for ci in c[2:]:
+        y = (y.double() * t64 + ci).float()
+    return y
+
+
+def _erfc_xla(z, exp):
+    a = z.abs()
+    z2 = z * z
+    near = (1.0 - z.double() * _fma_horner(z2, _ERFC_NEAR).double()).float()
+    r = 1.0 / z2
+    q = _ftz(_ftz(exp(-z2)) * (1.0 / a))
+    y = _ftz(q * torch.where(a < 2.0, _fma_horner(r, _ERFC_MID), _fma_horner(r, _ERFC_FAR)))
+    y = y.masked_fill(-z2 < _const(-88.7228394, torch.float32), 0.0)
+    y = torch.where(z < 0.0, 2.0 - y, y)
+    return torch.where(a < 1.0, near, y)
+
+
+def _gelu_erf_program(x, exp):
+    """:func:`gelu_erf` written out operation by operation, with ``exp`` as
+    the float32 exponential (tests pass XLA's own to isolate the only
+    operation written differently)."""
+    if x.dtype == torch.float32:
+        return _ftz(_ftz(x * 0.5) * _erfc_xla(-x * _const(0.707106769, torch.float32), exp))
+    e = _erfc_xla((-x).float() * 0.70703125, exp).to(torch.bfloat16)
+    return _ftz(_ftz(x.float() * 0.5).to(torch.bfloat16) * e)
+
+
+@functools.cache
+def _gelu_erf_bf16_table(device: torch.device):
+    """:func:`gelu_erf` of every bf16 value, indexed by its 16 bits: computed
+    on the CPU (where the tests hold all of it to JAX) and copied to
+    ``device``."""
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    return _gelu_erf_program(bits.view(torch.bfloat16), torch.exp).to(device)
+
+
+def gelu_erf(x):
+    """``jax.nn.gelu(x, approximate=False)`` under ``jit``, as XLA:CPU
+    computes it: 0.5 x erfc(-x / sqrt(2)) with :func:`_erfc_xla`, every
+    denormal result flushed to 0.
+
+    float32 x: that program.  bfloat16 x: erfc's argument stays float32
+    (f32(-x) times bf16(1/sqrt(2)) = 0.70703125; XLA drops the bf16 round
+    trip the jaxpr has there), erfc is rounded to bf16, and bf16(0.5 x)
+    times it is rounded once.  A bf16 x has 65536 values, so the program
+    runs once, on the CPU, over all of them and x indexes that table (one
+    copy per device): one gather in place of ~130 elementwise passes."""
+    if x.dtype == torch.bfloat16:
+        idx = x.view(torch.int16).to(torch.int32) & 0xFFFF
+        return _gelu_erf_bf16_table(x.device)[idx]
+    if x.dtype != torch.float32:
+        raise TypeError(f"gelu_erf: float32 or bfloat16, got {x.dtype}")
+    return _gelu_erf_program(x, torch.exp)
 
 
 def mish(x):

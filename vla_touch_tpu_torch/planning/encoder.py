@@ -15,10 +15,10 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vla_touch_tpu_torch.models.encoders.vit import CLIP_VIT_B16, ViTConfig, ViTEncoder
+from vla_touch_tpu_torch.ops.nn import gelu_erf
 
 
 class CLIPVisionPooled(nn.Module):
@@ -65,9 +65,9 @@ class Adapter(nn.Module):
             m.weight.normal_(0.0, 1e-3, generator=generator)
 
     def forward(self, x):
-        combined = self.rfc2(F.gelu(self.rfc1(x))) + x
+        combined = self.rfc2(gelu_erf(self.rfc1(x))) + x
         if hasattr(self, "align"):
-            combined = self.align(F.gelu(combined))
+            combined = self.align(gelu_erf(combined))
         return combined
 
 
@@ -82,7 +82,7 @@ class PropertyClassifier(nn.Module):
         self.roughness_fc = nn.Linear(256, 1)
 
     def forward(self, x):
-        h = F.gelu(self.fc2(F.gelu(self.fc1(x))))
+        h = gelu_erf(self.fc2(gelu_erf(self.fc1(x))))
         return torch.cat([self.hardness_fc(h), self.roughness_fc(h)], dim=-1)
 
 

@@ -9,8 +9,9 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from vla_touch_tpu_torch.ops.nn import gelu_erf
 
 TACTILE_START = "<|tactile_start|>"
 TACTILE_END = "<|tactile_end|>"
@@ -26,7 +27,7 @@ class TactileProjector(nn.Module):
         self.fc2 = nn.Linear(llm_dim, llm_dim)
 
     def forward(self, feats):
-        return self.fc2(F.gelu(self.fc1(feats), approximate="none"))
+        return self.fc2(gelu_erf(self.fc1(feats)))
 
 
 def init_tactile_projector(feature_dim: int, llm_dim: int, seed: int = 0,
