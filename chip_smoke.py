@@ -972,14 +972,16 @@ def check_qmm(gen, kernel, shapes=None):
         del library
         b_ms, o_ms = qmm_bound_ms(kernel, M, K, N)
         bound = max(b_ms, o_ms)
-        rows.append(dict(M=M, K=K, N=N, calls=calls, max_abs_err=err, tol=tol,
+        plan = k6_card_plan(M, K, N) if kernel == "K6" else None
+        rows.append(dict(M=M, K=K, N=N, calls=calls, plan=plan, max_abs_err=err, tol=tol,
                          bf16_unlike_plain=n_diff, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound, bound_by=bound_by(
                              dict(bytes_ms=b_ms, ops_ms=o_ms))))
         lib = "" if lib_ms is None else (
             f" {'F.linear (bf16 weights)' if kernel == 'K5' else 'torch._int_mm (GEMM only)'} "
             f"{lib_ms:.4f} ms")
-        log(f"{kernel} M{M:4d} K{K:5d} N{N:6d}: err {err:.3e} (tol {tol:.3e}; bf16 outputs "
+        how = "" if plan is None else f" plan (mt, wn, splits) {plan}"
+        log(f"{kernel} M{M:4d} K{K:5d} N{N:6d}{how}: err {err:.3e} (tol {tol:.3e}; bf16 outputs "
             f"unlike the plain version's {n_diff} of {M * N}) kernel {ms:.4f} ms (eager loop "
             f"{eager_ms:.4f}) plain {plain_ms:.4f} ms{lib} bound {bound:.4f} ms x{calls}/tick")
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
@@ -990,6 +992,15 @@ def check_qmm(gen, kernel, shapes=None):
     if kernel == "K8":
         tot["library_ms"] = None
     return rows, tot
+
+
+def k6_card_plan(M, K, N):
+    """K6's split plan (16-row tiles per CTA, warps across columns, K
+    splits) on this card."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+    from vla_touch_tpu_torch.utils.device import sm_count
+
+    return QM.k6_plan(M, N, K, sm_count(0))
 
 
 def bound_by(tot) -> str:

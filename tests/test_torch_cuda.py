@@ -182,6 +182,64 @@ def test_a8w8_kernel_matches_plain(cuda, M, K, N, x_dtype):
 
 
 @pytest.mark.parametrize("M,K,N,x_dtype", [
+    (67, 1040, 256, torch.bfloat16),     # 17 chunks, the last of 16 bytes, over 3 splits
+    (1, 2048, 2048, torch.float32),
+    (24, 3584, 512, torch.bfloat16),
+    (67, 2048, 2048, torch.float32),
+    (80, 2048, 2048, torch.bfloat16),
+    (512, 4096, 128, torch.bfloat16),
+    (1, 18944, 3584, torch.bfloat16),
+    (67, 2048, 6144, torch.bfloat16),
+])
+def test_a8w8_kernel_is_exact_under_split_k(cuda, M, K, N, x_dtype):
+    """K6 under its split plan is bit for bit the plain float32 out rounded
+    to bf16 (exact int32 partials, one epilogue per element in the plain
+    order); a CUDA graph of the call replayed twice gives the same bits,
+    so no call leaves state behind for the next (the splits of a tile
+    meet in their cluster's shared memory)."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    lin, Q = _int8_linear(g, N, K, cuda)
+    qp = Q.quantize_linear(lin)
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(x_dtype)
+    got = QM.a8w8_matmul(x, qp.w_i8, qp.scale, qp.bias)
+    want = QM.a8w8_plain(x, qp.w_i8, qp.scale, qp.bias, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert int((got != want.to(torch.bfloat16)).sum()) == 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        QM.a8w8_matmul(x, qp.w_i8, qp.scale, qp.bias)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = QM.a8w8_matmul(x, qp.w_i8, qp.scale, qp.bias)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    assert torch.equal(replays[0], got) and torch.equal(replays[1], got)
+    assert torch.equal(QM.a8w8_matmul(x, qp.w_i8, qp.scale, qp.bias), got)
+
+
+@pytest.mark.parametrize("plan", [(5, 2, 1), (5, 2, 3), (5, 4, 1), (5, 4, 5), (2, 4, 8)])
+def test_a8w8_kernel_plans_agree(cuda, plan):
+    """Every plan the tools time gives the same bits at (67, 2048, 2048)."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    lin, Q = _int8_linear(g, 2048, 2048, cuda)
+    qp = Q.quantize_linear(lin)
+    x = (torch.randn((67, 2048), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    want = QM.a8w8_plain(x, qp.w_i8, qp.scale, qp.bias, out_dtype=torch.float32)
+    got = QM._a8w8_launch(x, qp.w_i8, qp.scale, qp.bias, plan)
+    torch.cuda.synchronize()
+    assert int((got != want.to(torch.bfloat16)).sum()) == 0
+
+
+@pytest.mark.parametrize("M,K,N,x_dtype", [
     (67, 2048, 2048, torch.bfloat16),
     (1, 256, 2048, torch.bfloat16),
     (64, 4096, 2048, torch.float32),
@@ -419,6 +477,55 @@ def test_w4_megakernels_match_plain(cuda, kernel, M, D, F, gs_down):
     assert fn.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert float((got.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K10"])
+@pytest.mark.parametrize("M", [1, 5, 8, 17, 32])
+def test_w4_megakernels_repeat_bit_for_bit(cuda, kernel, M):
+    """K9 / K10 at a narrow width (D 512, F 2048; K10's o from Ka 1024),
+    where most blocks of the grid get no o or down tile: within MK_TOL
+    (2e-2 x max|plain|) of the plain version, and a second call gives the
+    same bits (every sum in a fixed order; the row maxima start at 0 in
+    every call)."""
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    D, F, Ka = 512, 2048, 1024
+    g = torch.Generator(device=cuda).manual_seed(9)
+    gu, down = _w4_leaf(g, 2 * F, D, cuda, bias=True), _w4_leaf(g, D, F, cuda)
+    x = (torch.randn((M, D), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    if kernel == "K9":
+        fn, ops = W4F.w4_swiglu_mlp, (x, gu, down)
+        want = W4F.w4_swiglu_plain(*ops, out_dtype=torch.float32)
+    else:
+        att = (torch.randn((M, Ka), generator=g, device=cuda) * 2).to(torch.bfloat16)
+        o = _w4_leaf(g, D, Ka, cuda)
+        nw = 1 + 0.1 * torch.randn((D,), generator=g, device=cuda)
+        fn, ops = W4F.w4_postattn_fused, (x, att, o, gu, down, nw)
+        want = W4F.w4_postattn_plain(*ops, out_dtype=torch.float32)
+    before = fn.launches
+    first, second = fn(*ops), fn(*ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(first, second)
+    assert float((first.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+def test_w4_megakernels_serve_a_wider_call_after_a_narrower_one(cuda):
+    """K9 at width 1024, then 256, then 1024 again (one row tile each): the
+    kernel's shared-memory limit set for the first call must not be lowered
+    by the second under the third, whose grid is cached."""
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    for D in (1024, 256, 1024):
+        gu, down = _w4_leaf(g, 2 * 512, D, cuda), _w4_leaf(g, D, 512, cuda)
+        x = torch.randn((1, D), generator=g, device=cuda).to(torch.bfloat16)
+        before = W4F.w4_swiglu_mlp.launches
+        got = W4F.w4_swiglu_mlp(x, gu, down)
+        torch.cuda.synchronize()
+        assert W4F.w4_swiglu_mlp.launches == before + 1
+        want = W4F.w4_swiglu_plain(x, gu, down, out_dtype=torch.float32)
+        assert float((got.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
 
 
 def test_w4_megakernels_compose_what_they_do_not_take(cuda):

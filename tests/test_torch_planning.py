@@ -322,6 +322,81 @@ def test_w4_postattn_matches_jax_kernel(rng, Ka, D, F, M):
         np.testing.assert_allclose(got, want, rtol=3e-2, atol=5e-2)
 
 
+def _mk_sums(codes, qp):
+    """The float32 sums (M, N) before the row scale of a w4 product as the
+    megakernels take them: per-group int32 dots; a unit u (groups u and u +
+    G/2) folded into a warp's sum as acc + lo * s_lo, then + hi * s_hi; the
+    8 warps of a tile taking units w, w + 8, ...; warps added in warp
+    order."""
+    from vla_touch_tpu_torch.ops import quant as Q
+
+    G, N = qp.scale4.shape
+    K = codes.shape[1]
+    gs, HG = K // G, G // 2
+    w = Q.unpack_w4(qp.w4_pack).int()
+    dots = [(codes[:, g * gs:(g + 1) * gs].int() @ w[:, g * gs:(g + 1) * gs].t()).float()
+            for g in range(G)]
+    warps = []
+    for wq in range(8):
+        acc = torch.zeros((codes.shape[0], N), dtype=torch.float32)
+        for u in range(wq, HG, 8):
+            acc = acc + dots[u] * qp.scale4[u]
+            acc = acc + dots[u + HG] * qp.scale4[u + HG]
+        warps.append(acc)
+    s = warps[0]
+    for acc in warps[1:]:
+        s = s + acc
+    return s
+
+
+def _mk_codes(x):
+    """The megakernels' per-row int8 codes and row scale amax * (1/127)."""
+    from vla_touch_tpu_torch.ops import quant as Q
+
+    codes, amax = Q.quantize_rows(x.float())
+    return codes, amax * np.float32(1.0 / 127.0)
+
+
+def _k10_sum_order(x, att, o, gu, down, nw, eps):
+    """K10 (``csrc/w4_postattn.cu``) in float32 on the CPU, each sum in the
+    kernel's order."""
+    bf = torch.bfloat16
+    D, F = x.shape[1], gu.w4_pack.shape[0] // 2
+    ca, ra = _mk_codes(att)
+    ob = (_mk_sums(ca, o) * ra).to(bf).float()
+    x2 = (x.float() + ob).to(bf)
+    xf = x2.float()
+    r = 1.0 / torch.sqrt((xf * xf).sum(-1, keepdim=True) / D + eps)
+    h = ((xf * r) * nw).to(bf)
+    ch, rh = _mk_codes(h)
+    gsum = _mk_sums(ch, gu) * rh
+    g, u = gsum[:, :F].to(bf), gsum[:, F:].to(bf)
+    act = W4F.silu_mul(g, u)
+    cact, ract = _mk_codes(act)
+    y = (_mk_sums(cact, down) * ract).to(bf).float()
+    return (x2.float() + y).to(bf)
+
+
+@pytest.mark.parametrize("Ka,D,F,M", [(1024, 256, 1024, 3), (256, 256, 2048, 8)])
+def test_k10_sum_order_matches_jax_kernel(rng, Ka, D, F, M):
+    """K10's sums taken in its order (each of o's, gate|up's and down's 8
+    warps over every eighth unit, the warps added in order) stay within
+    MK_TOL (2e-2 x max|out|) of JAX's ``w4_postattn_fused`` in interpret
+    mode, o over 4 or 1 units (pairs of 128-wide groups), down over 4 or 8."""
+    jo, to = _w4_leaf(rng, Ka, D)
+    jgu, tgu = _w4_leaf(rng, D, 2 * F)
+    jdn, tdn = _w4_leaf(rng, F, D)
+    nw = (rng.normal(size=(D,)) * 0.2 + 1.0).astype(np.float32)
+    x = rng.normal(size=(M, D)).astype(np.float32)
+    att = rng.normal(size=(M, Ka)).astype(np.float32)
+    bf = jnp.bfloat16
+    want = _np(JPM.w4_postattn_fused(jnp.asarray(x, bf), jnp.asarray(att, bf), jo, jgu, jdn,
+                                     jnp.asarray(nw), eps=1e-6, interpret=True))
+    got = _k10_sum_order(_t(x, torch.bfloat16), _t(att, torch.bfloat16), to, tgu, tdn, _t(nw),
+                         1e-6)
+    assert np.abs(got.float().numpy() - want).max() <= 2e-2 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("tree", ["int8", "int4"])
 def test_swiglu_mlp_matches_jax_bit_for_bit(trees, monkeypatch, tree):
     """The composed MLP of the int8 and unfused w4 trees (gate, up, SiLU *

@@ -125,6 +125,62 @@ def test_a8w8_plain_matches_jax_kernel(rng, M, K, N):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
+# (M, K, N, plan at 132 SMs) of every K6 call: the tick's eight linears
+# (chip_smoke.QMM_SHAPES) and the planner int8 request's (K6_LLM_SHAPES)
+K6_PLAN_CASES = [
+    (67, 2048, 6144, (5, 2, 1)), (67, 2048, 2048, (5, 2, 2)), (67, 2048, 128, (5, 2, 2)),
+    (64, 4096, 2048, (4, 2, 2)), (64, 2048, 2048, (4, 2, 2)), (64, 256, 2048, (4, 2, 1)),
+    (1, 256, 2048, (1, 2, 1)), (1, 2048, 2048, (1, 2, 4)), (24, 3584, 3584, (2, 2, 2)),
+    (24, 3584, 512, (2, 2, 8)), (24, 3584, 18944, (2, 4, 1)), (24, 18944, 3584, (2, 2, 2)),
+    (1, 3584, 3584, (1, 2, 2)), (1, 3584, 512, (1, 2, 8)), (1, 3584, 18944, (1, 4, 1)),
+    (1, 18944, 3584, (1, 2, 2)), (1, 3584, 152064, (1, 2, 1)),
+]
+
+
+@pytest.mark.parametrize("M,K,N,want", K6_PLAN_CASES)
+def test_k6_split_plan_covers_every_chunk_once(M, K, N, want):
+    """At 132 SMs: the plan named; every (column tile, 64-wide K chunk) of
+    every row block in exactly one CTA, every split non-empty; at most one
+    CTA per SM when the tiles alone do not fill the card, and one more
+    split would overfill it unless K's chunks (at least 4 a split) or the
+    cluster cap (8 CTAs, 2 at three or more row tiles) cap the splits
+    (then they are at that cap)."""
+    n_sms = 132
+    plan = QM.k6_plan(M, N, K, n_sms)
+    assert plan == want
+    mt, wn, splits = plan
+    tiles = QM.k6_tiles(M, N, plan)
+    assert tiles == -(-M // (16 * mt)) * -(-N // (32 * wn))
+    nc = -(-K // QM.K6_CHUNK)
+    seen = np.zeros(nc, int)
+    for z in range(splits):
+        c0, c1 = QM.k6_split_chunks(nc, splits, z)
+        assert c1 > c0
+        seen[c0:c1] += 1
+    assert np.all(seen == 1)
+    ctas = tiles * splits
+    cap = min(nc // QM.K6_MIN_CHUNKS, QM.K6_TALL_SPLITS if mt >= 3 else QM.K6_MAX_SPLITS)
+    if tiles < n_sms:
+        assert ctas <= n_sms
+        assert ctas + tiles > n_sms or splits == max(1, cap)
+    else:
+        assert splits == 1
+
+
+@pytest.mark.parametrize("M,K,N", [(67, 1040, 256), (1, 48, 64), (512, 4096, 128)])
+def test_k6_split_plan_ragged_and_tall(M, K, N):
+    """A K whose last chunk is partial (1040 = 16 x 64 + 16) and chunk counts
+    that the splits do not divide: every chunk once; M = 512 takes seven
+    80-row blocks."""
+    mt, wn, splits = QM.k6_plan(M, N, K, 132)
+    nc = -(-K // 64)
+    bounds = [QM.k6_split_chunks(nc, splits, z) for z in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == nc
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert max(c1 - c0 for c0, c1 in bounds) - min(c1 - c0 for c0, c1 in bounds) <= 1
+    assert -(-M // (16 * mt)) == (7 if M == 512 else 1)
+
+
 def test_qdense_large_m_matches_jax(rng):
     """M > 512 (the dispatcher's plain route): the port's ``qdense`` vs
     JAX's XLA ``qdense``, float32 out, <= 1e-5 relative; the dispatcher

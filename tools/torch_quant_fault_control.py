@@ -27,7 +27,8 @@ process that imports the copy:
    against its tolerance (share <= 1 passes);
 4. for K9/K10, builds the full-width planner and prints the ask request's
    teacher-forced logits corr against the plain versions and a checked
-   4-token decode, beside chip_smoke's gates.
+   4-token decode, beside chip_smoke's gates; for K6, the int8 request
+   checked at 2 tokens.
 
 The checkout itself is never edited.  Needs one NVIDIA GPU.
 """
@@ -59,14 +60,33 @@ FAULTS = {
     # amax * (1/127) belongs (one ulp apart for some amax)
     "k7_row_scale_div_127": ("a8w8_matmul_large.cu", "/*rs_recip=*/1", "/*rs_recip=*/0",
                              ("K7",), ("f",)),
-    # K6: the last 64-wide K chunk of every row is never multiplied
-    "k6_drop_last_k_chunk": ("a8w8_matmul.cu", "const int n_chunks = (K + KC - 1) / KC;",
-                             "const int n_chunks = (K + KC - 1) / KC - 1;", ("K6",), ("a",)),
-    # K8: the two nibble planes swapped (rows j and K/2 + j exchanged)
-    "k8_swap_nibble_planes": ("w4_group.cuh",
-                              "lo[j] = low_plane(p);\n        hi[j] = high_plane(p);",
-                              "lo[j] = high_plane(p);\n        hi[j] = low_plane(p);",
-                              ("K8",), ("e",)),
+    # K6: the last 64-wide K chunk of every row is never multiplied (the
+    # last split stops one chunk short)
+    "k6_drop_last_k_chunk": ("a8w8_matmul.cu", "const int kend = min(K, c1 * KC);",
+                             "const int kend = min(K, c1 * KC) - "
+                             "(blockIdx.z == a.splits - 1 ? KC : 0);", ("K6",), ("a",)),
+    # K6: the last split's int32 partial is never added to the tile (no
+    # effect where the plan does not split)
+    "k6_skip_one_k_split": ("a8w8_matmul.cu",
+                            "for (int q = 0; q < S; ++q) v[u] += "
+                            "*cluster.map_shared_rank(red + e, q);",
+                            "for (int q = 0; q < S - 1; ++q) "
+                            "v[u] += *cluster.map_shared_rank(red + e, q);", ("K6",), ("a",)),
+    # K6: a CTA reads its peers' partials without the cluster barrier that
+    # waits for them to be written (K6 keeps no counter or workspace
+    # between calls: the race is the state fault its design can have)
+    "k6_no_cluster_wait": ("a8w8_matmul.cu",
+                           "  cluster.sync();\n  const int S = a.splits;",
+                           "  const int S = a.splits;", ("K6",), ("a",)),
+    # K8 (and K9/K10, whose products are the same code): the two nibble
+    # planes swapped (rows j and K/2 + j exchanged)
+    "k8_swap_nibble_planes": (
+        "w4_group.cuh",
+        "a_lo, a_hi, low_plane(p[h][j]));\n"
+        "            mma_chunk64(acc_hi[h][i][j], b_lo, b_hi, high_plane(p[h][j]));",
+        "a_lo, a_hi, high_plane(p[h][j]));\n"
+        "            mma_chunk64(acc_hi[h][i][j], b_lo, b_hi, low_plane(p[h][j]));",
+        ("K8", "K9", "K10"), ("e",)),
     # K8: nibbles taken as 0..15, without sign extension
     "k8_no_sign_extension": ("w4_group.cuh",
                              "return (int)__vsub4(v ^ 0x08080808u, 0x08080808u);",
@@ -97,8 +117,8 @@ FAULTS = {
         "  quantize_act_phase(a.act, a.amax, a.M, a.F, a.aq);\n", ("K9",), ()),
     # K10: the RMSNorm's weight never applied
     "k10_norm_weight_ignored": (
-        "w4_postattn.cu", "return bf16_round(__fmul_rn(__fmul_rn(ld_bf16_l2(row + k), r), w[k]));",
-        "return bf16_round(__fmul_rn(ld_bf16_l2(row + k), r));", ("K10",), ()),
+        "w4_postattn.cu", "h[q] = bf16_round(__fmul_rn(__fmul_rn(f[q], r), wv[q]));",
+        "h[q] = bf16_round(__fmul_rn(f[q], r));", ("K10",), ()),
     # K10: the last 16 output columns of down never written
     "k10_drop_last_down_tile": (
         "w4_postattn.cu", "a.out[e] = __float2bfloat16(__fadd_rn(res, bf16_round(y)));",
@@ -107,16 +127,24 @@ FAULTS = {
 }
 
 
-def planner_gates(fault: str) -> None:
-    """The full-width planner's ask request (K9 in the prompt pass, K10 in
-    every decode step): teacher-forced logits corr against the plain
-    versions, and a checked 4-token decode."""
+def planner_gates(fault: str, kernels) -> None:
+    """The full-width planner.  K9/K10: the ask request (K9 in the prompt
+    pass, K10 in every decode step): teacher-forced logits corr against
+    the plain versions, and a checked 4-token decode.  K6: the int8
+    request, checked at 2 tokens as chip_smoke checks it."""
     import chip_smoke as CS
     from vla_touch_tpu_torch.planning import llm as L
     from vla_touch_tpu_torch.planning import run_llm as RL
 
     P = CS.build_planner(seed=0)
     cfg = P["cfg"]
+    if "K6" in kernels:
+        i8 = RL.make_llm_interface(cfg, P["i8"], max_new_tokens=2)
+        chk = CS.checked_run(lambda: i8.generate_fn(i8.embed_text(CS.ASK_QUERY)))
+        print(f"{fault}: planner int8 checked request (gate: share <= 1, unlike 0) "
+              + json.dumps({k: v for k, v in chk.items() if v["calls"]}), flush=True)
+    if not {"K9", "K10"} & set(kernels):
+        return
     L.MEGAKERNELS = True
     iface = RL.make_llm_interface(cfg, P["fused"], max_new_tokens=CS.PLAN_TOKENS)
     with CS.recording_generate() as calls:
@@ -172,8 +200,8 @@ def child(fault: str) -> None:
             except AssertionError as e:
                 print(f"{fault}: {kernel} {name}: {e}: MISS", flush=True)
     del leaves
-    if {"K9", "K10"} & set(kernels):
-        planner_gates(fault)
+    if {"K6", "K9", "K10"} & set(kernels):
+        planner_gates(fault, kernels)
     if not configs:
         return
     t = CS.build_tick(seed=0)

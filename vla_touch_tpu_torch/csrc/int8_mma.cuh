@@ -42,11 +42,14 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 
 // One CTA per row m: x (M, K) with row stride x_sm elements -> xq (M, K)
 // int8 contiguous and rs[m] = amax / 127 (rs_recip: amax * (1/127)).
-template <typename T>
+// EARLY_LAUNCH lets a launch that follows with programmatic dependent
+// launch start at once (K6: its weight loads overlap this launch).
+template <typename T, bool EARLY_LAUNCH = false>
 __global__ void __launch_bounds__(QUANT_THREADS)
 quantize_rows_kernel(const T* __restrict__ x, long long x_sm, int K,
                      int8_t* __restrict__ xq, float* __restrict__ rs, int rs_recip) {
   __shared__ float red[QUANT_THREADS / 32];
+  if (EARLY_LAUNCH) asm volatile("griddepcontrol.launch_dependents;\n" ::);
   const int m = blockIdx.x;
   const T* row = x + (long long)m * x_sm;
   float amax = 0.f;
@@ -71,14 +74,15 @@ quantize_rows_kernel(const T* __restrict__ x, long long x_sm, int K,
 }
 
 // Launch the quantization of x (bf16 when x_f32 == 0, else float32).
+template <bool EARLY_LAUNCH = false>
 inline cudaError_t quantize_rows(const void* x, int x_f32, long long x_sm, int M,
                                  int K, int8_t* xq, float* rs, cudaStream_t stream,
                                  int rs_recip = 0) {
   if (x_f32)
-    quantize_rows_kernel<float><<<M, QUANT_THREADS, 0, stream>>>(
+    quantize_rows_kernel<float, EARLY_LAUNCH><<<M, QUANT_THREADS, 0, stream>>>(
         (const float*)x, x_sm, K, xq, rs, rs_recip);
   else
-    quantize_rows_kernel<__nv_bfloat16><<<M, QUANT_THREADS, 0, stream>>>(
+    quantize_rows_kernel<__nv_bfloat16, EARLY_LAUNCH><<<M, QUANT_THREADS, 0, stream>>>(
         (const __nv_bfloat16*)x, x_sm, K, xq, rs, rs_recip);
   return cudaGetLastError();
 }

@@ -67,76 +67,93 @@ struct SharedCodes {
 };
 
 // One warp's share of y[m, n] = sum_g scale4[g, n] * (sum_{k in g} x_i8[m, k] w[n, k])
-// for rows m0 + [0, MT*16) and columns n0 + [0, W4_BN): the units u = u0,
-// u0 + du, ... < G/2, folded into accf (the mma accumulator layout: tile
-// (i, j), register r holds row i*16 + lane/4 + (r/2)*8, column j*8 +
-// (lane%4)*2 + r%2).  x_i8 (M, K) has row stride ldx bytes (rows >= M give
-// 0) and is read through Codes::load; N is the weight's row count (columns
-// past N give 0).
-template <int MT, typename Codes>
-__device__ __forceinline__ void w4_warp_units(float (&accf)[MT][W4_NT][4],
+// for rows m0 + [0, MT*16) over NS column sets (columns n0[h] + [0,
+// W4_BN)) at once: the units u = u0, u0 + du, ... < u1, folded into
+// accf[h] (the mma accumulator layout: tile (i, j), register r holds row
+// i*16 + lane/4 + (r/2)*8, column j*8 + (lane%4)*2 + r%2).  The sets share
+// each chunk's activation codes, and every set's weight loads of a chunk
+// are in flight together (K9's gate|up runs its gate and up tiles as two
+// sets); a unit's scale4 values go out with its first weights.  x_i8 (M,
+// K) has row stride ldx bytes (rows >= M give 0) and is read through
+// Codes::load; N is the weight's row count (columns past N give 0).
+template <int MT, int NS, typename Codes>
+__device__ __forceinline__ void w4_warp_units(float (&accf)[NS][MT][W4_NT][4],
                                               const int8_t* __restrict__ xq, int ldx, int M,
                                               const int8_t* __restrict__ wp,
                                               const float* __restrict__ scale4, int N, int K,
-                                              int G, int n0, int m0, int u0, int du) {
+                                              int G, const int (&n0)[NS], int m0, int u0,
+                                              int u1, int du) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int KH = K / 2;               // packed bytes per row
+  const int KH = K / 2;
   const int gs = K / G;
   const int HG = G / 2;
   const int4 zero = make_int4(0, 0, 0, 0);
-  for (int u = u0; u < HG; u += du) {
-    int acc_lo[MT][W4_NT][4], acc_hi[MT][W4_NT][4];
+  for (int u = u0; u < u1; u += du) {
+    int acc_lo[NS][MT][W4_NT][4], acc_hi[NS][MT][W4_NT][4];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int h = 0; h < NS; ++h)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < W4_NT; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc_lo[h][i][j][r] = acc_hi[h][i][j][r] = 0;
+    float s_lo[NS][W4_NT][2], s_hi[NS][W4_NT][2];
+#pragma unroll
+    for (int h = 0; h < NS; ++h)
 #pragma unroll
       for (int j = 0; j < W4_NT; ++j)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc_lo[i][j][r] = acc_hi[i][j][r] = 0;
-
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0[h] + j * 8 + t * 2 + e;
+          s_lo[h][j][e] = n < N ? __ldg(scale4 + (long long)u * N + n) : 0.f;
+          s_hi[h][j][e] = n < N ? __ldg(scale4 + (long long)(u + HG) * N + n) : 0.f;
+        }
     for (int c = 0; c < gs; c += 64) {
       const bool kin = c + t * 16 < gs;   // gs % 32 == 0: whole 16 bytes or none
       const int k = u * gs + c + t * 16;  // low-plane K index = packed byte index
-      int4 lo[W4_NT], hi[W4_NT];
+      int4 p[NS][W4_NT];
 #pragma unroll
-      for (int j = 0; j < W4_NT; ++j) {
-        const int n = n0 + j * 8 + g;
-        const int4 p = (kin && n < N) ? ld128(wp + (long long)n * KH + k) : zero;
-        lo[j] = low_plane(p);
-        hi[j] = high_plane(p);
-      }
+      for (int h = 0; h < NS; ++h)
+#pragma unroll
+        for (int j = 0; j < W4_NT; ++j) {
+          const int n = n0[h] + j * 8 + g;
+          p[h][j] = (kin && n < N) ? ld128(wp + (long long)n * KH + k) : zero;
+        }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const int r0 = m0 + i * 16 + g, r1 = r0 + 8;
         const bool in0 = kin && r0 < M, in1 = kin && r1 < M;
         const int8_t* x0 = xq + (long long)r0 * ldx + k;
         const int8_t* x1 = xq + (long long)r1 * ldx + k;
-        int4 a_lo = in0 ? Codes::load(x0) : zero, a_hi = in1 ? Codes::load(x1) : zero;
+        const int4 a_lo = in0 ? Codes::load(x0) : zero, a_hi = in1 ? Codes::load(x1) : zero;
+        const int4 b_lo = in0 ? Codes::load(x0 + KH) : zero;
+        const int4 b_hi = in1 ? Codes::load(x1 + KH) : zero;
 #pragma unroll
-        for (int j = 0; j < W4_NT; ++j) mma_chunk64(acc_lo[i][j], a_lo, a_hi, lo[j]);
-        a_lo = in0 ? Codes::load(x0 + KH) : zero;
-        a_hi = in1 ? Codes::load(x1 + KH) : zero;
+        for (int h = 0; h < NS; ++h)
 #pragma unroll
-        for (int j = 0; j < W4_NT; ++j) mma_chunk64(acc_hi[i][j], a_lo, a_hi, hi[j]);
+          for (int j = 0; j < W4_NT; ++j) {
+            mma_chunk64(acc_lo[h][i][j], a_lo, a_hi, low_plane(p[h][j]));
+            mma_chunk64(acc_hi[h][i][j], b_lo, b_hi, high_plane(p[h][j]));
+          }
       }
     }
     // fold the unit's two groups into the float32 sums
 #pragma unroll
-    for (int j = 0; j < W4_NT; ++j)
+    for (int h = 0; h < NS; ++h)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + j * 8 + t * 2 + e;
-        const float s_lo = n < N ? scale4[(long long)u * N + n] : 0.f;
-        const float s_hi = n < N ? scale4[(long long)(u + HG) * N + n] : 0.f;
+      for (int j = 0; j < W4_NT; ++j)
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+        for (int e = 0; e < 2; ++e)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float& acc = accf[i][j][h * 2 + e];
-            acc = __fadd_rn(acc, __fmul_rn((float)acc_lo[i][j][h * 2 + e], s_lo));
-            acc = __fadd_rn(acc, __fmul_rn((float)acc_hi[i][j][h * 2 + e], s_hi));
-          }
-      }
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float& acc = accf[h][i][j][hh * 2 + e];
+              acc = __fadd_rn(acc, __fmul_rn((float)acc_lo[h][i][j][hh * 2 + e], s_lo[h][j][e]));
+              acc = __fadd_rn(acc, __fmul_rn((float)acc_hi[h][i][j][hh * 2 + e], s_hi[h][j][e]));
+            }
   }
 }
 

@@ -18,12 +18,17 @@
 //
 // The TPU kernel runs its grid in order (o tiles into a VMEM x2, the norm
 // and h's quantization at a barrier step, then K9's phases).  Here every
-// block quantizes att itself into shared memory; o's tiles write x2 (M x D
-// bf16) to wrapper-allocated scratch, which stays in L2; a grid barrier;
-// every block then norms and quantizes all M rows of x2 itself (one warp
-// per row, the same codes in every block) and runs K9's gate|up, amax,
-// barrier, quantize, barrier and down phases, the residual added in down's
-// epilogue.  Three grid barriers in one cooperative launch.
+// block quantizes att itself into shared memory; o's tiles
+// (w4_swiglu.cuh::w4_dense_phase, as K9's down) write x2 (M x D bf16) to
+// wrapper-allocated scratch, which stays in L2; a grid barrier; every block
+// then norms and quantizes all M rows of x2 itself (one warp per row, the
+// same codes in every block) and runs K9's gate|up, amax, barrier,
+// quantize, barrier and down phases, the residual added in down's
+// epilogue.  Three grid barriers in one cooperative launch; a row's codes
+// and norm are read 16 bytes a lane at a time.  o and down each take one
+// 16-column tile per item: at Qwen2.5-7B width their 224 tiles leave 40 of
+// the 264 blocks of one row tile idle, and run in two rounds on the 132 of
+// two (cutting the tiles' units into segments measured slower there).
 
 #include "w4_swiglu.cuh"
 
@@ -47,41 +52,56 @@ struct PostattnArgs {
   float eps;
 };
 
-// h[k] of a row of x2 at the row's 1 / rms r: bf16((x2 * r) * w)
-__device__ __forceinline__ float normed(const __nv_bfloat16* row, int k, float r,
-                                        const float* __restrict__ w) {
-  return bf16_round(__fmul_rn(__fmul_rn(ld_bf16_l2(row + k), r), w[k]));
-}
-
 // h = bf16(x2 * (1 / sqrt(mean(x2^2) + eps)) * w) of rows [0, M) of x2 (M,
 // D), written by other blocks before a grid barrier -> int8 codes in shared
-// memory (row stride sld) and rs[m] = amax(h) * (1/127).  One warp per row.
+// memory (row stride sld) and rs[m] = amax(h) * (1/127).  One warp per
+// row, 8 values a lane at a time; the sum of squares is each lane's in
+// order, then the warp's butterfly, so every block computes the same codes.
 __device__ __forceinline__ void rmsnorm_quantize_shared(const __nv_bfloat16* x2, int M, int D,
                                                         const float* __restrict__ w, float eps,
                                                         int8_t* codes, int sld, float* rs) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  auto normed8 = [&](const int4* row, int i, float r, float (&h)[8]) {
+    float f[8];
+    bf16x8(__ldcg(row + i), f);
+    const float4 wa = __ldg(w4 + 2 * i), wb = __ldg(w4 + 2 * i + 1);
+    const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+    for (int q = 0; q < 8; ++q) h[q] = bf16_round(__fmul_rn(__fmul_rn(f[q], r), wv[q]));
+  };
   for (int m = warp; m < M; m += MK_WARPS) {
-    const __nv_bfloat16* row = x2 + (long long)m * D;
+    const int4* row = reinterpret_cast<const int4*>(x2 + (long long)m * D);
     float ss = 0.f;
-    for (int k = lane; k < D; k += 32) {
-      const float v = ld_bf16_l2(row + k);
-      ss = __fadd_rn(ss, __fmul_rn(v, v));
+    for (int i = lane; i < D / 8; i += 32) {
+      float f[8];
+      bf16x8(__ldcg(row + i), f);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) ss = __fadd_rn(ss, __fmul_rn(f[q], f[q]));
     }
     ss = warp_sum(ss);
     const float r = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)D), eps)));
     float amax = 0.f;
-    for (int k = lane; k < D; k += 32) amax = fmaxf(amax, fabsf(normed(row, k, r, w)));
+    for (int i = lane; i < D / 8; i += 32) {
+      float h[8];
+      normed8(row, i, r, h);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) amax = fmaxf(amax, fabsf(h[q]));
+    }
     amax = fmaxf(warp_max(amax), 1e-8f);
     const float inv = 127.0f / amax;
-    for (int k = lane; k < D; k += 32)
-      codes[m * sld + k] = (int8_t)quant_code(normed(row, k, r, w), inv);
+    for (int i = lane; i < D / 8; i += 32) {
+      float h[8];
+      normed8(row, i, r, h);
+      *reinterpret_cast<int2*>(codes + m * sld + i * 8) = codes8(h, inv);
+    }
     if (lane == 0) rs[m] = __fmul_rn(amax, INV127);
   }
   __syncthreads();
 }
 
 template <int MT>
-__global__ void __launch_bounds__(MK_THREADS, 1) w4_postattn_kernel(PostattnArgs a) {
+__global__ void __launch_bounds__(MK_THREADS, MT == 1 ? 2 : 1) w4_postattn_kernel(PostattnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int sld = (a.Ka > a.D ? a.Ka : a.D) + 16;
   int8_t* codes = reinterpret_cast<int8_t*>(smem);
@@ -94,7 +114,7 @@ __global__ void __launch_bounds__(MK_THREADS, 1) w4_postattn_kernel(PostattnArgs
   // x2 = x + bf16(o(att))
   quantize_rows_shared(a.att, a.Ka, M, a.Ka, codes, sld, rs);
   w4_dense_phase<MT, SharedCodes>(codes, sld, a.o_w, a.o_s, M, D, a.Ka, a.Go, red_g,
-                     [&](int m, int n, float s) {
+                                  [&](int m, int n, float s) {
                        float o = __fmul_rn(s, rs[m]);
                        if (a.o_b) o = __fadd_rn(o, a.o_b[n]);
                        const long long e = (long long)m * D + n;
@@ -110,7 +130,7 @@ __global__ void __launch_bounds__(MK_THREADS, 1) w4_postattn_kernel(PostattnArgs
   quantize_act_phase(a.act, a.amax, M, a.F, a.aq);
   grid.sync();
   w4_dense_phase<MT, L2Codes>(a.aq, a.F, a.dn_w, a.dn_s, M, D, a.F, a.Gd, red_g,
-                     [&](int m, int n, float s) {
+                              [&](int m, int n, float s) {
                        float y = __fmul_rn(s, act_scale(a.amax, m));
                        if (a.dn_b) y = __fadd_rn(y, a.dn_b[n]);
                        const long long e = (long long)m * D + n;

@@ -26,9 +26,11 @@
 //   - the bf16 activation (M x F) and its codes live in scratch the wrapper
 //     allocates: at most 1.2 MB each, they stay in the 50 MB L2, and are
 //     read back with ld.global.cg.
-// A work item is 16 output columns; the 8 warps of a block split its G/2
-// units, as K8 does (w4_group.cuh).  Not yet done (later work): pipelined
-// weight loads, a finer split of down's 224 items over 132 SMs.
+// A gate|up work item is 16 activation columns, its gate and up tiles in
+// one pass; a down item is 16 output columns.  The 8 warps of a block
+// split the item's units; each warp issues a unit's scale4 values and every
+// column set's weights of a chunk before it waits on any
+// (w4_group.cuh::w4_warp_units).
 
 #include "w4_swiglu.cuh"
 
@@ -48,7 +50,7 @@ struct SwigluArgs {
 };
 
 template <int MT>
-__global__ void __launch_bounds__(MK_THREADS, 1) w4_swiglu_kernel(SwigluArgs a) {
+__global__ void __launch_bounds__(MK_THREADS, MT == 1 ? 2 : 1) w4_swiglu_kernel(SwigluArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int sld = a.K + 16;
   int8_t* xc = reinterpret_cast<int8_t*>(smem);
@@ -64,7 +66,7 @@ __global__ void __launch_bounds__(MK_THREADS, 1) w4_swiglu_kernel(SwigluArgs a) 
   quantize_act_phase(a.act, a.amax, a.M, a.F, a.aq);
   grid.sync();
   w4_dense_phase<MT, L2Codes>(a.aq, a.F, a.dn_w, a.dn_s, a.M, a.N, a.F, a.Gd, red_g,
-                     [&](int m, int n, float s) {
+                              [&](int m, int n, float s) {
                        float y = __fmul_rn(s, act_scale(a.amax, m));
                        if (a.dn_b) y = __fadd_rn(y, a.dn_b[n]);
                        a.out[(long long)m * a.N + n] = __float2bfloat16(y);

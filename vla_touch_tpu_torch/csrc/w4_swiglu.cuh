@@ -58,21 +58,48 @@ __device__ __forceinline__ float silu_mul(float g, float u) {
   return bf16_round(__fmul_rn(bf16_round(__fmul_rn(g, sig)), u));
 }
 
-// Rows [0, M) of a bf16 (M, K) input (row stride ld) -> int8 codes in this
-// block's shared memory (row stride sld) and rs[m] = amax * (1/127).  One
-// warp per row, so every block computes the same codes.
+// eight bf16 (16 bytes) -> float
+__device__ __forceinline__ void bf16x8(const int4& v, float (&f)[8]) {
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) f[q] = __bfloat162float(h[q]);
+}
+
+// eight codes of f at 127 / amax, packed into 8 bytes
+__device__ __forceinline__ int2 codes8(const float (&f)[8], float inv) {
+  unsigned lo = 0, hi = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    lo |= (unsigned)(quant_code(f[q], inv) & 0xFF) << (8 * q);
+    hi |= (unsigned)(quant_code(f[4 + q], inv) & 0xFF) << (8 * q);
+  }
+  return make_int2((int)lo, (int)hi);
+}
+
+// Rows [0, M) of a bf16 (M, K) input (row stride ld, K % 8 == 0, rows 16-byte
+// aligned) -> int8 codes in this block's shared memory (row stride sld) and
+// rs[m] = amax * (1/127).  One warp per row, 16 bytes a lane at a time;
+// every block computes the same codes.
 __device__ __forceinline__ void quantize_rows_shared(const __nv_bfloat16* __restrict__ x,
                                                      long long ld, int M, int K, int8_t* codes,
                                                      int sld, float* rs) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int m = warp; m < M; m += MK_WARPS) {
-    const __nv_bfloat16* row = x + m * ld;
+    const int4* row = reinterpret_cast<const int4*>(x + m * ld);
     float amax = 0.f;
-    for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(__bfloat162float(row[k])));
+    for (int i = lane; i < K / 8; i += 32) {
+      float f[8];
+      bf16x8(__ldg(row + i), f);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) amax = fmaxf(amax, fabsf(f[q]));
+    }
     amax = fmaxf(warp_max(amax), 1e-8f);
     const float inv = 127.0f / amax;
-    for (int k = lane; k < K; k += 32)
-      codes[m * sld + k] = (int8_t)quant_code(__bfloat162float(row[k]), inv);
+    for (int i = lane; i < K / 8; i += 32) {
+      float f[8];
+      bf16x8(__ldg(row + i), f);
+      *reinterpret_cast<int2*>(codes + m * sld + i * 8) = codes8(f, inv);
+    }
     if (lane == 0) rs[m] = __fmul_rn(amax, INV127);
   }
   __syncthreads();
@@ -81,10 +108,11 @@ __device__ __forceinline__ void quantize_rows_shared(const __nv_bfloat16* __rest
 // act[m, c] = silu_mul(g, u) for c in [0, F): g, u from columns c and F + c
 // of the fused gate|up leaf (2F, K/2) over the codes xq (M, K) in shared
 // memory (row stride ldx) with row scales xrs.
-// The work item is 16 act columns; each block walks items blockIdx.x,
-// blockIdx.x + gridDim.x, ...  The per-row max |act| of the block folds into
-// amax[m] with atomicMax on the float bits (non-negative floats order as
-// their bits), which no order of blocks changes.
+// The work item is 16 act columns, its gate and up tiles in one pass; each
+// block walks items blockIdx.x, blockIdx.x + gridDim.x, ...  The per-row
+// max |act| of the block folds into amax[m] with atomicMax on the float
+// bits (non-negative floats order as their bits), which no order of blocks
+// changes.
 template <int MT>
 __device__ __forceinline__ void gate_up_phase(const int8_t* xq, int ldx, const float* xrs,
                                               const int8_t* __restrict__ gu_w,
@@ -99,13 +127,12 @@ __device__ __forceinline__ void gate_up_phase(const int8_t* xq, int ldx, const f
   const int items = F / W4_BN;
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int c0 = item * W4_BN;
-    float acc_g[MT][W4_NT][4] = {}, acc_u[MT][W4_NT][4] = {};
-    w4_warp_units<MT, SharedCodes>(acc_g, xq, ldx, M, gu_w, gu_s, 2 * F, K, G, c0, 0, warp,
-                                   MK_WARPS);
-    w4_warp_units<MT, SharedCodes>(acc_u, xq, ldx, M, gu_w, gu_s, 2 * F, K, G, F + c0, 0, warp,
-                                   MK_WARPS);
-    w4_store_partials<MT>(red_g, acc_g, warp);
-    w4_store_partials<MT>(red_u, acc_u, warp);
+    const int cols[2] = {c0, F + c0};                 // the gate and the up tile, one pass
+    float acc[2][MT][W4_NT][4] = {};
+    w4_warp_units<MT, 2, SharedCodes>(acc, xq, ldx, M, gu_w, gu_s, 2 * F, K, G, cols, 0,
+                                      warp, G / 2, MK_WARPS);
+    w4_store_partials<MT>(red_g, acc[0], warp);
+    w4_store_partials<MT>(red_u, acc[1], warp);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
@@ -166,29 +193,28 @@ __device__ __forceinline__ void quantize_act_phase(const __nv_bfloat16* act,
 }
 
 // One w4 product over the codes xq (M, K) (row stride ldx, read through
-// Codes::load), for every 16-column tile of the (N, K/2)
-// leaf: each block walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...;
-// its 8 warps split the G/2 units and their partials are summed in a fixed
-// order.  epi(m, n, sum) finishes element (m, n) from the float32 sum before
-// the row scale.
+// Codes::load): each block walks the 16-column tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... of the (N, K/2) leaf; its 8 warps split the
+// tile's G/2 units and their partials are summed in a fixed warp order;
+// epi(m, n, sum) finishes element (m, n) from the float32 sum before the
+// row scale.
 template <int MT, typename Codes, typename Epi>
 __device__ __forceinline__ void w4_dense_phase(const int8_t* xq, int ldx,
                                                const int8_t* __restrict__ w,
                                                const float* __restrict__ s, int M, int N, int K,
                                                int G, float* red, const Epi& epi) {
   const int warp = threadIdx.x >> 5;
-  const int items = N / W4_BN;
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int n0 = item * W4_BN;
-    float acc[MT][W4_NT][4] = {};
-    w4_warp_units<MT, Codes>(acc, xq, ldx, M, w, s, N, K, G, n0, 0, warp, MK_WARPS);
-    w4_store_partials<MT>(red, acc, warp);
+  for (int tile = blockIdx.x; tile < N / W4_BN; tile += gridDim.x) {
+    const int n0[1] = {tile * W4_BN};
+    float acc[1][MT][W4_NT][4] = {};
+    w4_warp_units<MT, 1, Codes>(acc, xq, ldx, M, w, s, N, K, G, n0, 0, warp, G / 2, MK_WARPS);
+    w4_store_partials<MT>(red, acc[0], warp);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
       const int i = threadIdx.x + j * MK_THREADS;
       const int r = i / W4_BN, col = i % W4_BN;
-      if (r < M) epi(r, n0 + col, w4_sum_partials<MT>(red, MK_WARPS, r, col));
+      if (r < M) epi(r, n0[0] + col, w4_sum_partials<MT>(red, MK_WARPS, r, col));
     }
     __syncthreads();
   }
@@ -223,17 +249,24 @@ inline cudaError_t megakernel_fits(int M, int K, int* fits) {
 // API), as the grid barriers need; 0 when not one block fits an SM.  The
 // attribute and occupancy calls run once per (kernel, shared memory) and
 // are kept, so that a launch inside CUDA-graph capture makes none of them.
+// The kernel's shared-memory limit only ever rises (the largest size any
+// launch of it has asked for), so a narrow call does not lower it under a
+// wider one's cached launch.
 inline cudaError_t megakernel_grid(const void* fn, size_t smem, int* grid) {
   struct Entry { const void* fn; size_t smem; int grid; };
   static Entry cache[16];
   static int n = 0;
-  for (int i = 0; i < n; ++i)
-    if (cache[i].fn == fn && cache[i].smem == smem) {
+  size_t limit = smem;
+  for (int i = 0; i < n; ++i) {
+    if (cache[i].fn != fn) continue;
+    if (cache[i].smem == smem) {
       *grid = cache[i].grid;
       return cudaSuccess;
     }
+    if (cache[i].smem > limit) limit = cache[i].smem;
+  }
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         (int)limit);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;

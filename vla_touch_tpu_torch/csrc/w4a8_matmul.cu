@@ -12,14 +12,17 @@
 //
 // What bounds it on an H100: the weight stream, now 0.5 byte per
 // parameter plus 4 bytes per (group, column) of scale4, read once.  Layout
-// of the work, as K6's: a CTA owns W4_BN = 16 columns and up to 80 rows; its 8
+// of the work: a CTA owns W4_BN = 16 columns and up to 80 rows; its 8
 // warps split the G/2 units; each warp keeps two int32 accumulator sets
 // (the unit's two groups) and one float32 set, and folds the groups into
 // the float32 set with scale4 at the end of each unit; the warps' float32
 // partials are summed in shared memory in a fixed order.
 //
-// Not yet done (later work): pipelined weight loads, split-K across CTAs,
-// the backward of the JAX custom_vjp (training).
+// Each warp issues a unit's scale4 values and a chunk's weight loads
+// before it waits on any (w4_group.cuh::w4_warp_units, one column set).
+//
+// Not yet done (later work): a weight ring, split-K across CTAs, the
+// backward of the JAX custom_vjp (training).
 
 #include "w4_group.cuh"
 
@@ -34,17 +37,17 @@ template <int MT>
 __global__ void __launch_bounds__(NTHREADS, 1) w4a8_gemm_kernel(GemmArgs a) {
   __shared__ float red[NWARPS * MT * 16 * W4_BN];
   const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * W4_BN;
+  const int n0[1] = {(int)blockIdx.x * W4_BN};
   const int m0 = blockIdx.y * MT * 16;
-  float accf[MT][W4_NT][4] = {};
-  w4_warp_units<MT, GlobalCodes>(accf, a.xq, a.K, a.M, a.w, a.scale, a.N, a.K, a.G, n0, m0,
-                                 warp, NWARPS);
-  w4_store_partials<MT>(red, accf, warp);
+  float accf[1][MT][W4_NT][4] = {};
+  w4_warp_units<MT, 1, GlobalCodes>(accf, a.xq, a.K, a.M, a.w, a.scale, a.N, a.K, a.G, n0, m0,
+                                    warp, a.G / 2, NWARPS);
+  w4_store_partials<MT>(red, accf[0], warp);
   __syncthreads();
 
   for (int i = threadIdx.x; i < MT * 16 * W4_BN; i += NTHREADS) {
     const int r = i / W4_BN, col = i - r * W4_BN;
-    const int m = m0 + r, n = n0 + col;
+    const int m = m0 + r, n = n0[0] + col;
     if (m >= a.M || n >= a.N) continue;
     float y = __fmul_rn(w4_sum_partials<MT>(red, NWARPS, r, col), a.rs[m]);
     if (a.bias) y = __fadd_rn(y, a.bias[n]);

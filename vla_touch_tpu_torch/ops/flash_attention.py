@@ -21,6 +21,8 @@ import functools
 
 import torch
 
+from vla_touch_tpu_torch.utils.device import sm_count as _sm_count
+
 _NEG_INF = -1e30
 BK = 64              # keys per tile of the attention kernels
 MAX_ROWS = 128       # query rows per CTA of the attention kernels
@@ -87,11 +89,6 @@ def k1_plan(B, Lq, Lkv, H, n_sms, resident):
     CTAs of that many rows to an SM."""
     rows = cta_rows(Lq)
     return (rows,) + split_plan(B, Lq, Lkv, H, n_sms, rows, resident, K1_MIN_TILES)
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache

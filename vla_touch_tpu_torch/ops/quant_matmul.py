@@ -33,6 +33,7 @@ import torch
 
 from vla_touch_tpu_torch.csrc import build
 from vla_touch_tpu_torch.ops import quant as Q
+from vla_touch_tpu_torch.utils.device import sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -116,13 +117,64 @@ def _check_w_i8(name, w_i8, K, device):
                          f"on {device}, got {w_i8.dtype} {tuple(w_i8.shape)} on {w_i8.device}")
 
 
+# K6's plan: a CTA owns 32 * wn columns (wn warps across them), up to
+# K6_MAX_MT 16-row tiles and one of `splits` ranges of 64-wide K chunks; the
+# splits of a tile form one thread-block cluster, at most K6_MAX_SPLITS, and
+# at most K6_TALL_SPLITS where a CTA holds three or more row tiles (its 150
+# KB+ of shared memory make larger clusters slow to place on an H100)
+K6_CHUNK = 64
+K6_MAX_MT = 5
+K6_MAX_SPLITS = 8
+K6_TALL_SPLITS = 2
+K6_MIN_CHUNKS = 4
+K6_WN = 2
+
+
+def k6_split_chunks(nc: int, splits: int, z: int) -> tuple:
+    """[first, end) 64-wide K chunks of split ``z`` of ``nc`` chunks: the
+    splits differ by at most one chunk (the kernel's ``split_chunk``)."""
+    return z * nc // splits, (z + 1) * nc // splits
+
+
+def k6_plan(M: int, N: int, K: int, n_sms: int) -> tuple:
+    """(16-row tiles per CTA, warps across 32-column blocks, K splits) of a
+    K6 call on ``n_sms`` SMs.  The tiles (column tiles x row blocks) split K
+    into as many ranges as one CTA per SM holds, so that a call whose tiles
+    leave SMs idle fills them, but at least K6_MIN_CHUNKS 64-wide chunks per
+    split and no more splits than the cluster cap of its row tiles allows.
+    Warps across columns: 4 (128-column tiles) where those give one or two
+    CTAs per SM without a split (the planner's widest products: two such
+    CTAs share an SM at one or two row tiles), else K6_WN."""
+    mt = min(K6_MAX_MT, -(-M // 16))
+    wide = k6_tiles(M, N, (mt, 4, 1))
+    wn = 4 if n_sms <= wide <= 2 * n_sms else K6_WN
+    tiles = k6_tiles(M, N, (mt, wn, 1))
+    nc = -(-K // K6_CHUNK)
+    cap = K6_TALL_SPLITS if mt >= 3 else K6_MAX_SPLITS
+    return mt, wn, max(1, min(n_sms // tiles, nc // K6_MIN_CHUNKS, cap))
+
+
+def k6_tiles(M: int, N: int, plan: tuple) -> int:
+    """Output tiles (column tiles x row blocks) of a K6 plan."""
+    mt, wn, _ = plan
+    return -(-M // (16 * mt)) * -(-N // (32 * wn))
+
+
 def a8w8_matmul(x, w_i8, scale, bias=None):
     """x (..., K) bf16/f32 . int8 W -> (..., N) bf16.  ``w_i8`` (N, K) int8
     contiguous and 16-byte aligned with K % 16 == 0, ``scale`` (N,) and
     ``bias`` (N,) float32.
-    CUDA: the K6 kernel; CPU: :func:`a8w8_plain`; anything else raises."""
+    CUDA: the K6 kernel under :func:`k6_plan`; CPU: :func:`a8w8_plain`;
+    anything else raises."""
     if x.device.type == "cpu":
         return a8w8_plain(x, w_i8, scale, bias)
+    return _a8w8_launch(x, w_i8, scale, bias, None)
+
+
+def _a8w8_launch(x, w_i8, scale, bias, plan):
+    """Check the operands and launch K6 on CUDA tensors under ``plan`` (mt,
+    wn, splits), or :func:`k6_plan`'s when None (the tools and tests time
+    and check other plans)."""
     if x.device.type != "cuda":
         raise ValueError(f"a8w8_matmul: unsupported device {x.device}")
     *lead, K = x.shape
@@ -138,12 +190,13 @@ def a8w8_matmul(x, w_i8, scale, bias=None):
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0 or N == 0:
         return out.reshape(*lead, N)
+    plan = plan or k6_plan(M, N, K, sm_count(x.device.index))
     xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
     rs = torch.empty((M,), dtype=torch.float32, device=x.device)
-    lib, f = build.entry("a8w8_matmul", [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+    lib, f = build.entry("a8w8_matmul", [_P, _I, _L, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_P])
     err = f(x2.data_ptr(), int(x2.dtype == torch.float32), x2.stride(0), w_i8.data_ptr(),
             scale.data_ptr(), None if bias is None else bias.data_ptr(), xq.data_ptr(),
-            rs.data_ptr(), out.data_ptr(), M, N, K,
+            rs.data_ptr(), out.data_ptr(), M, N, K, *plan,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "a8w8_matmul")
     a8w8_matmul.launches += 1

@@ -152,10 +152,12 @@ def _leaf_args(what, qp, device):
 
 
 def _rows(what, t, K):
-    """t (..., K) as a contiguous bf16 (M, K)."""
+    """t (..., K) as a contiguous, 16-byte aligned bf16 (M, K) (the kernels
+    read rows 16 bytes at a time)."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {t.device}")
-    return t.reshape(-1, K).to(torch.bfloat16).contiguous()
+    t = t.reshape(-1, K).to(torch.bfloat16).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def w4_swiglu_mlp(x, gu, down):
@@ -214,6 +216,8 @@ def w4_postattn_fused(x, att, o, gu, down, norm_w, eps: float = 1e-6):
             or not norm_w.is_contiguous():
         raise ValueError(f"w4_postattn_fused: norm_w must be a contiguous float32 ({D},) "
                          f"on {dev}, got {norm_w.dtype} {tuple(norm_w.shape)}")
+    if norm_w.data_ptr() % 16:
+        norm_w = norm_w.clone()                        # read 16 bytes at a time
     F = gu.w4_pack.shape[0] // 2
     ow, os_, ob = _leaf_args("w4_postattn_fused o", o, dev)
     gw, gs, gb = _leaf_args("w4_postattn_fused gate|up", gu, dev)
