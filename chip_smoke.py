@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. Builds the hand-written CUDA kernels from ``vla_touch_tpu_torch/csrc``
-   (one nvcc per source, in parallel) and prints the card's name and power
-   limit.
+   (one nvcc per source, in parallel), prints ptxas's register and spill
+   lines of K1's, K8's and K2's kernels (and fails on a spill) and the
+   card's name and power limit.
 2. Holds each kernel against its plain PyTorch version on the card at every
    shape the tick gives it (K1 flash attention: SigLIP, DinoV2 and the three
    RDT-1B attentions, plus a ragged and a fully masked language mask, with
@@ -56,7 +57,9 @@
    profiled, and (b) profiled.
 6. The planner: holds K9 (w4 SwiGLU MLP) and K10 (w4 post-attention) at
    Qwen2.5-7B width (M 1, 8, 24 and 1, 8), K8 at the planner's w4 linears
-   (decode and prompt-pass M), K6 at the int8 request's linears and K1 at
+   (decode and prompt-pass M; per prompt pass of 72 and 442 tokens summed,
+   with ``torch._int_mm`` at the same shapes as a yardstick of the int8
+   rate), K6 at the int8 request's linears and K1 at
    CLIP ViT-B/16's self-attention against their plain versions, timed as
    above; builds the planner at full width from seeded weights
    (Qwen2.5-7B in grouped int4, quantized layer by layer, its fused twin and
@@ -969,18 +972,25 @@ def check_qmm(gen, kernel, shapes=None):
         eager_ms = cuda_time_ms(lambda: fn(x, *nxt()))
         plain_ms = graph_time_ms(lambda: plain(x, *nxt()), calls=5)
         lib_ms = None if library is None else graph_time_ms(run_library)
-        del library
+        del library, sets
+        int_mm_ms = int_mm_yardstick_ms(gen, x, N) if kernel == "K8" and M in K8_PROMPT_MS \
+            else None
         b_ms, o_ms = qmm_bound_ms(kernel, M, K, N)
         bound = max(b_ms, o_ms)
-        plan = k6_card_plan(M, K, N) if kernel == "K6" else None
+        plan = k6_card_plan(M, K, N) if kernel == "K6" else (
+            k8_card_plan(M, K, N, wts[1].shape[0]) if kernel == "K8" else None)
         rows.append(dict(M=M, K=K, N=N, calls=calls, plan=plan, max_abs_err=err, tol=tol,
                          bf16_unlike_plain=n_diff, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound, bound_by=bound_by(
-                             dict(bytes_ms=b_ms, ops_ms=o_ms))))
+                         library_ms=lib_ms, int_mm_ms=int_mm_ms, bound_ms=bound,
+                         bytes_ms=b_ms, ops_ms=o_ms,
+                         bound_by=bound_by(dict(bytes_ms=b_ms, ops_ms=o_ms))))
         lib = "" if lib_ms is None else (
             f" {'F.linear (bf16 weights)' if kernel == 'K5' else 'torch._int_mm (GEMM only)'} "
             f"{lib_ms:.4f} ms")
-        how = "" if plan is None else f" plan (mt, wn, splits) {plan}"
+        if int_mm_ms is not None:
+            lib += f" (yardstick of the int8 rate: torch._int_mm, int8 weights, {int_mm_ms:.4f} ms)"
+        how = "" if plan is None else (f" plan (mt, wn, splits) {plan}" if kernel == "K6"
+                                        else f" plan (mt, splits) {plan}")
         log(f"{kernel} M{M:4d} K{K:5d} N{N:6d}{how}: err {err:.3e} (tol {tol:.3e}; bf16 outputs "
             f"unlike the plain version's {n_diff} of {M * N}) kernel {ms:.4f} ms (eager loop "
             f"{eager_ms:.4f}) plain {plain_ms:.4f} ms{lib} bound {bound:.4f} ms x{calls}/tick")
@@ -1001,6 +1011,53 @@ def k6_card_plan(M, K, N):
     from vla_touch_tpu_torch.utils.device import sm_count
 
     return QM.k6_plan(M, N, K, sm_count(0))
+
+
+def k8_card_plan(M, K, N, G):
+    """K8's plan (mt, splits) on this card."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+    from vla_touch_tpu_torch.utils.device import sm_count
+
+    return QM.k8_plan(M, N, K, G, sm_count(0))
+
+
+def int_mm_yardstick_ms(gen, x, N):
+    """Device ms of ``torch._int_mm`` of x's int8 codes against random int8
+    (N, K) weights (enough sets to miss the L2 cache): a yardstick of the
+    card's int8 rate at K8's prompt-pass shapes, not K8's function (no
+    int4 unpacking, no group scales)."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import quant as Q
+
+    xq = Q.quantize_rows(x)[0]
+    K = x.shape[1]
+    n_sets = max(1, min(64, -(-2 * L2_BYTES // (N * K))))
+    sets = [torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+            for _ in range(n_sets)]
+    it = [0]
+
+    def run():
+        it[0] = (it[0] + 1) % n_sets
+        torch._int_mm(xq, sets[it[0]].t())
+
+    return graph_time_ms(run)
+
+
+def k8_prompt_pass(rows, M) -> dict:
+    """K8's per-shape figures summed over the calls of one prompt pass of M
+    tokens (the K8_LLM_SHAPES rows at that M), the ``_int_mm`` yardstick
+    beside them."""
+    tot = dict(M=M, calls=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+               int_mm_ms=0.0)
+    for r in rows:
+        if r["M"] != M:
+            continue
+        tot["calls"] += r["calls"]
+        for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "int_mm_ms"):
+            tot[key] += r["calls"] * r[key]
+    tot["bound_by"] = bound_by(tot)
+    return tot
 
 
 def bound_by(tot) -> str:
@@ -1132,22 +1189,28 @@ def run_tick(t, stage_ms=None, rdt=None, kv_cache="bf16", refine=True, model=Non
     return out
 
 
-def k1_ptxas():
-    """Print ptxas's register and spill lines for K1's kernels (from the
-    report kept beside the built library); raise if any spills."""
+# (kernel, library) whose ptxas report kernel_ptxas holds: no register spills
+PTXAS_CHECKED = (("K1", "flash_attention"), ("K8", "w4a8_matmul"), ("K2", "resblock"))
+
+
+def kernel_ptxas():
+    """Print ptxas's register and spill lines for the kernels of
+    PTXAS_CHECKED (from the report kept beside each built library); raise
+    if any spills."""
     from vla_touch_tpu_torch.csrc import build
 
-    report = build.ptxas_report("flash_attention")
-    lines = [ln.strip() for ln in report.splitlines()
-             if "Compiling entry function" in ln or "spill" in ln or "registers" in ln]
-    if not any("Compiling entry function" in ln for ln in lines):
-        raise AssertionError("K1's ptxas report names no kernel")
-    for ln in lines:
-        log(f"K1 ptxas: {ln}")
-    spills = [ln for ln in lines
-              if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))]
-    if spills:
-        raise AssertionError(f"K1 spills registers: {spills}")
+    for kernel, name in PTXAS_CHECKED:
+        report = build.ptxas_report(name)
+        lines = [ln.strip() for ln in report.splitlines()
+                 if "Compiling entry function" in ln or "spill" in ln or "registers" in ln]
+        if not lines:
+            raise AssertionError(f"{kernel}'s ptxas report names no kernel")
+        for ln in lines:
+            log(f"{kernel} ptxas: {ln}")
+        spills = [ln for ln in lines
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))]
+        if spills:
+            raise AssertionError(f"{kernel} spills registers: {spills}")
 
 
 def siglip_tokens(t):
@@ -1166,7 +1229,7 @@ PROFILE_GROUPS = (("K1 flash_fwd_kernel", "flash_fwd_kernel"),
                   ("K3/K4 flash_q8_kernel", "flash_q8_kernel"),
                   ("K3/K4 flash_q8_combine_kernel", "flash_q8_combine_kernel"),
                   ("K6 a8w8_gemm_kernel", "a8w8_gemm_kernel"),
-                  ("K8 w4a8_gemm_kernel", "w4a8_gemm_kernel"),
+                  ("K8 w4a8_*", "w4a8_"),
                   ("K6/K8 quantize_rows_kernel", "quantize_rows_kernel"),
                   ("K9 w4_swiglu_kernel", "w4_swiglu_kernel"),
                   ("K10 w4_postattn_kernel", "w4_postattn_kernel"))
@@ -1374,11 +1437,12 @@ K10_MS = (1, 8)
 # the fused tree's qkv (-> 4608) and gateup (-> 37888); the lm_head (->
 # 152064).  M = 1 greedy, M = 8 the best-of-8 decode; M = 72 and 442 the
 # prompt passes of describe and guess (qkv, o, gateup and down, rolled G).
+K8_PROMPT_MS = (72, 442)
 K8_LLM_SHAPES = [
     (1, 3584, 3584, 56), (1, 3584, 512, 56), (1, 3584, 18944, 56), (1, 18944, 3584, 28),
     (1, 3584, 4608, 28), (1, 3584, 37888, 28), (1, 3584, 152064, 1),
     (8, 3584, 4608, 28), (8, 3584, 152064, 1),
-] + [(M, K, N, 28) for M in (72, 442)
+] + [(M, K, N, 28) for M in K8_PROMPT_MS
      for K, N in ((3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584))]
 # (M, K, N, calls per prompt pass or decode token) of the int8 request's
 # linears through K6 (the unfused int8 tree, a 24-token prompt): q and o,
@@ -1685,6 +1749,12 @@ def planner_phase(gen) -> dict:
     res["k10_rows"] = check_mk(gen, "K10", leaves)
     del leaves
     res["k8_llm_rows"], _ = check_qmm(gen, "K8", K8_LLM_SHAPES)
+    res["k8_prompt"] = [k8_prompt_pass(res["k8_llm_rows"], M) for M in K8_PROMPT_MS]
+    for tot in res["k8_prompt"]:
+        log(f"K8 per prompt pass of {tot['M']} tokens ({tot['calls']} calls): kernel "
+            f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({tot['bound_by']}); torch._int_mm at the same (M, K, N), int8 weights (a "
+            f"yardstick of the int8 rate, not K8's function) {tot['int_mm_ms']:.4f} ms")
     res["k6_llm_rows"], _ = check_qmm(gen, "K6", K6_LLM_SHAPES)
     res["k1_clip_rows"], _ = check_k1(gen, K1_CLIP_SHAPES)
 
@@ -1834,7 +1904,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    k1_ptxas()
+    kernel_ptxas()
     card = gpu_line()
     log(f"gpu: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1920,6 +1990,7 @@ def main() -> int:
                        ("k10", list(pl["k10_rows"].values()))):
         log(f"{name} shapes: " + json.dumps(rows))
     log("planner: " + json.dumps({k: pl[k] for k in ("counts", "calls", "feature_corr",
+                                                     "k8_prompt",
                                                      "teacher_forced", "checked",
                                                      "checked_int8", "tiers",
                                                      "fastest", "best_of_8_ms")}))

@@ -110,16 +110,15 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
         flash_attention(q, q, q)                        # D not a multiple of 8
 
 
-@pytest.mark.parametrize("T,Cin,C", [(16, 10, 256), (4, 1024, 512), (8, 256, 256)])
-def test_resblock_kernel_matches_plain(cuda, T, Cin, C):
-    """bf16 kernel vs the f32 plain version: 3e-2 (bf16 output)."""
-    from vla_touch_tpu_torch.ops import unet_kernels as UK
+# (T, Cin, C) of the 12 blocks of one BRIDGeR UNet pass (chip_smoke.K2_SHAPES)
+K2_BLOCKS = [(16, 10, 256), (16, 256, 256), (8, 256, 512), (8, 512, 512), (4, 512, 512),
+             (4, 512, 512), (4, 512, 512), (4, 512, 512), (4, 1024, 512), (4, 512, 512),
+             (8, 1024, 256), (8, 256, 256)]
 
-    g = torch.Generator(device=cuda).manual_seed(1)
-    S, B, G, K = 2, 1, 512, 5
 
+def _k2_case(g, T, Cin, C, device, S=2, B=1, G=512, K=5):
     def w(*shape, scale):
-        return (torch.randn(shape, generator=g, device=cuda) * scale).to(torch.bfloat16)
+        return (torch.randn(shape, generator=g, device=device) * scale).to(torch.bfloat16)
 
     p = {"w0": w(S, K, Cin, C, scale=(K * Cin) ** -0.5), "b0": w(S, C, scale=0.1),
          "g0w": 1 + w(S, C, scale=0.1), "g0b": w(S, C, scale=0.1),
@@ -128,8 +127,16 @@ def test_resblock_kernel_matches_plain(cuda, T, Cin, C):
          "g1w": 1 + w(S, C, scale=0.1), "g1b": w(S, C, scale=0.1)}
     if Cin != C:
         p["wr"], p["br"] = w(S, Cin, C, scale=Cin ** -0.5), w(S, C, scale=0.1)
-    x = w(S, B, T, Cin, scale=1.0)
-    cond = w(S, B, G, scale=1.0)
+    return w(S, B, T, Cin, scale=1.0), w(S, B, G, scale=1.0), p
+
+
+@pytest.mark.parametrize("T,Cin,C", [(16, 10, 256), (4, 1024, 512), (8, 256, 256)])
+def test_resblock_kernel_matches_plain(cuda, T, Cin, C):
+    """bf16 kernel vs the f32 plain version: 3e-2 (bf16 output)."""
+    from vla_touch_tpu_torch.ops import unet_kernels as UK
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x, cond, p = _k2_case(g, T, Cin, C, cuda)
     before = UK.resblock_fused.launches
     got = UK.resblock_fused(x, cond, p)
     assert UK.resblock_fused.launches == before + 1
@@ -139,6 +146,62 @@ def test_resblock_kernel_matches_plain(cuda, T, Cin, C):
     assert np.isfinite(err) and err < 3e-2, err
     with pytest.raises(TypeError):
         UK.resblock_fused(x.float(), cond, p)
+
+
+def test_resblock_kernel_serves_every_block_of_a_unet_pass(cuda):
+    """All twelve block shapes in the order of a UNet pass (so narrower
+    calls follow wider ones, whose launch limits are cached: those may only
+    rise), then the first again; each within 3e-2 of the plain version, with
+    B = 2 at the first shape (the batch loop), and a second call of each
+    gives the same bits (every sum in a fixed order, nothing left from the
+    call before)."""
+    from vla_touch_tpu_torch.ops import unet_kernels as UK
+
+    g = torch.Generator(device=cuda).manual_seed(21)
+    for i, (T, Cin, C) in enumerate(K2_BLOCKS + K2_BLOCKS[:1]):
+        x, cond, p = _k2_case(g, T, Cin, C, cuda, B=2 if i == 0 else 1)
+        first = UK.resblock_fused(x, cond, p)
+        second = UK.resblock_fused(x, cond, p)
+        want = UK.resblock_ref(x, cond, p)
+        torch.cuda.synchronize()
+        err = float((first.float() - want).abs().max())
+        assert np.isfinite(err) and err < 3e-2, (T, Cin, C, err)
+        assert torch.equal(first, second), (T, Cin, C)
+
+
+def test_resblock_kernel_repeats_bit_for_bit_under_graph_replay(cuda):
+    """A CUDA graph of one call replayed twice gives the eager call's bits:
+    the scratch holds nothing a later call or replay needs reset."""
+    from vla_touch_tpu_torch.ops import unet_kernels as UK
+
+    g = torch.Generator(device=cuda).manual_seed(22)
+    x, cond, p = _k2_case(g, 8, 1024, 256, cuda)
+    got = UK.resblock_fused(x, cond, p)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        UK.resblock_fused(x, cond, p)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = UK.resblock_fused(x, cond, p)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+
+
+def test_resblock_kernel_refuses_a_grid_that_cannot_be_resident(cuda):
+    """A block too wide for one SM's shared memory (its input rows alone
+    need ~650 KB) cannot be a cooperative launch: a clear error, no launch."""
+    from vla_touch_tpu_torch.ops import unet_kernels as UK
+
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x, cond, p = _k2_case(g, 4, 16384, 64, cuda, S=1)
+    before = UK.resblock_fused.launches
+    with pytest.raises(RuntimeError, match="does not fit an SM"):
+        UK.resblock_fused(x, cond, p)
+    assert UK.resblock_fused.launches == before
 
 
 # ---- K6 / K8: the int8 and int4 serving matmuls --------------------------------
@@ -266,6 +329,88 @@ def test_w4a8_kernel_matches_plain(cuda, M, K, N, x_dtype):
     assert got.dtype == torch.bfloat16
     tol = 2 ** -8 * float(want.abs().max())
     assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("M,K,N,gs", [
+    (17, 2048, 2048, 128), (64, 4096, 2048, 128), (67, 2048, 6144, 128),
+    (72, 3584, 3584, 128), (442, 3584, 4608, 128), (512, 2048, 256, 128),
+    (67, 2048, 200, 128), (72, 18944, 512, 128), (442, 18944, 136, 128),
+    (442, 2048, 512, 512),
+])
+def test_w4a8_tile_body_matches_plain(cuda, M, K, N, gs):
+    """K8 under k8_plan (the warp loop up to 80 rows, the tile body above)
+    and under the tile body's plans (2, 1) and (2, 2) at every shape, vs
+    the plain qdense_w4: within one bf16 step (2^-8 x max|plain|); N 200
+    and 136 leave a partial 128-column tile; K 18944 has 148 groups (rolled
+    in the TPU kernel); groups of 512 take the fold's I2F path (group sums
+    past 2^22)."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(31)
+    lin, Q = _int8_linear(g, N, K, cuda)
+    qp = Q.quantize_linear_w4(lin, group_size=gs)
+    assert K // qp.scale4.shape[0] == gs
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    before = QM.w4a8_matmul.launches
+    got = QM.w4a8_matmul(x, qp.w4_pack, qp.scale4, qp.bias)
+    assert QM.w4a8_matmul.launches == before + 1
+    want = QM.w4a8_plain(x, qp.w4_pack, qp.scale4, qp.bias, out_dtype=torch.float32)
+    tol = 2 ** -8 * float(want.abs().max())
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= tol
+    for plan in ((2, 1), (2, 2)):
+        got = QM._w4a8_launch(x, qp.w4_pack, qp.scale4, qp.bias, plan)
+        torch.cuda.synchronize()
+        assert float((got.float() - want).abs().max()) <= tol, plan
+
+
+@pytest.mark.parametrize("M,K,N,plan", [(67, 2048, 2048, (2, 4)), (72, 18944, 3584, (2, 2)),
+                                        (442, 3584, 3584, None)])
+def test_w4a8_tile_body_repeats_bit_for_bit(cuda, M, K, N, plan):
+    """Every sum of the tile body runs in a fixed order (the splits of a
+    tile meet in their cluster's shared memory in rank order): a second
+    call and two replays of a CUDA graph of the call give the same bits
+    (plan None: k8_plan's, (2, 2) at the 442-row o projection)."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(32)
+    lin, Q = _int8_linear(g, N, K, cuda)
+    qp = Q.quantize_linear_w4(lin)
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(torch.bfloat16)
+
+    def call():
+        return QM._w4a8_launch(x, qp.w4_pack, qp.scale4, qp.bias, plan)
+
+    got = call()
+    assert torch.equal(call(), got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("plan", [(0, 1), (2, 1), (2, 3), (2, 4), (2, 8)])
+def test_w4a8_tile_plans_agree(cuda, plan):
+    """The warp loop and every tile plan (mt, splits) the tools time stay
+    within one bf16 step of the plain version at (67, 2048, 2048)."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(33)
+    lin, Q = _int8_linear(g, 2048, 2048, cuda)
+    qp = Q.quantize_linear_w4(lin)
+    x = (torch.randn((67, 2048), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    want = QM.w4a8_plain(x, qp.w4_pack, qp.scale4, qp.bias, out_dtype=torch.float32)
+    got = QM._w4a8_launch(x, qp.w4_pack, qp.scale4, qp.bias, plan)
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 2 ** -8 * float(want.abs().max())
 
 
 def test_int8_matmul_kernels_refuse_what_they_do_not_take(cuda):

@@ -220,6 +220,7 @@ def _block_case(seed, S, B, T, Cin, C, G):
     (2, 1, 16, 48, 64, 32),     # stacked v/s, Cin != C (1x1 residual conv)
     (1, 2, 16, 10, 32, 24),     # the Cin = 10 first block
     (2, 1, 4, 64, 64, 32),      # identity residual
+    (2, 1, 8, 128, 64, 32),     # T 8, Cin = 2C: the up path's concatenation
 ])
 def test_resblock_ref_matches_pallas_interpret(S, B, T, Cin, C, G):
     """K2's plain version against the TPU kernel in interpret mode (which
@@ -238,6 +239,50 @@ def test_resblock_ref_matches_pallas_interpret(S, B, T, Cin, C, G):
                      out_dtype=jnp.float32)
     _close(got, want_k, atol=2e-2, rtol=2e-2)
     _close(got, j_ref(jnp.asarray(x), jnp.asarray(cond), pj))
+
+
+# (T, Cin, C) of the 12 blocks of one BRIDGeR UNet pass, and two narrow ones
+K2_PLAN_CASES = [(16, 10, 256), (16, 256, 256), (8, 256, 512), (8, 512, 512), (4, 512, 512),
+                 (4, 1024, 512), (8, 1024, 256), (8, 256, 256), (16, 48, 64), (4, 64, 64)]
+
+
+@pytest.mark.parametrize("n_ctas", [264, 132, 16])
+@pytest.mark.parametrize("T,Cin,C", K2_PLAN_CASES)
+def test_k2_plan_covers_every_reduction_row_once(T, Cin, C, n_ctas):
+    """K2's plan for a grid of ``n_ctas`` blocks: each product's splits
+    cover its mma steps exactly once and each non-empty, so every reduction
+    row (tap, input channel) of every column tile is summed exactly once
+    (the channels past Cin of the last 16-row step are the kernel's zero
+    fill); the items of each phase fit the grid unless every split is
+    already one; the scratch holds every split's partial."""
+    from vla_touch_tpu_torch.ops import unet_kernels as UK
+
+    S, G, k = 2, 512, 5
+    has_res = Cin != C
+    plan = UK.k2_plan(Cin, C, G, k, S, n_ctas, has_res)
+    steps = UK.k2_steps(Cin, C, G, k, has_res)
+    assert set(plan) == set(steps)
+    rci = {"conv0": Cin, "film": G, "res": Cin, "conv1": C}
+    taps = {"conv0": k, "film": 1, "res": 1, "conv1": k}
+    for job, (n_steps, tiles) in steps.items():
+        splits = plan[job]
+        assert 1 <= splits <= n_steps
+        rows = np.zeros((taps[job], -(-rci[job] // 16) * 16), int)
+        for z in range(splits):
+            st0, st1 = UK.k2_split_steps(n_steps, splits, z)
+            assert st1 > st0
+            for st in range(st0, st1):
+                c16, d = divmod(st, taps[job])
+                rows[d, 16 * c16: 16 * c16 + 16] += 1
+        assert np.all(rows == 1)
+        assert tiles * UK.K2_COLS >= (2 * C if job == "film" else C) > (tiles - 1) * UK.K2_COLS
+    for phase in ([j for j in steps if j != "conv1"], ["conv1"]):
+        items = S * sum(steps[j][1] * plan[j] for j in phase)
+        assert items <= n_ctas or all(plan[j] == 1 for j in phase)
+    tc = S * T * C
+    want = 4 * (tc * (plan["conv0"] + plan.get("res", 0) + plan["conv1"])
+                + S * 2 * C * plan["film"]) + 2 * tc
+    assert UK.k2_scratch_bytes(S, 1, T, C, plan) == want
 
 
 def test_unet_forward_stacked_matches_flax():

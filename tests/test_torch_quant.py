@@ -214,6 +214,76 @@ def test_w4a8_plain_matches_jax_kernel(rng, M, K, N):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
+def test_w4a8_plain_matches_jax_kernel_rolled_groups(rng):
+    """K8's plain version vs JAX's ``w4a8_matmul`` in interpret mode in its
+    rolled branch (G = 36 > 32 groups of 128: the ``fori_loop`` of
+    ``_w4a8_kernel``), at a prompt pass's M = 72 and a narrow N: float32
+    out, <= 1e-5 relative."""
+    M, K, N = 72, 4608, 128
+    w = (rng.normal(size=(K, N)) * K ** -0.5).astype(np.float32)
+    b = rng.normal(size=N).astype(np.float32) * 0.1
+    x = (rng.normal(size=(M, K)) * 2).astype(np.float32)
+    j4 = JQ.quantize_linear_w4({"kernel": w, "bias": b})
+    assert j4["scale4"].shape[0] == 36
+    want = _np(JPM.w4a8_matmul(jnp.asarray(x, jnp.bfloat16), j4["w4_pack"], j4["scale4"],
+                               j4["bias"], out_dtype=jnp.float32, interpret=True))
+    t4 = TQ.quantize_linear_w4(_linear(w, b))
+    got = QM.w4a8_plain(_t(x).to(torch.bfloat16), t4.w4_pack, t4.scale4, t4.bias,
+                        out_dtype=torch.float32).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+K8_PLAN_CASES = [
+    (1, 2048, 2048, 16, (0, 1)), (16, 3584, 3584, 28, (0, 1)), (67, 2048, 2048, 16, (0, 1)),
+    (72, 18944, 3584, 148, (0, 1)), (80, 3584, 37888, 28, (0, 1)), (81, 3584, 3584, 28, (2, 2)),
+    (96, 3584, 4608, 28, (2, 1)), (192, 18944, 3584, 148, (2, 1)), (256, 3584, 4608, 28, (2, 2)),
+    (442, 3584, 4608, 28, (2, 1)), (442, 18944, 3584, 148, (2, 2)),
+    (442, 3584, 37888, 28, (2, 1)), (512, 2048, 256, 16, (2, 8)), (90, 320, 136, 2, (2, 1)),
+    (200, 4608, 200, 36, (2, 8)),
+]
+
+
+@pytest.mark.parametrize("M,K,N,G,want", K8_PLAN_CASES)
+def test_k8_plan_covers_every_tile_and_unit_once(M, K, N, G, want):
+    """At 132 SMs: the plan named; up to 80 rows the warp loop; above, the
+    CTA tiles (64 rows x 128 columns) cover every row and column once,
+    ragged M and N edges included, and the splits cover every unit (a pair
+    of groups, one per nibble plane) exactly once, on unit boundaries, each
+    non-empty; at most one CTA per SM where the tiles alone do not fill the
+    card, and one more split would overfill it unless the units or the
+    cluster cap (8) stop the splits; 2 splits from one to one and a half
+    waves of tiles, none above."""
+    n_sms = 132
+    plan = QM.k8_plan(M, N, K, G, n_sms)
+    assert plan == want
+    mt, splits = plan
+    if mt == 0:
+        assert M <= QM.K8_WARP_MAX_M and splits == 1
+        return
+    assert mt == QM.K8_TILE_MT
+    bm, bn = 32 * mt, QM.K8_BN
+    rows = np.zeros(M, int)
+    for r0 in range(0, -(-M // bm) * bm, bm):
+        rows[r0:min(M, r0 + bm)] += 1
+    cols = np.zeros(N, int)
+    for n0 in range(0, -(-N // bn) * bn, bn):
+        cols[n0:min(N, n0 + bn)] += 1
+    assert np.all(rows == 1) and np.all(cols == 1)
+    assert QM.k8_tiles(M, N) == -(-M // bm) * -(-N // bn)
+    units = np.zeros(G // 2, int)
+    for z in range(splits):
+        u0, u1 = QM.k8_split_units(G // 2, splits, z)
+        assert u1 > u0
+        units[u0:u1] += 1
+    assert np.all(units == 1)
+    tiles = QM.k8_tiles(M, N)
+    if tiles <= n_sms:
+        assert tiles * splits <= n_sms
+        assert tiles * (splits + 1) > n_sms or splits == min(G // 2, QM.K8_MAX_SPLITS)
+    else:
+        assert splits == (2 if 2 * tiles <= 3 * n_sms else 1)
+
+
 @pytest.mark.parametrize("M", [67, 600])
 def test_qdense_w4_both_branches_match_jax(rng, M):
     """``qdense_w4`` at M <= 512 (per-token int8, per-group int32) and at

@@ -1,48 +1,75 @@
 #!/usr/bin/env python3
-"""K6 (a8w8), K8 (w4a8) and K9/K10 (the w4 megakernels) on one card: this
-tree's kernels against an earlier tree's, in turns.
+"""K6 (a8w8), K8 (w4a8), K9/K10 (the w4 megakernels) and K2 (the UNet-1D
+residual block) on one card: this tree's kernels against an earlier
+tree's, in turns.
 
     python3 tools/torch_quant_ab.py --parent-dir build/parent \
-        [--parts k6,k8,plans,phases,mk,tick,decode]
+        [--parts k6,k8,k8variants,k8cross,k8plans,k2,ttft,plans,phases,mk,tick,decode]
 
 ``--parent-dir`` holds an earlier tree's ``a8w8_matmul.cu``,
 ``w4a8_matmul.cu``, ``int8_mma.cuh``, ``w4_swiglu.cu``, ``w4_postattn.cu``,
-``w4_swiglu.cuh`` and ``w4_group.cuh`` (e.g. ``git show
+``w4_swiglu.cuh``, ``w4_group.cuh`` and ``resblock.cu`` (e.g. ``git show
 <commit>:vla_touch_tpu_torch/csrc/<file>``, written under the ignored
 ``build/``), with the C entries of that tree: ``a8w8_matmul(x, x_f32, x_sm,
-w, scale, bias, xq, rs, out, M, N, K, stream)``, ``w4a8_matmul`` as this
-tree's, and ``w4_swiglu_mlp`` / ``w4_postattn_fused`` as this tree's (the
-argument lists of their wrappers in ``ops/w4_fused.py``).  They are built
-with the same nvcc flags beside this tree's kernels.  Device times are
-CUDA-graph replays (``chip_smoke.graph_time_ms``), each version timed in
-turns (parent, new, new, parent).  One JSON line per part:
+w, scale, bias, xq, rs, out, M, N, K, stream)``, ``w4a8_matmul(x, x_f32,
+x_sm, w4_pack, scale4, bias, xq, rs, out, M, N, K, G, stream)``,
+``resblock_bf16(x, cond, w0, b0, g0w, g0b, fw, fb, w1, b1, g1w, g1b, wr, br,
+h0, film, h1, res, out, S, B, T, Cin, C, G, K, n_groups, eps, stream)`` (three
+launches over four float32 scratch tensors), and ``w4_swiglu_mlp`` /
+``w4_postattn_fused`` as this tree's (the argument lists of their wrappers
+in ``ops/w4_fused.py``).  They are built with the same nvcc flags beside
+this tree's kernels.  Device times are CUDA-graph replays
+(``chip_smoke.graph_time_ms``), each version timed in turns (parent, new,
+new, parent).  One JSON line per part:
 
 1. ``k6``: every K6 shape of the tick (``chip_smoke.QMM_SHAPES``) and of
    the planner's int8 request (``K6_LLM_SHAPES``), both versions bit-exact
    against the plain version, the time of each, this tree's plan, and the
    quantize launch alone (identical in both trees), so that the parent's
    GEMM launch is its time less the quantize; sums per tick;
-2. ``k8``: K8 at every shape of the tick (``chip_smoke.QMM_SHAPES``),
-   both versions against the plain version and timed; sums per tick;
-3. ``plans``: this tree's K6 under other plans (mt, wn, splits) at the
+2. ``k8``: K8 at every shape of the tick (``chip_smoke.QMM_SHAPES``) and of
+   the planner's prompt passes (the ``K8_LLM_SHAPES`` rows at M = 72 and
+   442), both versions against the plain version and timed, this tree's
+   plan; sums per tick and per prompt pass;
+3. ``k8variants``: this tree's K8 tile body and its cut variants
+   (``K8_VARIANTS``: no fold, ring or compute alone, I2F, half the folds,
+   other stage widths and depths) at ``K8_VARIANT_SHAPES``, for timing;
+   ``k8cross``: this tree's K8 under the warp loop and under tile plans
+   at the prompt-pass products for M from 72 to 442 (``K8_CROSS_MS``);
+   ``k8plans``: this tree's K8 under the warp loop and each tile plan at the
+   tick's two main shapes and the 72- and 442-token prompt passes' widest
+   and deepest products, against the plain version and timed;
+4. ``k2``: K2 at the 12 block shapes of a UNet pass (``chip_smoke.
+   K2_SHAPES``), both versions against the plain version (max abs error,
+   ``K2_TOL``) and timed on rotating weight sets, this tree's plan, and
+   this tree's K2 cut before phase 1 and after phases 1-3 (``K2_CUTS``,
+   copies that return there), with its barriers alone
+   (``K2_BARRIERS_ONLY``) and its variants (``K2_VARIANTS``); sums per tick
+   (x 10 SDE steps);
+5. ``ttft``: the full-width planner (``chip_smoke.build_planner``), the
+   time to first token of the 24-token ask and of a 430-token prompt on the
+   fused tree with MEGAKERNELS (host clock, median of 3), with the parent's
+   K8 and with this tree's, in turns, and one profiled 430-token prompt
+   pass each (K8's device ms);
+6. ``plans``: this tree's K6 under other plans (mt, wn, splits) at the
    tick's two main shapes and the planner's down and o projections;
-4. ``phases``: this tree's K6 at one K chunk beside its quantize launch
+7. ``phases``: this tree's K6 at one K chunk beside its quantize launch
    (what a call costs beside its data) and this tree's K10 cut after each
    phase (a copy that returns there, built under ``build/``);
-5. ``mk``: K9 at M = 1, 8, 24 and K10 at M = 1, 8 at Qwen2.5-7B width,
+8. ``mk``: K9 at M = 1, 8, 24 and K10 at M = 1, 8 at Qwen2.5-7B width,
    both versions against the plain version (``chip_smoke.mk_check``) and
    timed; the parent's K10 cut after each of its phases (a variant that
    returns there), which times the phases, and its grid;
-6. ``tick``: quantized tick (a) with the parent's K6, this tree's, and this
+9. ``tick``: quantized tick (a) with the parent's K6, this tree's, and this
    tree's built without the programmatic dependent launch (a copy whose
    GEMM waits for the whole quantize launch, ``NO_PDL``), in turns: the
    profiled device busy ms as the sum of kernel durations and as the union
    of kernel spans, the union of the quantize and GEMM spans, the idle
    share and the kernel groups;
-7. ``decode``: the full-width planner (``chip_smoke.build_planner``), a
-   16-token greedy decode of the 24-token ask on the fused tree with
-   MEGAKERNELS, ms per token (host clock, median of 3) with the parent's
-   K9/K10 and with this tree's, in turns, and one profiled decode each.
+10. ``decode``: the full-width planner, a 16-token greedy decode of the
+   24-token ask on the fused tree with MEGAKERNELS, ms per token (host
+   clock, median of 3) with the parent's K9/K10 and with this tree's, in
+   turns, and one profiled decode each.
 
 Needs one NVIDIA GPU.  No module of the package imports this script.
 """
@@ -61,7 +88,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 PARENT_FILES = ("a8w8_matmul.cu", "w4a8_matmul.cu", "int8_mma.cuh", "w4_swiglu.cu",
-                "w4_postattn.cu", "w4_swiglu.cuh", "w4_group.cuh")
+                "w4_postattn.cu", "w4_swiglu.cuh", "w4_group.cuh", "resblock.cu")
 
 # the parent's K10 cut after phase 1 (o), 2 (norm, gate|up) and 3 (the
 # activation's codes): text in the parent's w4_postattn.cu and its stand-in
@@ -162,6 +189,39 @@ def parent_k8(lib):
 
     w4a8.launches = 0
     return w4a8
+
+
+def parent_k2(lib):
+    """The parent's K2 (three launches over four float32 scratch tensors)
+    behind the wrapper's interface."""
+    import torch
+
+    from vla_touch_tpu_torch.csrc import build
+
+    f = lib.resblock_bf16
+    f.argtypes = [_P] * 19 + [_I] * 8 + [ctypes.c_float, _P]
+    f.restype = _I
+
+    def k2(x, cond, p, *, n_groups=8, eps=1e-5):
+        S, B, T, Cin = x.shape
+        k, C, G = p["w0"].shape[1], p["w0"].shape[-1], cond.shape[-1]
+        h0 = torch.empty((S, B, T, C), dtype=torch.float32, device=x.device)
+        h1, res = torch.empty_like(h0), torch.empty_like(h0)
+        film = torch.empty((S, B, 2 * C), dtype=torch.float32, device=x.device)
+        out = torch.empty((S, B, T, C), dtype=torch.bfloat16, device=x.device)
+        has_res = "wr" in p
+        err = f(x.data_ptr(), cond.data_ptr(), *(p[n].data_ptr() for n in (
+                    "w0", "b0", "g0w", "g0b", "fw", "fb", "w1", "b1", "g1w", "g1b")),
+                p["wr"].data_ptr() if has_res else None, p["br"].data_ptr() if has_res else None,
+                h0.data_ptr(), film.data_ptr(), h1.data_ptr(), res.data_ptr(), out.data_ptr(),
+                S, B, T, Cin, C, G, k, n_groups, float(eps),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, err, "parent resblock_bf16")
+        k2.launches += 1
+        return out
+
+    k2.launches = 0
+    return k2
 
 
 # appended to a copy of this tree's a8w8_matmul.cu: the quantize launch alone
@@ -357,22 +417,321 @@ def k8_part(CS, gen, parent):
 
     from vla_touch_tpu_torch.ops import quant_matmul as QM
 
-    rows, tot = [], {"parent": [0.0, 0.0], "new": [0.0, 0.0]}
-    for M, K, N, calls in CS.QMM_SHAPES:
-        x, wts, err, tol, _ = CS.qmm_check(gen, "K8", M, K, N)
+    prompt = [r for r in CS.K8_LLM_SHAPES if r[0] in CS.K8_PROMPT_MS]
+    rows = []
+    tot = {"tick": {"parent": [0.0, 0.0], "new": [0.0, 0.0]}}
+    tot.update({f"prompt_{M}": {"parent": [0.0, 0.0], "new": [0.0, 0.0]}
+                for M in CS.K8_PROMPT_MS})
+    for where, shapes in (("tick", CS.QMM_SHAPES), ("prompt", prompt)):
+        for M, K, N, calls in shapes:
+            x, wts, err, tol, _ = CS.qmm_check(gen, "K8", M, K, N)
+            want = QM.w4a8_plain(x, *wts, out_dtype=torch.float32)
+            perr = float((parent(x, *wts).float() - want).abs().max())
+            sets = weight_sets(CS, gen, wts)
+            ms = {"parent": [], "new": []}
+            for who in ("parent", "new", "new", "parent"):
+                ms[who].append(timed_sets(CS, parent if who == "parent" else QM.w4a8_matmul,
+                                          x, sets))
+            del sets
+            rows.append(dict(where=where, M=M, K=K, N=N, calls=calls, tol=tol, new_err=err,
+                             parent_err=perr, plan=CS.k8_card_plan(M, K, N, wts[1].shape[0]),
+                             parent_ms=ms["parent"], new_ms=ms["new"]))
+            key = "tick" if where == "tick" else f"prompt_{M}"
+            for who in ("parent", "new"):
+                for i in range(2):
+                    tot[key][who][i] += calls * ms[who][i]
+    return rows, tot
+
+
+# (M, K, N) the k8plans part times every tile plan at
+K8_PLAN_SHAPES = ((67, 2048, 2048), (67, 2048, 6144), (72, 3584, 37888), (72, 18944, 3584),
+                  (442, 3584, 37888), (442, 18944, 3584))
+
+
+# (M, (K, N) ...) of the k8cross part: the planner's prompt-pass products
+# at prompt lengths between the tick's and the 442-token pass
+K8_CROSS_MS = (72, 96, 128, 192, 256, 320, 442)
+K8_CROSS_KN = ((3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584))
+K8_CROSS_PLANS = ((0, 1), (2, 1), (2, 2), (2, 4))
+
+
+def k8_cross_part(CS, gen):
+    """This tree's K8 under the warp loop (plan (0, 1)) and the tile body
+    (mt 2, 1, 2 and 4 splits) at the prompt-pass products for M in
+    K8_CROSS_MS: where the tile body overtakes the warp loop."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    out = []
+    for M in K8_CROSS_MS:
+        for K, N in K8_CROSS_KN:
+            x, wts, _, tol, _ = CS.qmm_check(gen, "K8", M, K, N)
+            want = QM.w4a8_plain(x, *wts, out_dtype=torch.float32)
+            sets = weight_sets(CS, gen, wts)
+            row = dict(M=M, K=K, N=N, default=CS.k8_card_plan(M, K, N, wts[1].shape[0]),
+                       tol=tol, ms={}, err={})
+            for plan in K8_CROSS_PLANS:
+                fn = lambda x, *w, plan=plan: QM._w4a8_launch(x, *w, plan)  # noqa: E731
+                row["err"][str(plan)] = float((fn(x, *wts).float() - want).abs().max())
+                row["ms"][str(plan)] = timed_sets(CS, fn, x, sets)
+            out.append(row)
+            del sets
+    return out
+
+
+def k8_plans_part(CS, gen):
+    import torch
+
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    out = []
+    for M, K, N in K8_PLAN_SHAPES:
+        x, wts, _, tol, _ = CS.qmm_check(gen, "K8", M, K, N)
         want = QM.w4a8_plain(x, *wts, out_dtype=torch.float32)
-        perr = float((parent(x, *wts).float() - want).abs().max())
         sets = weight_sets(CS, gen, wts)
+        G = wts[1].shape[0]
+        default = CS.k8_card_plan(M, K, N, G)
+        for plan in ((0, 1),) + tuple((QM.K8_TILE_MT, s) for s in (1, 2, 4, 8)):
+            fn = lambda x, *w, plan=plan: QM._w4a8_launch(x, *w, plan)  # noqa: E731
+            err = float((fn(x, *wts).float() - want).abs().max())
+            out.append(dict(M=M, K=K, N=N, plan=plan, default=plan == default, err=err,
+                            tol=tol, ms=timed_sets(CS, fn, x, sets)))
+        del sets
+    return out
+
+
+# this tree's K2 cut before phase 1 (the launch alone) and after phases 1,
+# 2 and 3: text in resblock.cu and its stand-in
+K2_CUTS = {
+    "launch": ("  product_phase(a, a.jobs, a.n1, smem);",
+               "  return;\n  product_phase(a, a.jobs, a.n1, smem);"),
+    "products0": ("  grid.sync();\n  norm0_phase(a, smem);",
+                  "  return;\n  grid.sync();\n  norm0_phase(a, smem);"),
+    "norm0": ("  grid.sync();\n  product_phase(a, a.jobs + 3, 1, smem);",
+              "  return;\n  grid.sync();\n  product_phase(a, a.jobs + 3, 1, smem);"),
+    "conv1": ("  grid.sync();\n  out_phase(a, smem);",
+              "  return;\n  grid.sync();\n  out_phase(a, smem);"),
+}
+# this tree's K2 with no phase but its grid barriers (a list of cuts)
+K2_BARRIERS_ONLY = [
+    ("  product_phase(a, a.jobs, a.n1, smem);                  // conv0, film, residual\n", ""),
+    ("  norm0_phase(a, smem);                                  // GN0, Mish, FiLM -> h\n", ""),
+    ("  product_phase(a, a.jobs + 3, 1, smem);                 // conv1\n", ""),
+    ("  out_phase(a, smem);                                    // GN1, Mish, + residual\n", ""),
+]
+
+
+# variants of this tree's K2 (lists of cuts of resblock.cu): a 5-slot ring,
+# which puts all of a 4-slot item's weights in flight at once; and, for
+# timing only, its input staging without loads and its steps without mma
+K2_VARIANTS = {
+    "stages_5": [("constexpr int STAGES = 4;", "constexpr int STAGES = 5;")],
+    # for timing only: no load in the input staging (zeros), no mma
+    "no_a_loads": [("v = jb.src == SRC_H ? ld_bf16_l2(p) : bf(p);", "v = 0.f * (float)(size_t)p;")],
+    "no_mma": [("      mma_bf16(acc, af, bfr);", "      acc[0] += __uint_as_float(af[0] ^ bfr[0]);")],
+}
+
+
+def k2_with(lib):
+    """K2 of a library built from this tree's resblock.cu (a cut copy)
+    behind the wrapper's interface, under k2_plan's plan."""
+    import torch
+
+    from vla_touch_tpu_torch.csrc import build
+    from vla_touch_tpu_torch.ops import unet_kernels as UK
+
+    f = lib.resblock_bf16
+    f.argtypes = [_P] * 15 + [ctypes.c_longlong, _P] + [_I] * 8 + [ctypes.c_float] \
+        + [_I] * 4 + [_P]
+    f.restype = _I
+
+    def k2(x, cond, p, *, n_groups=8, eps=1e-5):
+        S, B, T, Cin = x.shape
+        k, C, G = p["w0"].shape[1], p["w0"].shape[-1], cond.shape[-1]
+        has_res = "wr" in p
+        plan = UK.k2_plan(Cin, C, G, k, S, UK._ctas(0, T, Cin, C, G, k, n_groups), has_res)
+        nbytes = UK.k2_scratch_bytes(S, B, T, C, plan)
+        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
+        out = torch.empty((S, B, T, C), dtype=torch.bfloat16, device=x.device)
+        err = f(x.data_ptr(), cond.data_ptr(), *(p[n].data_ptr() for n in (
+                    "w0", "b0", "g0w", "g0b", "fw", "fb", "w1", "b1", "g1w", "g1b")),
+                p["wr"].data_ptr() if has_res else None, p["br"].data_ptr() if has_res else None,
+                scratch.data_ptr(), nbytes, out.data_ptr(), S, B, T, Cin, C, G, k, n_groups,
+                float(eps), plan["conv0"], plan["film"], plan.get("res", 1), plan["conv1"],
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, err, "cut resblock_bf16")
+        return out
+
+    return k2
+
+
+# variants of this tree's K8 tile body (lists of cuts of w4a8_matmul.cu),
+# for timing only (most compute something else): no fold of the int32 sets
+# (ptxas may then drop the dead mma), no k-step (the ring's streaming
+# alone), no load (the compute alone), I2F in the fold, half the folds,
+# and deeper or wider ring stages
+K8_VARIANTS = {
+    "no_fold": [("      if (kb + 32 == kg) {", "      if (false) {")],
+    "ring_only": [("      if (kb >= kb1) break;                         // the split's last stage ends early",
+                   "      break;")],
+    # the k-steps and folds on whatever the ring holds, no load issued
+    "compute_only": [("  auto load = [&](int s, int q, int p) {\n",
+                      "  auto load = [&](int s, int q, int p) {\n    return;\n")],
+    # the fold's int32 -> float by I2F (the SMALL = false path) everywhere
+    "fold_i2f": [("  const bool small = K / G <= 256;", "  const bool small = false;")],
+    # every other fold skipped (the fold's cost per unit, by difference)
+    "half_folds": [("      if (kb + 32 == kg) {", "      if (kb + 32 == kg && (kg / gs) % 2) {"),
+                   ("        kg += gs;\n      }", "      }\n      if (kb + 32 == kg) kg += gs;")],
+    # the ring's x codes loaded for the first stages only (half the ring's
+    # bytes; later stages compute on stale codes)
+    "ring_weights_only": [("    for (int i = p; i < 2 * BM * PR; i += TB_PRODUCERS) {",
+                           "    for (int i = p; s < TB_STAGES && i < 2 * BM * PR; "
+                           "i += TB_PRODUCERS) {")],
+    # every stage loads the split's first stage again (its bytes stay in L2)
+    "ring_hot": [("    const int kb = kb0 + s * TB_KC;\n    unsigned char* slot",
+                  "    const int kb = kb0 + 0 * s;\n    unsigned char* slot")],
+    # other stage widths and ring depths
+    "kc_64": [("constexpr int TB_KC = 128;", "constexpr int TB_KC = 64;")],
+    "kc_64_stages_8": [("constexpr int TB_KC = 128;", "constexpr int TB_KC = 64;"),
+                       ("constexpr int TB_STAGES = 4;", "constexpr int TB_STAGES = 8;")],
+    "kc_128_stages_3": [("constexpr int TB_STAGES = 4;", "constexpr int TB_STAGES = 3;")],
+    "kc_192_stages_3": [("constexpr int TB_KC = 128;", "constexpr int TB_KC = 192;"),
+                        ("constexpr int TB_STAGES = 4;", "constexpr int TB_STAGES = 3;")],
+}
+K8_VARIANT_SHAPES = ((128, 3584, 3584), (442, 3584, 4608), (442, 3584, 3584),
+                     (442, 3584, 37888), (442, 18944, 3584))
+
+
+def k8_variants_part(CS, gen):
+    """This tree's K8 and each K8_VARIANTS copy (same plan, k8_plan's) at
+    K8_VARIANT_SHAPES: what the fold, the k-steps and the ring's depth and
+    width cost.  The variants' outputs are not checked (two compute
+    nothing)."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    libs = {name: k8_with(build_cut("w4a8_matmul", cuts, name))
+            for name, cuts in K8_VARIANTS.items()}
+    out = []
+    for M, K, N in K8_VARIANT_SHAPES:
+        x, wts, _, _, _ = CS.qmm_check(gen, "K8", M, K, N)
+        sets = weight_sets(CS, gen, wts)
+        row = dict(M=M, K=K, N=N, plan=CS.k8_card_plan(M, K, N, wts[1].shape[0]),
+                   ms=timed_sets(CS, QM.w4a8_matmul, x, sets))
+        row.update({name: timed_sets(CS, fn, x, sets) for name, fn in libs.items()})
+        out.append(row)
+        del sets
+    return out
+
+
+def k8_with(lib):
+    """K8 of a library built from this tree's w4a8_matmul.cu (a cut copy)
+    behind the wrapper's interface, under k8_plan's plan."""
+    import torch
+
+    from vla_touch_tpu_torch.csrc import build
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+    from vla_touch_tpu_torch.utils.device import sm_count
+
+    f = lib.w4a8_matmul
+    f.argtypes = [_P, _I, _L, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_P]
+    f.restype = _I
+
+    def w4a8(x, w4_pack, scale4, bias=None):
+        M, K = x.shape
+        N, G = w4_pack.shape[0], scale4.shape[0]
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+        xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        rs = torch.empty((M,), dtype=torch.float32, device=x.device)
+        err = f(x.data_ptr(), int(x.dtype == torch.float32), x.stride(0), w4_pack.data_ptr(),
+                scale4.data_ptr(), None if bias is None else bias.data_ptr(), xq.data_ptr(),
+                rs.data_ptr(), out.data_ptr(), M, N, K, G, *QM.k8_plan(M, N, K, G, sm_count(0)),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, err, "cut w4a8_matmul")
+        return out
+
+    return w4a8
+
+
+def k2_part(CS, gen, parent):
+    import numpy as np
+    import torch
+
+    from vla_touch_tpu_torch.ops import unet_kernels as UK
+
+    S, B, G, K = CS.K2_S, 1, CS.K2_G, CS.K2_K
+    rows, tot = [], {"parent": [0.0, 0.0], "new": [0.0, 0.0]}
+    cuts = {name: k2_with(build_cut("resblock", [cut], name)) for name, cut in K2_CUTS.items()}
+    cuts["barriers"] = k2_with(build_cut("resblock", K2_BARRIERS_ONLY, "barriers"))
+    cuts.update({name: k2_with(build_cut("resblock", v, name)) for name, v in K2_VARIANTS.items()})
+    for name, T, Cin, C in CS.K2_SHAPES:
+        x = torch.randn((S, B, T, Cin), generator=gen, device="cuda").to(torch.bfloat16)
+        cond = torch.randn((S, B, G), generator=gen, device="cuda").to(torch.bfloat16)
+        sets = [CS.k2_params(gen, S, Cin, C, G, K) for _ in range(4)]
+        want = UK.resblock_ref(x, cond, sets[0])
+        errs = {who: float((fn(x, cond, sets[0]).float() - want).abs().max())
+                for who, fn in (("parent", parent), ("new", UK.resblock_fused))}
+        it = [0]
+
+        def run(fn):
+            it[0] = (it[0] + 1) % len(sets)
+            fn(x, cond, sets[it[0]])
+
         ms = {"parent": [], "new": []}
         for who in ("parent", "new", "new", "parent"):
-            ms[who].append(timed_sets(CS, parent if who == "parent" else QM.w4a8_matmul,
-                                      x, sets))
-        rows.append(dict(M=M, K=K, N=N, calls=calls, tol=tol, new_err=err, parent_err=perr,
-                         parent_ms=ms["parent"], new_ms=ms["new"]))
+            fn = parent if who == "parent" else UK.resblock_fused
+            ms[who].append(CS.graph_time_ms(lambda: run(fn)))
+        cut_ms = {cut: CS.graph_time_ms(lambda: run(fn)) for cut, fn in cuts.items()}
+        ok = all(np.isfinite(e) and e <= CS.K2_TOL for e in errs.values())
+        rows.append(dict(shape=name, T=T, Cin=Cin, C=C, err=errs, tol=CS.K2_TOL, ok=ok,
+                         parent_ms=ms["parent"], new_ms=ms["new"], new_cut_ms=cut_ms,
+                         plan=UK.k2_plan(Cin, C, G, K, S, UK._ctas(0, T, Cin, C, G, K, 8),
+                                         Cin != C),
+                         bound_ms=max(CS.k2_bound_ms(S, B, T, Cin, C, G, K))))
         for who in ("parent", "new"):
             for i in range(2):
-                tot[who][i] += calls * ms[who][i]
+                tot[who][i] += CS.K2_STEPS * ms[who][i]
     return rows, tot
+
+
+def ttft_part(CS, parent):
+    import numpy as np
+    import torch
+
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.planning import run_llm as RL
+
+    P = CS.build_planner(seed=0)
+    cfg = P["cfg"]
+    L.MEGAKERNELS = True
+    iface = RL.make_llm_interface(cfg, P["fused"], max_new_tokens=1)
+    eos = iface.tokenizer.EOS
+    prompts = {"ask": iface.embed_text(CS.ASK_QUERY)[None],
+               "long": iface.embed_text("x" * 430)[None]}
+
+    def first(prompt):
+        return L.greedy_generate(cfg, P["fused"], prompt, max_new_tokens=1, eos_id=eos)
+
+    def wall(prompt):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first(prompt)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(ts))
+
+    res = {"parent": [], "new": [], "prompt_tokens": int(prompts["long"].shape[1])}
+    for who in ("parent", "new", "new", "parent"):
+        with CS.swapped(K8=parent) if who == "parent" else CS.swapped():
+            first(prompts["long"])
+            row = {f"ttft_ms_{k}": wall(p) for k, p in prompts.items()}
+            prof = span_profile(lambda: first(prompts["long"]))
+            row.update(busy_ms=prof["busy_sum_ms"], k8_ms=prof["K8"]["sum_ms"],
+                       k8_calls=prof["K8"]["calls"], quantize_ms=prof["quantize"]["sum_ms"])
+        res[who].append(row)
+    return res
 
 
 # (M, K, N, plans) the plans part times
@@ -554,6 +913,7 @@ def span_profile(run) -> dict:
 
 
 SPAN_GROUPS = {"K6 gemm": ("a8w8_gemm_kernel",), "quantize": ("quantize_rows_kernel",),
+               "K8": ("w4a8_",),
                "K6 gemm + quantize": ("a8w8_gemm_kernel", "quantize_rows_kernel")}
 
 
@@ -618,7 +978,9 @@ def decode_part(CS, pk9, pk10, tokens=16):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent-dir", required=True)
-    ap.add_argument("--parts", default="k6,k8,plans,phases,mk,tick,decode")
+    ap.add_argument("--parts",
+                    default="k6,k8,k8variants,k8cross,k8plans,k2,ttft,plans,phases,mk,tick,"
+                            "decode")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -635,6 +997,7 @@ def main() -> int:
     k8 = parent_k8(build_lib(parent_dir, "w4a8_matmul"))
     pk9, pk10, k10_with = mk_wrappers(build_lib(parent_dir, "w4_swiglu"),
                                       build_lib(parent_dir, "w4_postattn"))
+    k2 = parent_k2(build_lib(parent_dir, "resblock"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -645,7 +1008,18 @@ def main() -> int:
         print(json.dumps(dict(gpu=gpu, k6=rows, per_tick_ms=tot)), flush=True)
     if "k8" in parts:
         rows, tot = k8_part(CS, gen, k8)
-        print(json.dumps(dict(gpu=gpu, k8=rows, per_tick_ms=tot)), flush=True)
+        print(json.dumps(dict(gpu=gpu, k8=rows, sums_ms=tot)), flush=True)
+    if "k8variants" in parts:
+        print(json.dumps(dict(gpu=gpu, k8variants=k8_variants_part(CS, gen))), flush=True)
+    if "k8cross" in parts:
+        print(json.dumps(dict(gpu=gpu, k8cross=k8_cross_part(CS, gen))), flush=True)
+    if "k8plans" in parts:
+        print(json.dumps(dict(gpu=gpu, k8plans=k8_plans_part(CS, gen))), flush=True)
+    if "k2" in parts:
+        rows, tot = k2_part(CS, gen, k2)
+        print(json.dumps(dict(gpu=gpu, k2=rows, per_tick_ms=tot)), flush=True)
+    if "ttft" in parts:
+        print(json.dumps(dict(gpu=gpu, ttft=ttft_part(CS, k8))), flush=True)
     if "plans" in parts:
         print(json.dumps(dict(gpu=gpu, plans=plans_part(CS, gen))), flush=True)
     if "phases" in parts:

@@ -11,7 +11,8 @@ temporary directory, edits the named ``csrc/*.cu`` there, and in a child
 process that imports the copy:
 
 1. runs chip_smoke's correctness check of the faulted kernel(s) at every
-   shape of the quantized tick (K5: and of the planner's int8 request; K7:
+   shape of the quantized tick (K5: and of the planner's int8 request; K8:
+   and of the planner's 72- and 442-token prompt passes; K7:
    the 4374-token condition products; K9/K10: of the planner, at
    Qwen2.5-7B width) and prints, per shape, the max abs error against its
    tolerance, or the miss, and for K5-K8 how many bf16 outputs differ
@@ -25,10 +26,11 @@ process that imports the copy:
    plain version on the same operands; in (a) and (f) with K5 and K7
    shadowed on the tick's operands) and prints the worst call per kernel
    against its tolerance (share <= 1 passes);
-4. for K9/K10, builds the full-width planner and prints the ask request's
-   teacher-forced logits corr against the plain versions and a checked
-   4-token decode, beside chip_smoke's gates; for K6, the int8 request
-   checked at 2 tokens.
+4. for K8 and K9/K10, builds the full-width planner and prints the ask
+   request's teacher-forced logits corr against the plain versions and a
+   checked 4-token decode, beside chip_smoke's gates; for K8 also every
+   planner request checked at 4 tokens (K8's tile body runs in the
+   442-token prompt pass); for K6, the int8 request checked at 2 tokens.
 
 The checkout itself is never edited.  Needs one NVIDIA GPU.
 """
@@ -44,7 +46,9 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# name: (source, text in it, its replacement, kernels to check, configurations)
+# name: (source, text in it, its replacement, kernels to check, configurations);
+# a fault of several edits gives a tuple of (source, text, replacement) as its
+# source and None for the text and replacement
 FAULTS = {
     "none": (None, None, None, ("K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10"),
              ("a", "b", "e", "f")),
@@ -78,19 +82,47 @@ FAULTS = {
     "k6_no_cluster_wait": ("a8w8_matmul.cu",
                            "  cluster.sync();\n  const int S = a.splits;",
                            "  const int S = a.splits;", ("K6",), ("a",)),
-    # K8 (and K9/K10, whose products are the same code): the two nibble
-    # planes swapped (rows j and K/2 + j exchanged)
+    # K8 (both bodies) and K9/K10, whose products share the nibble
+    # unpacking (w4_group.cuh): the two nibble planes swapped (rows j and
+    # K/2 + j exchanged), in the warp loop's form and the tile body's x16 form
     "k8_swap_nibble_planes": (
-        "w4_group.cuh",
-        "a_lo, a_hi, low_plane(p[h][j]));\n"
-        "            mma_chunk64(acc_hi[h][i][j], b_lo, b_hi, high_plane(p[h][j]));",
-        "a_lo, a_hi, high_plane(p[h][j]));\n"
-        "            mma_chunk64(acc_hi[h][i][j], b_lo, b_hi, low_plane(p[h][j]));",
-        ("K8", "K9", "K10"), ("e",)),
-    # K8: nibbles taken as 0..15, without sign extension
-    "k8_no_sign_extension": ("w4_group.cuh",
-                             "return (int)__vsub4(v ^ 0x08080808u, 0x08080808u);",
-                             "return (int)v;", ("K8",), ("e",)),
+        (("w4_group.cuh",
+          "return sext_nibbles(v & 0x0F0F0F0Fu);\n}\n"
+          "__device__ __forceinline__ int high_nibbles(unsigned v) {\n"
+          "  return sext_nibbles((v >> 4) & 0x0F0F0F0Fu);",
+          "return sext_nibbles((v >> 4) & 0x0F0F0F0Fu);\n}\n"
+          "__device__ __forceinline__ int high_nibbles(unsigned v) {\n"
+          "  return sext_nibbles(v & 0x0F0F0F0Fu);"),
+         ("w4_group.cuh",
+          "return (int)((v << 4) & 0xF0F0F0F0u);\n}\n"
+          "__device__ __forceinline__ int high_nibbles_x16(unsigned v) {\n"
+          "  return (int)(v & 0xF0F0F0F0u);",
+          "return (int)(v & 0xF0F0F0F0u);\n}\n"
+          "__device__ __forceinline__ int high_nibbles_x16(unsigned v) {\n"
+          "  return (int)((v << 4) & 0xF0F0F0F0u);")),
+        None, None, ("K8", "K9", "K10"), ("e",)),
+    # K8 (both bodies; K9/K10 too): the nibble's sign not extended: taken as
+    # 0..15 by the warp loop; the tile body's x16 form, which has no room for
+    # 16 * 15, drops the sign bit instead
+    "k8_no_sign_extension": (
+        (("w4_group.cuh", "return (int)__vsub4(v ^ 0x08080808u, 0x08080808u);",
+          "return (int)v;"),
+         ("w4_group.cuh", "return (int)((v << 4) & 0xF0F0F0F0u);",
+          "return (int)((v << 4) & 0x70707070u);"),
+         ("w4_group.cuh", "return (int)(v & 0xF0F0F0F0u);", "return (int)(v & 0x70707070u);")),
+        None, None, ("K8",), ("e",)),
+    # K8's tile body: the last unit of every split never summed (a split of
+    # one unit sums nothing)
+    "k8_drop_last_unit_of_split": (
+        "w4a8_matmul.cu", "const int u1 = split_unit(blockIdx.z + 1, HG, a.splits);",
+        "const int u1 = split_unit(blockIdx.z + 1, HG, a.splits) - 1;", ("K8",), ("e",)),
+    # K8's tile body: the high plane's group sums never folded in with
+    # their scale4
+    "k8_skip_high_plane_fold": (
+        "w4a8_matmul.cu",
+        "              acc = fmaf(acc_to_float<SMALL>(acc_hi[i][j][r]), r & 1 ? s_hi.y : s_hi.x, "
+        "acc);\n",
+        "", ("K8",), ("e",)),
     # K3/K4: the V channel scale never applied (in place and in the combine)
     "q8_no_v_scale": ("flash_attention_q8.cu", "return acc / fmaxf(l, 1e-30f) * vs;",
                       "return acc / fmaxf(l, 1e-30f);", ("K3", "K4"), ("a", "b")),
@@ -128,9 +160,10 @@ FAULTS = {
 
 
 def planner_gates(fault: str, kernels) -> None:
-    """The full-width planner.  K9/K10: the ask request (K9 in the prompt
-    pass, K10 in every decode step): teacher-forced logits corr against
-    the plain versions, and a checked 4-token decode.  K6: the int8
+    """The full-width planner.  K8-K10: the ask request (K8 and K9 in the
+    prompt pass, K10 and K8 in every decode step): teacher-forced logits
+    corr against the plain versions, and a checked 4-token decode; K8: every
+    request checked at 4 tokens as chip_smoke checks them.  K6: the int8
     request, checked at 2 tokens as chip_smoke checks it."""
     import chip_smoke as CS
     from vla_touch_tpu_torch.planning import llm as L
@@ -143,7 +176,14 @@ def planner_gates(fault: str, kernels) -> None:
         chk = CS.checked_run(lambda: i8.generate_fn(i8.embed_text(CS.ASK_QUERY)))
         print(f"{fault}: planner int8 checked request (gate: share <= 1, unlike 0) "
               + json.dumps({k: v for k, v in chk.items() if v["calls"]}), flush=True)
-    if not {"K9", "K10"} & set(kernels):
+    if "K8" in kernels:
+        # every request at 4 tokens, as chip_smoke checks them: the
+        # describe and guess prompt passes (72 and 442 tokens) run K8's
+        # warp loop and tile body
+        chk = CS.checked_run(lambda: CS.planner_requests(P, T=4))
+        print(f"{fault}: planner checked requests (gate: share <= 1) "
+              + json.dumps({k: v for k, v in chk.items() if v["calls"]}), flush=True)
+    if not {"K8", "K9", "K10"} & set(kernels):
         return
     L.MEGAKERNELS = True
     iface = RL.make_llm_interface(cfg, P["fused"], max_new_tokens=CS.PLAN_TOKENS)
@@ -174,7 +214,8 @@ def child(fault: str) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     leaves = None
     qmm_shapes = {"K5": CS.K5_SHAPES, "K6": CS.QMM_SHAPES, "K7": CS.K7_SHAPES,
-                  "K8": CS.QMM_SHAPES}
+                  "K8": CS.QMM_SHAPES + [r for r in CS.K8_LLM_SHAPES
+                                         if r[0] in CS.K8_PROMPT_MS]}
     for kernel in kernels:
         if kernel in qmm_shapes:
             cases = [(f"M{M} K{K} N{N}", (M, K, N)) for M, K, N, _ in qmm_shapes[kernel]]
@@ -200,7 +241,7 @@ def child(fault: str) -> None:
             except AssertionError as e:
                 print(f"{fault}: {kernel} {name}: {e}: MISS", flush=True)
     del leaves
-    if {"K6", "K9", "K10"} & set(kernels):
+    if {"K6", "K8", "K9", "K10"} & set(kernels):
         planner_gates(fault, kernels)
     if not configs:
         return
@@ -243,7 +284,8 @@ def main() -> int:
                             os.path.join(tmp, "vla_touch_tpu_torch"),
                             ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp)
-            if src is not None:
+            edits = src if isinstance(src, tuple) else ((src, text, repl),) if src else ()
+            for src, text, repl in edits:
                 path = os.path.join(tmp, "vla_touch_tpu_torch", "csrc", src)
                 code = open(path).read()
                 if code.count(text) != 1:

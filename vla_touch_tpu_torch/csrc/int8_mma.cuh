@@ -1,8 +1,7 @@
 // Shared by the int8 matmul kernels (a8w8_matmul.cu, w4a8_matmul.cu,
 // a8w8_matmul_large.cu; w8a16_matmul.cu takes ld128 and the error string):
-// the per-token activation quantization launch, the int8 tensor-core step,
-// and the host sequence "quantize x, then launch the GEMM" with its row
-// tiling.  Each including .cu is a library of its own, so the header also
+// the per-token activation quantization launch and the int8 tensor-core
+// step.  Each including .cu is a library of its own, so the header also
 // defines that library's vtt_error_string.
 //
 // Quantization follows vla_touch_tpu/ops/quant.py::qdense exactly, so the
@@ -125,25 +124,6 @@ struct GemmArgs {
   __nv_bfloat16* out;
   int M, N, K, G;
 };
-
-typedef void (*GemmKernel)(GemmArgs);
-
-// Quantize x (M, K) (bf16 when x_f32 == 0, else float32; row stride x_sm
-// elements) into the scratch xq (M, K) int8 and rs (M,), then launch the
-// GEMM: a CTA owns bn columns and MT = min(MAX_MT, ceil(M / 16)) 16-row
-// tiles; by_mt[MT - 1] is the kernel instantiated for that MT.
-inline int quantize_then_gemm(const void* x, int x_f32, long long x_sm, int8_t* xq,
-                              float* rs, GemmArgs a, const GemmKernel (&by_mt)[MAX_MT],
-                              int bn, cudaStream_t stream) {
-  cudaError_t err = quantize_rows(x, x_f32, x_sm, a.M, a.K, xq, rs, stream);
-  if (err != cudaSuccess) return (int)err;
-  a.xq = xq;
-  a.rs = rs;
-  const int MT = a.M >= MAX_MT * 16 ? MAX_MT : (a.M + 15) / 16;
-  dim3 grid((a.N + bn - 1) / bn, (a.M + MT * 16 - 1) / (MT * 16));
-  by_mt[MT - 1]<<<grid, GEMM_THREADS, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
 
 }  // namespace vtt_int8
 

@@ -1,6 +1,7 @@
 // Shared by the grouped-int4 kernels (w4a8_matmul.cu: K8, w4_swiglu.cu: K9,
-// w4_postattn.cu: K10): the nibble unpacking and one warp's share of a
-// grouped int4 x int8 product over 16 output columns.
+// w4_postattn.cu: K10): the nibble unpacking (K8's tile body takes it too)
+// and one warp's share of a grouped int4 x int8 product over 16 output
+// columns (K8's warp loop, K9, K10).
 //
 // Weight layout (ops/quant.py::QLinearW4): w4_pack (N, K/2) int8, K
 // contiguous; byte j of row n holds w[n, j] in its low nibble and
@@ -33,18 +34,32 @@ __device__ __forceinline__ int sext_nibbles(unsigned v) {
   return (int)__vsub4(v ^ 0x08080808u, 0x08080808u);
 }
 
+// four packed bytes -> their low-plane (w[n, j]) and high-plane (w[n, K/2 +
+// j]) values, four int8 in the bytes' order
+__device__ __forceinline__ int low_nibbles(unsigned v) {
+  return sext_nibbles(v & 0x0F0F0F0Fu);
+}
+__device__ __forceinline__ int high_nibbles(unsigned v) {
+  return sext_nibbles((v >> 4) & 0x0F0F0F0Fu);
+}
+
+// K8's tile body takes each nibble times 16, in the high half of its byte:
+// the nibble's top bit lands on the byte's sign bit, so the byte is the
+// int8 16 * w exactly, at one or two operations a word.  Its int32 sums are
+// then 16 x the group sums, and the 1/16 is applied once at the end, exactly.
+__device__ __forceinline__ int low_nibbles_x16(unsigned v) {
+  return (int)((v << 4) & 0xF0F0F0F0u);
+}
+__device__ __forceinline__ int high_nibbles_x16(unsigned v) {
+  return (int)(v & 0xF0F0F0F0u);
+}
+
 __device__ __forceinline__ int4 low_plane(const int4& p) {
-  return make_int4(sext_nibbles((unsigned)p.x & 0x0F0F0F0Fu),
-                   sext_nibbles((unsigned)p.y & 0x0F0F0F0Fu),
-                   sext_nibbles((unsigned)p.z & 0x0F0F0F0Fu),
-                   sext_nibbles((unsigned)p.w & 0x0F0F0F0Fu));
+  return make_int4(low_nibbles(p.x), low_nibbles(p.y), low_nibbles(p.z), low_nibbles(p.w));
 }
 
 __device__ __forceinline__ int4 high_plane(const int4& p) {
-  return make_int4(sext_nibbles(((unsigned)p.x >> 4) & 0x0F0F0F0Fu),
-                   sext_nibbles(((unsigned)p.y >> 4) & 0x0F0F0F0Fu),
-                   sext_nibbles(((unsigned)p.z >> 4) & 0x0F0F0F0Fu),
-                   sext_nibbles(((unsigned)p.w >> 4) & 0x0F0F0F0Fu));
+  return make_int4(high_nibbles(p.x), high_nibbles(p.y), high_nibbles(p.z), high_nibbles(p.w));
 }
 
 // Loads of 16 int8 activation codes.  Codes written by an earlier launch go

@@ -206,20 +206,72 @@ def _a8w8_launch(x, w_i8, scale, bias, plan):
 a8w8_matmul.launches = 0
 
 
+# K8's plan.  Up to K8_WARP_MAX_M rows, the warp loop (mt 0): a CTA owns 16
+# columns and all the rows (at most five 16-row tiles), so each weight byte
+# is read once; measured faster there than the tile body on an H100
+# (tools/torch_quant_ab.py, PERF.md).  Above, the tile body (mt
+# K8_TILE_MT, 16-row tiles per warp): a CTA owns 64 rows by K8_BN columns
+# and one of `splits` ranges of units (pairs of groups, one per nibble
+# plane), the splits of a tile one thread-block cluster of at most
+# K8_MAX_SPLITS.
+K8_WARP_MAX_M = 80
+K8_TILE_MT = 2
+K8_BN = 128
+K8_MAX_SPLITS = 8
+
+
+def k8_split_units(units: int, splits: int, z: int) -> tuple:
+    """[first, end) units of split ``z`` of ``units``: the splits differ by
+    at most one unit (the kernel's ``split_unit``)."""
+    return z * units // splits, (z + 1) * units // splits
+
+
+def k8_plan(M: int, N: int, K: int, G: int, n_sms: int) -> tuple:
+    """(mt, splits) of a K8 call on ``n_sms`` SMs: (0, 1), the warp loop,
+    up to K8_WARP_MAX_M rows; else the tile body (K8_TILE_MT), its G/2
+    units split so that the tiles (one CTA an SM) fill the card: tiles that
+    leave SMs idle take as many splits as fit in one wave; tiles of one to
+    one and a half waves take 2 (at most three waves of half-size CTAs in
+    place of two ragged ones); more tiles none; at most K8_MAX_SPLITS and
+    one unit a split."""
+    if M <= K8_WARP_MAX_M:
+        return 0, 1
+    tiles = k8_tiles(M, N)
+    splits = n_sms // tiles if tiles <= n_sms else 2 if 2 * tiles <= 3 * n_sms else 1
+    return K8_TILE_MT, max(1, min(splits, G // 2, K8_MAX_SPLITS))
+
+
+def k8_tiles(M: int, N: int) -> int:
+    """CTA tiles (row blocks x column tiles) of K8's tile body."""
+    return -(-M // (32 * K8_TILE_MT)) * -(-N // K8_BN)
+
+
 def w4a8_matmul(x, w4_pack, scale4, bias=None):
-    """x (..., K) bf16/f32 . grouped-int4 W -> (..., N) bf16.  ``w4_pack``
-    (N, K/2) int8 contiguous, plane-packed, K % 32 == 0; ``scale4`` (G, N)
-    float32, G even, group size K/G a multiple of 32; ``bias`` (N,)
-    float32.  CUDA: the K8 kernel; CPU: :func:`w4a8_plain`."""
+    """x (..., K) bf16/f32 . grouped-int4 W -> (..., N) bf16, M <= 512.
+    ``w4_pack`` (N, K/2) int8 contiguous and 16-byte aligned, plane-packed,
+    K % 32 == 0 (and N % 4 == 0 where the tile body runs); ``scale4`` (G,
+    N) float32, G even, group size K/G a multiple of 32; ``bias`` (N,)
+    float32.  CUDA: the K8 kernel under :func:`k8_plan`; CPU:
+    :func:`w4a8_plain`; anything else raises."""
     if x.device.type == "cpu":
         return w4a8_plain(x, w4_pack, scale4, bias)
+    return _w4a8_launch(x, w4_pack, scale4, bias, None)
+
+
+def _w4a8_launch(x, w4_pack, scale4, bias, plan):
+    """Check the operands and launch K8 on CUDA tensors under ``plan`` (mt,
+    splits): (0, 1) the warp loop, (K8_TILE_MT, splits) the tile body, or
+    :func:`k8_plan`'s when None (the tools and tests time and check other
+    plans)."""
     if x.device.type != "cuda":
         raise ValueError(f"w4a8_matmul: unsupported device {x.device}")
     *lead, K = x.shape
     if w4_pack.dtype != torch.int8 or w4_pack.dim() != 2 or 2 * w4_pack.shape[1] != K \
-            or not w4_pack.is_contiguous() or w4_pack.device != x.device:
-        raise ValueError(f"w4a8_matmul: w4_pack must be a contiguous int8 (N, {K // 2}) "
-                         f"on {x.device}, got {w4_pack.dtype} {tuple(w4_pack.shape)}")
+            or not w4_pack.is_contiguous() or w4_pack.device != x.device \
+            or w4_pack.data_ptr() % 16:
+        raise ValueError(f"w4a8_matmul: w4_pack must be a contiguous, 16-byte aligned int8 "
+                         f"(N, {K // 2}) on {x.device}, got {w4_pack.dtype} "
+                         f"{tuple(w4_pack.shape)}")
     N = w4_pack.shape[0]
     if scale4.dtype != torch.float32 or scale4.dim() != 2 or scale4.shape[1] != N \
             or not scale4.is_contiguous() or scale4.device != x.device:
@@ -232,17 +284,21 @@ def w4a8_matmul(x, w4_pack, scale4, bias=None):
         _check_vec("w4a8_matmul", "bias", bias, N, x.device)
     x2 = _check_x("w4a8_matmul", x, K)
     M = x2.shape[0]
+    if M > 512:
+        raise ValueError(f"w4a8_matmul: M = {M}: the kernel serves M <= 512")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0 or N == 0:
         return out.reshape(*lead, N)
+    plan = plan or k8_plan(M, N, K, G, sm_count(x.device.index))
+    if plan[0] and N % 4:
+        raise ValueError(f"w4a8_matmul: N = {N}: the tile body needs N % 4 == 0")
     xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
     rs = torch.empty((M,), dtype=torch.float32, device=x.device)
-    lib, f = build.entry("w4a8_matmul",
-                         [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+    lib, f = build.entry("w4a8_matmul", [_P, _I, _L, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_P])
     err = f(x2.data_ptr(), int(x2.dtype == torch.float32), x2.stride(0),
             w4_pack.data_ptr(), scale4.data_ptr(),
             None if bias is None else bias.data_ptr(), xq.data_ptr(), rs.data_ptr(),
-            out.data_ptr(), M, N, K, G,
+            out.data_ptr(), M, N, K, G, *plan,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "w4a8_matmul")
     w4a8_matmul.launches += 1

@@ -11,12 +11,14 @@ axis S (the v and s nets of the stochastic interpolant), in kernel layout::
 
 :func:`resblock_fused` launches the kernel on CUDA tensors and computes
 :func:`resblock_ref` on CPU tensors; ``resblock_fused.launches`` counts
-calls that launched the kernel (three CUDA launches each).
+calls that launched the kernel (one cooperative launch each, under
+:func:`k2_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +26,13 @@ import torch.nn.functional as F
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _MAX_T = 16
-_CH = 16          # output channels per CTA in the kernel
+
+# K2's plan: the kernel's products (conv0, FiLM, the 1x1 residual; then
+# conv1) are cut into items of K2_COLS output columns x one range of their
+# 16-row mma steps; at least K2_MIN_STEPS steps an item
+K2_COLS = 64
+K2_STEP = 16
+K2_MIN_STEPS = 4
 
 
 def mish(x):
@@ -76,14 +84,80 @@ def resblock_ref(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
     return h + res
 
 
+def k2_steps(Cin: int, C: int, G: int, k: int, has_res: bool) -> dict:
+    """(mma steps, column tiles) of each product of one block: a step is 16
+    input channels of one tap."""
+    ch = lambda n: -(-n // K2_STEP)                          # noqa: E731
+    tiles = lambda n: -(-n // K2_COLS)                       # noqa: E731
+    out = {"conv0": (k * ch(Cin), tiles(C)), "film": (ch(G), tiles(2 * C)),
+           "conv1": (k * ch(C), tiles(C))}
+    if has_res:
+        out["res"] = (ch(Cin), tiles(C))
+    return out
+
+
+def k2_split_steps(steps: int, splits: int, z: int) -> tuple:
+    """[first, end) mma steps of split ``z``: the splits differ by at most
+    one step (the kernel's ``split_step``)."""
+    return z * steps // splits, (z + 1) * steps // splits
+
+
+def _phase_splits(jobs: dict, S: int, n_ctas: int) -> dict:
+    """Splits per product of one phase: items of about equal weight rows
+    (at least K2_MIN_STEPS steps), as few steps an item as keeps the items
+    (S x column tiles x splits) within the grid's ``n_ctas`` blocks."""
+    work = S * sum(steps * tiles for steps, tiles in jobs.values())
+    target = max(K2_MIN_STEPS, -(-work // max(1, n_ctas)))
+    while True:
+        splits = {j: min(steps, -(-steps // target)) for j, (steps, _) in jobs.items()}
+        items = S * sum(tiles * splits[j] for j, (_, tiles) in jobs.items())
+        if items <= n_ctas or all(v == 1 for v in splits.values()):
+            return splits
+        target += 1
+
+
+def k2_plan(Cin: int, C: int, G: int, k: int, S: int, n_ctas: int, has_res: bool) -> dict:
+    """Splits of conv0, FiLM, the residual (when ``has_res``) and conv1 for
+    a grid of ``n_ctas`` blocks: phase 1 (conv0, FiLM, residual) and phase
+    3 (conv1) each fill the grid with items of about equal weight bytes."""
+    steps = k2_steps(Cin, C, G, k, has_res)
+    plan = _phase_splits({j: v for j, v in steps.items() if j != "conv1"}, S, n_ctas)
+    plan.update(_phase_splits({"conv1": steps["conv1"]}, S, n_ctas))
+    return plan
+
+
+def k2_scratch_bytes(S: int, B: int, T: int, C: int, plan: dict) -> int:
+    """Bytes of the kernel's one scratch buffer: the float32 partials of
+    each product's splits, then conv1's bf16 operand."""
+    tc = S * B * T * C
+    return 4 * (tc * (plan["conv0"] + plan.get("res", 0) + plan["conv1"])
+                + S * B * 2 * C * plan["film"]) + 2 * tc
+
+
 def _lib():
     from vla_touch_tpu_torch.csrc import build
 
     lib = build.library("resblock")
     if lib.resblock_bf16.argtypes is None:
-        lib.resblock_bf16.argtypes = [_P] * 19 + [_I] * 8 + [ctypes.c_float, _P]
+        lib.resblock_bf16.argtypes = [_P] * 15 + [ctypes.c_longlong, _P] + [_I] * 8 \
+            + [ctypes.c_float] + [_I] * 4 + [_P]
         lib.resblock_bf16.restype = _I
+        lib.resblock_ctas.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
+        lib.resblock_ctas.restype = _I
     return lib
+
+
+@functools.cache
+def _ctas(device_index: int, T: int, Cin: int, C: int, G: int, k: int, n_groups: int) -> int:
+    """Blocks of one cooperative launch of the kernel at this shape."""
+    from vla_touch_tpu_torch.csrc import build
+
+    lib = _lib()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check(lib, lib.resblock_ctas(T, Cin, C, G, k, n_groups, ctypes.byref(n)),
+                    "resblock_fused")
+    return n.value
 
 
 def _check(name, t, shape, device):
@@ -110,7 +184,7 @@ def resblock_fused(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
     S, B, T, Cin = x.shape
     k, C = p["w0"].shape[1], p["w0"].shape[-1]
     G = cond.shape[-1]
-    if T > _MAX_T or C % _CH or C % n_groups or k % 2 == 0:
+    if T > _MAX_T or C % 16 or C % n_groups or k % 2 == 0:
         raise ValueError(f"resblock_fused: unsupported T={T}, C={C}, k={k}, "
                          f"groups={n_groups}")
     dev = x.device
@@ -126,10 +200,16 @@ def resblock_fused(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
         raise ValueError("resblock_fused: Cin != C needs the residual conv")
     for name, shape in shapes.items():
         _check(name, p[name], shape, dev)
-    h0 = torch.empty((S, B, T, C), dtype=torch.float32, device=dev)
-    h1 = torch.empty_like(h0)
-    res = torch.empty_like(h0)
-    film = torch.empty((S, B, 2 * C), dtype=torch.float32, device=dev)
+        if p[name].data_ptr() % 16:
+            raise ValueError(f"resblock_fused: {name} must be 16-byte aligned")
+    ctas = _ctas(dev.index if dev.index is not None else torch.cuda.current_device(),
+                 T, Cin, C, G, k, n_groups)
+    if ctas < 1:
+        raise RuntimeError(f"resblock_fused: one block of T={T}, Cin={Cin}, C={C}, G={G}, "
+                           f"k={k} does not fit an SM: no cooperative launch is possible")
+    plan = k2_plan(Cin, C, G, k, S, ctas, has_res)
+    nbytes = k2_scratch_bytes(S, B, T, C, plan)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     out = torch.empty((S, B, T, C), dtype=torch.bfloat16, device=dev)
     wr = p["wr"].data_ptr() if has_res else None
     br = p["br"].data_ptr() if has_res else None
@@ -140,9 +220,9 @@ def resblock_fused(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
         x.data_ptr(), cond.data_ptr(), p["w0"].data_ptr(), p["b0"].data_ptr(),
         p["g0w"].data_ptr(), p["g0b"].data_ptr(), p["fw"].data_ptr(),
         p["fb"].data_ptr(), p["w1"].data_ptr(), p["b1"].data_ptr(),
-        p["g1w"].data_ptr(), p["g1b"].data_ptr(), wr, br, h0.data_ptr(),
-        film.data_ptr(), h1.data_ptr(), res.data_ptr(), out.data_ptr(),
-        S, B, T, Cin, C, G, k, n_groups, float(eps),
+        p["g1w"].data_ptr(), p["g1b"].data_ptr(), wr, br, scratch.data_ptr(), nbytes,
+        out.data_ptr(), S, B, T, Cin, C, G, k, n_groups, float(eps),
+        plan["conv0"], plan["film"], plan.get("res", 1), plan["conv1"],
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "resblock_fused")
     resblock_fused.launches += 1
