@@ -915,7 +915,46 @@ def qmm_check(gen, kernel, M, K, N):
     if kernel in EXACT_KERNELS and n_diff:
         raise AssertionError(f"{kernel} ({M}, {K}, {N}): {n_diff} bf16 outputs unlike the "
                              f"plain version's rounded to bf16 (must be 0)")
+    if kernel == "K7":
+        stray = k7_stray_writes(x, *wts, got)
+        if stray:
+            raise AssertionError(f"K7 ({M}, {K}, {N}): {stray} elements of the "
+                                 f"{K7_GUARD_ROWS} guard rows past M written (must be 0)")
     return x, wts, err, tol, n_diff
+
+
+# K7's stores are masked to M; the guard rows past a call's output that
+# k7_stray_writes watches (its last row tile's rows past M fall in them)
+K7_GUARD_ROWS = 128
+K7_CANARY = 0x7FC1                 # a bf16 NaN's bits: no output of a finite x has them
+
+
+def k7_stray_writes(x, w_i8, scale, bias, got):
+    """K7's C entry on (x, w_i8, scale, bias) with its output at the start
+    of a buffer whose K7_GUARD_ROWS rows past M hold K7_CANARY: how many
+    guard elements it changed (the wrapper's own output ends in allocator
+    slack that nothing reads, so a store past M would go unseen there).
+    Raises unless the first M rows equal the wrapper's output ``got``."""
+    import ctypes
+
+    import torch
+
+    from vla_touch_tpu_torch.csrc import build
+
+    (M, K), N = x.shape, w_i8.shape[0]
+    buf = torch.full((M + K7_GUARD_ROWS, N), K7_CANARY, dtype=torch.int16, device=x.device)
+    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    rs = torch.empty((M,), dtype=torch.float32, device=x.device)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib, f = build.entry("a8w8_matmul_large", [P, I, L, P, P, P, P, P, P, I, I, I, P])
+    err = f(x.data_ptr(), int(x.dtype == torch.float32), x.stride(0), w_i8.data_ptr(),
+            scale.data_ptr(), None if bias is None else bias.data_ptr(), xq.data_ptr(),
+            rs.data_ptr(), buf.data_ptr(), M, N, K, torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "a8w8_matmul_large")
+    torch.cuda.synchronize()
+    if not torch.equal(buf[:M].view(torch.bfloat16), got):
+        raise AssertionError(f"K7 ({M}, {K}, {N}): the C entry's output is not the wrapper's")
+    return int((buf[M:] != K7_CANARY).sum())
 
 
 def qmm_library(kernel, x, sets):
@@ -977,8 +1016,7 @@ def check_qmm(gen, kernel, shapes=None):
             else None
         b_ms, o_ms = qmm_bound_ms(kernel, M, K, N)
         bound = max(b_ms, o_ms)
-        plan = k6_card_plan(M, K, N) if kernel == "K6" else (
-            k8_card_plan(M, K, N, wts[1].shape[0]) if kernel == "K8" else None)
+        plan = card_plan(kernel, M, K, N, wts[1])
         rows.append(dict(M=M, K=K, N=N, calls=calls, plan=plan, max_abs_err=err, tol=tol,
                          bf16_unlike_plain=n_diff, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, int_mm_ms=int_mm_ms, bound_ms=bound,
@@ -989,8 +1027,8 @@ def check_qmm(gen, kernel, shapes=None):
             f"{lib_ms:.4f} ms")
         if int_mm_ms is not None:
             lib += f" (yardstick of the int8 rate: torch._int_mm, int8 weights, {int_mm_ms:.4f} ms)"
-        how = "" if plan is None else (f" plan (mt, wn, splits) {plan}" if kernel == "K6"
-                                        else f" plan (mt, splits) {plan}")
+        how = {"K5": f" plan (mt, wn, splits) {plan}", "K6": f" plan (mt, wn, splits) {plan}",
+               "K7": f" tile (rows, columns) {plan}", "K8": f" plan (mt, splits) {plan}"}[kernel]
         log(f"{kernel} M{M:4d} K{K:5d} N{N:6d}{how}: err {err:.3e} (tol {tol:.3e}; bf16 outputs "
             f"unlike the plain version's {n_diff} of {M * N}) kernel {ms:.4f} ms (eager loop "
             f"{eager_ms:.4f}) plain {plain_ms:.4f} ms{lib} bound {bound:.4f} ms x{calls}/tick")
@@ -1002,6 +1040,21 @@ def check_qmm(gen, kernel, shapes=None):
     if kernel == "K8":
         tot["library_ms"] = None
     return rows, tot
+
+
+def card_plan(kernel, M, K, N, scale):
+    """The plan a K5-K8 call takes on this card: K5's and K6's (mt, wn,
+    splits), K7's tile (rows, columns), K8's (mt, splits); ``scale`` is
+    the leaf's scale (K8: scale4, whose rows are its groups)."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    if kernel == "K5":
+        return QM.k5_card_plan(M, N, K, 0)
+    if kernel == "K7":
+        return QM.K7_BM, QM.K7_BN
+    if kernel == "K8":
+        return k8_card_plan(M, K, N, scale.shape[0])
+    return k6_card_plan(M, K, N)
 
 
 def k6_card_plan(M, K, N):
@@ -1190,7 +1243,8 @@ def run_tick(t, stage_ms=None, rdt=None, kv_cache="bf16", refine=True, model=Non
 
 
 # (kernel, library) whose ptxas report kernel_ptxas holds: no register spills
-PTXAS_CHECKED = (("K1", "flash_attention"), ("K8", "w4a8_matmul"), ("K2", "resblock"))
+PTXAS_CHECKED = (("K1", "flash_attention"), ("K8", "w4a8_matmul"), ("K2", "resblock"),
+                 ("K5", "w8a16_matmul"), ("K7", "a8w8_matmul_large"))
 
 
 def kernel_ptxas():

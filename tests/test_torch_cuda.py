@@ -482,6 +482,133 @@ def test_w8a16_kernel_matches_plain(cuda, M, K, N, x_dtype):
     assert float((got.float() - want).abs().max()) <= 2 ** -8 * float(want.abs().max())
 
 
+def _graph_of(fn):
+    """(graph, out): ``fn()`` warmed on a side stream, then captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1024, 640), (17, 1024, 640), (67, 1024, 640),
+                                   (80, 1024, 640), (81, 1024, 640), (130, 1024, 640),
+                                   (1, 3584, 152064)])
+def test_w8a16_kernel_every_plan_repeats_bit_for_bit(cuda, M, K, N):
+    """K5 under every plan it can take at (M, K, N) (4 or 8 warps across
+    columns, 1 to 8 K splits; the lm_head width: 1, 2 and 8) is within one
+    bf16 step (2^-8 relative) of its plain version and gives the same bits
+    when repeated; its own plan also under CUDA-graph replay (the splits
+    of a tile meet in their cluster's shared memory, in rank order)."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(14)
+    lin, Q = _int8_linear(g, N, K, cuda)
+    qp = Q.quantize_linear(lin)
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    want = QM.w8a16_plain(x, qp.w_i8, qp.scale, qp.bias, out_dtype=torch.float32)
+    tol = 2 ** -8 * float(want.abs().max())
+    mt = min(5, -(-M // 16))
+    splits = (1, 2, 8) if N > 100000 else range(1, 9)
+    for plan in [(mt, wn, s) for wn in (4, 8) for s in splits]:
+        got = QM._w8a16_launch(x, qp.w_i8, qp.scale, qp.bias, plan)
+        again = QM._w8a16_launch(x, qp.w_i8, qp.scale, qp.bias, plan)
+        torch.cuda.synchronize()
+        assert float((got.float() - want).abs().max()) <= tol, plan
+        assert torch.equal(got, again), plan
+    got = QM.w8a16_matmul(x, qp.w_i8, qp.scale, qp.bias)
+    graph, out = _graph_of(lambda: QM.w8a16_matmul(x, qp.w_i8, qp.scale, qp.bias))
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("M", [1, 22, 129, 4374])
+@pytest.mark.parametrize("K,N", [(128, 512), (1152, 4096)])
+def test_a8w8_large_kernel_is_exact(cuda, M, K, N):
+    """K7 on a float32 x whose row stride exceeds K:
+    no bf16 output unlike the plain float32 out rounded to bf16 (exact
+    codes and int32 sums, the plain epilogue's order); K 128 is a single
+    128-byte stage, 4374 rows end in a 22-row tile; the same bits when
+    repeated."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(15)
+    lin, Q = _int8_linear(g, N, K, cuda)
+    qp = Q.quantize_linear(lin)
+    x = (torch.randn((M, K + 64), generator=g, device=cuda) * 2)[:, :K]
+    assert x.stride(0) == K + 64
+    want = QM.a8w8_large_plain(x, qp.w_i8, qp.scale, qp.bias, out_dtype=torch.float32)
+    got = QM.a8w8_matmul_large(x, qp.w_i8, qp.scale, qp.bias)
+    again = QM.a8w8_matmul_large(x, qp.w_i8, qp.scale, qp.bias)
+    torch.cuda.synchronize()
+    assert int((got != want.to(torch.bfloat16)).sum()) == 0
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("M", [22, 4374])
+def test_a8w8_large_kernel_writes_no_row_past_m(cuda, M):
+    """K7's C entry with its output at the start of a buffer whose 128 rows
+    past M hold a canary (a bf16 NaN's bits): the first M rows are the
+    wrapper's output and no guard element changes (the last row tile's
+    rows past M are masked; the wrapper's own output ends in allocator
+    slack that no other check reads)."""
+    import ctypes
+
+    from vla_touch_tpu_torch.csrc import build
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    K, N = 2048, 4096
+    lin, Q = _int8_linear(g, N, K, cuda)
+    qp = Q.quantize_linear(lin)
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    canary, guard = 0x7FC1, 128
+    buf = torch.full((M + guard, N), canary, dtype=torch.int16, device=cuda)
+    xq = torch.empty((M, K), dtype=torch.int8, device=cuda)
+    rs = torch.empty((M,), dtype=torch.float32, device=cuda)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib, f = build.entry("a8w8_matmul_large", [P, I, L, P, P, P, P, P, P, I, I, I, P])
+    err = f(x.data_ptr(), 0, x.stride(0), qp.w_i8.data_ptr(), qp.scale.data_ptr(),
+            qp.bias.data_ptr(), xq.data_ptr(), rs.data_ptr(), buf.data_ptr(), M, N, K,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "a8w8_matmul_large")
+    got = QM.a8w8_matmul_large(x, qp.w_i8, qp.scale, qp.bias)
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:M].view(torch.bfloat16), got)
+    assert int((buf[M:] != canary).sum()) == 0
+
+
+def test_a8w8_large_kernel_under_a_graph_of_two_weight_sets(cuda):
+    """One CUDA graph captures K7 on two weight tensors (each launch keeps
+    its own TMA maps, passed by value): each replay gives each call's own
+    exact output."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(16)
+    M, K, N = 300, 1152, 1024
+    qps = []
+    for _ in range(2):
+        lin, Q = _int8_linear(g, N, K, cuda)
+        qps.append(Q.quantize_linear(lin))
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    wants = [QM.a8w8_large_plain(x, qp.w_i8, qp.scale, qp.bias, out_dtype=torch.float32)
+             .to(torch.bfloat16) for qp in qps]
+    graph, outs = _graph_of(lambda: [QM.a8w8_matmul_large(x, qp.w_i8, qp.scale, qp.bias)
+                                     for qp in qps])
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, wants):
+            assert int((out != want).sum()) == 0
+    assert not torch.equal(outs[0], outs[1])
+
+
 def test_k5_k7_refuse_or_route_what_they_do_not_take(cuda):
     """K7's entry sends N % 512 != 0 to the plain qdense (no launch); both
     refuse fp16 x and a weight that is not 16-byte aligned; K5 refuses K

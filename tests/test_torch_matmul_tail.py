@@ -166,3 +166,154 @@ def test_w8a16_refuses_k_or_n_not_a_multiple_of_128(K, N):
     w = torch.zeros((N, K), dtype=torch.int8)
     with pytest.raises(ValueError, match="multiples of 128"):
         QM.w8a16_matmul(torch.zeros((3, K)), w, torch.ones(N))
+
+
+# ---- K5's split plan and sum order; K7's tiles --------------------------------------
+
+# (M, K, N, plan at 132 SMs, every cluster of a wave placed at once) of
+# every K5 shape of chip_smoke.K5_SHAPES: the twin's linears and the planner
+# int8 request's M = 1 linears (on the card the plan counts the clusters
+# CUDA's occupancy calculator places, so a tall tile's splits may be fewer)
+K5_PLAN_CASES = [
+    (67, 2048, 6144, (5, 8, 5)), (67, 2048, 2048, (5, 4, 8)), (67, 2048, 128, (5, 4, 8)),
+    (64, 4096, 2048, (4, 4, 8)), (64, 2048, 2048, (4, 4, 8)), (64, 256, 2048, (4, 4, 2)),
+    (1, 256, 2048, (1, 4, 2)), (1, 2048, 2048, (1, 4, 8)), (1, 3584, 3584, (1, 8, 8)),
+    (1, 3584, 512, (1, 4, 8)), (1, 3584, 18944, (1, 8, 3)), (1, 18944, 3584, (1, 8, 8)),
+    (1, 3584, 152064, (1, 4, 1)),
+]
+
+
+def _k5_coverage(M, K, N, plan):
+    """Every (row, column) of the output in exactly one tile of the grid,
+    every 64-wide K chunk in exactly one split, every split non-empty."""
+    mt, wn, splits = plan
+    assert 1 <= mt <= QM.K5_MAX_MT and wn in QM.K5_WNS
+    nc = K // 64
+    assert 1 <= splits <= min(QM.K6_MAX_SPLITS, nc)
+    seen = np.zeros(nc, int)
+    for z in range(splits):
+        c0, c1 = QM.k6_split_chunks(nc, splits, z)
+        assert c1 > c0
+        seen[c0:c1] += 1
+    assert np.all(seen == 1)
+    cover = np.zeros((M, N), int)
+    rows, cols = 16 * mt, 32 * wn
+    grid = (-(-N // cols), -(-M // rows))
+    assert grid[0] * grid[1] == QM.k5_tiles(M, N, plan)
+    for bx in range(grid[0]):
+        for by in range(grid[1]):
+            cover[by * rows:(by + 1) * rows, bx * cols:(bx + 1) * cols] += 1
+    assert np.all(cover == 1)
+
+
+@pytest.mark.parametrize("M,K,N,want", K5_PLAN_CASES)
+def test_k5_split_plan_covers_every_chunk_and_tile_once(M, K, N, want):
+    """At 132 SMs: the plan named; every output element in one tile and
+    every 64-wide K chunk in one split (a cluster of at most 8 CTAs); a
+    split plan's CTAs fit the card at once (two per SM at one or two row
+    tiles)."""
+    plan = QM.k5_plan(M, N, K, 132)
+    assert plan == want
+    _k5_coverage(M, K, N, plan)
+    mt, wn, splits = plan
+    ctas = QM.k5_tiles(M, N, plan) * splits
+    assert splits == 1 or ctas <= 132 * (2 if mt <= 2 else 1)
+
+
+@pytest.mark.parametrize("M,K,N", [(67, 2048, 2048), (64, 4096, 2048), (67, 2048, 6144)])
+def test_k5_plan_counts_the_clusters_the_card_places(M, K, N):
+    """Where fewer clusters of a split count fit at once than the tiles
+    need (an H100 places 15 clusters of eight 80-row CTAs, 17 of six),
+    the plan takes fewer splits rather than a second wave; every element
+    and chunk still once."""
+    placed = {8: 15, 7: 15, 6: 17, 5: 22, 4: 30, 3: 44, 2: 66, 1: 132}
+    plan = QM.k5_plan(M, N, K, 132, active=lambda mt, wn, splits: placed[splits])
+    _k5_coverage(M, K, N, plan)
+    assert QM.k5_tiles(M, N, plan) <= placed[plan[2]]
+    assert plan != QM.k5_plan(M, N, K, 132) or QM.k5_tiles(M, N, plan) <= 15
+
+
+@pytest.mark.parametrize("M,K,N", [(130, 384, 640), (81, 2048, 2048), (1, 128, 128),
+                                   (500, 256, 1024), (17, 18944, 256)])
+def test_k5_split_plan_ragged_and_tall(M, K, N):
+    """Rows past 80 take further row blocks of at most five 16-row tiles,
+    a partial last column tile and K cut into splits it does not divide:
+    every element and chunk once."""
+    plan = QM.k5_plan(M, N, K, 132)
+    _k5_coverage(M, K, N, plan)
+    assert plan[0] == min(5, -(-M // 16))
+
+
+def _k5_sum_order(x, w_i8, scale, bias, plan):
+    """K5's float32 sums in the kernel's order: per split, each warp row wk
+    takes the chunks c0 + s * WK + wk in turn, four 16-deep mma steps a
+    chunk over the K positions t*16 + 4q + {0..3} (t = 0..3); the WK warp
+    rows summed in order, then the splits in rank order, then
+    acc * scale + bias."""
+    x = x.astype(np.float32)
+    w = w_i8.astype(np.float32)
+    M, K = x.shape
+    mt, wn, splits = plan
+    WK, nc = 8 // wn, K // 64
+    steps = [np.array([t * 16 + 4 * q + d for t in range(4) for d in range(4)])
+             for q in range(4)]
+    parts = []
+    for z in range(splits):
+        c0, c1 = QM.k6_split_chunks(nc, splits, z)
+        warps = [np.zeros((M, w.shape[0]), np.float32) for _ in range(WK)]
+        for c in range(c0, c1):
+            for ks in steps:
+                k = c * 64 + ks
+                warps[(c - c0) % WK] += x[:, k] @ w[:, k].T
+        part = warps[0]
+        for p in warps[1:]:
+            part = part + p
+        parts.append(part)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    y = acc * scale
+    return y + bias if bias is not None else y
+
+
+@pytest.mark.parametrize("M,K,N,plan", [(67, 1280, 256, (5, 4, 8)), (67, 1280, 256, (5, 8, 3)),
+                                        (1, 384, 512, (1, 4, 5)), (33, 256, 384, (3, 8, 1))])
+def test_k5_sum_order_matches_plain_and_jax_kernel(rng, w8a16_interpret, M, K, N, plan):
+    """K5's split and cluster sum order, emulated in float32, against its
+    plain version and JAX's ``w8a16_matmul`` in interpret mode: rtol 1e-5
+    and atol 1e-5 x max|jax| (exact products of bf16 values, float32 sums
+    in other orders)."""
+    jq, tq = _leaves(rng, K, N)
+    jx, tx = _x(rng, (M, K), "bfloat16")
+    want = _np(w8a16_interpret(jx, jq["w_i8"], jq["scale"], jq["bias"],
+                               out_dtype=jnp.float32))
+    plain = QM.w8a16_plain(tx, tq.w_i8, tq.scale, tq.bias, out_dtype=torch.float32).numpy()
+    got = _k5_sum_order(tx.float().numpy(), tq.w_i8.numpy(), tq.scale.numpy(),
+                        tq.bias.numpy(), plan)
+    assert got.shape == want.shape == (M, N)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5 * np.abs(plain).max())
+
+
+@pytest.mark.parametrize("M,K,N", [(4374, 1152, 2048), (4374, 2048, 2048), (4374, 2048, 4096),
+                                   (1, 2048, 4096), (129, 2048, 4096), (1, 128, 512)])
+def test_k7_tiles_cover_every_output_once(M, K, N):
+    """At 132 SMs, the persistent grid's schedule (CTA c takes tiles c, c +
+    grid, ...; tile i is row tile i % row tiles of column band i // row
+    tiles) puts every output element in exactly one 128 x 256 tile, and
+    the tiles at work at once are consecutive: a band or two."""
+    bn = QM.K7_BN
+    assert N % bn == 0
+    rows_t, cols_t = -(-M // QM.K7_BM), N // bn
+    tiles = QM.k7_tiles(M, N)
+    assert tiles == rows_t * cols_t
+    grid = min(tiles, 132)
+    cover = np.zeros((M, N), np.int8)
+    for c in range(grid):
+        for i in range(c, tiles, grid):
+            bx, by = i % rows_t, i // rows_t
+            cover[bx * QM.K7_BM:(bx + 1) * QM.K7_BM, by * bn:(by + 1) * bn] += 1
+    assert np.all(cover == 1)
+    first_wave = list(range(grid))
+    assert max(i // rows_t for i in first_wave) - min(i // rows_t for i in first_wave) \
+        <= -(-grid // rows_t)

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""K6 (a8w8), K8 (w4a8), K9/K10 (the w4 megakernels) and K2 (the UNet-1D
-residual block) on one card: this tree's kernels against an earlier
-tree's, in turns.
+"""K6 (a8w8), K5 (w8a16), K7 (a8w8, large M), K8 (w4a8), K9/K10 (the w4
+megakernels) and K2 (the UNet-1D residual block) on one card: this tree's
+kernels against an earlier tree's, in turns.
 
     python3 tools/torch_quant_ab.py --parent-dir build/parent \
-        [--parts k6,k8,k8variants,k8cross,k8plans,k2,ttft,plans,phases,mk,tick,decode]
+        [--parts k6,k5,k7,k8,k8variants,k8cross,k8plans,k2,ttft,plans,phases,mk,tick,decode]
 
 ``--parent-dir`` holds an earlier tree's ``a8w8_matmul.cu``,
 ``w4a8_matmul.cu``, ``int8_mma.cuh``, ``w4_swiglu.cu``, ``w4_postattn.cu``,
-``w4_swiglu.cuh``, ``w4_group.cuh`` and ``resblock.cu`` (e.g. ``git show
+``w4_swiglu.cuh``, ``w4_group.cuh``, ``resblock.cu``, ``w8a16_matmul.cu``
+and ``a8w8_matmul_large.cu`` (e.g. ``git show
 <commit>:vla_touch_tpu_torch/csrc/<file>``, written under the ignored
 ``build/``), with the C entries of that tree: ``a8w8_matmul(x, x_f32, x_sm,
-w, scale, bias, xq, rs, out, M, N, K, stream)``, ``w4a8_matmul(x, x_f32,
+w, scale, bias, xq, rs, out, M, N, K, mt, wn, splits, stream)``, ``w4a8_matmul(x, x_f32,
 x_sm, w4_pack, scale4, bias, xq, rs, out, M, N, K, G, stream)``,
+``w8a16_matmul(x, w, scale, bias, out, M, N, K, stream)``,
+``a8w8_matmul_large(x, x_f32, x_sm, w, scale, bias, xq, rs, out, M, N, K,
+stream)``,
 ``resblock_bf16(x, cond, w0, b0, g0w, g0b, fw, fb, w1, b1, g1w, g1b, wr, br,
 h0, film, h1, res, out, S, B, T, Cin, C, G, K, n_groups, eps, stream)`` (three
 launches over four float32 scratch tensors), and ``w4_swiglu_mlp`` /
@@ -69,7 +73,18 @@ new, parent).  One JSON line per part:
 10. ``decode``: the full-width planner, a 16-token greedy decode of the
    24-token ask on the fused tree with MEGAKERNELS, ms per token (host
    clock, median of 3) with the parent's K9/K10 and with this tree's, in
-   turns, and one profiled decode each.
+   turns, and one profiled decode each;
+11. ``k5``: K5 at every ``chip_smoke.K5_SHAPES`` row, both versions
+   against the plain version and timed (this tree's also built without the
+   cluster barrier begun at its start), this tree's plan, ``F.linear`` on
+   bf16 weights; sums per tick (870 shadow calls);
+12. ``k7``: K7 at every ``chip_smoke.K7_SHAPES`` row, both versions' bf16
+   outputs unlike the plain version's, timed (this tree's also built
+   without the programmatic dependent launch), this tree's tile, the
+   quantize launch alone (a copy of this tree's ``a8w8_matmul_large.cu``
+   with an extra C entry; both trees run the same quantize launch) and
+   ``torch._int_mm``: each GEMM is its time less the quantize; sums per
+   (f) chunk (16 calls).
 
 Needs one NVIDIA GPU.  No module of the package imports this script.
 """
@@ -88,7 +103,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 PARENT_FILES = ("a8w8_matmul.cu", "w4a8_matmul.cu", "int8_mma.cuh", "w4_swiglu.cu",
-                "w4_postattn.cu", "w4_swiglu.cuh", "w4_group.cuh", "resblock.cu")
+                "w4_postattn.cu", "w4_swiglu.cuh", "w4_group.cuh", "resblock.cu",
+                "w8a16_matmul.cu", "a8w8_matmul_large.cu")
 
 # the parent's K10 cut after phase 1 (o), 2 (norm, gate|up) and 3 (the
 # activation's codes): text in the parent's w4_postattn.cu and its stand-in
@@ -133,35 +149,6 @@ def build_lib(src_dir: str, name: str, text: str | None = None, tag: str = "") -
     return lib
 
 
-def parent_k6(lib):
-    """The parent's K6 behind the wrapper's interface."""
-    import torch
-
-    from vla_touch_tpu_torch.csrc import build
-
-    f = lib.a8w8_matmul
-    f.argtypes = [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
-    f.restype = _I
-
-    def a8w8(x, w_i8, scale, bias=None):
-        *lead, K = x.shape
-        x2 = x.reshape(-1, K)
-        M, N = x2.shape[0], w_i8.shape[0]
-        out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-        xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
-        rs = torch.empty((M,), dtype=torch.float32, device=x.device)
-        err = f(x2.data_ptr(), int(x2.dtype == torch.float32), x2.stride(0), w_i8.data_ptr(),
-                scale.data_ptr(), None if bias is None else bias.data_ptr(), xq.data_ptr(),
-                rs.data_ptr(), out.data_ptr(), M, N, K,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        build.check(lib, err, "parent a8w8_matmul")
-        a8w8.launches += 1
-        return out.reshape(*lead, N)
-
-    a8w8.launches = 0
-    return a8w8
-
-
 def parent_k8(lib):
     """The parent's K8 behind the wrapper's interface."""
     import torch
@@ -189,6 +176,59 @@ def parent_k8(lib):
 
     w4a8.launches = 0
     return w4a8
+
+
+def parent_k5(lib):
+    """The parent's K5 (``w8a16_matmul(x, w, scale, bias, out, M, N, K,
+    stream)``, bf16 x contiguous) behind the wrapper's interface."""
+    import torch
+
+    from vla_touch_tpu_torch.csrc import build
+
+    f = lib.w8a16_matmul
+    f.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+    f.restype = _I
+
+    def w8a16(x, w_i8, scale, bias=None):
+        *lead, K = x.shape
+        x2 = x.reshape(-1, K).to(torch.bfloat16).contiguous()
+        M, N = x2.shape[0], w_i8.shape[0]
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+        err = f(x2.data_ptr(), w_i8.data_ptr(), scale.data_ptr(),
+                None if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, err, "parent w8a16_matmul")
+        return out.reshape(*lead, N)
+
+    return w8a16
+
+
+def parent_k7(lib):
+    """The parent's K7 (``a8w8_matmul_large(x, x_f32, x_sm, w, scale, bias,
+    xq, rs, out, M, N, K, stream)``) behind the wrapper's interface."""
+    import torch
+
+    from vla_touch_tpu_torch.csrc import build
+
+    f = lib.a8w8_matmul_large
+    f.argtypes = [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+    f.restype = _I
+
+    def large(x, w_i8, scale, bias=None):
+        *lead, K = x.shape
+        x2 = x.reshape(-1, K)
+        M, N = x2.shape[0], w_i8.shape[0]
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+        xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        rs = torch.empty((M,), dtype=torch.float32, device=x.device)
+        err = f(x2.data_ptr(), int(x2.dtype == torch.float32), x2.stride(0), w_i8.data_ptr(),
+                scale.data_ptr(), None if bias is None else bias.data_ptr(), xq.data_ptr(),
+                rs.data_ptr(), out.data_ptr(), M, N, K,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, err, "parent a8w8_matmul_large")
+        return out.reshape(*lead, N)
+
+    return large
 
 
 def parent_k2(lib):
@@ -239,13 +279,15 @@ NO_PDL = [("quantize_rows<true>(", "quantize_rows<false>("),
            "programmaticStreamSerializationAllowed = 0;")]
 
 
-def quantize_only():
-    """This tree's quantize launch alone (the one both trees run)."""
+def quantize_only(source: str = "a8w8_matmul"):
+    """This tree's quantize launch alone (the one K6's, or with ``source``
+    ``a8w8_matmul_large`` K7's, trees both run), from a copy of
+    ``csrc/<source>.cu`` with an extra C entry."""
     import torch
 
     from vla_touch_tpu_torch.csrc import build
 
-    lib = build_cut("a8w8_matmul", [], "quantize", QUANTIZE_ENTRY)
+    lib = build_cut(source, [], "quantize", QUANTIZE_ENTRY)
     f = lib.a8w8_quantize
     f.argtypes = [_P, _I, _L, _P, _P, _I, _I, _P]
     f.restype = _I
@@ -259,9 +301,10 @@ def quantize_only():
     return run
 
 
-def k6_of(lib):
-    """K6 of a library built from this tree's a8w8_matmul.cu (a cut copy)
-    behind the wrapper's interface, under ``k6_plan``'s plan."""
+def k6_of(lib, tree: str = "cut"):
+    """K6 of a library built from an a8w8_matmul.cu whose entry takes a
+    plan (a cut copy of this tree's, or ``tree`` "parent": an earlier
+    tree's) behind the wrapper's interface, under ``k6_plan``'s plan."""
     import torch
 
     from vla_touch_tpu_torch.csrc import build
@@ -283,7 +326,7 @@ def k6_of(lib):
                 scale.data_ptr(), None if bias is None else bias.data_ptr(), xq.data_ptr(),
                 rs.data_ptr(), out.data_ptr(), M, N, K, *QM.k6_plan(M, N, K, sm_count(0)),
                 torch.cuda.current_stream(x.device).cuda_stream)
-        build.check(lib, err, "cut a8w8_matmul")
+        build.check(lib, err, f"{tree} a8w8_matmul")
         a8w8.launches += 1
         return out.reshape(*lead, N)
 
@@ -409,6 +452,162 @@ def k6_part(CS, gen, parent):
                     for i in range(2):
                         tot[who][i] += calls * ms[who][i]
                 tot["quantize"] += calls * q_ms
+    return rows, tot
+
+
+def library_ms(CS, kernel, x, sets):
+    """``chip_smoke.qmm_library``'s yardstick of K5 or K7 on rotating sets."""
+    lib = CS.qmm_library(kernel, x, sets)
+    it = [0]
+
+    def run():
+        it[0] = (it[0] + 1) % len(sets)
+        lib(it[0])
+
+    return CS.graph_time_ms(run)
+
+
+# K5 without the cluster barrier its split CTAs begin at the start and
+# wait on before their first store into a peer (a variant for timing only:
+# it stores into peers that may not have started)
+K5_NO_START_BARRIER = [("  if (a.splits > 1) cluster_arrive_relaxed();\n", ""),
+                       ("  if (S > 1) cluster_wait();                        "
+                        "// every peer has started\n", "")]
+
+
+def k5_of(lib):
+    """K5 of a library built from a cut copy of this tree's
+    w8a16_matmul.cu behind the wrapper's interface, under k5_card_plan's
+    plan."""
+    import torch
+
+    from vla_touch_tpu_torch.csrc import build
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    f = lib.w8a16_matmul
+    f.argtypes = [_P, _P, _P, _P, _P] + [_I] * 6 + [_P]
+    f.restype = _I
+
+    def w8a16(x, w_i8, scale, bias=None):
+        M, K = x.shape
+        N = w_i8.shape[0]
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+        err = f(x.data_ptr(), w_i8.data_ptr(), scale.data_ptr(),
+                None if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K,
+                *QM.k5_card_plan(M, N, K, x.device),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, err, "cut w8a16_matmul")
+        return out
+
+    return w8a16
+
+
+def k5_part(CS, gen, parent):
+    """K5 at every chip_smoke.K5_SHAPES row: both versions against the plain
+    version (max abs error as a share of QMM_TOL x max|plain|), timed in
+    turns on rotating weight sets with this tree's built without the
+    cluster barrier begun at its start (``K5_NO_START_BARRIER``), this
+    tree's plan, ``F.linear`` on bf16 weights; sums per tick (the 870
+    shadow calls)."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    no_barrier = k5_of(build_cut("w8a16_matmul", K5_NO_START_BARRIER, "no_start_barrier"))
+    rows = []
+    tot = {"parent": [0.0, 0.0], "new": [0.0, 0.0], "no_start_barrier": [0.0, 0.0],
+           "F.linear": 0.0}
+    for M, K, N, calls in CS.K5_SHAPES:
+        x, wts, err, tol, _ = CS.qmm_check(gen, "K5", M, K, N)
+        want = QM.w8a16_plain(x, *wts, out_dtype=torch.float32)
+        perr = float((parent(x, *wts).float() - want).abs().max())
+        sets = weight_sets(CS, gen, wts)
+        ms = {"parent": [], "new": [], "no_start_barrier": []}
+        fns = {"parent": parent, "new": QM.w8a16_matmul, "no_start_barrier": no_barrier}
+        for who in ("parent", "new", "no_start_barrier", "no_start_barrier", "new", "parent"):
+            ms[who].append(timed_sets(CS, fns[who], x, sets))
+        lib = library_ms(CS, "K5", x, sets)
+        del sets
+        rows.append(dict(M=M, K=K, N=N, calls=calls, plan=CS.card_plan("K5", M, K, N, wts[1]),
+                         new_share=err / tol, parent_share=perr / tol, parent_ms=ms["parent"],
+                         new_ms=ms["new"], no_start_barrier_ms=ms["no_start_barrier"],
+                         f_linear_ms=lib))
+        for who in ("parent", "new", "no_start_barrier"):
+            for i in range(2):
+                tot[who][i] += calls * ms[who][i]
+        tot["F.linear"] += calls * lib
+    return rows, tot
+
+
+def k7_of(lib):
+    """K7 of a library built from a cut copy of this tree's
+    a8w8_matmul_large.cu behind the wrapper's interface."""
+    import torch
+
+    from vla_touch_tpu_torch.csrc import build
+
+    f = lib.a8w8_matmul_large
+    f.argtypes = [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+    f.restype = _I
+
+    def large(x, w_i8, scale, bias=None):
+        M, K = x.shape
+        N = w_i8.shape[0]
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+        xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        rs = torch.empty((M,), dtype=torch.float32, device=x.device)
+        err = f(x.data_ptr(), int(x.dtype == torch.float32), x.stride(0), w_i8.data_ptr(),
+                scale.data_ptr(), None if bias is None else bias.data_ptr(), xq.data_ptr(),
+                rs.data_ptr(), out.data_ptr(), M, N, K,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, err, "cut a8w8_matmul_large")
+        return out
+
+    return large
+
+
+def k7_part(CS, gen, parent):
+    """K7 at every chip_smoke.K7_SHAPES row: both versions' bf16 outputs
+    unlike the plain version's (must be 0), timed in turns on rotating
+    weight sets with this tree's built without the programmatic dependent
+    launch (``NO_PDL``); the quantize launch alone (the
+    one both trees run, ``quantize_only``), so that each GEMM is its time
+    less the quantize, beside ``torch._int_mm`` (the GEMM alone); sums per
+    (f) chunk (16 calls)."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    quant = quantize_only("a8w8_matmul_large")
+    no_pdl = k7_of(build_cut("a8w8_matmul_large", NO_PDL, "no_pdl"))
+    rows = []
+    tot = {"parent": [0.0, 0.0], "new": [0.0, 0.0], "no_pdl": [0.0, 0.0], "quantize": 0.0,
+           "int_mm": 0.0}
+    for M, K, N, calls in CS.K7_SHAPES:
+        x, wts, _, _, unlike = CS.qmm_check(gen, "K7", M, K, N)
+        want = QM.a8w8_large_plain(x, *wts, out_dtype=torch.float32).to(torch.bfloat16)
+        punlike = int((parent(x, *wts) != want).sum())
+        sets = weight_sets(CS, gen, wts)
+        ms = {"parent": [], "new": [], "no_pdl": []}
+        fns = {"parent": parent, "new": QM.a8w8_matmul_large, "no_pdl": no_pdl}
+        for who in ("parent", "new", "no_pdl", "no_pdl", "new", "parent"):
+            ms[who].append(timed_sets(CS, fns[who], x, sets))
+        xq = torch.empty((M, K), dtype=torch.int8, device="cuda")
+        rs = torch.empty((M,), dtype=torch.float32, device="cuda")
+        q_ms = CS.graph_time_ms(lambda: quant(x, xq, rs))
+        lib = library_ms(CS, "K7", x, sets)
+        del sets
+        rows.append(dict(M=M, K=K, N=N, calls=calls, tile=CS.card_plan("K7", M, K, N, wts[1]),
+                         new_unlike=unlike, parent_unlike=punlike, parent_ms=ms["parent"],
+                         new_ms=ms["new"], no_pdl_ms=ms["no_pdl"], quantize_ms=q_ms,
+                         int_mm_ms=lib,
+                         new_gemm_ms=[t - q_ms for t in ms["new"]],
+                         parent_gemm_ms=[t - q_ms for t in ms["parent"]]))
+        for who in ("parent", "new", "no_pdl"):
+            for i in range(2):
+                tot[who][i] += calls * ms[who][i]
+        tot["quantize"] += calls * q_ms
+        tot["int_mm"] += calls * lib
     return rows, tot
 
 
@@ -979,8 +1178,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent-dir", required=True)
     ap.add_argument("--parts",
-                    default="k6,k8,k8variants,k8cross,k8plans,k2,ttft,plans,phases,mk,tick,"
-                            "decode")
+                    default="k6,k5,k7,k8,k8variants,k8cross,k8plans,k2,ttft,plans,phases,mk,"
+                            "tick,decode")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -993,11 +1192,13 @@ def main() -> int:
 
     build.build_all()
     parent_dir = os.path.abspath(args.parent_dir)
-    k6 = parent_k6(build_lib(parent_dir, "a8w8_matmul"))
+    k6 = k6_of(build_lib(parent_dir, "a8w8_matmul"), "parent")
     k8 = parent_k8(build_lib(parent_dir, "w4a8_matmul"))
     pk9, pk10, k10_with = mk_wrappers(build_lib(parent_dir, "w4_swiglu"),
                                       build_lib(parent_dir, "w4_postattn"))
     k2 = parent_k2(build_lib(parent_dir, "resblock"))
+    k5 = parent_k5(build_lib(parent_dir, "w8a16_matmul"))
+    k7 = parent_k7(build_lib(parent_dir, "a8w8_matmul_large"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -1006,6 +1207,12 @@ def main() -> int:
     if "k6" in parts:
         rows, tot = k6_part(CS, gen, k6)
         print(json.dumps(dict(gpu=gpu, k6=rows, per_tick_ms=tot)), flush=True)
+    if "k5" in parts:
+        rows, tot = k5_part(CS, gen, k5)
+        print(json.dumps(dict(gpu=gpu, k5=rows, per_tick_ms=tot)), flush=True)
+    if "k7" in parts:
+        rows, tot = k7_part(CS, gen, k7)
+        print(json.dumps(dict(gpu=gpu, k7=rows, per_f_chunk_ms=tot)), flush=True)
     if "k8" in parts:
         rows, tot = k8_part(CS, gen, k8)
         print(json.dumps(dict(gpu=gpu, k8=rows, sums_ms=tot)), flush=True)

@@ -52,30 +52,61 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAULTS = {
     "none": (None, None, None, ("K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10"),
              ("a", "b", "e", "f")),
-    # K5: the weight scale never applied in the first 32-column tile
+    # K5: the weight scale never applied in the first column tile
     "k5_scale_ignored_on_one_tile": (
-        "w8a16_matmul.cu", "float y = __fmul_rn(red[r][col], a.scale[n]);",
-        "float y = blockIdx.x == 0 ? red[r][col] : __fmul_rn(red[r][col], a.scale[n]);",
-        ("K5",), ("f",)),
-    # K7: the last 64-byte K chunk never multiplied
-    "k7_drop_last_k_chunk": ("a8w8_matmul_large.cu", "const int nk = K / KC;",
-                             "const int nk = K / KC - 1;", ("K7",), ("f",)),
+        "w8a16_matmul.cu", "y[c] = __fmul_rn(f[c], s_scale[col + c]);",
+        "y[c] = blockIdx.x == 0 ? f[c] : __fmul_rn(f[c], s_scale[col + c]);", ("K5",), ("f",)),
+    # K5: the last split's partial left out of every cluster sum (no effect
+    # where the plan does not split)
+    "k5_skip_one_split": (
+        "w8a16_matmul.cu", "for (int w = 1; w < S; ++w) accumulate(v, recv[w * slice + i]);",
+        "for (int w = 1; w < S - 1; ++w) accumulate(v, recv[w * slice + i]);", ("K5",), ("f",)),
+    # K7: the last 128-byte K stage never multiplied
+    "k7_drop_last_k_chunk": ("a8w8_matmul_large.cu", "const int nkb = a.K / BK;",
+                             "const int nkb = a.K / BK - 1;", ("K7",), ("f",)),
     # K7: rows scaled by qdense's amax / 127 where a8w8_matmul_large's
     # amax * (1/127) belongs (one ulp apart for some amax)
     "k7_row_scale_div_127": ("a8w8_matmul_large.cu", "/*rs_recip=*/1", "/*rs_recip=*/0",
                              ("K7",), ("f",)),
+    # K7: the fourth k32 wgmma of every stage reads the third's bytes (a
+    # wrong descriptor advance: K bytes 96..127 of each stage skipped, 64..95
+    # counted twice)
+    "k7_skip_one_k32": (
+        "a8w8_matmul_large.cu",
+        "for (int k = 0; k < BK / 32; ++k) wgmma_m64n256k32_s8(acc, da + 2 * k, db + 2 * k);",
+        "for (int k = 0; k < BK / 32; ++k) "
+        "wgmma_m64n256k32_s8(acc, da + 2 * (k == 3 ? 2 : k), db + 2 * (k == 3 ? 2 : k));",
+        ("K7",), ("f",)),
+    # K7: each slot released to the producer as soon as its wgmma group is
+    # issued, before the consumers have read it (a race: TMA may refill the
+    # slot under the tensor cores)
+    "k7_early_empty_arrive": (
+        (("a8w8_matmul_large.cu",
+          "      wgmma_commit();\n      wgmma_wait<1>();",
+          "      wgmma_commit();\n      if (lane == 0) mbar_arrive(&empty[s]);\n"
+          "      wgmma_wait<1>();"),
+         ("a8w8_matmul_large.cu",
+          "      if (kb > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);\n", ""),
+         ("a8w8_matmul_large.cu",
+          "    fence_regs(acc);\n    if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);\n",
+          "    fence_regs(acc);\n")),
+        None, None, ("K7",), ("f",)),
+    # K7: the 22-row tail tile's rows past M stored too (its output mask
+    # gone: 106 rows written past the end of the (M, N) output, which
+    # chip_smoke's per-shape check sees in its guard rows)
+    "k7_tail_unmasked": ("a8w8_matmul_large.cu", "      if (m < a.M)\n",
+                         "      if (true)\n", ("K7",), ("f",)),
     # K6: the last 64-wide K chunk of every row is never multiplied (the
     # last split stops one chunk short)
     "k6_drop_last_k_chunk": ("a8w8_matmul.cu", "const int kend = min(K, c1 * KC);",
                              "const int kend = min(K, c1 * KC) - "
                              "(blockIdx.z == a.splits - 1 ? KC : 0);", ("K6",), ("a",)),
-    # K6: the last split's int32 partial is never added to the tile (no
-    # effect where the plan does not split)
-    "k6_skip_one_k_split": ("a8w8_matmul.cu",
-                            "for (int q = 0; q < S; ++q) v[u] += "
-                            "*cluster.map_shared_rank(red + e, q);",
-                            "for (int q = 0; q < S - 1; ++q) "
-                            "v[u] += *cluster.map_shared_rank(red + e, q);", ("K6",), ("a",)),
+    # K6: one split's int32 partial never added to the tile (the last in
+    # rank order; at two splits each CTA takes only its own; no effect
+    # where the plan does not split)
+    "k6_skip_one_k_split": ("a8w8_matmul.cu", "v[u] = rank_sum(cluster, red, e, S);",
+                            "v[u] = rank_sum(cluster, red, e, S > 1 ? S - 1 : S);",
+                            ("K6",), ("a",)),
     # K6: a CTA reads its peers' partials without the cluster barrier that
     # waits for them to be written (K6 keeps no counter or workspace
     # between calls: the race is the state fault its design can have)

@@ -46,18 +46,23 @@
 //
 // Not yet done (later work): wgmma.
 
-#include <cooperative_groups.h>
-
 #include "int8_mma.cuh"
+#include "splitk.cuh"
 
 using namespace vtt_int8;
+using vtt_splitk::cp_async16;
+using vtt_splitk::cp_async_commit;
+using vtt_splitk::cp_async_wait;
+using vtt_splitk::KC;
+using vtt_splitk::MAX_SPLITS;
+using vtt_splitk::rank_sum;
+using vtt_splitk::split_chunk;
 
 namespace {
 
 constexpr int NWARPS = GEMM_WARPS;
 constexpr int NTHREADS = GEMM_THREADS;
-constexpr int NT = 4;             // 8-column mma tiles per warp
-constexpr int KC = 64;            // K bytes per chunk (two m16n8k32 steps)
+constexpr int NT = 4;             // 8-column mma tiles per warp (a chunk: two m16n8k32 steps)
 // ring depth and CTAs per SM: two CTAs of at most two row tiles share an
 // SM (three stages, at most 128 registers), so that a wide product's one
 // or two hundred unsplit CTAs run in one wave; taller tiles keep four
@@ -67,7 +72,6 @@ struct Depth {
   static constexpr int STAGES = MT <= 2 ? 3 : 4;
   static constexpr int CTAS = MT <= 2 ? 2 : 1;
 };
-constexpr int MAX_SPLITS = 8;     // CTAs of a cluster (the portable limit)
 
 struct K6Args {
   const int8_t* xq;
@@ -78,29 +82,6 @@ struct K6Args {
   __nv_bfloat16* out;
   int M, N, K, splits;
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  // copies src_bytes (0 or 16) and zero-fills the rest of the 16
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// first 64-wide K chunk of split z of nc chunks: the splits differ by at
-// most one chunk (ops/quant_matmul.py::k6_split_chunks)
-__device__ __forceinline__ int split_chunk(int z, int nc, int splits) {
-  return (int)((long long)z * nc / splits);
-}
 
 template <int MT, int WN>
 struct Ring {
@@ -269,11 +250,7 @@ __global__ void __launch_bounds__(NTHREADS, Depth<MT>::CTAS) a8w8_gemm_kernel(K6
       const int e = e0 + u * NTHREADS;
       v[u] = 0;
       if (e >= e1) continue;
-      if (S == 1) {
-        v[u] = red[e];
-      } else {
-        for (int q = 0; q < S; ++q) v[u] += *cluster.map_shared_rank(red + e, q);
-      }
+      v[u] = rank_sum(cluster, red, e, S);
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {

@@ -1,4 +1,4 @@
-// K7: tiled int8 GEMM for large M, int8 tensor cores, bf16 out.
+// K7: int8 GEMM for large M, Hopper's TMA + wgmma, bf16 out.
 //
 // Replaces the TPU kernel vla_touch_tpu/ops/pallas_matmul.py::
 // a8w8_matmul_large (the pl.pallas_call at :272, body _i8mm_kernel :230)
@@ -17,157 +17,274 @@
 // and the K/V projections, (4374, 2048, 4096)), does ~600 int8 operations
 // per byte moved: 73 G operations at 4096 columns take 0.037 ms at the
 // 1979 TOPS peak against 0.019 ms for its 62 MB, so the tensor cores bound
-// it.  This first version is a plain tiled GEMM:
+// it, and only wgmma reaches their int8 rate.  The design is Hopper's
+// usual GEMM (sm90.cuh holds the TMA, mbarrier and wgmma helpers):
 //
-//   - a CTA owns a 128 x 128 output tile and walks K in 64-byte chunks
-//     through shared memory, two stages deep, each thread moving two 16-byte
-//     pieces of x_i8 and two of w per chunk with cp.async;
-//   - its 8 warps sit 2 (M) x 4 (N), each on a 64 x 32 tile of 4 x 4
-//     mma.sync m16n8k32 s8 tiles; a thread reads its fragments with one
-//     128-bit shared load per row under int8_mma.cuh's K permutation
-//     (mma_chunk64), and a warp's 8 rows of 64 bytes are 512 contiguous
-//     bytes, so the loads are free of bank conflicts;
-//   - exact int32 accumulators in registers; the epilogue applies the row
-//     scale, scale and bias in float32 in the plain version's order.
-//
-// Not yet done (later work): wgmma, TMA, warp specialisation and a deeper
-// pipeline, which the operations bound asks for.
+//   - two launches: the quantization of x (int8_mma.cuh), then the GEMM as
+//     its programmatic dependent: the GEMM's producer puts the weight
+//     stages of its ring in flight before griddepcontrol.wait, the codes
+//     after;
+//   - a persistent grid, one CTA per SM, walks the 128 x 256 output tiles
+//     column band by column band, so a band's weights are read from device
+//     memory about once and x's codes stay in L2; K moves
+//     in 128-byte stages, and the ring runs on across a CTA's tiles, so
+//     the next tile's loads overlap this tile's last stages and epilogue;
+//   - TMA tensor maps of x's codes (M, K) and of the weights (N, K), both
+//     K-major as integer wgmma needs, 128-byte boxes in the 128-byte
+//     swizzle; TMA zero-fills the rows of the last tile past M; the maps
+//     are __grid_constant__ parameters, one per launch, so a CUDA graph
+//     that captures calls on other tensors keeps each call's own;
+//   - a ring of STAGES = 3 slots in dynamic shared memory, a full and an
+//     empty mbarrier per slot (3 x 48 KB of ring and the 64 KB staged
+//     output tile fill the 227 KB a CTA may hold: a fourth slot does not
+//     fit); one producer thread issues both TMA loads of a
+//     stage on its full barrier and waits on the empty one before reusing
+//     the slot;
+//   - two consumer warpgroups, 64 rows each, issue four
+//     wgmma.m64n256k32.s32.s8.s8 per stage (the descriptors' start advanced
+//     32 bytes per k32 step), keep one stage's group in flight and release
+//     the slot of the one before; setmaxnreg moves registers from the
+//     producer warpgroup to the consumers' exact int32 accumulators;
+//   - the epilogue (acc * rs) * scale + bias in float32, in the plain
+//     version's order (the bf16 out is exact), staged in shared memory
+//     past the ring in a swizzled layout and stored in coalesced 16-byte
+//     pieces masked to M.
 
 #include "int8_mma.cuh"
+#include "sm90.cuh"
 
 using namespace vtt_int8;
+using namespace vtt_sm90;
 
 namespace {
 
-constexpr int BM = 128;           // output rows per CTA
-constexpr int BN = 128;           // output columns per CTA
-constexpr int KC = 64;            // K per chunk (bytes)
-constexpr int STAGES = 2;
-constexpr int NTHREADS = 256;
-constexpr int MT = 4;             // 16-row tiles per warp
-constexpr int NT = 4;             // 8-column tiles per warp
-constexpr int PIECES = BM * KC / 16 / NTHREADS;   // 16-byte copies per thread and operand
+constexpr int BM = 128;           // output rows per CTA: two consumer warpgroups of 64
+constexpr int BN = 256;           // output columns per CTA
+constexpr int BK = 128;           // K bytes per stage: one swizzled 128-byte row per operand row
+constexpr int NTHREADS = 384;     // warpgroup 0 produces, warpgroups 1 and 2 consume
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
+constexpr int STAGES = 3;
+constexpr int A_BYTES = BM * BK;           // x's codes, 16 KB
+constexpr int STAGE = A_BYTES + BN * BK;   // + the weights' 32 KB
+constexpr int ROW = BN * 2;                // bytes of a staged bf16 output row
+// the ring, then the staged output tile, + room to align the ring to 1 KB
+constexpr int SMEM = STAGES * STAGE + BM * ROW + 1024;
+constexpr int ACC = BN / 2;                // s32 accumulators per consumer thread
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+struct K7Args {
+  const float* rs;
+  const float* scale;
+  const float* bias;              // (N,) or null
+  __nv_bfloat16* out;
+  int M, N, K;
+};
 
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
+// A persistent grid, one CTA per SM: CTA c takes tiles c, c + gridDim.x,
+// ...; tile i is row tile i % row_tiles of column band i / row_tiles, so
+// the CTAs at work at any moment share a band or two of weights.  The
+// ring's stage counter runs on across a CTA's tiles, so the producer loads
+// the next tile's first stages while the consumers finish the last one.
+__global__ void __launch_bounds__(NTHREADS, 1)
+    i8mm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap, K7Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  __shared__ float s_scale[2][BN], s_bias[2][BN];
+  // the ring on a 1024-byte boundary, as the 128-byte swizzle's descriptors need
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nkb = a.K / BK;
+  const int row_tiles = (a.M + BM - 1) / BM;
+  const int tiles = row_tiles * (a.N / BN);
 
-__global__ void __launch_bounds__(NTHREADS, 2) i8mm_large_kernel(GemmArgs a) {
-  __shared__ __align__(16) int8_t As[STAGES][BM * KC];
-  __shared__ __align__(16) int8_t Bs[STAGES][BN * KC];
-  const int M = a.M, N = a.N, K = a.K;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = (warp >> 2) * MT * 16, wn = (warp & 3) * NT * 8;
-
-  // This thread's copies: piece p is row (p / 4) of the tile, bytes
-  // (p % 4) * 16 .. +15 of the chunk.  Rows past M or N read the last row;
-  // their results are never written.
-  int soff[PIECES];
-  const int8_t* asrc[PIECES];
-  const int8_t* bsrc[PIECES];
-#pragma unroll
-  for (int i = 0; i < PIECES; ++i) {
-    const int p = tid + i * NTHREADS;
-    const int r = p >> 2, col = (p & 3) * 16;
-    soff[i] = r * KC + col;
-    asrc[i] = a.xq + (long long)min(m0 + r, M - 1) * K + col;
-    bsrc[i] = a.w + (long long)min(n0 + r, N - 1) * K + col;
-  }
-  auto load_chunk = [&](int stage, int chunk) {
-    const long long k = (long long)chunk * KC;
-#pragma unroll
-    for (int i = 0; i < PIECES; ++i) {
-      cp_async16(&As[stage][soff[i]], asrc[i] + k);
-      cp_async16(&Bs[stage][soff[i]], bsrc[i] + k);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
     }
-  };
-
-  int acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  const int nk = K / KC;
-  load_chunk(0, 0);
-  cp_async_commit();
-  for (int c = 0; c < nk; ++c) {
-    if (c + 1 < nk) load_chunk((c + 1) & 1, c + 1);
-    cp_async_commit();               // an empty group at the last chunk
-    cp_async_wait_one();             // chunk c has landed
-    __syncthreads();
-    const int8_t* as = As[c & 1];
-    const int8_t* bs = Bs[c & 1];
-    int4 b[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      b[j] = *reinterpret_cast<const int4*>(bs + (wn + j * 8 + g) * KC + t * 16);
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int r = wm + i * 16 + g;
-      const int4 a_lo = *reinterpret_cast<const int4*>(as + r * KC + t * 16);
-      const int4 a_hi = *reinterpret_cast<const int4*>(as + (r + 8) * KC + t * 16);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_chunk64(acc[i][j], a_lo, a_hi, b[j]);
-    }
-    __syncthreads();                 // the stage is read before it is refilled
+    mbar_init_fence();
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm + i * 16 + g + h * 8;
-      if (m >= M) continue;
-      const float rs = a.rs[m];
-      __nv_bfloat16* orow = a.out + (long long)m * N;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = n0 + wn + j * 8 + t * 2;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (n + e >= N) continue;
-          float y = __fmul_rn(__fmul_rn((float)acc[i][j][h * 2 + e], rs), a.scale[n + e]);
-          if (a.bias) y = __fadd_rn(y, a.bias[n + e]);
-          orow[n + e] = __float2bfloat16(y);
+  if (warp < 4) {
+    // ---- the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == 0 && lane == 0) {
+      tma_prefetch_map(&xmap);
+      tma_prefetch_map(&wmap);
+      int it = 0;                                  // stages issued so far
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile % row_tiles * BM, n0 = tile / row_tiles * BN;
+        int kb = 0;
+        if (it == 0) {
+          // the weights need nothing of the quantize launch: the first
+          // stages' go out before the wait for it, the codes after
+          const int pre = min(STAGES, nkb);
+          for (; kb < pre; ++kb) {
+            mbar_arrive_expect_tx(&full[kb], STAGE);
+            tma_load_2d(ring + kb * STAGE + A_BYTES, &wmap, &full[kb], kb * BK, n0);
+          }
+          asm volatile("griddepcontrol.wait;\n" ::: "memory");
+          for (int k = 0; k < pre; ++k)
+            tma_load_2d(ring + k * STAGE, &xmap, &full[k], k * BK, m0);
+          it = pre;
+        }
+        for (; kb < nkb; ++kb, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);   // released
+          unsigned char* slot = ring + s * STAGE;
+          mbar_arrive_expect_tx(&full[s], STAGE);
+          tma_load_2d(slot + A_BYTES, &wmap, &full[s], kb * BK, n0);
+          tma_load_2d(slot, &xmap, &full[s], kb * BK, m0);
         }
       }
     }
+    return;
+  }
+
+  // ---- the consumer warpgroups: rows wg * 64 .. + 63 of each tile
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp / 4 - 1, wt = tid & 127;
+  const int g = lane >> 2, t = lane & 3;
+  const int rl = (warp & 3) * 16 + g;              // row in the warpgroup's 64, and + 8
+  unsigned char* staged = ring + STAGES * STAGE + wg * 64 * ROW;
+  int it = 0;                                      // stages consumed so far
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile % row_tiles * BM, n0 = tile / row_tiles * BN;
+    // the tile's column scales and bias, loaded now, staged after the loop
+    float sc[BN / 128], bi[BN / 128];
+#pragma unroll
+    for (int i = 0; i < BN / 128; ++i) {
+      sc[i] = a.scale[n0 + wt + 128 * i];
+      bi[i] = a.bias ? a.bias[n0 + wt + 128 * i] : 0.f;
+    }
+    int acc[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[i] = 0;
+    for (int kb = 0; kb < nkb; ++kb, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const unsigned char* slot = ring + s * STAGE;
+      const uint64_t da = sw128_desc(slot + wg * 64 * BK);
+      const uint64_t db = sw128_desc(slot + A_BYTES);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BK / 32; ++k) wgmma_m64n256k32_s8(acc, da + 2 * k, db + 2 * k);
+      wgmma_commit();
+      wgmma_wait<1>();                            // the stage before has been read
+      fence_regs(acc);
+      if (kb > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+    // ---- epilogue: thread (g, t) of warp w holds rows 16 w + g and + 8 of
+    // its warpgroup's 64, columns 8 j + 2 t and + 1 for each 8-column block
+    // j.  The bf16 tile is staged row by row, 16-byte piece j of a row at
+    // j ^ (row % 8) so that a warp's stores hit 32 banks; then the
+    // warpgroup copies its 64 rows out in 16-byte pieces, a row's pieces
+    // consecutive, rows past M left out.
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");   // rs is the quantize launch's
+    const int r0 = m0 + wg * 64 + rl, r1 = r0 + 8;
+    const float rs0 = r0 < a.M ? a.rs[r0] : 0.f;
+    const float rs1 = r1 < a.M ? a.rs[r1] : 0.f;
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");   // the last copy-out is done
+#pragma unroll
+    for (int i = 0; i < BN / 128; ++i) {
+      s_scale[wg][wt + 128 * i] = sc[i];
+      s_bias[wg][wt + 128 * i] = bi[i];
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + 2 * t;
+      const float s0 = s_scale[wg][c], s1 = s_scale[wg][c + 1];
+      float y[4] = {__fmul_rn(__fmul_rn((float)acc[4 * j], rs0), s0),
+                    __fmul_rn(__fmul_rn((float)acc[4 * j + 1], rs0), s1),
+                    __fmul_rn(__fmul_rn((float)acc[4 * j + 2], rs1), s0),
+                    __fmul_rn(__fmul_rn((float)acc[4 * j + 3], rs1), s1)};
+      if (a.bias) {
+        const float b0 = s_bias[wg][c], b1 = s_bias[wg][c + 1];
+        y[0] = __fadd_rn(y[0], b0);
+        y[1] = __fadd_rn(y[1], b1);
+        y[2] = __fadd_rn(y[2], b0);
+        y[3] = __fadd_rn(y[3], b1);
+      }
+      const int at = ((j ^ (rl & 7)) << 4) + 4 * t;   // rows rl and rl + 8 swizzle alike
+      *reinterpret_cast<__nv_bfloat162*>(staged + rl * ROW + at) =
+          __floats2bfloat162_rn(y[0], y[1]);
+      *reinterpret_cast<__nv_bfloat162*>(staged + (rl + 8) * ROW + at) =
+          __floats2bfloat162_rn(y[2], y[3]);
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");   // the rows are staged
+    constexpr int CH = BN / 8;                     // 16-byte pieces of a row
+    for (int i = wt; i < 64 * CH; i += 128) {
+      const int row = i / CH, c = i % CH;
+      const int m = m0 + wg * 64 + row;
+      if (m < a.M)
+        *reinterpret_cast<int4*>(a.out + (long long)m * a.N + n0 + c * 8) =
+            *reinterpret_cast<const int4*>(staged + row * ROW + ((c ^ (row & 7)) << 4));
+    }
+  }
+}
+
+cudaError_t launch(const void* xq, const void* w, const K7Args& a, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  cudaError_t err = tma_map_2d(&xmap, xq, a.M, a.K, BM, BK);
+  if (err != cudaSuccess) return err;
+  err = tma_map_2d(&wmap, w, a.N, a.K, BN, BK);
+  if (err != cudaSuccess) return err;
+  // raised once, outside any CUDA-graph capture that follows
+  static bool raised = false;
+  static int sms = 0;
+  if (!raised) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(i8mm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  const int tiles = (a.M + BM - 1) / BM * (a.N / BN);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(min(tiles, sms));
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, i8mm_wgmma_kernel, xmap, wmap, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x (M, K) bf16 (x_f32 == 0) or float32 with row stride x_sm elements;
-// w (N, K) int8 contiguous and 16-byte aligned, K % 64 == 0; scale (N,)
+// w (N, K) int8 contiguous and 16-byte aligned, K % 128 == 0; scale (N,)
 // float32; bias (N,) float32 or null; xq (M, K) int8 and rs (M,) float32
-// scratch; out (M, N) bf16 contiguous.  Two launches: the quantization of
-// x (rs = amax * (1/127)), then the GEMM.
+// scratch; out (M, N) bf16 contiguous, N % 256 == 0.  Two launches: the
+// quantization of x (rs = amax * (1/127)), then the GEMM.
 extern "C" int a8w8_matmul_large(const void* x, int x_f32, long long x_sm, const void* w,
                                  const void* scale, const void* bias, void* xq, void* rs,
                                  void* out, int M, int N, int K, void* stream) {
-  if (K % KC) return (int)cudaErrorInvalidValue;
+  if (K % BK || N % BN) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = quantize_rows(x, x_f32, x_sm, M, K, (int8_t*)xq, (float*)rs, st,
-                                  /*rs_recip=*/1);
+  cudaError_t err = quantize_rows<true>(x, x_f32, x_sm, M, K, (int8_t*)xq, (float*)rs, st,
+                                        /*rs_recip=*/1);
   if (err != cudaSuccess) return (int)err;
-  GemmArgs a{(const int8_t*)xq, (const float*)rs, (const int8_t*)w, (const float*)scale,
-             (const float*)bias, (__nv_bfloat16*)out, M, N, K, 0};
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  i8mm_large_kernel<<<grid, NTHREADS, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  const K7Args a{(const float*)rs, (const float*)scale, (const float*)bias,
+                 (__nv_bfloat16*)out, M, N, K};
+  return (int)launch(xq, w, a, st);
 }

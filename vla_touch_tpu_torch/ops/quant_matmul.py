@@ -26,6 +26,7 @@ kernel of the leaf's layout, int8 -> K6, grouped int4 -> K8.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -151,7 +152,15 @@ def k6_plan(M: int, N: int, K: int, n_sms: int) -> tuple:
     tiles = k6_tiles(M, N, (mt, wn, 1))
     nc = -(-K // K6_CHUNK)
     cap = K6_TALL_SPLITS if mt >= 3 else K6_MAX_SPLITS
-    return mt, wn, max(1, min(n_sms // tiles, nc // K6_MIN_CHUNKS, cap))
+    return mt, wn, fill_splits(tiles, nc, n_sms, K6_MIN_CHUNKS, cap)
+
+
+def fill_splits(tiles: int, nc: int, ctas: int, min_chunks: int, cap: int) -> int:
+    """K splits of a split-K plan (K6, K5): as many as ``ctas`` CTAs at
+    once hold over ``tiles`` output tiles, so that tiles that leave SMs
+    idle fill them, but at least ``min_chunks`` of the ``nc`` 64-wide
+    chunks per split and at most ``cap`` (the tile's cluster); at least 1."""
+    return max(1, min(ctas // tiles, nc // min_chunks, cap))
 
 
 def k6_tiles(M: int, N: int, plan: tuple) -> int:
@@ -244,6 +253,83 @@ def k8_plan(M: int, N: int, K: int, G: int, n_sms: int) -> tuple:
 def k8_tiles(M: int, N: int) -> int:
     """CTA tiles (row blocks x column tiles) of K8's tile body."""
     return -(-M // (32 * K8_TILE_MT)) * -(-N // K8_BN)
+
+
+# K7's tile: 128 rows (two consumer warpgroups of 64) by 256 columns
+K7_BM = 128
+K7_BN = 256
+
+
+def k7_tiles(M: int, N: int) -> int:
+    """Output tiles (row tiles x column tiles) of K7; the kernel's
+    persistent grid of min(tiles, SMs) CTAs walks them row tiles fastest,
+    CTA c taking tiles c, c + grid, ..."""
+    return -(-M // K7_BM) * (N // K7_BN)
+
+
+# K5's plan: K6's split-K skeleton with bf16 x.  A CTA owns 32 * wn columns
+# (wn in K5_WNS: 128 or 256, so that x's K slice is read N / (32 wn) times),
+# up to K5_MAX_MT 16-row tiles (two CTAs per SM at one or two) and one of
+# `splits` ranges of 64-wide K chunks, the splits of a tile one cluster.
+K5_MAX_MT = 5
+K5_WNS = (4, 8)
+K5_MIN_CHUNKS = 2
+
+
+def k5_plan(M: int, N: int, K: int, n_sms: int, active=None) -> tuple:
+    """(16-row tiles per CTA, warps across 32-column blocks, K splits) of a
+    K5 call on ``n_sms`` SMs.  ``active(mt, wn, splits)``: how many
+    clusters of ``splits`` CTAs the card holds at once (on the card
+    :func:`k5_card_plan` asks CUDA's occupancy calculator; None: every CTA
+    the SMs hold, two per SM at one or two row tiles, in full clusters).
+    For each width, from the most splits that fill those CTAs
+    (:func:`fill_splits`: at least K5_MIN_CHUNKS chunks a split, a cluster
+    of at most K6_MAX_SPLITS) down to one, the plan whose busiest SM
+    streams the fewest bytes wins: waves of clusters x the CTAs an SM
+    hosts in a wave x a split's chunks x (weight columns + x rows, an x
+    row's two bytes a chunk read from L2 counted as one), ties to the
+    narrower width and more splits."""
+    mt = min(K5_MAX_MT, -(-M // 16))
+    nc = K // K6_CHUNK
+    ctas = n_sms * (2 if mt <= 2 else 1)
+    active = active or (lambda mt, wn, splits: ctas // splits)
+    best = None
+    for wn in K5_WNS:
+        tiles = k5_tiles(M, N, (mt, wn, 1))
+        for splits in range(fill_splits(tiles, nc, ctas, K5_MIN_CHUNKS, K6_MAX_SPLITS), 0, -1):
+            wave = min(tiles, max(1, active(mt, wn, splits)))     # clusters at once
+            cost = (-(-tiles // wave) * -(-wave * splits // n_sms) * -(-nc // splits)
+                    * (min(N, 32 * wn) + min(M, 16 * mt)))
+            if best is None or cost < best[0]:
+                best = cost, (mt, wn, splits)
+    return best[1]
+
+
+def k5_card_plan(M: int, N: int, K: int, device) -> tuple:
+    """:func:`k5_plan` on CUDA device ``device`` (an index or a
+    torch.device): its SMs, and the clusters each plan places at once."""
+    index = torch.device("cuda", device).index if isinstance(device, int) else device.index
+    index = torch.cuda.current_device() if index is None else index
+    return k5_plan(M, N, K, sm_count(index),
+                   active=lambda mt, wn, splits: _k5_active_clusters(index, mt, wn, splits))
+
+
+@functools.cache
+def _k5_active_clusters(index: int, mt: int, wn: int, splits: int) -> int:
+    """Clusters of plan (mt, wn, splits) that device ``index`` holds at
+    once (``csrc/w8a16_matmul.cu::w8a16_active_clusters``)."""
+    lib, f = build.entry("w8a16_matmul", [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+                         "w8a16_active_clusters")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        build.check(lib, f(mt, wn, splits, ctypes.byref(n)), "w8a16_active_clusters")
+    return n.value
+
+
+def k5_tiles(M: int, N: int, plan: tuple) -> int:
+    """Output tiles (column tiles x row blocks) of a K5 plan."""
+    mt, wn, _ = plan
+    return -(-M // (16 * mt)) * -(-N // (32 * wn))
 
 
 def w4a8_matmul(x, w4_pack, scale4, bias=None):
@@ -365,14 +451,23 @@ def w8a16_matmul(x, w_i8, scale, bias=None):
     is rounded to bf16 and never quantized.  ``w_i8`` (N, K) int8
     contiguous and 16-byte aligned, ``scale`` and ``bias`` (N,) float32.
     K and N must be multiples of 128 on every device (the JAX function
-    asserts it, :80).  CUDA: the K5 kernel; CPU: :func:`w8a16_plain`;
-    anything else raises."""
+    asserts it, :80).  CUDA: the K5 kernel under :func:`k5_plan`; CPU:
+    :func:`w8a16_plain`; anything else raises."""
     *lead, K = x.shape
     N = w_i8.shape[0]
     if K % 128 or N % 128:
         raise ValueError(f"w8a16_matmul: K = {K} and N = {N} must be multiples of 128")
     if x.device.type == "cpu":
         return w8a16_plain(x, w_i8, scale, bias)
+    return _w8a16_launch(x, w_i8, scale, bias, None)
+
+
+def _w8a16_launch(x, w_i8, scale, bias, plan):
+    """Check the operands and launch K5 on CUDA tensors under ``plan`` (mt,
+    wn, splits), or :func:`k5_plan`'s when None (the tools and tests time
+    and check other plans)."""
+    *lead, K = x.shape
+    N = w_i8.shape[0]
     if x.device.type != "cuda":
         raise ValueError(f"w8a16_matmul: unsupported device {x.device}")
     _check_w_i8("w8a16_matmul", w_i8, K, x.device)
@@ -387,9 +482,10 @@ def w8a16_matmul(x, w_i8, scale, bias=None):
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0 or N == 0:
         return out.reshape(*lead, N)
-    lib, f = build.entry("w8a16_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _P])
+    plan = plan or k5_card_plan(M, N, K, x.device)
+    lib, f = build.entry("w8a16_matmul", [_P, _P, _P, _P, _P] + [_I] * 6 + [_P])
     err = f(x2.data_ptr(), w_i8.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K,
+            None if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K, *plan,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "w8a16_matmul")
     w8a16_matmul.launches += 1
