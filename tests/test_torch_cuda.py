@@ -845,3 +845,80 @@ def test_w4_megakernels_route_on_the_librarys_shared_memory_budget(cuda):
     assert float((y.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())
     W4F.w4_swiglu_mlp(x[:16], gu, down)
     assert W4F.w4_swiglu_mlp.launches == n9 + 1
+
+
+@pytest.mark.parametrize("B", [3, 6])
+def test_flash_attention_kernel_at_the_vit_twin_layout(cuda, B):
+    """K1 at SigLIP's shape with q, k and v strided views of one fused
+    (B, 729, 3, 16, 72) projection, as the serving twin
+    (``models/encoders/vit_serve.py``) passes them, on the warm tick's 3
+    frames and a cold tick's 6: <= 2e-2 x max|plain|."""
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+
+    g = torch.Generator(device=cuda).manual_seed(B)
+    qkv = torch.randn((B, 729, 3, 16, 72), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v)
+    assert FA.flash_attention.launches == before + 1
+    want = FA.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_warm_chunk_on_cuda_matches_plain(cuda, quant):
+    """The warm-started chunk (skip 2 of 5, a prior shifted by 4 ticks) of
+    the bf16 runner and of the int8 twin with the int8 cache, on the card
+    (K1, and K3/K6 in the twin) against the same chunk on the CPU (the
+    plain versions): action corr > 0.999 and <= 5e-2 x max|plain|; K1 runs
+    3 steps x 2 x depth times (the twin: K1 and K3 3 x depth each)."""
+    import numpy as np
+
+    from vla_touch_tpu_torch import config as TC
+    from vla_touch_tpu_torch.models.rdt import quant_serve as QS
+    from vla_touch_tpu_torch.models.rdt import runner as R
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+    from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+    from vla_touch_tpu_torch.runtime.control_loop import shift_prior
+
+    cfg = R.RDTRunnerConfig(model=TC.rdt_tiny(dtype="bfloat16", hidden_size=256, num_heads=4,
+                                              depth=4))
+    m = cfg.model
+    runner = R.init_rdt(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        fc2 = runner.model.final_ffn.fc2.weight
+        fc2.copy_((torch.randn(fc2.shape, generator=g) * 0.05).to(fc2.dtype))
+    if quant:
+        runner = QS.quantize_rdt_params(runner, "int8")
+    r = np.random.default_rng(2)
+    lang_mask = np.ones((1, 6), bool)
+    lang_mask[0, 4:] = False
+    args = [torch.as_tensor(a) for a in (
+        r.normal(size=(1, 6, m.lang_token_dim)).astype(np.float32), lang_mask,
+        r.normal(size=(1, m.img_cond_len, m.img_token_dim)).astype(np.float32),
+        r.normal(size=(1, 1, m.state_token_dim)).astype(np.float32),
+        np.ones((1, 1, m.output_dim), np.float32), np.asarray([10.0], np.float32))]
+    args[0], args[2], args[3] = (a.to(torch.bfloat16) for a in (args[0], args[2], args[3]))
+    noise = torch.randn((1, m.horizon, m.output_dim), generator=g)
+
+    def chunk(dev, prior=None, skip=0):
+        mod = runner.to(dev)
+        kw = dict(init_noise=noise.to(dev), prior_chunk=prior, skip_steps=skip)
+        on = [a.to(dev) for a in args]
+        if quant:
+            return QS.rdt_predict_action_quant(cfg, mod, *on, kv_cache="int8", **kw).cpu()
+        return R.rdt_predict_action(cfg, mod, *on, **kw).cpu()
+
+    prior = torch.as_tensor(shift_prior(chunk("cpu")[0].numpy(), 4))[None]
+    want = chunk("cpu", prior, 2)
+    n1, n3 = FA.flash_attention.launches, FQ.flash_attention_q8.launches
+    got = chunk(cuda, prior.to(cuda), 2)
+    steps = cfg.noise.num_inference_timesteps - 2
+    assert FA.flash_attention.launches - n1 == steps * m.depth * (1 if quant else 2)
+    assert FQ.flash_attention_q8.launches - n3 == (steps * m.depth if quant else 0)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
+    assert np.corrcoef(got.numpy().ravel(), want.numpy().ravel())[0, 1] > 0.999

@@ -317,3 +317,28 @@ def test_k7_tiles_cover_every_output_once(M, K, N):
     first_wave = list(range(grid))
     assert max(i // rows_t for i in first_wave) - min(i // rows_t for i in first_wave) \
         <= -(-grid // rows_t)
+
+
+def test_quant_ab_binds_the_parent_k8_by_its_declaration():
+    """``tools/torch_quant_ab.py`` reads the parent K8's C signature off its
+    source: this tree's entry takes the plan (``mt``, ``splits``), an entry
+    that ends at ``G, stream`` (as before the tile body) does not, and an
+    entry of neither form or a source without one raises."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_quant_ab", os.path.join(root, "tools", "torch_quant_ab.py"))
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    src = open(os.path.join(root, "vla_touch_tpu_torch", "csrc", "w4a8_matmul.cu")).read()
+    assert ab.k8_entry_takes_plan(src)
+    old = ('extern "C" int w4a8_matmul(const void* x, int x_f32, long long x_sm, '
+           'const void* w4_pack,\n    const void* scale4, const void* bias, void* xq, '
+           'void* rs, void* out, int M,\n    int N, int K, int G, void* stream) {')
+    assert not ab.k8_entry_takes_plan(old)
+    with pytest.raises(ValueError, match="neither"):
+        ab.k8_entry_takes_plan(old.replace("int G, void* stream", "int G, int x, void* stream"))
+    with pytest.raises(ValueError, match="no w4a8_matmul"):
+        ab.k8_entry_takes_plan("int main() {}")

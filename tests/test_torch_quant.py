@@ -654,11 +654,23 @@ def test_quant_chunk_golden_anchor():
 
 
 def test_warm_quant_replan_is_not_ported(runners):
+    """The warm twin (ported since this test's name was given): a skip
+    outside [0, steps) and a warm start without a prior raise; skip 1 from
+    a prior gives a finite chunk unlike the cold one.  Its parity with JAX
+    is held in ``tests/test_torch_warm.py``."""
     _, tqp = _quantized(runners, "int8")
     args, noise = _chunk_inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        TQS.rdt_predict_action_quant(TCFG, tqp, *(_t(a) for a in args), skip_steps=1,
-                                     prior_chunk=_t(noise), init_noise=_t(noise))
+    targs = [_t(a) for a in args]
+    for bad in (-1, RCFG.noise.num_inference_timesteps):
+        with pytest.raises(ValueError, match="skip_steps"):
+            TQS.rdt_predict_action_quant(TCFG, tqp, *targs, skip_steps=bad,
+                                         prior_chunk=_t(noise), init_noise=_t(noise))
+    with pytest.raises(ValueError, match="prior_chunk"):
+        TQS.rdt_predict_action_quant(TCFG, tqp, *targs, skip_steps=1, init_noise=_t(noise))
+    cold = TQS.rdt_predict_action_quant(TCFG, tqp, *targs, init_noise=_t(noise))
+    warm = TQS.rdt_predict_action_quant(TCFG, tqp, *targs, skip_steps=1, prior_chunk=cold,
+                                        init_noise=_t(noise))
+    assert torch.isfinite(warm).all() and not torch.equal(warm, cold)
 
 
 def test_policy_step_dispatches_the_quant_twin(runners):

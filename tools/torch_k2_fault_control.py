@@ -17,7 +17,9 @@ process that imports the copy:
    plain versions, and prints the refined-action correlation beside
    chip_smoke's gate;
 3. runs chip_smoke's checked tick (every kernel call against its plain
-   version on the same operands) and prints the worst K2 call.
+   version on the same operands) and prints the worst K2 call: its share of
+   ``K2_TICK_TOL`` x max|plain| and, as ``group_share``, of the
+   per-channel measure (``K2_GROUP_TOL``).
 
 The checkout itself is never edited.  Needs one NVIDIA GPU.
 """

@@ -13,7 +13,9 @@ and ``a8w8_matmul_large.cu`` (e.g. ``git show
 <commit>:vla_touch_tpu_torch/csrc/<file>``, written under the ignored
 ``build/``), with the C entries of that tree: ``a8w8_matmul(x, x_f32, x_sm,
 w, scale, bias, xq, rs, out, M, N, K, mt, wn, splits, stream)``, ``w4a8_matmul(x, x_f32,
-x_sm, w4_pack, scale4, bias, xq, rs, out, M, N, K, G, stream)``,
+x_sm, w4_pack, scale4, bias, xq, rs, out, M, N, K, G, mt, splits, stream)``
+(or, in a tree whose K8 has only the warp loop, without ``mt, splits``:
+the binding follows the declaration in the parent's source),
 ``w8a16_matmul(x, w, scale, bias, out, M, N, K, stream)``,
 ``a8w8_matmul_large(x, x_f32, x_sm, w, scale, bias, xq, rs, out, M, N, K,
 stream)``,
@@ -96,6 +98,7 @@ import ctypes
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -149,14 +152,37 @@ def build_lib(src_dir: str, name: str, text: str | None = None, tag: str = "") -
     return lib
 
 
-def parent_k8(lib):
-    """The parent's K8 behind the wrapper's interface."""
+def k8_entry_takes_plan(source: str) -> bool:
+    """Whether a ``w4a8_matmul.cu``'s C entry takes K8's plan (``mt``,
+    ``splits`` after ``G``, as a K8 with a tile body does) or ends at ``G,
+    stream`` (a K8 with only the warp loop), read off the entry's
+    declaration in ``source``."""
+    m = re.search(r'extern "C" int w4a8_matmul\(([^)]*)\)', source)
+    if m is None:
+        raise ValueError("the source declares no w4a8_matmul C entry")
+    names = [a.split()[-1].lstrip("*") for a in m.group(1).split(",")]
+    if names[-3:] == ["mt", "splits", "stream"]:
+        return True
+    if names[-2:] == ["G", "stream"]:
+        return False
+    raise ValueError(f"w4a8_matmul takes ({m.group(1)}): neither known signature")
+
+
+def parent_k8(lib, source: str):
+    """The parent's K8 behind the wrapper's interface.  ``source``: the
+    parent's ``w4a8_matmul.cu``, whose entry's signature decides the
+    binding: with a plan (``mt``, ``splits``) it runs under this tree's
+    ``k8_plan``, as the parent K6 runs under ``k6_plan``."""
     import torch
 
     from vla_touch_tpu_torch.csrc import build
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+    from vla_touch_tpu_torch.utils.device import sm_count
 
+    takes_plan = k8_entry_takes_plan(source)
     f = lib.w4a8_matmul
-    f.argtypes = [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    f.argtypes = [_P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I] + (
+        [_I, _I] if takes_plan else []) + [_P]
     f.restype = _I
 
     def w4a8(x, w4_pack, scale4, bias=None):
@@ -166,15 +192,17 @@ def parent_k8(lib):
         out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
         xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
         rs = torch.empty((M,), dtype=torch.float32, device=x.device)
+        plan = QM.k8_plan(M, N, K, G, sm_count(x.device.index)) if takes_plan else ()
         err = f(x2.data_ptr(), int(x2.dtype == torch.float32), x2.stride(0), w4_pack.data_ptr(),
                 scale4.data_ptr(), None if bias is None else bias.data_ptr(), xq.data_ptr(),
-                rs.data_ptr(), out.data_ptr(), M, N, K, G,
+                rs.data_ptr(), out.data_ptr(), M, N, K, G, *plan,
                 torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, err, "parent w4a8_matmul")
         w4a8.launches += 1
         return out.reshape(*lead, N)
 
     w4a8.launches = 0
+    w4a8.takes_plan = takes_plan
     return w4a8
 
 
@@ -1193,7 +1221,8 @@ def main() -> int:
     build.build_all()
     parent_dir = os.path.abspath(args.parent_dir)
     k6 = k6_of(build_lib(parent_dir, "a8w8_matmul"), "parent")
-    k8 = parent_k8(build_lib(parent_dir, "w4a8_matmul"))
+    k8 = parent_k8(build_lib(parent_dir, "w4a8_matmul"),
+                   open(os.path.join(parent_dir, "w4a8_matmul.cu")).read())
     pk9, pk10, k10_with = mk_wrappers(build_lib(parent_dir, "w4_swiglu"),
                                       build_lib(parent_dir, "w4_postattn"))
     k2 = parent_k2(build_lib(parent_dir, "resblock"))

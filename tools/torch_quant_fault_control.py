@@ -25,7 +25,8 @@ process that imports the copy:
 3. runs chip_smoke's checked tick there (every kernel call against its
    plain version on the same operands; in (a) and (f) with K5 and K7
    shadowed on the tick's operands) and prints the worst call per kernel
-   against its tolerance (share <= 1 passes);
+   against its tolerance (share <= 1 passes; for K2 and K3/K4 also
+   ``group_share``, the per-channel or per (row, head) measure);
 4. for K8 and K9/K10, builds the full-width planner and prints the ask
    request's teacher-forced logits corr against the plain versions and a
    checked 4-token decode, beside chip_smoke's gates; for K8 also every

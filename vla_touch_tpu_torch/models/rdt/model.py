@@ -6,7 +6,8 @@ tokens whose blocks alternate masked cross-attention to the language
 condition (even blocks) and the image condition (odd blocks).  The
 conditions are fixed across the denoise loop, so their per-block K/V are
 computed once (:meth:`RDT.compute_cond_kv`) and reused by
-:meth:`RDT.forward_cached` at every solver step.
+:meth:`RDT.forward_cached` at every solver step; :meth:`RDT.forward`
+recomputes them in every block, as the reference's sampler does.
 """
 
 from __future__ import annotations
@@ -90,6 +91,10 @@ class RDTBlock(nn.Module):
     def compute_kv(self, c):
         return self.cross_attn.compute_kv(c)
 
+    def forward(self, x, c, mask=None):
+        """The full block: the condition's K/V recomputed from ``c``."""
+        return self.call_cached(x, *self.compute_kv(c), mask)
+
 
 class RDT(nn.Module):
     def __init__(self, cfg: RDTModelConfig):
@@ -161,5 +166,18 @@ class RDT(nn.Module):
         for i, blk in enumerate(self.blocks):
             k, v = cond_kv[i]
             x = blk.call_cached(x, k, v, masks[i % 2])
+        out = self.final_ffn(self.final_norm(x))
+        return out[:, -self.cfg.horizon:]
+
+    def forward(self, x, freq, t, lang_c, img_c, lang_mask=None, img_mask=None):
+        """The full forward (inference only): every block recomputes its
+        condition K/V from the raw conditions, as the reference's sampler
+        does at every solver step.  x (B, horizon + 1, D) adapted [state,
+        action...] tokens; returns (B, horizon, output_dim)."""
+        x = self._embed_x(x, freq, t)
+        conds = self.add_cond_pos(lang_c, img_c)
+        masks = (lang_mask, img_mask)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, conds[i % 2], masks[i % 2])
         out = self.final_ffn(self.final_norm(x))
         return out[:, -self.cfg.horizon:]

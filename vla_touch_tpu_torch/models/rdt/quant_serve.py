@@ -1,13 +1,14 @@
 """Int8 / int4 RDT serving twin (counterpart of
-``vla_touch_tpu/models/rdt/quant_serve.py``, cold chunk only).
+``vla_touch_tpu/models/rdt/quant_serve.py``).
 
 :func:`quantize_rdt_params` turns the port's bf16 :class:`RDTRunnerModule`
 into a :class:`QuantRDTRunner`: every linear of the runner becomes an int8
 (:class:`ops.quant.QLinear`) or grouped-int4 (:class:`ops.quant.QLinearW4`)
 leaf, except the timestep embedders (kept, run in float32) and the
-cross-attention ``kv`` projections (bf16 by default, :class:`BF16Linear`).
-:func:`rdt_predict_action_quant` is the serving forward.  It runs in bf16
-whatever the config's dtype, as the JAX package's does.
+cross-attention ``kv`` projections (bf16 by default, :class:`ops.quant.BF16Linear`).
+:func:`rdt_predict_action_quant` is the serving forward, cold or warm-started
+from the previous chunk as :func:`runner.rdt_predict_action`.  It runs in
+bf16 whatever the config's dtype, as the JAX package's does.
 
 Every quantized linear goes through ``ops/quant_matmul.py::
 qdense_kernel_w4``: on CUDA tensors an int8 leaf at M <= 512 launches K6
@@ -41,20 +42,6 @@ from vla_touch_tpu_torch.ops import schedulers as sched_lib
 from vla_touch_tpu_torch.ops.pos_embed import timestep_embedding
 
 KV_CACHES = ("bf16", "int8", "int8t", "int8x")
-
-
-class BF16Linear(nn.Module):
-    """The unquantized condition K/V projection: ``weight`` (N, K) bf16,
-    ``bias`` (N,) float32; bf16 operands, float32 accumulation and bias,
-    bf16 out (``ops/quant.py::dense_f32acc``)."""
-
-    def __init__(self, weight: torch.Tensor, bias: torch.Tensor):
-        super().__init__()
-        self.register_buffer("weight", weight)
-        self.register_buffer("bias", bias)
-
-    def forward(self, x):
-        return Q.dense_f32acc(x.to(torch.bfloat16), self.weight, self.bias).to(torch.bfloat16)
 
 
 class QuantRDTRunner(nn.Module):
@@ -140,7 +127,7 @@ def quantize_rdt_params(runner: R.RDTRunnerModule, weights: str = "int8",
         if kv_proj == "int8":
             blk.cross_attn.kv = Q.quantize_linear(lin)
         else:
-            blk.cross_attn.kv = BF16Linear(lin.weight.detach().to(torch.bfloat16),
+            blk.cross_attn.kv = Q.BF16Linear(lin.weight.detach().to(torch.bfloat16),
                                            lin.bias.detach().float())
     return QuantRDTRunner(runner.cfg, q.model, q.lang_adaptor, q.img_adaptor,
                           q.state_adaptor).eval().requires_grad_(False)
@@ -211,7 +198,7 @@ def compute_cond_kv_quant(mp: nn.Module, cfg: RDTModelConfig, lang_c, img_c,
                           kv_cache: str = "bf16") -> list:
     """Per-block cached K/V, once per chunk: a tuple ``(kind, ...)`` per
     block, ``kind`` one of :data:`KV_CACHES`.  The kv projections run the
-    plain ``qdense`` (int8 kv leaf) or bf16 (:class:`BF16Linear`)."""
+    plain ``qdense`` (int8 kv leaf) or bf16 (:class:`ops.quant.BF16Linear`)."""
     if kv_cache not in KV_CACHES:
         raise ValueError(f"kv_cache {kv_cache!r} not in {KV_CACHES}")
     bf = torch.bfloat16
@@ -264,26 +251,24 @@ def rdt_predict_action_quant(cfg: R.RDTRunnerConfig, runner: QuantRDTRunner,
                              kv_cache: str = "bf16", prior_chunk=None,
                              skip_steps: int = 0, init_noise=None,
                              generator: Optional[torch.Generator] = None):
-    """Quantized twin of :func:`runner.rdt_predict_action` (cold chunk):
-    (B, horizon, 128) float32.  The warm start (``prior_chunk`` with
-    ``skip_steps`` > 0) waits for ``dpm_renoise`` (ROADMAP A9)."""
-    if skip_steps or prior_chunk is not None:
-        raise NotImplementedError(
-            "the warm quantized replan (prior_chunk / skip_steps) is not ported "
-            "yet: it waits for dpm_renoise (ROADMAP A9)")
+    """Quantized twin of :func:`runner.rdt_predict_action`, same contract:
+    (B, horizon, 128) float32; ``prior_chunk`` with ``skip_steps`` > 0
+    re-noises the previous chunk to step ``skip_steps``'s level and runs
+    the solver's tail."""
     m = cfg.model
     steps = num_inference_timesteps or cfg.noise.num_inference_timesteps
     schedule = sched_lib.DiffusionSchedule.create(cfg.noise.num_train_timesteps,
                                                   cfg.noise.beta_schedule)
     B = state_tokens.shape[0]
-    dev = state_tokens.device
+    mask_h = action_mask.float().expand(B, m.horizon, m.output_dim)
+    noise = R.start_noise(m, B, state_tokens.device, init_noise, generator)
+    x_init = R.solver_start(cfg, steps, noise, mask_h, prior_chunk, skip_steps)
     state_in = torch.cat([state_tokens, action_mask.to(state_tokens.dtype)], dim=2)
     lang_c = _adaptor(runner.lang_adaptor, lang_tokens)
     img_c = _adaptor(runner.img_adaptor, img_tokens)
     state_traj = _adaptor(runner.state_adaptor, state_in)
     mp = runner.model
     cond_kv = compute_cond_kv_quant(mp, m, lang_c, img_c, kv_cache=kv_cache)
-    mask_h = action_mask.float().expand(B, m.horizon, m.output_dim)
 
     def model_fn(noisy_action, t):
         action_in = torch.cat([noisy_action, mask_h], dim=2)
@@ -291,11 +276,7 @@ def rdt_predict_action_quant(cfg: R.RDTRunnerConfig, runner: QuantRDTRunner,
         x = torch.cat([state_traj, action_traj], dim=1)
         return forward_cached_quant(mp, m, x, ctrl_freqs, t, cond_kv, lang_mask).float()
 
-    if init_noise is None:
-        noise = torch.randn((B, m.horizon, m.output_dim), generator=generator,
-                            dtype=torch.float32, device=dev)
-    else:
-        noise = torch.as_tensor(init_noise, dtype=torch.float32, device=dev)
-    action = sched_lib.sample_dpm_solver(model_fn, noise, schedule, steps,
-                                         prediction_type=cfg.noise.prediction_type)
+    action = sched_lib.sample_dpm_solver(model_fn, x_init, schedule, steps,
+                                         prediction_type=cfg.noise.prediction_type,
+                                         start_index=skip_steps)
     return action * mask_h

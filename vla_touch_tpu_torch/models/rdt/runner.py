@@ -3,7 +3,13 @@
 
 :func:`rdt_predict_action` adapts the conditions and computes every block's
 condition K/V once, then runs the solver loop where each step re-adapts the
-noisy chunk and runs :meth:`RDT.forward_cached`.
+noisy chunk and runs :meth:`RDT.forward_cached`.  Given the previous chunk
+(``prior_chunk``) and ``skip_steps`` > 0 it warm-starts: the prior is
+re-noised to solver step ``skip_steps``'s level and only the schedule's
+tail runs.  :func:`rdt_predict_action_reference_style` is the reference's
+sampler, which re-runs the full model (every block's condition K/V
+included) at every step: the baseline the condition-K/V cache is measured
+against.
 """
 
 from __future__ import annotations
@@ -75,6 +81,9 @@ class RDTRunnerModule(nn.Module):
     def forward_cached(self, x, freq, t, cond_kv, lang_mask=None):
         return self.model.forward_cached(x, freq, t, cond_kv, lang_mask=lang_mask)
 
+    def forward_model(self, x, freq, t, lang_c, img_c, lang_mask=None):
+        return self.model(x, freq, t, lang_c, img_c, lang_mask=lang_mask)
+
 
 @dataclasses.dataclass(frozen=True)
 class RDTRunnerConfig:
@@ -93,40 +102,117 @@ def init_rdt(cfg: RDTRunnerConfig, seed: int = 0, device=None) -> RDTRunnerModul
                         cfg.model.compute_dtype)
 
 
+def start_noise(m, B, dev, init_noise, generator):
+    """(B, horizon, output_dim) float32: ``init_noise``, else a draw from
+    ``generator``."""
+    if init_noise is None:
+        return torch.randn((B, m.horizon, m.output_dim), generator=generator,
+                           dtype=torch.float32, device=dev)
+    return torch.as_tensor(init_noise, dtype=torch.float32, device=dev)
+
+
+def solver_start(cfg: RDTRunnerConfig, steps: int, noise, mask_h,
+                 prior_chunk=None, skip_steps: int = 0):
+    """The solver's starting point: ``noise`` for a cold chunk; for a warm
+    one (``skip_steps`` > 0) the prior, masked to the available action
+    dims, re-noised to step ``skip_steps``'s level with ``noise``.  Raises
+    when ``skip_steps`` is not in [0, steps) or a warm start has no
+    prior."""
+    if not 0 <= skip_steps < steps:
+        raise ValueError(f"skip_steps {skip_steps} not in [0, {steps})")
+    if skip_steps == 0:
+        return noise
+    if prior_chunk is None:
+        raise ValueError("skip_steps > 0 needs a prior_chunk")
+    schedule = sched_lib.DiffusionSchedule.create(cfg.noise.num_train_timesteps,
+                                                  cfg.noise.beta_schedule)
+    prior = torch.as_tensor(prior_chunk, dtype=torch.float32, device=noise.device)
+    return sched_lib.dpm_renoise(prior * mask_h, noise, schedule, steps, skip_steps)
+
+
 @torch.inference_mode()
 def rdt_predict_action(cfg: RDTRunnerConfig, module: RDTRunnerModule,
                        lang_tokens, lang_mask, img_tokens, state_tokens,
                        action_mask, ctrl_freqs,
                        num_inference_timesteps: Optional[int] = None,
-                       init_noise=None, generator: Optional[torch.Generator] = None):
+                       init_noise=None, generator: Optional[torch.Generator] = None,
+                       prior_chunk=None, skip_steps: int = 0):
     """Action-chunk inference.
 
     state_tokens (B, 1, 128); action_mask (B, 1, 128) float; returns
     (B, horizon, 128) float32.  ``init_noise`` (B, horizon, 128) fixes the
-    starting noise; otherwise it is drawn with ``generator``.
+    starting noise (the warm start's re-noising noise when ``skip_steps`` >
+    0); otherwise it is drawn with ``generator``.  ``prior_chunk`` (B,
+    horizon, 128), the previous chunk already shifted by the executed
+    ticks, with ``skip_steps`` > 0 runs only the solver's last ``steps -
+    skip_steps`` steps from it.
     """
     m = cfg.model
     steps = num_inference_timesteps or cfg.noise.num_inference_timesteps
     schedule = sched_lib.DiffusionSchedule.create(cfg.noise.num_train_timesteps,
                                                   cfg.noise.beta_schedule)
     B = state_tokens.shape[0]
-    dev = state_tokens.device
+    mask_h = action_mask.float().expand(B, m.horizon, m.output_dim)
+    noise = start_noise(m, B, state_tokens.device, init_noise, generator)
+    x_init = solver_start(cfg, steps, noise, mask_h, prior_chunk, skip_steps)
     state_in = torch.cat([state_tokens, action_mask.to(state_tokens.dtype)], dim=2)
     lang_c, img_c, state_traj = module.adapt_conditions(lang_tokens, img_tokens,
                                                         state_in)
     cond_kv = module.compute_cond_kv(lang_c, img_c)
-    mask_h = action_mask.float().expand(B, m.horizon, m.output_dim)
 
     def model_fn(noisy_action, t):
         action_in = torch.cat([noisy_action, mask_h], dim=2)
         x = torch.cat([state_traj, module.adapt_state(action_in)], dim=1)
         return module.forward_cached(x, ctrl_freqs, t, cond_kv, lang_mask).float()
 
-    if init_noise is None:
-        noise = torch.randn((B, m.horizon, m.output_dim), generator=generator,
-                            dtype=torch.float32, device=dev)
-    else:
-        noise = torch.as_tensor(init_noise, dtype=torch.float32, device=dev)
+    action = sched_lib.sample_dpm_solver(model_fn, x_init, schedule, steps,
+                                         prediction_type=cfg.noise.prediction_type,
+                                         start_index=skip_steps)
+    return action * mask_h
+
+
+def rdt_predict_action_warm(cfg: RDTRunnerConfig, module: RDTRunnerModule,
+                            lang_tokens, lang_mask, img_tokens, state_tokens,
+                            action_mask, ctrl_freqs, prior_chunk, skip_steps: int,
+                            num_inference_timesteps: Optional[int] = None,
+                            init_noise=None, generator: Optional[torch.Generator] = None):
+    """The warm-started replan: :func:`rdt_predict_action` with
+    ``prior_chunk`` and ``skip_steps``."""
+    return rdt_predict_action(cfg, module, lang_tokens, lang_mask, img_tokens,
+                              state_tokens, action_mask, ctrl_freqs,
+                              num_inference_timesteps=num_inference_timesteps,
+                              init_noise=init_noise, generator=generator,
+                              prior_chunk=prior_chunk, skip_steps=skip_steps)
+
+
+@torch.inference_mode()
+def rdt_predict_action_reference_style(cfg: RDTRunnerConfig, module: RDTRunnerModule,
+                                       lang_tokens, lang_mask, img_tokens, state_tokens,
+                                       action_mask, ctrl_freqs,
+                                       num_inference_timesteps: Optional[int] = None,
+                                       init_noise=None,
+                                       generator: Optional[torch.Generator] = None):
+    """The reference's sampler: the three adaptors run once, then every
+    solver step re-adapts the noisy chunk and runs the full model
+    (:meth:`RDT.forward`), recomputing every block's condition K/V.  No
+    warm start, no condition-K/V cache.  Same contract as
+    :func:`rdt_predict_action`."""
+    m = cfg.model
+    steps = num_inference_timesteps or cfg.noise.num_inference_timesteps
+    schedule = sched_lib.DiffusionSchedule.create(cfg.noise.num_train_timesteps,
+                                                  cfg.noise.beta_schedule)
+    B = state_tokens.shape[0]
+    state_in = torch.cat([state_tokens, action_mask.to(state_tokens.dtype)], dim=2)
+    lang_c, img_c, state_traj = module.adapt_conditions(lang_tokens, img_tokens,
+                                                        state_in)
+    mask_h = action_mask.float().expand(B, m.horizon, m.output_dim)
+
+    def model_fn(noisy_action, t):
+        action_in = torch.cat([noisy_action, mask_h], dim=2)
+        x = torch.cat([state_traj, module.adapt_state(action_in)], dim=1)
+        return module.forward_model(x, ctrl_freqs, t, lang_c, img_c, lang_mask).float()
+
+    noise = start_noise(m, B, state_tokens.device, init_noise, generator)
     action = sched_lib.sample_dpm_solver(model_fn, noise, schedule, steps,
                                          prediction_type=cfg.noise.prediction_type)
     return action * mask_h

@@ -65,6 +65,20 @@ class QLinearW4(nn.Module):
         return 2 * self.w4_pack.shape[1] // self.scale4.shape[0]
 
 
+class BF16Linear(nn.Module):
+    """An unquantized linear of a serving twin: ``weight`` (N, K) bf16,
+    ``bias`` (N,) float32 or None; bf16 operands, float32 accumulation and
+    bias (:func:`dense_f32acc`), bf16 out."""
+
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor | None):
+        super().__init__()
+        self.register_buffer("weight", weight)
+        self.register_buffer("bias", bias)
+
+    def forward(self, x):
+        return dense_f32acc(x.to(torch.bfloat16), self.weight, self.bias).to(torch.bfloat16)
+
+
 def true_div(a, b):
     """IEEE float32 ``a / b`` elementwise, with either side a number.
 

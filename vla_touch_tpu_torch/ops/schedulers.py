@@ -148,21 +148,35 @@ def sample_dpm_solver(model_fn: Callable, x_init: torch.Tensor,
                       schedule: DiffusionSchedule, num_inference_steps: int,
                       prediction_type: str = "sample",
                       lower_order_final: bool = True,
-                      final_sigma: Literal["zero", "sigma_min"] = "zero"):
+                      final_sigma: Literal["zero", "sigma_min"] = "zero",
+                      start_index: int = 0):
     """Run the DPM-Solver++ denoise loop.
 
     ``model_fn(x, t)``: x (B, ...) in ``x_init``'s dtype, t int32 (B,)
     train-timestep indices -> prediction of the configured type.  The solver
     state is float32 (float64 when ``x_init`` is float64).
+
+    ``start_index`` > 0 runs only the schedule's tail (the warm-started
+    replan): ``x_init`` must sit at step ``start_index``'s noise level
+    (:func:`dpm_renoise`), and the first executed step is first order, since
+    no earlier prediction exists.
     """
+    if not 0 <= start_index < num_inference_steps:
+        raise ValueError(
+            f"start_index {start_index} not in [0, {num_inference_steps}): an "
+            "empty solver tail would return the (re)noised input unchanged")
     tables = make_dpm_tables(schedule, num_inference_steps,
                              lower_order_final, final_sigma)
+    if start_index:
+        first = tables.use_first_order.copy()
+        first[start_index] = True
+        tables = dataclasses.replace(tables, use_first_order=first)
     in_dtype = x_init.dtype
     state_dtype = torch.float64 if in_dtype == torch.float64 else torch.float32
     batch = x_init.shape[0]
     x = x_init.to(state_dtype)
     x0_prev = torch.zeros_like(x)
-    for step_idx in range(num_inference_steps):
+    for step_idx in range(start_index, num_inference_steps):
         t = torch.full((batch,), int(tables.timesteps[step_idx]),
                        dtype=torch.int32, device=x.device)
         out = model_fn(x.to(in_dtype), t).to(state_dtype)
@@ -170,3 +184,21 @@ def sample_dpm_solver(model_fn: Callable, x_init: torch.Tensor,
         x = dpm_solver_step(x, x0, x0_prev, step_idx, tables)
         x0_prev = x0
     return x.to(in_dtype)
+
+
+def dpm_renoise(x0, noise, schedule: DiffusionSchedule,
+                num_inference_steps: int, start_index: int,
+                lower_order_final: bool = True,
+                final_sigma: Literal["zero", "sigma_min"] = "zero"):
+    """A clean sample placed at solver step ``start_index``'s noise level,
+    ``alpha_t x0 + sigma_t noise`` in float32: the warm start's entry to
+    :func:`sample_dpm_solver`.
+
+    XLA contracts the JAX package's jitted expression into one FMA,
+    ``fma(alpha_t, x0, sigma_t * noise)``; so does this, in float64, where
+    the product of two float32 values is exact."""
+    tables = make_dpm_tables(schedule, num_inference_steps,
+                             lower_order_final, final_sigma)
+    a = float(tables.alpha_t[start_index])
+    s = float(tables.sigma_t[start_index])
+    return (a * x0.double() + (s * noise.float()).double()).float()

@@ -1,5 +1,5 @@
 """Deployment policy wrapper: the VLA inference API (counterpart of
-``vla_touch_tpu/runtime/policy.py``, cold paths).
+``vla_touch_tpu/runtime/policy.py``).
 
 ``step(proprio, images, text_embeds)`` packs the low-dim state into the
 128-D unified vector with its availability mask, SigLIP-encodes the
@@ -8,7 +8,13 @@ cameras become the SigLIP-mean background), runs the DPM-Solver++
 ``rdt_predict_action`` and unpacks the chunk back to robot units.  A
 :class:`QuantRDTRunner` (``models/rdt/quant_serve.py``) as ``rdt`` routes
 the chunk to the int8/int4 serving twin, with ``kv_cache`` picking its
-condition cache.
+condition cache; a :class:`ViTServe` (``models/encoders/vit_serve.py``) as
+``vision`` routes SigLIP to its serving twin.
+
+``step(..., prior_actions=, skip_steps=)`` is the steady-state replan: the
+previous chunk, shifted by the executed ticks, is re-noised and only the
+solver's tail runs (:func:`policy_step_cached_warm` with the t-1 frames'
+cached tokens, :func:`policy_step_warm` without).
 
 The JAX PRNG key becomes an explicit ``init_noise`` tensor or a
 ``torch.Generator``.
@@ -24,6 +30,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from vla_touch_tpu_torch.models.encoders import vit_serve as VS
 from vla_touch_tpu_torch.models.encoders.vit import (
     SIGLIP_SO400M, SiglipVisionEncoder, ViTConfig, init_vit)
 from vla_touch_tpu_torch.models.rdt import quant_serve as Q
@@ -53,9 +60,31 @@ def franka_eef_policy_config(**kw) -> PolicyConfig:
     return PolicyConfig(**kw)
 
 
-def _encode_frames(cfg: PolicyConfig, vision: SiglipVisionEncoder, images,
-                   image_mask, dtype, absent=(), bg_tokens=None):
-    """(B, nf, S, S, 3) frames -> (B, nf*729, C) SigLIP tokens.
+def franka_joint_policy_config(**kw) -> PolicyConfig:
+    """8-D joint-space Franka: the gripper's proprio divides by 4.7888, its
+    action multiplies by 13.9231."""
+    return PolicyConfig(state_indices=tuple(SV.FRANKA_JOINT_STATE_INDICES),
+                        state_scale=tuple([1.0] * 7 + [4.7888]),
+                        action_scale=tuple([1.0] * 7 + [13.9231]), **kw)
+
+
+def aloha_policy_config(**kw) -> PolicyConfig:
+    """14-D bimanual ALOHA joints at 25 Hz."""
+    return PolicyConfig(state_indices=tuple(SV.ALOHA_STATE_INDICES),
+                        state_scale=tuple([1.0] * 14), control_frequency=25.0, **kw)
+
+
+def _device_of(module) -> torch.device:
+    """The device of a module's first parameter or buffer (the serving
+    twins hold their weights as buffers)."""
+    return next(itertools.chain(module.parameters(), module.buffers())).device
+
+
+def _encode_frames(cfg: PolicyConfig, vision, images, image_mask, dtype, absent=(),
+                   bg_tokens=None):
+    """(B, nf, S, S, 3) frames -> (B, nf*729, C) SigLIP tokens.  ``vision``
+    is the port's ``SiglipVisionEncoder`` or its serving twin
+    (:func:`vit_serve.quantize_vit_params`), told apart by type.
 
     ``absent`` frame indices + ``bg_tokens`` (729, C) from
     :func:`encode_background_tokens`: frames that are always the padded
@@ -79,14 +108,18 @@ def _encode_frames(cfg: PolicyConfig, vision: SiglipVisionEncoder, images,
     x = siglip_normalize(images)
     x = torch.where(image_mask[:, :, None, None, None], x, torch.zeros_like(x))
     S = cfg.image_size
-    tokens = vision(x.reshape(B * nf, S, S, 3).to(dtype))
+    flat = x.reshape(B * nf, S, S, 3)
+    if VS.is_vit_serve_tree(vision):
+        tokens = vision(flat, dtype=dtype)
+    else:
+        tokens = vision(flat.to(dtype))
     return tokens.reshape(B, -1, tokens.shape[-1]).to(dtype)
 
 
 @torch.inference_mode()
-def encode_background_tokens(cfg: PolicyConfig, vision: SiglipVisionEncoder):
+def encode_background_tokens(cfg: PolicyConfig, vision):
     """SigLIP tokens (729, C) of the padded-background frame."""
-    dev = next(vision.parameters()).device
+    dev = _device_of(vision)
     S = cfg.image_size
     z = torch.zeros((1, 1, S, S, 3), dtype=torch.float32, device=dev)
     return _encode_frames(cfg, vision, z, torch.zeros((1, 1), dtype=torch.bool,
@@ -105,15 +138,18 @@ def encode_frames(cfg: PolicyConfig, vision, images, image_mask, absent=(),
 
 def _predict_from_tokens(cfg: PolicyConfig, rdt, proprio, img_tokens, text_embeds,
                          text_mask, init_noise=None, generator=None,
-                         kv_cache: str = "bf16"):
+                         kv_cache: str = "bf16", prior_actions=None, skip_steps: int = 0):
     """State pack + denoise + unpack.  A :class:`QuantRDTRunner` goes to the
     quantized twin (``kv_cache`` picks its condition cache), anything else
-    to the bf16 runner, whose cache is bf16."""
+    to the bf16 runner, whose cache is bf16.  ``prior_actions`` (B,
+    horizon, D_low) in raw robot units, already shifted by the executed
+    ticks, with ``skip_steps`` > 0 warm-starts the solver's tail; it is
+    packed into the 128-wide vector only then."""
     m = cfg.rdt.model
     B = proprio.shape[0]
     dev = proprio.device
     dtype = m.compute_dtype
-    # JAX's jit divides by the constant scale as a product with its float32
+    # JAX's jit divides by a constant scale as a product with its float32
     # reciprocal; so does the port, on the CPU and the card alike
     recip = torch.tensor(np.float32(1) / np.asarray(cfg.state_scale, np.float32), device=dev)
     idx = torch.tensor(cfg.state_indices, dtype=torch.long, device=dev)
@@ -121,17 +157,23 @@ def _predict_from_tokens(cfg: PolicyConfig, rdt, proprio, img_tokens, text_embed
     state[:, idx] = proprio.float() * recip
     mask = torch.zeros((B, m.state_token_dim), dtype=torch.float32, device=dev)
     mask[:, idx] = 1.0
-    out_scale = torch.tensor(cfg.action_scale if cfg.action_scale is not None
-                             else cfg.state_scale, dtype=torch.float32, device=dev)
+    out_scale = np.asarray(cfg.action_scale if cfg.action_scale is not None
+                           else cfg.state_scale, np.float32)
+    prior128 = None
+    if prior_actions is not None and skip_steps > 0:
+        out_recip = torch.tensor(np.float32(1) / out_scale, device=dev)
+        prior128 = torch.zeros((B, m.horizon, m.output_dim), dtype=torch.float32, device=dev)
+        prior128[:, :, idx] = torch.as_tensor(prior_actions, device=dev).float() * out_recip
     args = (cfg.rdt, rdt, text_embeds.to(dtype), text_mask, img_tokens.to(dtype),
             state[:, None, :].to(dtype), mask[:, None, :],
             torch.full((B,), cfg.control_frequency, dtype=torch.float32, device=dev))
+    kw = dict(init_noise=init_noise, generator=generator, prior_chunk=prior128,
+              skip_steps=skip_steps)
     if isinstance(rdt, Q.QuantRDTRunner):
-        chunk = Q.rdt_predict_action_quant(*args, init_noise=init_noise,
-                                           generator=generator, kv_cache=kv_cache)
+        chunk = Q.rdt_predict_action_quant(*args, kv_cache=kv_cache, **kw)
     else:
-        chunk = R.rdt_predict_action(*args, init_noise=init_noise, generator=generator)
-    return chunk[:, :, idx] * out_scale
+        chunk = R.rdt_predict_action(*args, **kw)
+    return chunk[:, :, idx] * torch.tensor(out_scale, device=dev)
 
 
 @torch.inference_mode()
@@ -147,10 +189,23 @@ def policy_step(cfg: PolicyConfig, rdt, vision, proprio, images, image_mask,
     of a quantized ``rdt``.  Returns (B, horizon, D_low) actions in raw
     robot units.
     """
+    return policy_step_warm(cfg, rdt, vision, proprio, images, image_mask, text_embeds,
+                            text_mask, None, 0, absent, bg_tokens, init_noise, generator,
+                            kv_cache)
+
+
+@torch.inference_mode()
+def policy_step_warm(cfg: PolicyConfig, rdt, vision, proprio, images, image_mask,
+                     text_embeds, text_mask, prior_actions, skip_steps: int, absent=(),
+                     bg_tokens=None, init_noise=None, generator=None,
+                     kv_cache: str = "bf16"):
+    """:func:`policy_step` warm-started: ``prior_actions`` (B, horizon,
+    D_low), the previous chunk in raw robot units already shifted by the
+    executed ticks, seeds the solver at step ``skip_steps``."""
     tokens = _encode_frames(cfg, vision, images, image_mask,
                             cfg.rdt.model.compute_dtype, absent, bg_tokens)
-    return _predict_from_tokens(cfg, rdt, proprio, tokens, text_embeds,
-                                text_mask, init_noise, generator, kv_cache)
+    return _predict_from_tokens(cfg, rdt, proprio, tokens, text_embeds, text_mask,
+                                init_noise, generator, kv_cache, prior_actions, skip_steps)
 
 
 @torch.inference_mode()
@@ -160,12 +215,26 @@ def policy_step_cached(cfg: PolicyConfig, rdt, vision, proprio, new_images,
                        generator=None, kv_cache: str = "bf16"):
     """Replan reusing the previous call's tokens of the t-1 frames; SigLIP
     runs on the 3 new frames only.  Returns ``(actions, cur_tokens)``."""
+    return policy_step_cached_warm(cfg, rdt, vision, proprio, new_images, new_image_mask,
+                                   prev_tokens, text_embeds, text_mask, None, 0, absent,
+                                   bg_tokens, init_noise, generator, kv_cache)
+
+
+@torch.inference_mode()
+def policy_step_cached_warm(cfg: PolicyConfig, rdt, vision, proprio, new_images,
+                            new_image_mask, prev_tokens, text_embeds, text_mask,
+                            prior_actions, skip_steps: int, absent=(), bg_tokens=None,
+                            init_noise=None, generator=None, kv_cache: str = "bf16"):
+    """The steady-state replan: the t-1 frames' cached tokens and a
+    warm-started solver tail.  Contracts of :func:`policy_step_cached`
+    (returns ``(actions, cur_tokens)``) and :func:`policy_step_warm`."""
     dtype = cfg.rdt.model.compute_dtype
     cur = _encode_frames(cfg, vision, new_images, new_image_mask, dtype,
                          absent, bg_tokens)
     tokens = torch.cat([prev_tokens.to(dtype), cur], dim=1)
-    actions = _predict_from_tokens(cfg, rdt, proprio, tokens, text_embeds,
-                                   text_mask, init_noise, generator, kv_cache)
+    actions = _predict_from_tokens(cfg, rdt, proprio, tokens, text_embeds, text_mask,
+                                   init_noise, generator, kv_cache, prior_actions,
+                                   skip_steps)
     return actions, cur
 
 
@@ -179,16 +248,20 @@ class RoboticDiffusionTransformerModel:
     ``cache_frames`` (default True) skips re-encoding the t-1 frames when
     they are byte-identical to the previous call's t frames (checked with a
     content digest).  ``absent_cameras`` are cameras this deployment never
-    provides; SigLIP skips them and splices background tokens.
+    provides; SigLIP skips them and splices background tokens.  ``kv_cache``
+    is the condition cache of a quantized ``rdt`` ('bf16' | 'int8' |
+    'int8t' | 'int8x'; the bf16 runner's is bf16).
     """
 
     def __init__(self, cfg: PolicyConfig, rdt, vision, cache_frames: bool = True,
-                 absent_cameras=(), seed: int = 0):
+                 absent_cameras=(), seed: int = 0, kv_cache: str = "bf16"):
+        if kv_cache not in Q.KV_CACHES:
+            raise ValueError(f"kv_cache {kv_cache!r} not in {Q.KV_CACHES}")
         self.cfg = cfg
+        self.kv_cache = kv_cache
         self.rdt = rdt
         self.vision = vision
-        # a QuantRDTRunner holds its weights as buffers
-        self.device = next(itertools.chain(rdt.parameters(), rdt.buffers())).device
+        self.device = _device_of(rdt)
         self.cache_frames = cache_frames
         self.absent_cameras = tuple(sorted(absent_cameras))
         self._bg_tokens = None
@@ -198,7 +271,7 @@ class RoboticDiffusionTransformerModel:
     @classmethod
     def create(cls, cfg: Optional[PolicyConfig] = None, seed: int = 0, rdt=None,
                vision=None, cache_frames: bool = True, absent_cameras=(),
-               device=None):
+               device=None, kv_cache: str = "bf16"):
         """Random weights from ``seed`` unless ``rdt``/``vision`` are given."""
         cfg = cfg or PolicyConfig()
         dev = resolve_device(device)
@@ -208,7 +281,7 @@ class RoboticDiffusionTransformerModel:
             vision = init_vit(SiglipVisionEncoder, cfg.vision, seed=seed + 1,
                               device=dev, dtype=cfg.rdt.model.compute_dtype)
         return cls(cfg, rdt, vision, cache_frames=cache_frames,
-                   absent_cameras=absent_cameras, seed=seed)
+                   absent_cameras=absent_cameras, seed=seed, kv_cache=kv_cache)
 
     def _absent(self, nf: int):
         if not self.absent_cameras:
@@ -223,11 +296,14 @@ class RoboticDiffusionTransformerModel:
         self._token_cache = None
 
     def step(self, proprio, images: Sequence, text_embeds, text_mask=None,
-             init_noise=None) -> np.ndarray:
+             prior_actions=None, skip_steps: int = 0, init_noise=None) -> np.ndarray:
         """images: 6 HxWx3 uint8 arrays or None (missing camera).  Returns
-        (1, horizon, D_low) actions.  ``init_noise`` (1, horizon, 128) fixes
-        the solver's starting noise; otherwise the model's generator draws
-        it."""
+        (1, horizon, D_low) actions.  ``prior_actions`` (horizon, D_low),
+        the previous chunk shifted by the executed ticks, with
+        ``skip_steps`` > 0 warm-starts the replan; with the frame-token
+        cache that is the steady-state dispatch.  ``init_noise`` (1,
+        horizon, 128) fixes the solver's starting (or re-noising) noise;
+        otherwise the model's generator draws it."""
         cfg, dev = self.cfg, self.device
         S = cfg.image_size
         frames = np.zeros((1, 6, S, S, 3), np.uint8)
@@ -246,7 +322,12 @@ class RoboticDiffusionTransformerModel:
                      else np.asarray(text_mask, bool).reshape(text.shape[:2]))
         text_t = torch.as_tensor(text, device=dev)
         tmask_t = torch.as_tensor(text_mask, device=dev)
-        kw = dict(init_noise=init_noise, generator=self.generator)
+        kw = dict(init_noise=init_noise, generator=self.generator, kv_cache=self.kv_cache)
+        warm = prior_actions is not None and skip_steps > 0
+        prior = None
+        if warm:
+            prior = torch.as_tensor(np.asarray(prior_actions, np.float32)
+                                    .reshape(1, -1, len(cfg.state_indices)), device=dev)
 
         def dev_frames(sl):
             return (torch.as_tensor(frames[:, sl], device=dev),
@@ -260,10 +341,16 @@ class RoboticDiffusionTransformerModel:
             else:
                 prev_tokens = encode_frames(cfg, self.vision, *dev_frames(slice(0, 3)),
                                             absent=ab3, bg_tokens=bg)
-            out, cur = policy_step_cached(
+            out, cur = policy_step_cached_warm(
                 cfg, self.rdt, self.vision, proprio_t, *dev_frames(slice(3, 6)),
-                prev_tokens, text_t, tmask_t, absent=ab3, bg_tokens=bg, **kw)
+                prev_tokens, text_t, tmask_t, prior, skip_steps if warm else 0,
+                absent=ab3, bg_tokens=bg, **kw)
             self._token_cache = (_frame_digest(frames[:, 3:], mask[:, 3:]), cur)
+        elif warm:
+            ab6, bg = self._absent(6)
+            out = policy_step_warm(cfg, self.rdt, self.vision, proprio_t,
+                                   *dev_frames(slice(0, 6)), text_t, tmask_t, prior,
+                                   skip_steps, absent=ab6, bg_tokens=bg, **kw)
         else:
             ab6, bg = self._absent(6)
             out = policy_step(cfg, self.rdt, self.vision, proprio_t,

@@ -125,9 +125,9 @@ def quant_rdt_runner(qparams: dict, cfg, device=None):
     the kernels: ``w_i8`` (K, N) -> (N, K), ``w4_pack`` (K/2, N) -> (N, K/2)
     (the plane packing is kept: byte j of row n holds rows j and K/2 + j);
     ``scale4`` stays (G, N)."""
-    from vla_touch_tpu_torch.models.rdt.quant_serve import BF16Linear, QuantRDTRunner
+    from vla_touch_tpu_torch.models.rdt.quant_serve import QuantRDTRunner
     from vla_touch_tpu_torch.models.rdt.runner import RDTRunnerModule
-    from vla_touch_tpu_torch.ops.quant import QLinear, QLinearW4
+    from vla_touch_tpu_torch.ops.quant import BF16Linear, QLinear, QLinearW4
     from vla_touch_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
@@ -181,6 +181,57 @@ def quant_rdt_runner(qparams: dict, cfg, device=None):
             p.copy_(src)
     return QuantRDTRunner(cfg, module.model, module.lang_adaptor, module.img_adaptor,
                           module.state_adaptor).eval().requires_grad_(False)
+
+
+def vit_serve(tree: dict, cfg, pooled: bool = False, device=None):
+    """A JAX ViT serving tree (``vit_serve.quantize_vit_params``: fused
+    ``qkv`` leaves, int8 ``w_i8``/``scale`` or bf16 ``kernel`` block
+    linears, float32 patch embedding, positional table and norms; with or
+    without the ``serve_bf16`` marker) -> the port's ``ViTServe`` for
+    ``cfg`` (a ``ViTConfig``) on ``device`` (default CUDA).  ``pooled``: the
+    twin returns the CLS token (DinoV2).  Codes and scales are taken as
+    they are: ``w_i8`` (K, N) -> (N, K); a bf16 ``kernel`` (K, N) -> bf16
+    (N, K)."""
+    from vla_touch_tpu_torch.models.encoders import vit_serve as VS
+    from vla_touch_tpu_torch.ops.quant import BF16Linear, QLinear
+    from vla_touch_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    vp = tree.get("vit", tree)
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    def lin(node):
+        bias = f32(node["bias"]) if "bias" in node else None
+        if "w_i8" in node:
+            w = np.ascontiguousarray(np.asarray(node["w_i8"]).T)
+            return QLinear(torch.from_numpy(w).to(device), f32(node["scale"]), bias)
+        w = f32(np.asarray(node["kernel"], np.float32).T).to(torch.bfloat16).contiguous()
+        return BF16Linear(w, bias)
+
+    def norm(node):
+        ln = torch.nn.LayerNorm(cfg.hidden_size, eps=cfg.layernorm_eps, device=device)
+        with torch.no_grad():
+            ln.weight.copy_(f32(node["scale"]))
+            ln.bias.copy_(f32(node["bias"]))
+        return ln
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        b = vp[f"block{i}"]
+        ls = ((f32(b["layerscale1"]), f32(b["layerscale2"])) if cfg.use_layerscale
+              else None)
+        blocks.append(VS.ServeBlock(norm(b["norm1"]), lin(b["attention"]["qkv"]),
+                                    lin(b["attention"]["output"]), norm(b["norm2"]),
+                                    lin(b["fc1"]), lin(b["fc2"]), ls))
+    pe = vp["patch_embed"]
+    k = np.asarray(pe["kernel"], np.float32)
+    return VS.ViTServe(
+        cfg, f32(k.reshape(-1, k.shape[-1]).T), f32(pe["bias"]) if "bias" in pe else None,
+        f32(vp["pos_embed"]), f32(vp["cls_token"]) if cfg.use_cls_token else None,
+        norm(vp["pre_norm"]) if cfg.use_pre_norm else None, blocks,
+        norm(vp["final_norm"]), pooled=pooled).eval().requires_grad_(False)
 
 
 # ---- the planner -------------------------------------------------------------------
