@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's control tick (cold and steady-state) and planner on
-one NVIDIA GPU.
+"""Drive the PyTorch port's control tick (cold and steady-state), its residual
+controllers' training and evaluation, and its planner on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,7 @@ one NVIDIA GPU.
    shape the tick gives it (K1 flash attention: SigLIP, DinoV2 and the three
    RDT-1B attentions, plus a ragged and a fully masked language mask, with
    q/k/v laid out as the modules pass them; K2 fused residual block: the
-   12 BRIDGeR block shapes) and times kernel,
+   12 BRIDGeR block shapes, and check-only at horizon 32) and times kernel,
    plain version, a library yardstick (SDPA for K1) and the bound.  Kernel,
    plain and library times are device times (calls captured in a CUDA
    graph and replayed); the eager back-to-back loop, which the host's
@@ -70,7 +70,21 @@ one NVIDIA GPU.
    and 6 frames (token corr gates, K1's launches, ms beside the module's)
    and one warm tick through each, and the reference-style chunk (the full
    model every step, K1 280 launches) against the cached chunk.
-7. The planner: holds K9 (w4 SwiGLU MLP) and K10 (w4 post-attention) at
+7. The residual controllers (``controllers_phase``): BRIDGeR (``down_dims``
+   (256, 512, 512), hidden 256, force and the DinoV2-small pair at 384^2)
+   and the LSTM controller (hidden 256, 2 layers) trained 30 steps each at
+   horizon 32 and the trainers' batch sizes (128, 256) through their
+   trainer classes on seeded windows held in memory (launch counts
+   asserted: K1 in DinoV2), the loss fall gated, TF32 as the trainers set
+   it (off); one ``prepare_batch`` of each trainer at its batch size as a
+   checked run (every K1 call against its plain version); one step on the
+   card against the port's CPU step; both checkpoints through the
+   port's msgpack writer and reader, bit for bit; ``bridge_test`` ('vs' and
+   'bs') and ``lstm_step_test`` with their launch counts and as checked
+   runs (every K1/K2 call against its plain version); the LSTM's
+   step-by-step rollout against its sequence mode; step ms, samples/s,
+   peak memory, the DinoV2 share of a step and the refine ms.
+8. The planner: holds K9 (w4 SwiGLU MLP) and K10 (w4 post-attention) at
    Qwen2.5-7B width (M 1, 8, 24 and 1, 8), K8 at the planner's w4 linears
    (decode and prompt-pass M; per prompt pass of 72 and 442 tokens summed,
    with ``torch._int_mm`` at the same shapes as a yardstick of the int8
@@ -88,8 +102,9 @@ one NVIDIA GPU.
    request again at 4 tokens (and the int8 request at 2) with each kernel
    call held to its plain version on its own operands; the decode tiers (unfused, fused, fused + megakernels),
    best-of-8 throughput and a profiled decode.
-8. Prints one ``kernels`` JSON line (ten kernels; K5's and K7's launches
-   are the shadow calls of (f)'s checked tick), the ``nvidia-smi`` line,
+9. Prints one ``kernels`` JSON line (ten kernels; K1's and K2's launches
+   are the tick's plus the controllers phase's, each path counted from 0;
+   K5's and K7's are the shadow calls of (f)'s checked tick), the ``nvidia-smi`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without a result line, when CUDA is absent, when the port
@@ -694,6 +709,11 @@ K2_SHAPES = [
     ("up1_res0", 8, 1024, 256), ("up1_res1", 8, 256, 256),
 ]
 K2_G, K2_K, K2_S, K2_STEPS = 512, 5, 2, 10
+# check only: the first level of a horizon-32 UNet (the trainers' default
+# horizon; the controllers phase's evaluation runs it at B 50) and a time
+# axis that ends inside the second m16 tile
+K2_CHECK_ONLY = [("h32_down0_res0", 32, 10, 256, 1), ("h32_down0_res1", 32, 256, 256, 1),
+                 ("h32_b50_down0_res1", 32, 256, 256, 50), ("t20_ragged", 20, 256, 512, 1)]
 
 
 def k2_params(gen, S, Cin, C, G, K):
@@ -771,6 +791,18 @@ def check_k2(gen):
         tot["bytes_ms"] += K2_STEPS * b_ms
         tot["ops_ms"] += K2_STEPS * o_ms
         tot["err"] = max(tot["err"], err)
+    for name, T, Cin, C, Bc in K2_CHECK_ONLY:
+        x = torch.randn((S, Bc, T, Cin), generator=gen, device="cuda").to(torch.bfloat16)
+        cond = torch.randn((S, Bc, G), generator=gen, device="cuda").to(torch.bfloat16)
+        p = k2_params(gen, S, Cin, C, G, K)
+        got = UK.resblock_fused(x, cond, p)
+        again = UK.resblock_fused(x, cond, p)
+        want = UK.resblock_ref(x, cond, p)
+        err, _ = hold(f"K2 {name}", got, want, K2_TOL / float(want.abs().max()))
+        if not torch.equal(got, again):
+            raise AssertionError(f"K2 {name}: a second call gave other bits")
+        log(f"K2 {name:18s} S{S} B{Bc} T{T:2d} Cin{Cin:5d} C{C}: err {err:.3e} "
+            f"(tol {K2_TOL}, check only)")
     return rows, tot
 
 
@@ -1199,7 +1231,7 @@ def build_tick(seed: int = 0):
     fc2.copy_((torch.randn(fc2.shape, generator=gen, device=dev) * 0.02).to(fc2.dtype))
     dino = init_vit(DinoV2Encoder, DINOV2_SMALL, seed=seed + 3, device=dev)
     bcfg = BridgeControllerConfig(inference_dtype="bfloat16", horizon=16)
-    bridge = BR.init_bridge_controller(bcfg, seed=seed + 1, device=dev)
+    bridge = BR.deployable(BR.init_bridge_controller(bcfg, seed=seed + 1, device=dev))
     stacked = BR.stacked_vs(bridge)            # once per set of weights
     stats = {"vla_mins": np.zeros(10, np.float32), "vla_maxs": np.ones(10, np.float32),
              "action_mins": np.zeros(10, np.float32),
@@ -2321,6 +2353,379 @@ def planner_kernel_totals(res, kernel) -> dict:
     return tot
 
 
+# ---- the residual controllers -------------------------------------------------
+
+# Training steps per controller, the steps before the timed ones, and the
+# learning rate of the smoke run (the trainers' CLI flag; their default 1e-4
+# moves a randomly initialised net too little in 30 steps to see).
+CTRL_STEPS = 30
+CTRL_WARMUP = 5
+CTRL_LR = 1e-3
+CTRL_HORIZON = 32                  # bridge_train / lstm_train main's default
+CTRL_EVAL_SAMPLES = 50             # bridge_test / lstm_step_test's default
+CTRL_CHECK_ROWS = 16               # rows of the card-vs-CPU step
+# The loss must fall: (mean of the first 3 steps - mean of the last 5) /
+# |mean of the first 3| at least CTRL_FALL_MIN.  On an H100 a sound run
+# reads 0.997 (BRIDGeR) and 0.946 (LSTM); the planted faults of
+# tools/torch_controller_fault_control.py, the optimizer step skipped and
+# the learning rate at 0, read 0.001 and -0.001.
+CTRL_FALL_MIN = {"bridger": 0.5, "lstm": 0.5}
+# Card step vs the port's CPU eager step on the same parameters, batch and
+# draws (TF32 off for matmuls and cuDNN, as the trainers set it): the loss to CTRL_LOSS_RTOL, each
+# gradient leaf's max abs error to CTRL_GRAD_TOL x max(its max |grad|, 1e-3
+# x the largest |grad| of the model) (leaves whose gradient is 0 but for
+# rounding, the conv biases that GroupNorm cancels, get the floor).
+CTRL_LOSS_RTOL = 1e-4
+CTRL_GRAD_TOL = 1e-3
+# The LSTM's step-by-step rollout against its sequence mode: the same cell
+# arithmetic; the head's Linear on (B, h) rows against (B, T, h) may sum in
+# another order.
+LSTM_SEQ_TOL = 1e-5
+
+
+class MemoryEpisodes:
+    """Seeded numpy controller windows held in memory, with
+    ``ControllerDataset``'s ``__len__``, ``__getitem__`` (numpy items),
+    ``batches`` (here: dicts of tensors on the card) and ``stats``.  The
+    expert chunk is the VLA chunk plus a learnable function of the current
+    state and force; images index a pool of seeded 384^2 frames per camera
+    (on the card for the batches).  The frames are drawn in [0, 215]: their
+    mean, 0.42, sits well below ``encode_images``' 0.5 threshold, on the
+    side of camera frames (ImageNet's channel means are 0.41-0.49), so every
+    batch takes the same branch."""
+
+    def __init__(self, n: int, horizon: int, ctx: int = 2, size: int = 384, pool: int = 32,
+                 seed: int = 0):
+        import torch
+
+        rng = np.random.default_rng(seed)
+        T = ctx + horizon
+        self.n, self.ctx = n, ctx
+        states = (np.cumsum(rng.normal(0, 0.02, (n, T, 10)), axis=1)
+                  + rng.normal(0, 0.3, (n, 1, 10))).astype(np.float32)
+        states[..., -1] = np.clip(128 + 400 * states[..., -1], 0, 255)   # raw gripper
+        forces = rng.normal(0, 0.5, (n, T, 3)).astype(np.float32)
+        future = states[:, ctx:].copy()
+        future[..., -1] /= 255.0
+        vla = future + rng.normal(0, 0.02, future.shape).astype(np.float32)
+        a, f = rng.normal(0, 0.5, (10, 10)), rng.normal(0, 0.5, (3, 10))
+        ramp = np.linspace(0.2, 1.0, horizon)[None, :, None]
+        now = states[:, ctx - 1].copy()
+        now[:, -1] /= 255.0
+        delta = 0.1 * np.tanh(now @ a)[:, None] + 0.1 * np.tanh(forces[:, ctx - 1] @ f)[:, None]
+        self.arrays = {"states": states, "vla_actions": vla,
+                       "expert_actions": (vla + delta * ramp).astype(np.float32),
+                       "forces": forces, "disps": rng.normal(0, 0.1, (n, T, 2)).astype(np.float32)}
+        self.frames = [rng.integers(0, 216, (pool, size, size, 3), dtype=np.uint8)
+                       for _ in range(2)]
+        self.frame_idx = rng.integers(0, pool - ctx, n)
+        self.dev = {k: torch.as_tensor(v, device="cuda") for k, v in self.arrays.items()}
+        self.dev_frames = [torch.as_tensor(p, device="cuda") for p in self.frames]
+        e, v = self.arrays["expert_actions"], self.arrays["vla_actions"]
+        self.stats = {"action_mins": e.min((0, 1)), "action_maxs": e.max((0, 1)),
+                      "vla_mins": v.min((0, 1)), "vla_maxs": v.max((0, 1))}
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i: int) -> dict:
+        out = {k: v[i] for k, v in self.arrays.items()}
+        j = self.frame_idx[i]
+        for c in (1, 2):
+            out[f"images_cam{c}"] = self.frames[c - 1][j:j + self.ctx].astype(np.float32) / 255.0
+        return out
+
+    def batches(self, batch_size, rng, shuffle=True, drop_last=True, workers=0):
+        import torch
+
+        order = rng.permutation(self.n) if shuffle else np.arange(self.n)
+        for i in range(0, self.n - batch_size + 1, batch_size):
+            idx = torch.as_tensor(order[i:i + batch_size], device="cuda")
+            out = {k: v[idx] for k, v in self.dev.items()}
+            fi = torch.as_tensor(self.frame_idx, device="cuda")[idx]
+            steps = fi[:, None] + torch.arange(self.ctx, device="cuda")
+            for c in (1, 2):
+                out[f"images_cam{c}"] = self.dev_frames[c - 1][steps].float() / 255.0
+            yield out
+
+
+def train_loop(trainer, data, steps: int, lr: float, lstm: bool) -> dict:
+    """``steps`` trainer steps (``prepare_batch`` then ``step``), each
+    synchronised: the losses, the step ms and the DinoV2 (``prepare_batch``)
+    ms of each."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    batches = data.batches(trainer.tcfg.batch_size, rng)
+    losses, step_ms, dino_ms = [], [], []
+    for _ in range(steps):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prep = trainer.prepare_batch(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = trainer.step(prep) if lstm else trainer.step(prep, lr)
+        loss = float(out if lstm else out["loss"])
+        t2 = time.perf_counter()
+        losses.append(loss)
+        step_ms.append(1e3 * (t2 - t0))
+        dino_ms.append(1e3 * (t1 - t0))
+    return dict(losses=losses, step_ms=step_ms, dino_ms=dino_ms)
+
+
+def loss_fall(losses) -> float:
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-5:]))
+    return (first - last) / abs(first)
+
+
+def step_vs_cpu(what, module, loss_fn, batch: dict, draws: dict) -> dict:
+    """One loss + backward of ``module`` on the card and of its CPU copy on
+    the same batch and draws: the loss's relative error and the worst
+    gradient leaf's share of its tolerance (CTRL_LOSS_RTOL, CTRL_GRAD_TOL)."""
+    import copy
+
+    import torch
+
+    module.zero_grad(set_to_none=True)
+    cpu = copy.deepcopy(module).cpu()
+    dev_loss = loss_fn(module, batch, draws)
+    dev_loss.backward()
+    cpu_loss = loss_fn(cpu, {k: v.cpu() for k, v in batch.items()},
+                       {k: v.cpu() for k, v in draws.items()})
+    cpu_loss.backward()
+    grads = {n: p.grad.cpu() for n, p in module.named_parameters()}
+    want = {n: p.grad for n, p in cpu.named_parameters()}
+    module.zero_grad(set_to_none=True)
+    top = max(float(g.abs().max()) for g in want.values())
+    share, worst = 0.0, None
+    for n, w in want.items():
+        tol = CTRL_GRAD_TOL * max(float(w.abs().max()), 1e-3 * top)
+        sh = float((grads[n] - w).abs().max()) / tol
+        if sh >= share:
+            share, worst = sh, n
+    rel = abs(float(dev_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    res = dict(loss_card=float(dev_loss), loss_cpu=float(cpu_loss), loss_rel_err=rel,
+               grad_share=share, worst_leaf=worst, leaves=len(want))
+    log(f"{what} card step vs CPU step: " + json.dumps(res))
+    if not (rel <= CTRL_LOSS_RTOL and share <= 1.0):
+        raise AssertionError(f"{what}: the card's step disagrees with the CPU step: {res}")
+    return res
+
+
+def check_round_trip(what, got: dict, want: dict):
+    """Every tensor of ``want`` in ``got`` with the same dtype and bits."""
+    import torch
+
+    bad = [n for n, t in want.items()
+           if n not in got or got[n].dtype != t.dtype or not torch.equal(got[n], t)]
+    if set(got) != set(want) or bad:
+        raise AssertionError(f"{what}: checkpoint round trip differs: {bad[:4]}")
+
+
+def controllers_phase() -> dict:
+    """Train BRIDGeR and the LSTM controller at the deployment widths
+    through their trainer classes, check one step on the card against the
+    CPU, round-trip both checkpoints, evaluate both (BRIDGeR's 'vs' and 'bs'
+    SDEs) with the launch counts asserted and every K1/K2 call held to its
+    plain version, and time the refine."""
+    import shutil
+
+    import torch
+
+    from vla_touch_tpu_torch.config import (BridgeControllerConfig, BridgeTrainConfig,
+                                            LSTMControllerConfig, LSTMTrainConfig)
+    from vla_touch_tpu_torch.eval import bridge_test as BE
+    from vla_touch_tpu_torch.eval import lstm_step_test as LE
+    from vla_touch_tpu_torch.models.controllers import bridge as BR
+    from vla_touch_tpu_torch.models.controllers import interpolants as SI
+    from vla_touch_tpu_torch.models.controllers import lstm as L
+    from vla_touch_tpu_torch.models.encoders import dinov2_runtime as dino
+    from vla_touch_tpu_torch.train import bridge_train as BT
+    from vla_touch_tpu_torch.train import lstm_train as LT
+    from vla_touch_tpu_torch.utils.normalization import normalize_actions
+
+    out_dir = os.path.join(ROOT, "build", "controllers")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    res = {"launches": {}}
+    counts = {"K1": 0, "K2": 0}
+    bcfg = BridgeControllerConfig(horizon=CTRL_HORIZON)
+    btc = BridgeTrainConfig(horizon=CTRL_HORIZON, learning_rate=CTRL_LR)
+    lcfg, ltc = LSTMControllerConfig(), LSTMTrainConfig(horizon=CTRL_HORIZON,
+                                                         learning_rate=CTRL_LR)
+    data = MemoryEpisodes(btc.batch_size * CTRL_STEPS, CTRL_HORIZON, seed=11)
+    val = MemoryEpisodes(2 * CTRL_EVAL_SAMPLES, CTRL_HORIZON, seed=12)
+    dm = type("DM", (), dict(train_dataset=data, val_dataset=val))()
+
+    def run_counted(name, fn, need):
+        zero_counts()
+        r = fn()
+        got = read_counts()
+        check_counts(name, got, need)
+        for k in counts:
+            counts[k] += got[k]
+        return r
+
+    # ---- training
+    log("controllers: BRIDGeR (down_dims (256, 512, 512), hidden 256, force + DinoV2-small "
+        f"pair at 384^2) and LSTM (hidden 256, 2 layers, dropout 0.1), horizon {CTRL_HORIZON}")
+    torch.cuda.reset_peak_memory_stats()
+    # PyTorch's defaults (cuDNN's convolutions may take TF32): the trainers
+    # must set the precision they run in themselves
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    bt = BT.DiffusionControllerTrainer(bcfg, btc, os.path.join(out_dir, "bridge"), data.stats,
+                                       seed=0)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the BRIDGeR trainer left TF32 on")
+    dino_layers = dino.config_for(bcfg.image_model).num_layers
+    tr = run_counted("BRIDGeR training", lambda: train_loop(bt, data, CTRL_STEPS, CTRL_LR, False),
+                     {"K1": 2 * dino_layers * CTRL_STEPS})
+    b_mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.allow_tf32 = True
+    lt = LT.LSTMControllerTrainer(lcfg, ltc, os.path.join(out_dir, "lstm"), data.stats,
+                                  image_encoder=bt.img, seed=0)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the LSTM trainer left TF32 on")
+    lstm_data = MemoryEpisodes(ltc.batch_size * CTRL_STEPS, CTRL_HORIZON, seed=13)
+    tl = run_counted("LSTM training", lambda: train_loop(lt, lstm_data, CTRL_STEPS, CTRL_LR, True),
+                     {"K1": 2 * dino_layers * CTRL_STEPS})
+    l_mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, r, bs, mem in (("bridger", tr, btc.batch_size, b_mem),
+                             ("lstm", tl, ltc.batch_size, l_mem)):
+        fall = loss_fall(r["losses"])
+        ms = float(np.median(r["step_ms"][CTRL_WARMUP:]))
+        share = float(np.median(np.array(r["dino_ms"][CTRL_WARMUP:])
+                                / np.array(r["step_ms"][CTRL_WARMUP:])))
+        res[name] = dict(batch=bs, loss_first=r["losses"][0], loss_last=r["losses"][-1],
+                         loss_fall=fall, step_ms_p50=ms, samples_per_s=bs * 1e3 / ms,
+                         dinov2_share=share, dinov2_ms_p50=float(np.median(
+                             r["dino_ms"][CTRL_WARMUP:])), peak_mem_gib=mem)
+        log(f"{name} training: losses {[round(x, 4) for x in r['losses']]}")
+        log(f"{name} training: " + json.dumps(res[name]))
+        if not fall >= CTRL_FALL_MIN[name]:
+            raise AssertionError(f"{name}: the loss fell by {fall:.3f} of its start, "
+                                 f"need {CTRL_FALL_MIN[name]}")
+
+    # ---- one prepare_batch of each trainer at its own batch size, every K1
+    # call (DinoV2 at B 128 and 256 per camera) held to its plain version
+    for name, trainer, d in (("BRIDGeR", bt, data), ("LSTM", lt, lstm_data)):
+        b = next(d.batches(trainer.tcfg.batch_size, np.random.default_rng(7)))
+        check_chk(f"{name} prepare_batch B {trainer.tcfg.batch_size} checked",
+                  checked_run(lambda: trainer.prepare_batch(b)), {"K1": 2 * dino_layers})
+
+    # ---- one step on the card against the CPU
+    batch = next(data.batches(CTRL_CHECK_ROWS, np.random.default_rng(5)))
+    prep = bt.prepare_batch(batch)
+    g = torch.Generator().manual_seed(3)
+    draws = SI.training_draws(CTRL_CHECK_ROWS, prep["expert_act"].shape, "cpu", g)
+    res["bridger"]["card_vs_cpu"] = step_vs_cpu(
+        "BRIDGeR", bt.state.module,
+        lambda m, b, d: BR.bridge_train_loss(bcfg, m, b, {k: v.to(b["state"].device)
+                                                          for k, v in d.items()})[0],
+        prep, draws)
+    lprep = lt.prepare_batch(next(lstm_data.batches(CTRL_CHECK_ROWS, np.random.default_rng(6))))
+    keep = {"keep": LT.dropout_keep(lcfg, {"vla_act": lprep["vla_act"].cpu()}, g)}
+    res["lstm"]["card_vs_cpu"] = step_vs_cpu(
+        "LSTM", lt.state.module,
+        lambda m, b, d: LT._loss_with_obs(lcfg, m, b, d["keep"].to(b["state"].device)),
+        lprep, keep)
+
+    # ---- checkpoints: the port's msgpack writer and reader, bit for bit
+    ck = os.path.join(out_dir, "bridge", "final")
+    t0 = time.perf_counter()
+    bt._save(ck)
+    back = BR.load_bridge_controller(ck)
+    img = dino.load_params(ck, bcfg.image_model, dtype=bt.img.vit.pos_embed.dtype)
+    check_round_trip("BRIDGeR params", dict(back.module.state_dict()),
+                     dict(bt.state.module.state_dict()))
+    check_round_trip("BRIDGeR EMA", back.ema.shadow, bt.state.ema.shadow)
+    check_round_trip("DinoV2", dict(img.state_dict()), dict(bt.img.state_dict()))
+    if int(back.ema.num_updates) != int(bt.state.ema.num_updates):
+        raise AssertionError("BRIDGeR EMA counter differs after the round trip")
+    lck = os.path.join(out_dir, "lstm", "final")
+    lt._save(lck)
+    check_round_trip("LSTM params", dict(L.load_lstm_controller(lck).module.state_dict()),
+                     dict(lt.state.module.state_dict()))
+    mb = sum(os.path.getsize(os.path.join(d, f)) for d in (ck, lck) for f in os.listdir(d))
+    res["checkpoints"] = dict(bytes=mb, save_load_s=time.perf_counter() - t0,
+                              ema_updates=int(back.ema.num_updates))
+    log("checkpoints round-trip bit for bit: " + json.dumps(res["checkpoints"]))
+    del back, img
+
+    # ---- evaluation: launch counts, then every K1/K2 call held to its plain version
+    import dataclasses
+
+    blocks = 4 * len(bcfg.unet_down_dims)
+    need_b = {"K1": 2 * dino_layers,
+              "K2": blocks * bcfg.interpolant.diffusion_steps}
+    sde_cfg = {sde: dataclasses.replace(bcfg, inference_dtype="bfloat16",
+                                        interpolant=dataclasses.replace(bcfg.interpolant,
+                                                                        sde_type=sde))
+               for sde in ("vs", "bs")}
+    for sde in ("vs", "bs"):
+        def ev(sde=sde):
+            return BE.test_diffusion_controller(
+                ck, None, CTRL_EVAL_SAMPLES, state=dataclasses.replace(bt.state, cfg=sde_cfg[sde]),
+                data_module=dm, image_encoder=bt.img)
+        res[f"bridge_test_{sde}"] = run_counted(f"bridge_test {sde}", ev, need_b)
+        check_chk(f"bridge_test {sde} checked", checked_run(ev), need_b)
+
+    def lev():
+        return LE.test_lstm_controller(lck, None, CTRL_EVAL_SAMPLES, CTRL_HORIZON,
+                                       state=lt.state, data_module=dm, image_encoder=bt.img)
+
+    res["lstm_step_test"] = run_counted("lstm_step_test", lev, {"K1": 2 * dino_layers})
+    check_chk("lstm_step_test checked", checked_run(lev), {"K1": 2 * dino_layers})
+
+    # the LSTM's step-by-step rollout against its sequence mode
+    eb = BE.eval_batch(val, CTRL_EVAL_SAMPLES, 0)
+    dev = torch.device("cuda")
+    f1, f2 = (dino.encode_images(bt.img, torch.as_tensor(eb[f"images_cam{c}"][:, -1],
+                                                         device=dev)) for c in (1, 2))
+    lm = lt.state.module.eval()
+    with torch.no_grad():
+        obs = lm.encode_obs(torch.as_tensor(eb["states"][:, 1], device=dev), f1, f2)
+        vla = torch.as_tensor(eb["vla_actions"], device=dev)
+        force = torch.as_tensor(eb["forces"][:, 1:1 + CTRL_HORIZON], device=dev)
+        stepwise = L.lstm_predict_sequence(lcfg, lm, lt.state.stats, obs, vla, force)
+        seq = lm(obs, normalize_actions(vla, lt.state.stats, "vla"), force)
+        stepwise_n = normalize_actions(stepwise, lt.state.stats, "expert")
+    err = float((stepwise_n - seq).abs().max())
+    res["lstm_step_vs_sequence"] = dict(max_abs_err=err, max_abs=float(seq.abs().max()))
+    log("LSTM step-by-step rollout vs sequence mode: " + json.dumps(res["lstm_step_vs_sequence"]))
+    if not err <= LSTM_SEQ_TOL * float(seq.abs().max()):
+        raise AssertionError(f"LSTM step-by-step rollout differs from its sequence mode: {err}")
+
+    # ---- refine ms (B = CTRL_EVAL_SAMPLES, 10 SDE steps, bf16 K2) per SDE
+    state = torch.as_tensor(eb["states"][:, 1], device=dev)
+    forces = torch.as_tensor(eb["forces"][:, 1], device=dev)
+    for sde in ("vs", "bs"):
+        cfg = sde_cfg[sde]
+        mod = BR.deployable(dataclasses.replace(bt.state, cfg=cfg))
+        stacked = BR.stacked_vs(mod) if sde == "vs" else BR.stacked_bs(mod)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def refine():
+            return BR.bridge_predict(cfg, mod, bt.state.stats, state, vla, f1, f2, forces,
+                                     stacked=stacked, generator=gen)
+
+        refine()
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            refine()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        res[f"refine_{sde}_ms_p50"] = float(np.median(ms))
+    log(f"BRIDGeR refine at B {CTRL_EVAL_SAMPLES}, horizon {CTRL_HORIZON}, 10 steps: "
+        f"'vs' {res['refine_vs_ms_p50']:.2f} ms, 'bs' {res['refine_bs_ms_p50']:.2f} ms p50")
+    res["launches"] = counts
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2414,6 +2819,14 @@ def main() -> int:
     log("warm ticks: " + json.dumps(warm))
     del q["runners"], qa, t
 
+    # ---- the residual controllers, trained and evaluated
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ctrl = controllers_phase()
+    log(f"controllers phase: {time.perf_counter() - t1:.1f} s")
+    log("controllers: " + json.dumps({k: v for k, v in ctrl.items()}))
+    torch.cuda.empty_cache()
+
     # ---- the planner
     pl = planner_phase(gen)
     for name, rows in (("k1", k1_rows), ("k2", k2_rows), ("k3", k3_rows), ("k4", k4_rows),
@@ -2429,17 +2842,21 @@ def main() -> int:
                                                      "checked_int8", "tiers",
                                                      "fastest", "best_of_8_ms")}))
 
-    def entry(name, source, replaces, launches, tot):
+    def entry(name, source, replaces, launches, tot, **extra):
         return dict(name=name, route="cuda", source=f"vla_touch_tpu_torch/csrc/{source}",
                     replaces=f"vla_touch_tpu/{replaces}", launches=launches,
                     max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
                     bound_ms=tot["bound_ms"], bound_by=bound_by(tot),
-                    library_ms=tot.get("library_ms"))
+                    library_ms=tot.get("library_ms"), **extra)
 
+    # K1 and K2 run on two main paths: the cold tick and the controllers
+    # phase (training and evaluation), each counted from 0
+    by_path = {k: {"tick": counts[k], "controllers": ctrl["launches"][k]} for k in ("K1", "K2")}
     kernels = [
         entry("flash_attention", "flash_attention.cu", "ops/pallas_attention.py:126",
-              counts["K1"], k1),
-        entry("resblock_fused", "resblock.cu", "ops/pallas_unet.py:203", counts["K2"], k2),
+              sum(by_path["K1"].values()), k1, launches_by_path=by_path["K1"]),
+        entry("resblock_fused", "resblock.cu", "ops/pallas_unet.py:203",
+              sum(by_path["K2"].values()), k2, launches_by_path=by_path["K2"]),
         entry("flash_attention_q8", "flash_attention_q8.cu", "ops/pallas_attention.py:275",
               q["a"]["launches"]["K3"], k3),
         entry("flash_attention_q8t", "flash_attention_q8.cu", "ops/pallas_attention.py:424",

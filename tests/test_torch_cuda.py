@@ -130,7 +130,8 @@ def _k2_case(g, T, Cin, C, device, S=2, B=1, G=512, K=5):
     return w(S, B, T, Cin, scale=1.0), w(S, B, G, scale=1.0), p
 
 
-@pytest.mark.parametrize("T,Cin,C", [(16, 10, 256), (4, 1024, 512), (8, 256, 256)])
+@pytest.mark.parametrize("T,Cin,C", [(16, 10, 256), (4, 1024, 512), (8, 256, 256), (32, 10, 256),
+                                    (32, 256, 256), (20, 256, 512)])
 def test_resblock_kernel_matches_plain(cuda, T, Cin, C):
     """bf16 kernel vs the f32 plain version: 3e-2 (bf16 output)."""
     from vla_touch_tpu_torch.ops import unet_kernels as UK

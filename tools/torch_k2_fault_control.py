@@ -50,8 +50,8 @@ FAULTS = {
     # conv1's items read its operand without the grid barrier that waits
     # for the norm items to have written it
     "missing_grid_barrier": (
-        "  grid.sync();\n  product_phase(a, a.jobs + 3, 1, smem);",
-        "  product_phase(a, a.jobs + 3, 1, smem);"),
+        "  grid.sync();\n  product_phase<NM>(a, a.jobs + 3, 1, smem);",
+        "  product_phase<NM>(a, a.jobs + 3, 1, smem);"),
     # GroupNorm0 reads conv0's partials without the grid barrier that waits
     # for every block to have written them (a race with a short window)
     "missing_first_grid_barrier": (

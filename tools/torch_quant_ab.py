@@ -259,39 +259,6 @@ def parent_k7(lib):
     return large
 
 
-def parent_k2(lib):
-    """The parent's K2 (three launches over four float32 scratch tensors)
-    behind the wrapper's interface."""
-    import torch
-
-    from vla_touch_tpu_torch.csrc import build
-
-    f = lib.resblock_bf16
-    f.argtypes = [_P] * 19 + [_I] * 8 + [ctypes.c_float, _P]
-    f.restype = _I
-
-    def k2(x, cond, p, *, n_groups=8, eps=1e-5):
-        S, B, T, Cin = x.shape
-        k, C, G = p["w0"].shape[1], p["w0"].shape[-1], cond.shape[-1]
-        h0 = torch.empty((S, B, T, C), dtype=torch.float32, device=x.device)
-        h1, res = torch.empty_like(h0), torch.empty_like(h0)
-        film = torch.empty((S, B, 2 * C), dtype=torch.float32, device=x.device)
-        out = torch.empty((S, B, T, C), dtype=torch.bfloat16, device=x.device)
-        has_res = "wr" in p
-        err = f(x.data_ptr(), cond.data_ptr(), *(p[n].data_ptr() for n in (
-                    "w0", "b0", "g0w", "g0b", "fw", "fb", "w1", "b1", "g1w", "g1b")),
-                p["wr"].data_ptr() if has_res else None, p["br"].data_ptr() if has_res else None,
-                h0.data_ptr(), film.data_ptr(), h1.data_ptr(), res.data_ptr(), out.data_ptr(),
-                S, B, T, Cin, C, G, k, n_groups, float(eps),
-                torch.cuda.current_stream(x.device).cuda_stream)
-        build.check(lib, err, "parent resblock_bf16")
-        k2.launches += 1
-        return out
-
-    k2.launches = 0
-    return k2
-
-
 # appended to a copy of this tree's a8w8_matmul.cu: the quantize launch alone
 QUANTIZE_ENTRY = """
 extern "C" int a8w8_quantize(const void* x, int x_f32, long long x_sm, void* xq, void* rs,
@@ -731,20 +698,20 @@ def k8_plans_part(CS, gen):
 # this tree's K2 cut before phase 1 (the launch alone) and after phases 1,
 # 2 and 3: text in resblock.cu and its stand-in
 K2_CUTS = {
-    "launch": ("  product_phase(a, a.jobs, a.n1, smem);",
-               "  return;\n  product_phase(a, a.jobs, a.n1, smem);"),
+    "launch": ("  product_phase<NM>(a, a.jobs, a.n1, smem);",
+               "  return;\n  product_phase<NM>(a, a.jobs, a.n1, smem);"),
     "products0": ("  grid.sync();\n  norm0_phase(a, smem);",
                   "  return;\n  grid.sync();\n  norm0_phase(a, smem);"),
-    "norm0": ("  grid.sync();\n  product_phase(a, a.jobs + 3, 1, smem);",
-              "  return;\n  grid.sync();\n  product_phase(a, a.jobs + 3, 1, smem);"),
+    "norm0": ("  grid.sync();\n  product_phase<NM>(a, a.jobs + 3, 1, smem);",
+              "  return;\n  grid.sync();\n  product_phase<NM>(a, a.jobs + 3, 1, smem);"),
     "conv1": ("  grid.sync();\n  out_phase(a, smem);",
               "  return;\n  grid.sync();\n  out_phase(a, smem);"),
 }
 # this tree's K2 with no phase but its grid barriers (a list of cuts)
 K2_BARRIERS_ONLY = [
-    ("  product_phase(a, a.jobs, a.n1, smem);                  // conv0, film, residual\n", ""),
+    ("  product_phase<NM>(a, a.jobs, a.n1, smem);              // conv0, film, residual\n", ""),
     ("  norm0_phase(a, smem);                                  // GN0, Mish, FiLM -> h\n", ""),
-    ("  product_phase(a, a.jobs + 3, 1, smem);                 // conv1\n", ""),
+    ("  product_phase<NM>(a, a.jobs + 3, 1, smem);             // conv1\n", ""),
     ("  out_phase(a, smem);                                    // GN1, Mish, + residual\n", ""),
 ]
 
@@ -756,13 +723,15 @@ K2_VARIANTS = {
     "stages_5": [("constexpr int STAGES = 4;", "constexpr int STAGES = 5;")],
     # for timing only: no load in the input staging (zeros), no mma
     "no_a_loads": [("v = jb.src == SRC_H ? ld_bf16_l2(p) : bf(p);", "v = 0.f * (float)(size_t)p;")],
-    "no_mma": [("      mma_bf16(acc, af, bfr);", "      acc[0] += __uint_as_float(af[0] ^ bfr[0]);")],
+    "no_mma": [("        mma_bf16(acc[m], af, bfr);",
+                "        acc[m][0] += __uint_as_float(af[0] ^ bfr[0]);")],
 }
 
 
 def k2_with(lib):
-    """K2 of a library built from this tree's resblock.cu (a cut copy)
-    behind the wrapper's interface, under k2_plan's plan."""
+    """K2 of a library built from a resblock.cu with this tree's C interface
+    (a cut copy of this tree's, or the parent's since one cooperative
+    launch) behind the wrapper's interface, under k2_plan's plan."""
     import torch
 
     from vla_touch_tpu_torch.csrc import build
@@ -1225,7 +1194,7 @@ def main() -> int:
                    open(os.path.join(parent_dir, "w4a8_matmul.cu")).read())
     pk9, pk10, k10_with = mk_wrappers(build_lib(parent_dir, "w4_swiglu"),
                                       build_lib(parent_dir, "w4_postattn"))
-    k2 = parent_k2(build_lib(parent_dir, "resblock"))
+    k2 = k2_with(build_lib(parent_dir, "resblock"))
     k5 = parent_k5(build_lib(parent_dir, "w8a16_matmul"))
     k7 = parent_k7(build_lib(parent_dir, "a8w8_matmul_large"))
     torch.backends.cuda.matmul.allow_tf32 = False

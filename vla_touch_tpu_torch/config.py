@@ -1,8 +1,9 @@
 """Configuration dataclasses of the ported slice.
 
-Counterpart of ``vla_touch_tpu/config.py`` restricted to what the cold
-control tick needs (RDT model + noise scheduler, BRIDGeR controller +
-interpolant).  Defaults are identical; dtypes resolve to torch dtypes.
+Counterpart of ``vla_touch_tpu/config.py`` restricted to what the port
+runs: the RDT model and noise scheduler, the BRIDGeR and LSTM controllers
+with the interpolant, and the two controller trainers.  Defaults are
+identical; dtypes resolve to torch dtypes.
 """
 
 from __future__ import annotations
@@ -122,3 +123,59 @@ class BridgeControllerConfig:
     @property
     def unet_dtype(self) -> torch.dtype:
         return torch_dtype(self.inference_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class LSTMControllerConfig:
+    """Tactile LSTM residual controller."""
+
+    state_dim: int = 10
+    hidden_dim: int = 256
+    num_layers: int = 2
+    dropout: float = 0.1
+    force_dim: int = 3
+    use_force: bool = True
+    image_model: str = "dinov2-small"
+
+    @property
+    def visual_dim(self) -> int:
+        return {"dinov2-small": 384, "dinov2-base": 768,
+                "dinov2-large": 1024, "dinov2-giant": 1536}[self.image_model]
+
+    @property
+    def obs_dim(self) -> int:
+        return 2 * self.visual_dim + self.state_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class BridgeTrainConfig:
+    """BRIDGeR trainer settings (``bridge_train`` CLI defaults)."""
+
+    horizon: int = 32
+    batch_size: int = 128
+    epochs: int = 400
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-6
+    ema_decay: float = 0.75
+    context_frames: int = 2
+    val_ratio: float = 0.1
+    ckpt_period_epochs: int = 50
+    seed: int = 42
+    data_format: str = "h5"
+    prefetch_workers: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class LSTMTrainConfig:
+    """LSTM trainer settings (``lstm_train`` CLI defaults)."""
+
+    horizon: int = 32
+    batch_size: int = 256
+    epochs: int = 500
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-6
+    eval_period_epochs: int = 5
+    val_ratio: float = 0.1
+    seed: int = 42
+    data_format: str = "h5"
+    prefetch_workers: int = 0

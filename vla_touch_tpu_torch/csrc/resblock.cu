@@ -13,7 +13,7 @@
 // products take bf16 operands (x, the FiLM'd h, Mish(cond)) and the bf16
 // weights, with float32 sums; bias, GroupNorm, Mish and FiLM are float32.
 //
-// What bounds it on an H100: bytes.  At batch 1 each weight meets T <= 16
+// What bounds it on an H100: bytes.  At batch 1 each weight meets T <= 32
 // time steps, so the block streams its weights (up to 13 MB a call) at
 // under 16 operations a byte.  The design spreads every weight matrix over
 // the whole card and reads each weight byte once, in ONE cooperative
@@ -26,8 +26,8 @@
 //            through a 4-slot cp.async ring (16-byte pieces, 4 mma steps
 //            of 16 rows a slot) and runs mma.sync
 //            m16n8k16 bf16 -> f32 on ldmatrix fragments: the time axis is
-//            the M = 16 tile (T = 4, 8 zero-padded), each warp one
-//            8-column tile; a tap d of the conv reads the staged input rows
+//            one M = 16 tile (T = 4, 8 zero-padded) or, above 16 steps, two
+//            (the trained horizon 32), each warp one 8-column tile; a tap d of the conv reads the staged input rows
 //            shifted by d; the item writes its float32 partial to scratch;
 //   --- grid barrier
 //   phase 2  one item per (s, b, group): conv0's splits summed in split
@@ -69,7 +69,11 @@ constexpr int STAGES = 4;                   // 5 measured 1-2 % slower (PERF.md)
 constexpr int WPITCH = CT + 8;              // bf16 per ring row: 144 bytes
 constexpr int STAGE_ELEMS = SR * KS * WPITCH;
 constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
-constexpr int MAXT = 16;                    // the time axis is one m16 tile
+constexpr int MT = 16;                      // time rows of one m16 tile
+constexpr int MAXT = 2 * MT;                // the time axis: at most two m16 tiles
+
+// m16 tiles of a time axis of T steps
+__host__ __device__ __forceinline__ int mtiles(int T) { return (T + MT - 1) / MT; }
 
 // One product of a phase: y[t, n] = sum_{d, ci} A[t + d + shift, ci] *
 // w[s, d, ci, n] over `taps` taps of `rci` input channels, cut into
@@ -230,7 +234,9 @@ __device__ __forceinline__ void load_stage(const Job& jb, int s, int n0, int2 st
 }
 
 // One product item: network s, batch row b, output columns [n0, n0 + 64),
-// split z of the job's mma steps.
+// split z of the job's mma steps.  NM: the m16 tiles of the time axis (a
+// template argument, so that T <= 16 compiles to one tile's code).
+template <int NM>
 __device__ void product_item(const Args& a, const Job& jb, int s, int b, int n0, int z,
                              unsigned char* smem) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -262,7 +268,7 @@ __device__ void product_item(const Args& a, const Job& jb, int s, int b, int n0,
       abuf[e] = __float2bfloat16(v);
     }
   } else {
-    const int rows = MAXT + a.K - 1, pad = a.K / 2;
+    const int rows = NM * MT + a.K - 1, pad = a.K / 2;
     const bf16* sp = (jb.src == SRC_H ? a.h : a.x) + (size_t)sb * a.T * rci;
 #pragma unroll 4
     for (int e = tid; e < rows * width; e += NT) {
@@ -277,7 +283,8 @@ __device__ void product_item(const Args& a, const Job& jb, int s, int b, int n0,
     }
   }
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const int nm = jb.src == SRC_COND ? 1 : NM;   // the film product: one row
+  float acc[NM][4] = {};
   for (int sg = 0; sg < nstage; ++sg) {
     cp_async_wait<STAGES - 2>();            // stage sg has landed
     __syncthreads();                        // (and A is staged; every warp is past sg - 1)
@@ -291,12 +298,18 @@ __device__ void product_item(const Args& a, const Job& jb, int s, int b, int n0,
       if (k >= st.y) break;
       const int c16 = k / taps, d = k - c16 * taps;
       const int ac = (c16 - c_lo) * KS + (lane >> 4) * 8;
-      const bf16* ap =
-          jb.src == SRC_COND ? abuf + ac : abuf + ((lane & 15) + d + jb.shift) * lda + ac;
-      unsigned af[4], bfr[2];
-      ldmatrix_x4(af, ap);
+      unsigned bfr[2];
       ldmatrix_x2_trans(bfr, stg + (kk * KS + (lane & 15)) * WPITCH + warp * 8);
-      mma_bf16(acc, af, bfr);
+#pragma unroll
+      for (int m = 0; m < NM; ++m) {
+        if (m >= nm) break;
+        const bf16* ap = jb.src == SRC_COND
+                             ? abuf + ac
+                             : abuf + (m * MT + (lane & 15) + d + jb.shift) * lda + ac;
+        unsigned af[4];
+        ldmatrix_x4(af, ap);
+        mma_bf16(acc[m], af, bfr);
+      }
     }
   }
   cp_async_wait<0>();
@@ -306,13 +319,15 @@ __device__ void product_item(const Args& a, const Job& jb, int s, int b, int n0,
   if (col < ncols) {
     float* part = jb.part + (((size_t)sb * jb.splits + z) * jb.rows) * ncols + col;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = g + h * 8;
-      if (row < jb.rows) {
-        part[(size_t)row * ncols] = acc[h * 2];
-        part[(size_t)row * ncols + 1] = acc[h * 2 + 1];
+    for (int m = 0; m < NM; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m * MT + g + h * 8;
+        if (m < nm && row < jb.rows) {
+          part[(size_t)row * ncols] = acc[m][h * 2];
+          part[(size_t)row * ncols + 1] = acc[m][h * 2 + 1];
+        }
       }
-    }
   }
 }
 
@@ -337,11 +352,12 @@ __device__ __forceinline__ bool item_of(const Args& a, const Job* jobs, int njob
 }
 
 // Every item of the phase's jobs over the grid.
+template <int NM>
 __device__ void product_phase(const Args& a, const Job* jobs, int njobs, unsigned char* smem) {
   Job jb;
   int s, n0, z;
   for (int it = blockIdx.x; item_of(a, jobs, njobs, it, jb, s, n0, z); it += gridDim.x)
-    for (int b = 0; b < a.B; ++b) product_item(a, jb, s, b, n0, z, smem);
+    for (int b = 0; b < a.B; ++b) product_item<NM>(a, jb, s, b, n0, z, smem);
 }
 
 // One item per (s, b, group): conv0's split sums + b0, GroupNorm0, Mish and
@@ -405,47 +421,55 @@ __device__ void out_phase(const Args& a, unsigned char* smem) {
   }
 }
 
+template <int NM>
 __global__ void __launch_bounds__(NT, 2) resblock_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  product_phase(a, a.jobs, a.n1, smem);                  // conv0, film, residual
+  product_phase<NM>(a, a.jobs, a.n1, smem);              // conv0, film, residual
   grid.sync();
   norm0_phase(a, smem);                                  // GN0, Mish, FiLM -> h
   grid.sync();
-  product_phase(a, a.jobs + 3, 1, smem);                 // conv1
+  product_phase<NM>(a, a.jobs + 3, 1, smem);             // conv1
   grid.sync();
   out_phase(a, smem);                                    // GN1, Mish, + residual
 }
 
-// Dynamic shared memory of a block: the ring, the widest A (MAXT + K - 1
-// rows of all input channels, or the film row), then at hv_off a group's
-// float32 values, the block sums' scratch and four float32 values per
-// element of the group (the norm phases' ex).
-size_t resblock_hv_off(int Cin, int C, int G, int K) {
+// Dynamic shared memory of a block: the ring, the widest A (the m16 tiles
+// of T plus K - 1 rows of all input channels, or the film row), then at
+// hv_off a group's float32 values, the block sums' scratch and four float32
+// values per element of the group (the norm phases' ex).
+size_t resblock_hv_off(int T, int Cin, int C, int G, int K) {
   const int wmax = ((Cin > C ? Cin : C) + KS - 1) / KS * KS + 8;
-  size_t a_elems = (size_t)(MAXT + K - 1) * wmax;
+  size_t a_elems = (size_t)(mtiles(T) * MT + K - 1) * wmax;
   const size_t film = (size_t)(G + KS - 1) / KS * KS + 8;
   if (film > a_elems) a_elems = film;
   return (RING_BYTES + 2 * a_elems + 15) / 16 * 16;
 }
 
 size_t resblock_smem(int T, int Cin, int C, int G, int K, int n_groups) {
-  return resblock_hv_off(Cin, C, G, K) + 4 * (5 * (size_t)T * (C / n_groups) + NWARP);
+  return resblock_hv_off(T, Cin, C, G, K) + 4 * (5 * (size_t)T * (C / n_groups) + NWARP);
 }
 
-// The grid of the cooperative launch: every block resident (occupancy API),
-// 0 when not one block fits an SM.  Attribute and occupancy calls run once
-// per shared-memory size and are kept, so that a launch inside CUDA-graph
-// capture makes none; the kernel's shared-memory limit only rises (the
-// largest size any launch asked for), so a narrower call never lowers it
-// under a wider one's cached launch.
-cudaError_t resblock_grid(size_t smem, int* grid) {
-  struct Entry { size_t smem; int grid; };
+// The kernel for a time axis of T steps: one m16 tile, or two.
+const void* resblock_kernel_for(int T) {
+  return mtiles(T) == 1 ? (const void*)resblock_kernel<1> : (const void*)resblock_kernel<2>;
+}
+
+// The grid of the cooperative launch of the kernel for T steps: every block
+// resident (occupancy API), 0 when not one block fits an SM.  Attribute and
+// occupancy calls run once per (shared-memory size, kernel) and are kept,
+// so that a launch inside CUDA-graph capture makes none; each kernel's
+// shared-memory limit only rises (the largest size any launch asked for),
+// so a narrower call never lowers it under a wider one's cached launch.
+cudaError_t resblock_grid(size_t smem, int T, int* grid) {
+  struct Entry { size_t smem; int nm, grid; };
   static Entry cache[32];
   static int n = 0;
-  static size_t limit = 0;
+  static size_t limit[2] = {0, 0};
+  const int nm = mtiles(T);
+  const void* kern = resblock_kernel_for(T);
   for (int i = 0; i < n; ++i)
-    if (cache[i].smem == smem) {
+    if (cache[i].smem == smem && cache[i].nm == nm) {
       *grid = cache[i].grid;
       return cudaSuccess;
     }
@@ -459,20 +483,19 @@ cudaError_t resblock_grid(size_t smem, int* grid) {
     *grid = 0;
     return cudaSuccess;
   }
-  if (smem > limit) {
-    err = cudaFuncSetAttribute(resblock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+  if (smem > limit[nm - 1]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    limit = smem;
+    limit[nm - 1] = smem;
   }
   int sms = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, resblock_kernel, NT, smem)) !=
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem)) !=
       cudaSuccess)
     return err;
   *grid = per_sm * sms;
-  if (n < 32) cache[n++] = Entry{smem, *grid};
+  if (n < 32) cache[n++] = Entry{smem, nm, *grid};
   return cudaSuccess;
 }
 
@@ -488,13 +511,13 @@ const char* vtt_error_string(int err) {
 // does not fit an SM); the plan (ops/unet_kernels.py::k2_plan) sizes its
 // splits to them.
 int resblock_ctas(int T, int Cin, int C, int G, int K, int n_groups, int* ctas) {
-  return (int)resblock_grid(resblock_smem(T, Cin, C, G, K, n_groups), ctas);
+  return (int)resblock_grid(resblock_smem(T, Cin, C, G, K, n_groups), T, ctas);
 }
 
 // x (S, B, T, Cin), cond (S, B, G), w0 (S, K, Cin, C), w1 (S, K, C, C),
 // fw (S, G, 2C), wr (S, Cin, C) or null (identity residual), vectors
 // (S, C) / fb (S, 2C); all bf16 contiguous, weights 16-byte aligned, C %
-// 16 == 0, T <= 16.  The splits p0, pf, pr, p1 of conv0, FiLM, the
+// 16 == 0, T <= 32.  The splits p0, pf, pr, p1 of conv0, FiLM, the
 // residual and conv1 come from k2_plan; scratch holds
 // float32 partials (S, B, p0, T, C), (S, B, pf, 2C), (S, B, pr, T, C) (with
 // wr), (S, B, p1, T, C), then conv1's bf16 operand (S, B, T, C):
@@ -545,16 +568,16 @@ int resblock_bf16(const void* x, const void* cond, const void* w0, const void* b
   a.C = C;
   a.K = K;
   a.n_groups = n_groups;
-  a.hv_off = (int)resblock_hv_off(Cin, C, G, K);
+  a.hv_off = (int)resblock_hv_off(T, Cin, C, G, K);
   a.eps = eps;
 
   const size_t smem = resblock_smem(T, Cin, C, G, K, n_groups);
   int grid = 0;
-  cudaError_t err = resblock_grid(smem, &grid);
+  cudaError_t err = resblock_grid(smem, T, &grid);
   if (err != cudaSuccess) return (int)err;
   if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)resblock_kernel, dim3(grid), dim3(NT), params,
+  err = cudaLaunchCooperativeKernel(resblock_kernel_for(T), dim3(grid), dim3(NT), params,
                                     smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

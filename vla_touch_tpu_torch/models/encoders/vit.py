@@ -54,6 +54,8 @@ class ViTConfig:
 
 DINOV2_SMALL = ViTConfig(hidden_size=384, num_layers=12, num_heads=6,
                          mlp_dim=1536, image_size=518)
+DINOV2_BASE = ViTConfig(hidden_size=768, num_layers=12, num_heads=12,
+                        mlp_dim=3072, image_size=518)
 SIGLIP_SO400M = ViTConfig(hidden_size=1152, num_layers=27, num_heads=16,
                           mlp_dim=4304, image_size=384, use_cls_token=False,
                           use_layerscale=False, gelu_tanh=True)

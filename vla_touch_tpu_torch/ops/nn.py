@@ -117,6 +117,29 @@ def _gelu_erf_bf16_table(device: torch.device):
     return _gelu_erf_program(bits.view(torch.bfloat16), torch.exp).to(device)
 
 
+class _GeluErf(torch.autograd.Function):
+    """float32 :func:`gelu_erf` with JAX's derivative of
+    ``jax.nn.gelu(approximate=False)``: 0.5 erfc(-x / sqrt(2)) + x
+    exp(-x^2 / 2) / sqrt(2 pi), in float32, as ``jax.grad`` writes it (erfc's
+    rule -2 / sqrt(pi) exp(-u^2) du at u = -x / sqrt(2)).  Autograd through
+    the forward's erfc polynomial, selects and flushes would give another
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gelu_erf_program(x, torch.exp)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        c = _const(0.707106769, torch.float32)
+        u = -x * c
+        q = ((_const(-2 / math.sqrt(math.pi), torch.float32) * (x * 0.5 * g))
+             * torch.exp(-(u * u))) * c
+        return -q + 0.5 * (g * _erfc_xla(u, torch.exp))
+
+
 def gelu_erf(x):
     """``jax.nn.gelu(x, approximate=False)`` under ``jit``, as XLA:CPU
     computes it: 0.5 x erfc(-x / sqrt(2)) with :func:`_erfc_xla`, every
@@ -133,6 +156,8 @@ def gelu_erf(x):
         return _gelu_erf_bf16_table(x.device)[idx]
     if x.dtype != torch.float32:
         raise TypeError(f"gelu_erf: float32 or bfloat16, got {x.dtype}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GeluErf.apply(x)
     return _gelu_erf_program(x, torch.exp)
 
 
@@ -272,3 +297,81 @@ class ConvTranspose1d(nn.Module):
         y = F.conv_transpose1d(x.transpose(1, 2), self.weight, self.bias,
                                stride=self.stride, padding=self.padding)
         return y.transpose(1, 2)
+
+
+class LayerNorm(nn.Module):
+    """flax's ``LayerNorm`` (epsilon 1e-6, ``use_fast_variance``): var =
+    max(0, mean(x^2) - mean(x)^2), y = (x - mean) (rsqrt(var + eps) weight)
+    + bias."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        mu = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min((x * x).mean(dim=-1, keepdim=True) - mu * mu, 0.0)
+        return (x - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+def dropout(x, rate: float, keep):
+    """flax's ``Dropout`` under the keep mask ``keep`` (x's shape, bool):
+    where(keep, x / (1 - rate), 0)."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class LSTMCellTorch(nn.Module):
+    """One LSTM cell with torch's gate order (i, f, g, o) and double bias
+    (``ih`` and ``hh`` Linears).  carry (h, c); x (B, input_dim)."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.ih = nn.Linear(input_size, 4 * hidden_size)
+        self.hh = nn.Linear(hidden_size, 4 * hidden_size)
+
+    def forward(self, carry, x):
+        h_prev, c_prev = carry
+        i, f, g, o = torch.chunk(self.ih(x) + self.hh(h_prev), 4, dim=-1)
+        i, f, o = (1 / (1 + torch.exp(-v)) for v in (i, f, o))
+        c = f * c_prev + i * torch.tanh(g)
+        h = o * torch.tanh(c)
+        return (h, c), h
+
+
+class StackedLSTM(nn.Module):
+    """Multi-layer unidirectional LSTM; cells ``layer{i}``.  The sequence
+    runs :meth:`step_fn` step by step, so the sequence mode and the
+    stateful single step are the same arithmetic."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 2):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer{i}", LSTMCellTorch(input_size if i == 0 else hidden_size,
+                                                       hidden_size))
+
+    def init_carry(self, batch: int, device=None, dtype=torch.float32):
+        z = torch.zeros((batch, self.hidden_size), device=device, dtype=dtype)
+        return tuple((z, z) for _ in range(self.num_layers))
+
+    def step_fn(self, carry, x_t):
+        """One time step through all layers; carry: tuple of (h, c)."""
+        new = []
+        inp = x_t
+        for i, layer_carry in enumerate(carry):
+            layer_carry, inp = getattr(self, f"layer{i}")(layer_carry, inp)
+            new.append(layer_carry)
+        return tuple(new), inp
+
+    def forward(self, xs, carry=None):
+        """xs (B, T, D) -> (ys (B, T, H), final carry)."""
+        if carry is None:
+            carry = self.init_carry(xs.shape[0], xs.device, xs.dtype)
+        ys = []
+        for t in range(xs.shape[1]):
+            carry, y = self.step_fn(carry, xs[:, t])
+            ys.append(y)
+        return torch.stack(ys, dim=1), carry

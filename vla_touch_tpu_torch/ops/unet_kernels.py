@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_MAX_T = 16
+_MAX_T = 32          # two m16 tiles of time rows (horizon 32 at the first level)
 
 # K2's plan: the kernel's products (conv0, FiLM, the 1x1 residual; then
 # conv1) are cut into items of K2_COLS output columns x one range of their
@@ -175,7 +175,7 @@ def resblock_fused(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
 
     x (S, B, T, Cin), cond (S, B, G), ``p`` in the module's kernel layout
     -> (S, B, T, C) in x's dtype.  CUDA: everything bf16 and contiguous,
-    T <= 16, C a multiple of 16 and of ``n_groups``; anything else raises.
+    T <= 32, C a multiple of 16 and of ``n_groups``; anything else raises.
     """
     if x.device.type == "cpu":
         return resblock_ref(x, cond, p, n_groups=n_groups, eps=eps).to(x.dtype)

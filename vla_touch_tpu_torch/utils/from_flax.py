@@ -106,6 +106,100 @@ def bridge_controller(params: dict, ema_shadow: dict) -> dict:
     return to_state_dict({**enc, "si": ema_shadow})
 
 
+def _expect_keys(what: str, tree: dict, allowed: set, required: set) -> None:
+    """Key-coverage check of a whole tree's top level: every key known,
+    every required key present."""
+    extra, missing = sorted(set(tree) - allowed), sorted(required - set(tree))
+    if extra or missing:
+        raise KeyError(f"{what}: unexpected {extra[:8]}, missing {missing[:8]}")
+
+
+def unet_bundle(si: dict) -> dict:
+    """The ``si`` tree (``{"b_net", "v_net", "s_net"}``, live or EMA) ->
+    state dict names relative to the port's ``SITripleUnet``."""
+    _expect_keys("si", si, {"b_net", "v_net", "s_net"}, {"b_net", "v_net", "s_net"})
+    return to_state_dict(si)
+
+
+def bridge_controller_full(params: dict) -> dict:
+    """The whole BRIDGeR parameter tree, the force decoder ``fd_fc*``
+    included (training; ``BridgeControllerModule(cfg, force_decoder=True)``)."""
+    enc = {f"se_fc{i}" for i in (1, 2, 3)}
+    dec = {f"fd_fc{i}" for i in (1, 2, 3)}
+    _expect_keys("bridge controller", params, enc | dec | {"si"}, enc | {"si"})
+    if dec & set(params) and not dec <= set(params):
+        raise KeyError(f"bridge controller: partial force decoder {sorted(dec & set(params))}")
+    unet_bundle(params["si"])
+    return to_state_dict(params)
+
+
+def lstm_controller(params: dict) -> dict:
+    """The LSTM residual controller tree (``models/controllers/lstm.py``)."""
+    names = {"force_fc1", "force_fc2", "obs_fc1", "obs_fc2", "obs_fc3", "lstm",
+             "head_fc1", "head_norm", "head_fc2"}
+    _expect_keys("lstm controller", params, names, names)
+    return to_state_dict(params)
+
+
+def dinov2_runtime(params: dict) -> dict:
+    """The controllers' DinoV2 tree (``{"vit": ...}``, as
+    ``dinov2_runtime.init_params`` makes it)."""
+    _expect_keys("dinov2", params, {"vit"}, {"vit"})
+    return to_state_dict(params, lists=("block",))
+
+
+def to_flax(module: torch.nn.Module, state: dict = None) -> dict:
+    """The inverse of :func:`to_state_dict`: a port module -> the flax tree
+    of numpy float32 arrays the JAX package's module holds.  Leaves come
+    from ``state`` (name -> tensor, the module's names) when given, else
+    from the module.  Linear -> Dense ``kernel`` (in, out) (a ViT's patch
+    Linear -> the HWIO patch Conv kernel); Conv1d / ConvTranspose1d -> the
+    inner ``conv`` level's (k, Cin, F) kernel (the latter flipped back);
+    norms' ``weight`` -> ``scale``; ``blocks.{i}`` -> ``block{i}``."""
+    from vla_touch_tpu_torch.ops import nn as N
+
+    def leaf(name, t):
+        t = state[name] if state is not None else t
+        return t.detach().float().cpu().numpy()
+
+    tree: dict = {}
+
+    def put(path, key, arr):
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[key] = np.ascontiguousarray(arr)
+
+    for mname, m in module.named_modules():
+        own = dict(m.named_parameters(recurse=False))
+        if not own:
+            continue
+        path = re.sub(r"(^|\.)blocks\.(\d+)", r"\1block\2", mname).split(".") if mname else []
+        full = {k: (f"{mname}.{k}" if mname else k) for k in own}
+        if isinstance(m, torch.nn.Linear):
+            w = leaf(full["weight"], m.weight)
+            if path and path[-1] == "patch_embed":
+                p = int(round((w.shape[1] // 3) ** 0.5))
+                put(path, "kernel", w.T.reshape(p, p, w.shape[1] // (p * p), w.shape[0]))
+            else:
+                put(path, "kernel", w.T)
+            if m.bias is not None:
+                put(path, "bias", leaf(full["bias"], m.bias))
+        elif isinstance(m, (N.Conv1d, N.ConvTranspose1d)):
+            w = leaf(full["weight"], m.weight)
+            w = (w.transpose(2, 1, 0) if isinstance(m, N.Conv1d)
+                 else w.transpose(2, 0, 1)[::-1])
+            put(path + ["conv"], "kernel", w)
+            put(path + ["conv"], "bias", leaf(full["bias"], m.bias))
+        elif isinstance(m, (torch.nn.LayerNorm, N.LayerNorm)):
+            put(path, "scale", leaf(full["weight"], m.weight))
+            put(path, "bias", leaf(full["bias"], m.bias))
+        else:
+            for k, t in own.items():
+                put(path, k, leaf(full[k], t))
+    return tree
+
+
 def _port_path(path) -> list:
     out = []
     for p in path:
