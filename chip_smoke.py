@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's control tick (cold and steady-state), its residual
-controllers' training and evaluation, and its planner on one NVIDIA GPU.
+controllers' training and evaluation, RDT-1B finetuning, and its planner on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -84,6 +85,18 @@ controllers' training and evaluation, and its planner on one NVIDIA GPU.
    runs (every K1/K2 call against its plain version); the LSTM's
    step-by-step rollout against its sequence mode; step ms, samples/s,
    peak memory, the DinoV2 share of a step and the refine ms.
+   Then RDT finetuning (``rdt_train_phase``): RDT-1B and SigLIP So400m at
+   batch 4 x accumulation 4 on seeded synthetic npz episodes (384^2
+   frames, a 32-token instruction) through ``RDTTrainer.train`` for
+   RDT_STEPS steps, one sampling eval and the final checkpoint, with K1's
+   launches asserted a step (SigLIP 27, the micro-batches' 224) and for the
+   eval (280); before it K1's autograd route against the plain autograd at
+   the three RDT training shapes and a depth-2 card step against the CPU
+   step; after it the probe's loss fall (gated), the checkpoint read back
+   bit for bit, one step as a checked run and one profiled; step ms,
+   samples/s, TFLOP/s, SigLIP's share, optimizer ms, checkpoint bytes and
+   seconds, peak memory.  K1_SHAPES carries the training shapes, timed per
+   step.
 8. The planner: holds K9 (w4 SwiGLU MLP) and K10 (w4 post-attention) at
    Qwen2.5-7B width (M 1, 8, 24 and 1, 8), K8 at the planner's w4 linears
    (decode and prompt-pass M; per prompt pass of 72 and 442 tokens summed,
@@ -102,8 +115,10 @@ controllers' training and evaluation, and its planner on one NVIDIA GPU.
    request again at 4 tokens (and the int8 request at 2) with each kernel
    call held to its plain version on its own operands; the decode tiers (unfused, fused, fused + megakernels),
    best-of-8 throughput and a profiled decode.
-9. Prints one ``kernels`` JSON line (ten kernels; K1's and K2's launches
-   are the tick's plus the controllers phase's, each path counted from 0;
+9. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
+   tick's, the controllers phase's and RDT finetuning's, K2's the tick's
+   and the controllers', each path counted from 0; K1 also carries its
+   sums over a training step's calls (``train_step``);
    K5's and K7's are the shadow calls of (f)'s checked tick), the ``nvidia-smi`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -554,7 +569,19 @@ K1_SHAPES = [
     # one fused projection) on the warm tick's 3 frames and a cold tick's 6
     ("siglip_serve_self_3", 3, 729, 729, 16, 72, "fused", None, 0),
     ("siglip_serve_self_6", 6, 729, 729, 16, 72, "fused", None, 0),
+    # RDT finetuning (rdt_train_phase), calls per training step of
+    # batch_size 4 x grad_accum 4: the forward of each micro-batch (28
+    # self-attentions, 14 image and 14 language cross-attentions over the
+    # collated 1024 keys, a RDT_LANG_LEN-token instruction) and SigLIP over
+    # the step's 16 x 6 frames
+    ("rdt_train_self", 4, 67, 67, 32, 64, "self", None, 112),
+    ("rdt_train_image_cross", 4, 67, 4374, 32, 64, "cross", None, 56),
+    ("rdt_train_lang_cross", 4, 67, 1024, 32, 64, "cross", "short", 56),
+    ("siglip_train_b96", 96, 729, 729, 16, 72, "vit", None, 27),
 ]
+# the rows above whose calls are per RDT training step, not per tick
+K1_TRAIN_ROWS = ("rdt_train_self", "rdt_train_image_cross", "rdt_train_lang_cross",
+                 "siglip_train_b96")
 
 
 def k1_operands(gen, B, Lq, Lkv, H, D, layout):
@@ -601,12 +628,17 @@ def dead_split_mask(B, Lkv, plan):
 def k1_mask(B, Lq, Lkv, H, kind):
     """None, or a (B, Lkv) mask: row 0 keeps 50 keys ("ragged"), and row 1
     keeps none as well ("empty"); row 0 keeps its first Lkv // 3 keys and
-    row 1 none ("empty_wide"); or "dead_split", every key of K1's second
-    split (at D 64) masked."""
+    row 1 none ("empty_wide"); "short", every row keeps its first
+    RDT_LANG_LEN keys; or "dead_split", every key of K1's second split (at
+    D 64) masked."""
     import torch
 
     if kind is None:
         return None
+    if kind == "short":
+        mask = torch.zeros((B, Lkv), dtype=torch.bool, device="cuda")
+        mask[:, :RDT_LANG_LEN] = True
+        return mask
     if kind == "dead_split":
         return dead_split_mask(B, Lkv, k1_splits(B, Lq, Lkv, H))
     mask = torch.ones((B, Lkv), dtype=torch.bool, device="cuda")
@@ -635,6 +667,9 @@ def k1_bound_ms(B, Lq, Lkv, H, D, masked):
 
 
 def check_k1(gen, shapes=None):
+    """Every K1 shape held to its plain version and timed.  Returns (rows,
+    the tick's sums over its calls, with those of K1_TRAIN_ROWS' calls per
+    RDT training step under "train_step")."""
     import torch.nn.functional as F
 
     from vla_touch_tpu_torch.ops import flash_attention as FA
@@ -642,6 +677,8 @@ def check_k1(gen, shapes=None):
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
                bytes_ms=0.0, ops_ms=0.0)
+    train = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, calls=0)
+    tot["train_step"] = train
     for name, B, Lq, Lkv, H, D, layout, mask_kind, calls in shapes or K1_SHAPES:
         # enough distinct operand sets that a timing loop misses the L2 cache
         n_sets = max(1, min(8, -(-2 * L2_BYTES // (2 * 2 * B * Lkv * H * D))))
@@ -684,10 +721,17 @@ def check_k1(gen, shapes=None):
         rows.append(dict(shape=name, B=B, Lq=Lq, Lkv=Lkv, H=H, D=D, layout=layout,
                          calls=calls, splits=splits, max_abs_err=err, tol=tol, ms=ms, eager_ms=eager_ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound))
+        per_step = name in K1_TRAIN_ROWS
         log(f"{where}: err {err:.3e} "
             f"(tol {tol:.3e}) kernel {ms:.4f} ms (eager loop {eager_ms:.4f}) "
             f"plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound {bound:.4f} ms "
-            f"x{calls}/tick")
+            f"x{calls}/{'training step' if per_step else 'tick'}")
+        if per_step:
+            train["calls"] += calls
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                           ("bound_ms", bound)):
+                train[key] += calls * v
+            continue
         tot["ms"] += calls * ms
         tot["plain_ms"] += calls * plain_ms
         tot["library_ms"] += calls * lib_ms
@@ -2726,6 +2770,514 @@ def controllers_phase() -> dict:
     return res
 
 
+# ---- RDT finetuning -------------------------------------------------------------
+
+RDT_STEPS = 24                     # trainer steps of the main path
+RDT_LANG_LEN = 32                  # instruction tokens of the synthetic episodes
+RDT_EPISODES, RDT_EP_STEPS = 3, 48
+RDT_SEED = 0
+# The main path's loss fall on a fixed probe batch (fixed noise and
+# timesteps): (probe loss before - after RDT_STEPS steps) / before, at least
+# RDT_FALL_MIN.  On an H100 a sound run reads 0.971; the planted faults of
+# tools/torch_rdt_train_fault_control.py, the optimizer's updates zeroed and
+# the learning rate 0, read 0.0 and 0.0.
+RDT_FALL_MIN = 0.5
+# bf16 parity of one RDT loss + gradient, the tolerances of
+# tests/test_torch_rdt_train.py (the port against JAX at rdt_tiny in bf16,
+# where the measured spread and a wrong cast map's readings are stated):
+# the loss's relative error, each gradient leaf's max abs error over its
+# max |grad|, and the whole gradient's relative L2 error.  Here: the card's
+# step against the CPU's (an H100 reads 0, 4.3e-3 and 2.0e-3).
+RDT_LOSS_RTOL_BF16 = 2e-4
+RDT_GRAD_LEAF_TOL_BF16 = 5e-2
+RDT_GRAD_L2_TOL_BF16 = 6e-3
+# K1's autograd Function against attention_plain's autograd on the card:
+# each of dq, dk, dv's max abs error over its max |plain grad| (the
+# backward is the plain program recomputed: equal but for reduction order)
+RDT_K1_GRAD_TOL = 1e-3
+# (name, B, Lq, Lkv, H, D, layout, mask kind): the RDT training attentions
+K1_GRAD_SHAPES = [("rdt_train_self", 4, 67, 67, 32, 64, "self", None),
+                  ("rdt_train_image_cross", 4, 67, 4374, 32, 64, "cross", None),
+                  ("rdt_train_lang_cross", 4, 67, 1024, 32, 64, "cross", "short")]
+
+
+def rdt_k1_need(m, tcfg, siglip_layers: int, steps: int = 5) -> dict:
+    """K1 launches of one training step (SigLIP, then two attentions a block
+    in each micro-batch's forward, twice with remat) and of one
+    ``sample_metrics`` (two a block at each of ``steps`` solver steps)."""
+    per_micro = 2 * m.depth * (2 if m.remat_blocks else 1)
+    return {"step": siglip_layers + tcfg.grad_accum * per_micro,
+            "sample": steps * 2 * m.depth}
+
+
+def rdt_tflop(m, samples: int, lang_len: int, vcfg, frames: int) -> dict:
+    """Model TFLOP of one training step from the shapes (2 per multiply-add;
+    attention 4 B H Lq Lkv D): the RDT forward over ``samples`` samples
+    times 3 (forward and a backward of twice its work), and SigLIP's
+    forward over ``frames`` frames."""
+    H, x = m.hidden_size, m.horizon + 3
+
+    def lin(rows, k, n):
+        return 2.0 * rows * k * n
+
+    fwd = (lin(m.horizon + 1, 2 * m.state_token_dim, H) + 2 * lin(m.horizon + 1, H, H)
+           + lin(lang_len, m.lang_token_dim, H) + lin(lang_len, H, H)
+           + lin(m.img_cond_len, m.img_token_dim, H) + lin(m.img_cond_len, H, H)
+           + 2 * (lin(1, 256, H) + lin(1, H, H)))
+    for i in range(m.depth):
+        L = lang_len if i % 2 == 0 else m.img_cond_len
+        fwd += (lin(x, H, 3 * H) + 4.0 * x * x * H + lin(x, H, H)          # self-attention
+                + lin(x, H, H) + lin(L, H, 2 * H) + 4.0 * x * L * H + lin(x, H, H)
+                + 2 * lin(x, H, H))                                          # cross, MLP
+    fwd += lin(x, H, H) + lin(x, H, m.output_dim)
+    D, n = vcfg.hidden_size, (vcfg.image_size // vcfg.patch_size) ** 2
+    sig = lin(n, vcfg.patch_size ** 2 * 3, D) + vcfg.num_layers * (
+        lin(n, D, 3 * D) + 4.0 * n * n * D + lin(n, D, D) + 2 * lin(n, D, vcfg.mlp_dim))
+    return {"rdt": 3 * samples * fwd / 1e12, "siglip": frames * sig / 1e12}
+
+
+def rdt_episodes(root: str) -> list:
+    from vla_touch_tpu_torch.data.episode import make_synthetic_dataset
+
+    return make_synthetic_dataset(root, n_episodes=RDT_EPISODES, num_steps=RDT_EP_STEPS,
+                                  img_size=384, chunk=64, lang_len=RDT_LANG_LEN,
+                                  with_vla=False)
+
+
+def rdt_configs(depth=None, **train_kw):
+    """RDT-1B (``depth`` cut when given), the JAX package's default recipe
+    (f32 master, AdamW, batch 4 x accumulation 4, f32 accumulator and EMA,
+    lr 1e-4) without the 500-step warm-up (it would hold the rate at or
+    under 24/500 of 1e-4 for the whole run), one sampling eval and no
+    checkpoint before the final one; the data as the JAX default (no image
+    augmentation) on 384^2 frames."""
+    from vla_touch_tpu_torch.config import (DataConfig, NoiseSchedulerConfig, TrainConfig,
+                                            rdt_1b)
+    from vla_touch_tpu_torch.models.rdt import runner as R
+
+    m = rdt_1b() if depth is None else rdt_1b(depth=depth)
+    rcfg = R.RDTRunnerConfig(model=m, noise=NoiseSchedulerConfig())
+    tcfg = TrainConfig(**dict(dict(lr_warmup_steps=0, max_train_steps=RDT_STEPS,
+                                   sample_period=RDT_STEPS, checkpointing_period=10 ** 9,
+                                   checkpoints_total_limit=2, seed=RDT_SEED), **train_kw))
+    dcfg = DataConfig(chunk_size=m.horizon, image_size=384, image_aug=False)
+    return rcfg, tcfg, dcfg
+
+
+def rdt_probe(trainer, vision, files, seed: int = 99) -> dict:
+    """A fixed batch (a dataset of its own seed) through SigLIP, with fixed
+    noise and timesteps, shaped for ``train_step``."""
+    import torch
+
+    from vla_touch_tpu_torch.data.consumer import VLAConsumerDataset, collate
+    from vla_touch_tpu_torch.models.rdt import runner as R
+    from vla_touch_tpu_torch.train import rdt_loop as RL
+
+    tcfg, rcfg = trainer.tcfg, trainer.rcfg
+    ds = VLAConsumerDataset(trainer.dcfg, seed=seed, file_paths=files)
+    batch = collate([ds.sample() for _ in range(tcfg.batch_size * tcfg.grad_accum)],
+                    max_lang_len=rcfg.model.max_lang_cond_len)
+    flat = RL.device_batch(batch, "cuda")
+    img = RL.encode_images(vision, flat.pop("images"), flat.pop("image_mask"))
+    shape = (tcfg.grad_accum, -1)
+    dev = {k: v.reshape(shape + tuple(v.shape[1:])) for k, v in flat.items()
+           if k != "state_norm"}
+    dev["img_tokens"] = img.reshape(shape + tuple(img.shape[1:]))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draws = R.loss_draws(rcfg, (tcfg.grad_accum * tcfg.batch_size,)
+                         + tuple(dev["action_gt"].shape[2:]), "cuda", gen)
+    return dict(batch=batch, dev=dev, flat=flat, img=img,
+                noise=draws["noise"].reshape(dev["action_gt"].shape),
+                timesteps=draws["timesteps"].reshape(dev["action_gt"].shape[:2]))
+
+
+def rdt_probe_loss(rcfg, module, probe) -> float:
+    import torch
+
+    from vla_touch_tpu_torch.models.rdt import runner as R
+
+    dev = probe["dev"]
+    with torch.no_grad():
+        losses = [float(R.rdt_compute_loss(rcfg, module, {k: v[i] for k, v in dev.items()},
+                                           noise=probe["noise"][i],
+                                           timesteps=probe["timesteps"][i]))
+                  for i in range(dev["action_gt"].shape[0])]
+    return float(np.mean(losses))
+
+
+def rdt_fall_run(vision, files, out_dir, learning_rate=None, skip_step=False) -> dict:
+    """The main path's training run alone (tools/torch_rdt_train_fault_control.py):
+    the probe loss before and after RDT_STEPS steps of a fresh RDT-1B, with
+    the learning rate replaced or the optimizer's update zeroed."""
+    import torch
+
+    from vla_touch_tpu_torch.models.rdt import runner as R
+    from vla_touch_tpu_torch.train import rdt_loop as RL
+    from vla_touch_tpu_torch.train.optim import RDTOptimizer
+
+    kw = {} if learning_rate is None else dict(learning_rate=learning_rate)
+    rcfg, tcfg, dcfg = rdt_configs(**kw)
+    trainer = RL.RDTTrainer(rcfg, tcfg, dcfg, out_dir)
+    # the controls read the probe only: no final checkpoint
+    trainer.save_checkpoint = lambda state, step: {}
+    module = R.init_rdt_train(rcfg, RDT_SEED, "cuda")
+    probe = rdt_probe(trainer, vision, files)
+    before = rdt_probe_loss(rcfg, module, probe)
+    update = RDTOptimizer.update
+    if skip_step:
+        def zero(self, grads, state, params, g_norm=None):
+            u, new = update(self, grads, state, params, g_norm)
+            return {n: torch.zeros_like(v) for n, v in u.items()}, new
+        RDTOptimizer.update = zero
+    try:
+        state = trainer.train(file_paths=files, resume_from=None, vision=vision,
+                              init_module=module)
+    finally:
+        RDTOptimizer.update = update
+    after = rdt_probe_loss(rcfg, state.module, probe)
+    return dict(probe_before=before, probe_after=after, fall=(before - after) / before)
+
+
+def k1_grad_check(gen) -> list:
+    """K1's autograd Function against attention_plain's autograd on the
+    card at the RDT training shapes (q, k, v as the modules lay them out,
+    requiring grad; a random cotangent), and the guard: a direct wrapper
+    call with grad-requiring operands raises, the attention entry returns
+    an output with a grad_fn."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import attention as A
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+
+    rows = []
+    for name, B, Lq, Lkv, H, D, layout, mask_kind in K1_GRAD_SHAPES:
+        ops = [t.detach().clone().requires_grad_(True)
+               for t in k1_operands(gen, B, Lq, Lkv, H, D, layout)]
+        mask = k1_mask(B, Lq, Lkv, H, mask_kind)
+        cot = torch.randn((B, Lq, H, D), generator=gen, device="cuda")
+        out = A.dot_product_attention(*ops, kv_mask=mask)
+        if out.grad_fn is None:
+            raise AssertionError(f"K1 {name}: the attention output has no grad_fn")
+        got = torch.autograd.grad((out.float() * cot).sum(), ops)
+        want = torch.autograd.grad(
+            (FA.attention_plain(*ops, kv_mask=mask).float() * cot).sum(), ops)
+        share = {}
+        for what, g, w in zip("qkv", got, want):
+            share[f"d{what}"] = float((g.float() - w.float()).abs().max()) / (
+                RDT_K1_GRAD_TOL * float(w.float().abs().max()))
+        try:
+            FA.flash_attention(*ops, kv_mask=mask)
+            raised = False
+        except RuntimeError:
+            raised = True
+        rows.append(dict(shape=name, B=B, Lkv=Lkv, share_of_tol=share,
+                         direct_call_raises=raised))
+        log(f"K1 {name} autograd: grads' error as a share of {RDT_K1_GRAD_TOL} x max|plain "
+            f"grad| {json.dumps(share)}; a direct grad-requiring call raises: {raised}")
+        if not raised or max(share.values()) > 1.0 or not all(
+                np.isfinite(v) for v in share.values()):
+            raise AssertionError(f"K1 {name}: the autograd route fails its check")
+    return rows
+
+
+def rdt_grad_compare(what, got: dict, want: dict, loss_got: float, loss_want: float) -> dict:
+    """The bf16 parity measures of a loss + gradient against another."""
+    import torch
+
+    leaf = max(float((got[n].float() - w.float()).abs().max()) / max(
+        float(w.float().abs().max()), 1e-30) for n, w in want.items())
+    num = sum(float(torch.sum(torch.square(got[n].double() - w.double()))) for n, w in want.items())
+    den = sum(float(torch.sum(torch.square(w.double()))) for w in want.values())
+    res = dict(loss_rel_err=abs(loss_got - loss_want) / abs(loss_want), grad_leaf_max=leaf,
+               grad_l2_rel=(num / den) ** 0.5, leaves=len(want))
+    log(f"{what}: " + json.dumps(res) + f" (tolerances: loss {RDT_LOSS_RTOL_BF16}, leaf "
+        f"{RDT_GRAD_LEAF_TOL_BF16}, L2 {RDT_GRAD_L2_TOL_BF16})")
+    return res
+
+
+def rdt_step_vs_cpu(vision, files) -> dict:
+    """One loss + gradient of a depth-2 RDT-1B (full width, batch 1,
+    accumulation 1) on the card and on the CPU: the same float32 master
+    weights, batch, SigLIP tokens, noise and timesteps."""
+    import copy
+
+    import torch
+
+    from vla_touch_tpu_torch.models.rdt import runner as R
+    from vla_touch_tpu_torch.train import rdt_loop as RL
+
+    rcfg, tcfg, dcfg = rdt_configs(depth=2, batch_size=1, grad_accum=1)
+    trainer = RL.RDTTrainer(rcfg, tcfg, dcfg, os.path.join(ROOT, "build", "rdt_train",
+                                                           "d2"))
+    module = R.init_rdt_train(rcfg, RDT_SEED + 5, "cuda")
+    probe = rdt_probe(trainer, vision, files, seed=7)
+    mb = {k: v[0] for k, v in probe["dev"].items()}
+    noise, ts = probe["noise"][0], probe["timesteps"][0]
+    cpu = copy.deepcopy(module).cpu()
+    names = [n for n, _ in module.named_parameters()]
+    loss = R.rdt_compute_loss(rcfg, module, mb, noise=noise, timesteps=ts)
+    grads = torch.autograd.grad(loss, list(module.parameters()))
+    t0 = time.perf_counter()
+    loss_c = R.rdt_compute_loss(rcfg, cpu, {k: v.cpu() for k, v in mb.items()},
+                                noise=noise.cpu(), timesteps=ts.cpu())
+    grads_c = torch.autograd.grad(loss_c, list(cpu.parameters()))
+    cpu_s = time.perf_counter() - t0
+    res = rdt_grad_compare("RDT-1B depth 2 card step vs CPU step",
+                           {n: g.cpu() for n, g in zip(names, grads)}, dict(zip(names, grads_c)),
+                           float(loss.detach()), float(loss_c.detach()))
+    res["cpu_s"] = cpu_s
+    log(f"  the CPU side took {cpu_s:.1f} s")
+    if not (res["loss_rel_err"] <= RDT_LOSS_RTOL_BF16
+            and res["grad_leaf_max"] <= RDT_GRAD_LEAF_TOL_BF16
+            and res["grad_l2_rel"] <= RDT_GRAD_L2_TOL_BF16):
+        raise AssertionError(f"RDT card step disagrees with the CPU step: {res}")
+    return res
+
+
+def rdt_recipes_check(vision, files) -> dict:
+    """The options the main path leaves off, at depth 2 (full width, batch 1
+    x accumulation 2): ``remat_blocks`` (the same loss and gradients bit for
+    bit; K1 launched twice a block a micro-batch) and the bf16 recipe (8-bit
+    AdamW, bf16 parameters, accumulator and EMA: one step finite, the state
+    in its dtypes)."""
+    import dataclasses
+
+    import torch
+
+    from vla_touch_tpu_torch.models.rdt import runner as R
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+    from vla_touch_tpu_torch.train import rdt_loop as RL
+    from vla_touch_tpu_torch.train import rdt_train as T
+
+    rcfg, tcfg, dcfg = rdt_configs(depth=2, batch_size=1, grad_accum=2)
+    trainer = RL.RDTTrainer(rcfg, tcfg, dcfg, os.path.join(ROOT, "build", "rdt_train",
+                                                           "recipes"))
+    probe = rdt_probe(trainer, vision, files, seed=11)
+    mb = {k: v[0] for k, v in probe["dev"].items()}
+    module = R.init_rdt_train(rcfg, RDT_SEED + 7, "cuda")
+    out = {}
+    for remat in (False, True):
+        module.model.cfg = dataclasses.replace(rcfg.model, remat_blocks=remat)
+        k = FA.flash_attention.launches
+        loss = R.rdt_compute_loss(rcfg, module, mb, noise=probe["noise"][0],
+                                  timesteps=probe["timesteps"][0])
+        grads = torch.autograd.grad(loss, list(module.parameters()))
+        out[remat] = (loss.detach(), grads, FA.flash_attention.launches - k)
+    module.model.cfg = rcfg.model
+    need = {r: rdt_k1_need(dataclasses.replace(rcfg.model, remat_blocks=r),
+                           dataclasses.replace(tcfg, grad_accum=1), 0)["step"]
+            for r in (False, True)}
+    same = torch.equal(out[False][0], out[True][0]) and all(
+        torch.equal(a, b) for a, b in zip(out[False][1], out[True][1]))
+    res = dict(remat_k1={str(r): out[r][2] for r in out},
+               remat_k1_need={str(r): need[r] for r in need}, remat_equal=same)
+    if not same or any(out[r][2] != need[r] for r in out):
+        raise AssertionError(f"rdt remat_blocks: {res}")
+    del out
+    bf = dataclasses.replace(tcfg, use_8bit_adam=True, param_dtype="bfloat16",
+                             accum_dtype="bfloat16", ema_dtype="bfloat16")
+    state = T.init_train_state(rcfg, bf, module=module)
+    state, metrics = T.train_step(rcfg, bf, state, probe["dev"],
+                                  generator=torch.Generator(device="cuda").manual_seed(5))
+    ok = (np.isfinite(float(metrics["loss"])) and np.isfinite(float(metrics["grad_norm"]))
+          and all(p.dtype == torch.bfloat16 and bool(torch.isfinite(p).all())
+                  for p in state.params.values())
+          and all(q.dtype == torch.int8 for q in state.opt_state.m_q.values())
+          and all(e.dtype == torch.bfloat16 for e in state.ema.shadow.values()))
+    res.update(bf16_recipe_loss=float(metrics["loss"]),
+               bf16_recipe_grad_norm=float(metrics["grad_norm"]), bf16_recipe_ok=ok)
+    log("rdt recipes at depth 2: " + json.dumps(res))
+    if not ok:
+        raise AssertionError(f"rdt bf16 recipe: {res}")
+    return res
+
+
+def rdt_round_trip(path: str, trees: dict):
+    """Every leaf of the checkpoint at ``path`` equal, bit for bit and
+    dtype, to the state's own tree."""
+    import torch
+
+    from vla_touch_tpu_torch.utils import checkpoint as ckpt
+
+    def walk(a, b, where):
+        if isinstance(b, dict):
+            if set(map(str, a)) != set(map(str, b)):
+                raise AssertionError(f"{where}: keys differ")
+            for k in b:
+                walk(a[str(k)], b[k], f"{where}/{k}")
+            return
+        want = b.detach().cpu() if isinstance(b, torch.Tensor) else torch.as_tensor(
+            np.asarray(b))
+        got = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+        if got.dtype != want.dtype or not torch.equal(got, want.contiguous()):
+            raise AssertionError(f"{where}: checkpoint round trip differs")
+
+    for k in ("params", "ema", "opt_state"):
+        walk(ckpt.load_pytree(os.path.join(path, f"{k}.msgpack")), trees[k], k)
+    meta = ckpt.load_json(os.path.join(path, "meta.json"))
+    if meta != trees["meta"]:
+        raise AssertionError(f"meta.json {meta} != {trees['meta']}")
+
+
+def rdt_train_phase() -> dict:
+    """Finetune RDT-1B at full width through ``RDTTrainer.train`` on seeded
+    synthetic npz episodes (batch 4 x accumulation 4, SigLIP So400m on the
+    16 x 6 frames of a step): K1's autograd route checked at the training
+    shapes, one depth-2 step on the card against the CPU, the main path
+    (RDT_STEPS steps, one sampling eval, the final checkpoint) with K1's
+    launches asserted a step, the probe's loss fall gated, the checkpoint
+    read back bit for bit, one step as a checked run; step ms, samples/s,
+    TFLOP/s, SigLIP's share, the optimizer's ms, the checkpoint's bytes and
+    seconds, the peak memory."""
+    import gc
+    import shutil
+
+    import torch
+
+    from vla_touch_tpu_torch.models.encoders.vit import (SIGLIP_SO400M,
+                                                         SiglipVisionEncoder, init_vit)
+    from vla_touch_tpu_torch.models.rdt import runner as R
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+    from vla_touch_tpu_torch.train import rdt_loop as RL
+    from vla_touch_tpu_torch.utils import from_flax as FF
+
+    root = os.path.join(ROOT, "build", "rdt_train")
+    shutil.rmtree(root, ignore_errors=True)
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        files = rdt_episodes(os.path.join(root, "episodes"))
+        log(f"rdt: {len(files)} npz episodes written in {time.perf_counter() - t0:.1f} s")
+        gen = torch.Generator(device="cuda").manual_seed(4321)
+        res["k1_autograd"] = k1_grad_check(gen)
+        vision = init_vit(SiglipVisionEncoder, SIGLIP_SO400M, RDT_SEED + 1, "cuda")
+        res["step_vs_cpu"] = rdt_step_vs_cpu(vision, files)
+        res["recipes"] = rdt_recipes_check(vision, files)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the main path
+        rcfg, tcfg, dcfg = rdt_configs()
+        m = rcfg.model
+        trainer = RL.RDTTrainer(rcfg, tcfg, dcfg, os.path.join(root, "out"))
+        module = R.init_rdt_train(rcfg, RDT_SEED, "cuda")
+        probe = rdt_probe(trainer, vision, files)
+        before = rdt_probe_loss(rcfg, module, probe)
+        need = rdt_k1_need(m, tcfg, SIGLIP_SO400M.num_layers)
+        marks, step_k1, losses = [], [], []
+
+        def on_step(step, state, metrics):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            step_k1.append(FA.flash_attention.launches)
+            losses.append(float(metrics["loss"]))
+
+        saves, samples = [], []
+        save, sample = trainer.save_checkpoint, RL.sample_metrics
+
+        def timed_save(state, step):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sizes = save(state, step)
+            saves.append(dict(bytes=sizes, s=time.perf_counter() - t1))
+            return sizes
+
+        def timed_sample(*a, **kw):
+            torch.cuda.synchronize()
+            k = FA.flash_attention.launches
+            t1 = time.perf_counter()
+            out = sample(*a, **kw)
+            samples.append(dict(out, ms=1e3 * (time.perf_counter() - t1),
+                                k1=FA.flash_attention.launches - k))
+            return out
+
+        trainer.save_checkpoint, RL.sample_metrics = timed_save, timed_sample
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t_run = time.perf_counter()
+        try:
+            state = trainer.train(file_paths=files, resume_from=None, vision=vision,
+                                  init_module=module, on_step=on_step)
+        finally:
+            RL.sample_metrics = sample
+        run_s = time.perf_counter() - t_run
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_step = np.diff([0] + step_k1).tolist()
+        want = {"K1": RDT_STEPS * need["step"] + need["sample"]}
+        log(f"rdt main path: {RDT_STEPS} steps in {run_s:.1f} s; K1 a step {per_step} "
+            f"(want {need['step']}), sample eval {samples[0]['k1'] if samples else None} "
+            f"(want {need['sample']})")
+        if any(k != need["step"] for k in per_step) or len(samples) != 1 \
+                or samples[0]["k1"] != need["sample"]:
+            raise AssertionError("rdt: K1 launches a step or a sampling eval are off")
+        check_counts("rdt main path", counts, want)
+        if not all(np.isfinite([samples[0]["sample_mse"], samples[0]["sample_l2err"]])):
+            raise AssertionError(f"rdt: sample metrics not finite: {samples[0]}")
+        after = rdt_probe_loss(rcfg, state.module, probe)
+        fall = (before - after) / before
+        log(f"rdt probe loss {before:.5f} -> {after:.5f}: fall {fall:.4f} "
+            f"(min {RDT_FALL_MIN}); step losses {[round(x, 5) for x in losses]}")
+        if not (np.isfinite(after) and fall >= RDT_FALL_MIN):
+            raise AssertionError("rdt: the probe loss did not fall")
+
+        # ---- the final checkpoint, read back
+        path = os.path.join(root, "out", f"checkpoint-{RDT_STEPS}")
+        t1 = time.perf_counter()
+        rdt_round_trip(path, FF.rdt_train_state_to_flax(state, trainer.optimizer))
+        read_s = time.perf_counter() - t1
+        ck = dict(bytes=sum(saves[-1]["bytes"].values()), per_tree=saves[-1]["bytes"],
+                  save_s=saves[-1]["s"], read_and_compare_s=read_s)
+        log(f"rdt checkpoint: {json.dumps(ck)}; read back bit for bit")
+        shutil.rmtree(path)
+
+        # ---- one step as a checked run
+        ds_batch = probe["batch"]
+        chk = checked_run(lambda: trainer.step(state, ds_batch, vision,
+                                               torch.Generator(device="cuda").manual_seed(3)))
+        check_chk("rdt checked step", chk, {"K1": need["step"]})
+
+        # ---- times
+        step_ms = 1e3 * np.diff(marks)
+        p50 = float(np.median(step_ms))
+        n = tcfg.batch_size * tcfg.grad_accum
+        frames = n * dcfg.img_history_size * dcfg.num_cameras
+        tf = rdt_tflop(m, n, m.max_lang_cond_len, SIGLIP_SO400M, frames)
+        images = torch.as_tensor(ds_batch["images"], device="cuda")
+        image_mask = torch.as_tensor(ds_batch["image_mask"], device="cuda")
+        siglip_ms = cuda_time_ms(lambda: RL.encode_images(vision, images, image_mask),
+                                 reps=3, warmup=1)
+        grads = {k: torch.randn_like(p) * 1e-3 for k, p in state.params.items()}
+        params = state.params
+
+        def opt_step():
+            u, _ = trainer.optimizer.update(grads, state.opt_state, params)
+            torch._foreach_add(list(params.values()), list(u.values()))
+
+        opt_ms = cuda_time_ms(opt_step, reps=3, warmup=1)
+        del grads
+        prof = profile_run(lambda: trainer.step(state, ds_batch, vision), top=15)
+        log("rdt step profile: " + json.dumps(prof))
+        res.update(
+            steps=RDT_STEPS, step_ms=[round(x, 3) for x in step_ms.tolist()], step_ms_p50=p50,
+            samples_per_s=n / (p50 / 1e3), tflop_per_step=tf, tflops=sum(tf.values()) / (p50 / 1e3),
+            siglip_ms=siglip_ms, siglip_share=siglip_ms / p50, optimizer_ms=opt_ms,
+            sample_eval=samples[0], checkpoint=ck, peak_gib=peak, profile=prof,
+            probe_loss_before=before,
+            probe_loss_after=after, loss_fall=fall, checked=chk, launches=counts,
+            k1_need=need, run_s=run_s)
+        log(f"rdt step p50 {p50:.1f} ms, {res['samples_per_s']:.2f} samples/s, "
+            f"{res['tflops']:.1f} TFLOP/s of {sum(tf.values()):.2f} TFLOP a step "
+            f"({json.dumps(tf)}), SigLIP {siglip_ms:.1f} ms ({100 * siglip_ms / p50:.1f} %), "
+            f"optimizer {opt_ms:.1f} ms, sample eval {samples[0]['ms']:.1f} ms, "
+            f"peak {peak:.2f} GiB")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2827,6 +3379,12 @@ def main() -> int:
     log("controllers: " + json.dumps({k: v for k, v in ctrl.items()}))
     torch.cuda.empty_cache()
 
+    # ---- RDT finetuning
+    t1 = time.perf_counter()
+    rdt = rdt_train_phase()
+    log(f"rdt_train phase: {time.perf_counter() - t1:.1f} s")
+    log("rdt_train: " + json.dumps(rdt))
+
     # ---- the planner
     pl = planner_phase(gen)
     for name, rows in (("k1", k1_rows), ("k2", k2_rows), ("k3", k3_rows), ("k4", k4_rows),
@@ -2849,12 +3407,14 @@ def main() -> int:
                     bound_ms=tot["bound_ms"], bound_by=bound_by(tot),
                     library_ms=tot.get("library_ms"), **extra)
 
-    # K1 and K2 run on two main paths: the cold tick and the controllers
-    # phase (training and evaluation), each counted from 0
-    by_path = {k: {"tick": counts[k], "controllers": ctrl["launches"][k]} for k in ("K1", "K2")}
+    # K1 runs on three main paths, K2 on two: the cold tick, the controllers
+    # phase (training and evaluation) and RDT finetuning, each counted from 0
+    by_path = {k: {"tick": counts[k], "controllers": ctrl["launches"][k],
+                   "rdt_train": rdt["launches"][k]} for k in ("K1", "K2")}
     kernels = [
         entry("flash_attention", "flash_attention.cu", "ops/pallas_attention.py:126",
-              sum(by_path["K1"].values()), k1, launches_by_path=by_path["K1"]),
+              sum(by_path["K1"].values()), k1, launches_by_path=by_path["K1"],
+              train_step=k1["train_step"]),
         entry("resblock_fused", "resblock.cu", "ops/pallas_unet.py:203",
               sum(by_path["K2"].values()), k2, launches_by_path=by_path["K2"]),
         entry("flash_attention_q8", "flash_attention_q8.cu", "ops/pallas_attention.py:275",

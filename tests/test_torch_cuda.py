@@ -80,6 +80,53 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Lq, Lkv, H, D, mask_kind,
         assert float(got[-1].float().abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("B,Lq,Lkv,H,D,layout,short_mask", [
+    (4, 67, 67, 32, 64, "fused_qkv", False),      # RDT training self-attention
+    (4, 67, 4374, 32, 64, "fused_kv", False),     # image cross-attention
+    (4, 67, 1024, 32, 64, "fused_kv", True),      # language cross, 32 valid keys
+])
+def test_flash_attention_autograd_on_the_card(cuda, B, Lq, Lkv, H, D, layout, short_mask):
+    """Attention with grad-requiring operands on the card goes through K1's
+    autograd Function (the kernel forward, its output carrying a grad_fn),
+    and its q/k/v gradients equal attention_plain's autograd on the same
+    operands (the backward is that program recomputed: 1e-3 x max |grad|
+    for reduction order).  A direct wrapper call with such operands raises:
+    no path returns an output without a grad_fn."""
+    from vla_touch_tpu_torch.ops import attention as A
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    if layout == "fused_qkv":
+        base = mk(B, Lq, 3, H, D).requires_grad_(True)
+        q, k, v = base.unbind(2)
+        leaves = (base,)
+    else:
+        q, base = mk(B, Lq, H, D).requires_grad_(True), mk(B, Lkv, 2, H, D).requires_grad_(True)
+        k, v = base.unbind(2)
+        leaves = (q, base)
+    mask = None
+    if short_mask:
+        mask = torch.zeros((B, Lkv), dtype=torch.bool, device=cuda)
+        mask[:, :32] = True
+    cot = torch.randn((B, Lq, H, D), generator=g, device=cuda)
+    before = FA.flash_attention.launches
+    out = A.dot_product_attention(q, k, v, kv_mask=mask)
+    assert out.grad_fn is not None and FA.flash_attention.launches == before + 1
+    got = torch.autograd.grad((out.float() * cot).sum(), leaves)
+    want = torch.autograd.grad((FA.attention_plain(q, k, v, kv_mask=mask).float() * cot).sum(),
+                               leaves)
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-3 * float(b.float().abs().max())
+    with pytest.raises(RuntimeError, match="requires grad"):
+        FA.flash_attention(q, k, v, kv_mask=mask)
+    with torch.no_grad():
+        assert A.dot_product_attention(q, k, v, kv_mask=mask).grad_fn is None
+
+
 @pytest.mark.parametrize("plan", [(80, 1, 69), (80, 9, 8), (80, 18, 4), (80, 23, 3),
                                   (80, 35, 2), (128, 18, 4)])
 def test_flash_attention_kernel_plans_agree(cuda, plan):

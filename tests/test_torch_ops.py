@@ -40,8 +40,8 @@ def _fields(cfg):
 
 
 def test_configs_equal_jax_field_for_field():
-    """The port's dataclasses hold the JAX package's values; the only JAX
-    field left out is training-only (``remat_blocks``)."""
+    """The port's dataclasses hold the JAX package's values, field for
+    field (the RDT training and data configurations included)."""
     from vla_touch_tpu import config as JC
     from vla_touch_tpu.models.encoders import vit as JV
     from vla_touch_tpu.runtime import policy as JP
@@ -59,9 +59,11 @@ def test_configs_equal_jax_field_for_field():
 
     for make in ("rdt_1b", "rdt_170m", "rdt_tiny"):
         t, j = getattr(TC, make)(), getattr(JC, make)()
-        same(t, j, left_out={"remat_blocks"})
+        same(t, j)
         assert t.compute_dtype == getattr(torch, jnp.dtype(j.compute_dtype).name)
     same(TC.NoiseSchedulerConfig(), JC.NoiseSchedulerConfig())
+    same(TC.TrainConfig(), JC.TrainConfig())
+    same(TC.DataConfig(), JC.DataConfig())
     same(TC.InterpolantConfig(), JC.InterpolantConfig())
     for kw in ({}, {"inference_dtype": "bfloat16"}):
         t, j = TC.BridgeControllerConfig(**kw), JC.BridgeControllerConfig(**kw)
@@ -72,7 +74,7 @@ def test_configs_equal_jax_field_for_field():
         same(getattr(TV, name), getattr(JV, name))
     t, j = TP.franka_eef_policy_config(), JP.franka_eef_policy_config()
     same(t, j)
-    same(t.rdt.model, j.rdt.model, left_out={"remat_blocks"})
+    same(t.rdt.model, j.rdt.model)
     same(t.rdt.noise, j.rdt.noise)
 
 

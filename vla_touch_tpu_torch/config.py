@@ -2,7 +2,8 @@
 
 Counterpart of ``vla_touch_tpu/config.py`` restricted to what the port
 runs: the RDT model and noise scheduler, the BRIDGeR and LSTM controllers
-with the interpolant, and the two controller trainers.  Defaults are
+with the interpolant, the two controller trainers, and the RDT finetuning
+data and training configurations.  Defaults are
 identical; dtypes resolve to torch dtypes.
 """
 
@@ -48,6 +49,10 @@ class RDTModelConfig:
     state_adaptor: str = "mlp3x_gelu"
     dtype: str = "bfloat16"
     img_pos_embed_grid: Optional[tuple] = (2, -3, 729)  # (frames, -cams, patches)
+    # Recompute each transformer block in the backward pass
+    # (torch.utils.checkpoint): ~1/3 more forward FLOPs for dropping every
+    # block's activations from the training step's live set.
+    remat_blocks: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -179,3 +184,58 @@ class LSTMTrainConfig:
     seed: int = 42
     data_format: str = "h5"
     prefetch_workers: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Episode dataset behaviour of RDT finetuning."""
+
+    data_root: str = "data/datasets"
+    dataset_names: Sequence[str] = ("mango",)
+    img_history_size: int = 2
+    num_cameras: int = 3
+    chunk_size: int = 64             # action horizon written per sample
+    image_size: int = 384
+    state_dim: int = 10
+    cond_mask_prob: float = 0.1
+    cam_ext_mask_prob: float = -1.0  # >= 0 overrides cond_mask_prob for the
+    #                                  exterior camera
+    state_noise_snr: Optional[float] = None
+    image_aug: bool = False
+    control_freq: int = 10           # Franka (agilex = 25)
+    data_format: str = "h5"          # "h5" (+npz); "epc" is not read yet
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """RDT training-loop hyperparameters."""
+
+    batch_size: int = 4
+    grad_accum: int = 4
+    learning_rate: float = 1e-4
+    lr_scheduler: str = "constant"
+    lr_warmup_steps: int = 500
+    weight_decay: float = 1e-3
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.95
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    use_8bit_adam: bool = False      # blockwise-int8 moments
+    accum_dtype: str = "float32"     # gradient-accumulator dtype
+    ema_dtype: str = "float32"       # EMA shadow dtype; "bfloat16" rounds
+    #                                  stochastically (utils/ema.py)
+    param_dtype: str = "float32"     # "bfloat16" drops the float32 master and
+    #                                  applies updates with stochastic
+    #                                  rounding (requires use_8bit_adam)
+    zero3: bool = False              # parameter sharding: not in the port
+    max_train_steps: int = 40000
+    checkpointing_period: int = 1000
+    checkpoints_total_limit: int = 40
+    async_save: bool = False         # write checkpoints on a thread
+    sample_period: int = 100
+    ema_decay: float = 0.999
+    ema_inv_gamma: float = 1.0
+    ema_power: float = 0.75
+    seed: int = 42
+    dp_axis: str = "data"
+    prefetch_workers: int = 2

@@ -7,7 +7,15 @@ condition (even blocks) and the image condition (odd blocks).  The
 conditions are fixed across the denoise loop, so their per-block K/V are
 computed once (:meth:`RDT.compute_cond_kv`) and reused by
 :meth:`RDT.forward_cached` at every solver step; :meth:`RDT.forward`
-recomputes them in every block, as the reference's sampler does.
+recomputes them in every block: the reference's sampler and the training
+forward.
+
+Serving modules hold their weights in the compute dtype and compute in it.
+Training holds float32 master weights (``runner.init_rdt_train``): every
+Linear is a ``CastLinear`` and :attr:`RDT.compute_dtype` is set, so the
+weights, biases and positional embeddings are cast to the compute dtype at
+each use, as flax casts them, while the RmsNorm scales enter their float32
+statistics uncast, as the JAX package's ``RmsNorm`` does.
 """
 
 from __future__ import annotations
@@ -17,10 +25,11 @@ from collections import OrderedDict
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vla_touch_tpu_torch.config import RDTModelConfig
 from vla_touch_tpu_torch.ops import attention as A
-from vla_touch_tpu_torch.ops.nn import Mlp, RmsNorm, SelfAttention, silu
+from vla_touch_tpu_torch.ops.nn import Mlp, RmsNorm, SelfAttention, compute_dtype_of, silu
 from vla_touch_tpu_torch.ops.pos_embed import (
     get_1d_sincos_pos_embed_from_grid,
     get_multimodal_cond_pos_embed,
@@ -39,7 +48,7 @@ class TimestepEmbedder(nn.Module):
 
     def forward(self, t):
         freq = timestep_embedding(t, self.frequency_embedding_size,
-                                  dtype=self.fc1.weight.dtype)
+                                  dtype=compute_dtype_of(self.fc1))
         return self.fc2(silu(self.fc1(freq)))
 
 
@@ -111,6 +120,9 @@ class RDT(nn.Module):
         self.lang_cond_pos_embed = nn.Parameter(
             torch.empty(1, cfg.max_lang_cond_len, H))
         self.img_cond_pos_embed = nn.Parameter(torch.empty(1, cfg.img_cond_len, H))
+        # None: compute in the weights' dtype (serving); set for master
+        # weights (training)
+        self.compute_dtype = None
 
     def sincos_pos_embeds(self) -> dict:
         """The sincos tables the positional embeddings start from."""
@@ -141,17 +153,20 @@ class RDT(nn.Module):
             p.copy_(torch.as_tensor(table, dtype=p.dtype))
         self.final_ffn.fc2.weight.zero_()
 
+    def _dtype(self) -> torch.dtype:
+        return self.compute_dtype or self.x_pos_embed.dtype
+
     def _embed_x(self, x, freq, t):
-        dtype = self.x_pos_embed.dtype
+        dtype = self._dtype()
         t_tok = self.t_embedder(t)
         f_tok = self.freq_embedder(freq)
         x = torch.cat([t_tok[:, None], f_tok[:, None], x.to(dtype)], dim=1)
-        return x + self.x_pos_embed
+        return x + self.x_pos_embed.to(dtype)
 
     def add_cond_pos(self, lang_c, img_c):
-        dtype = self.lang_cond_pos_embed.dtype
-        lang_c = lang_c.to(dtype) + self.lang_cond_pos_embed[:, : lang_c.shape[1]]
-        img_c = img_c.to(dtype) + self.img_cond_pos_embed
+        dtype = self._dtype()
+        lang_c = lang_c.to(dtype) + self.lang_cond_pos_embed[:, : lang_c.shape[1]].to(dtype)
+        img_c = img_c.to(dtype) + self.img_cond_pos_embed.to(dtype)
         return lang_c, img_c
 
     def compute_cond_kv(self, lang_c, img_c):
@@ -170,14 +185,20 @@ class RDT(nn.Module):
         return out[:, -self.cfg.horizon:]
 
     def forward(self, x, freq, t, lang_c, img_c, lang_mask=None, img_mask=None):
-        """The full forward (inference only): every block recomputes its
-        condition K/V from the raw conditions, as the reference's sampler
-        does at every solver step.  x (B, horizon + 1, D) adapted [state,
-        action...] tokens; returns (B, horizon, output_dim)."""
+        """The full forward: every block recomputes its condition K/V from
+        the raw conditions (the training forward, and the reference's
+        sampler at every solver step).  x (B, horizon + 1, D) adapted
+        [state, action...] tokens; returns (B, horizon, output_dim).  With
+        ``remat_blocks`` and grad mode on, each block is recomputed in the
+        backward pass (``torch.utils.checkpoint``, non-reentrant)."""
         x = self._embed_x(x, freq, t)
         conds = self.add_cond_pos(lang_c, img_c)
         masks = (lang_mask, img_mask)
+        remat = self.cfg.remat_blocks and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x, conds[i % 2], masks[i % 2])
+            if remat:
+                x = checkpoint(blk, x, conds[i % 2], masks[i % 2], use_reentrant=False)
+            else:
+                x = blk(x, conds[i % 2], masks[i % 2])
         out = self.final_ffn(self.final_norm(x))
         return out[:, -self.cfg.horizon:]

@@ -1,5 +1,12 @@
-"""RDT runner: condition adaptors + DPM-Solver++ action sampling
-(counterpart of ``vla_touch_tpu/models/rdt/runner.py``, inference only).
+"""RDT runner: condition adaptors, the training loss and DPM-Solver++
+action sampling (counterpart of ``vla_touch_tpu/models/rdt/runner.py``).
+
+:func:`rdt_compute_loss` is the finetuning loss on a module from
+:func:`init_rdt_train` (float32 master weights computing in the model's
+dtype); its noise and timesteps are given or drawn from a
+``torch.Generator`` (the port cannot replay ``jax.random``).  The samplers
+below take such a module too: :func:`rdt_predict_action` on the training
+module runs the serving path on the current parameters, cast per use.
 
 :func:`rdt_predict_action` adapts the conditions and computes every block's
 condition K/V once, then runs the solver loop where each step re-adapts the
@@ -24,7 +31,7 @@ from torch import nn
 from vla_touch_tpu_torch.config import NoiseSchedulerConfig, RDTModelConfig
 from vla_touch_tpu_torch.models.rdt.model import RDT
 from vla_touch_tpu_torch.ops import schedulers as sched_lib
-from vla_touch_tpu_torch.ops.nn import gelu_tanh
+from vla_touch_tpu_torch.ops.nn import cast_linears_, compute_dtype_of, gelu_tanh
 
 
 class ConditionAdapter(nn.Module):
@@ -46,7 +53,7 @@ class ConditionAdapter(nn.Module):
         self.depth = depth
 
     def forward(self, x):
-        x = x.to(self.fc0.weight.dtype)
+        x = x.to(compute_dtype_of(self.fc0))
         for i in range(self.depth):
             if i > 0:
                 x = gelu_tanh(x)
@@ -84,6 +91,13 @@ class RDTRunnerModule(nn.Module):
     def forward_model(self, x, freq, t, lang_c, img_c, lang_mask=None):
         return self.model(x, freq, t, lang_c, img_c, lang_mask=lang_mask)
 
+    def forward(self, lang_tokens, img_tokens, state_action_traj, ctrl_freqs,
+                timesteps, lang_mask=None):
+        """The adapted full forward (the training path)."""
+        lang_c, img_c, x = self.adapt_conditions(lang_tokens, img_tokens,
+                                                 state_action_traj)
+        return self.forward_model(x, ctrl_freqs, timesteps, lang_c, img_c, lang_mask)
+
 
 @dataclasses.dataclass(frozen=True)
 class RDTRunnerConfig:
@@ -100,6 +114,71 @@ def init_rdt(cfg: RDTRunnerConfig, seed: int = 0, device=None) -> RDTRunnerModul
 
     return build_module(lambda: RDTRunnerModule(cfg.model), seed, device,
                         cfg.model.compute_dtype)
+
+
+def master_weights_(module: RDTRunnerModule, compute_dtype: torch.dtype) -> RDTRunnerModule:
+    """Make ``module``'s parameters master weights: every Linear casts its
+    weight and bias to ``compute_dtype`` at use, and the positional
+    embeddings are cast where they are added; the RmsNorm scales stay in
+    the master dtype, as in the JAX package."""
+    cast_linears_(module, compute_dtype)
+    module.model.compute_dtype = compute_dtype
+    return module
+
+
+def init_rdt_train(cfg: RDTRunnerConfig, seed: int = 0, device=None,
+                   param_dtype: torch.dtype = torch.float32) -> RDTRunnerModule:
+    """A seeded random RDT runner for training: parameters in
+    ``param_dtype`` (float32 master weights by default) requiring grad,
+    computing in ``cfg.model``'s dtype (:func:`master_weights_`)."""
+    from vla_touch_tpu_torch.utils.random_init import build_module
+
+    module = build_module(lambda: RDTRunnerModule(cfg.model), seed, device, param_dtype)
+    return master_weights_(module, cfg.model.compute_dtype).requires_grad_(True)
+
+
+def loss_draws(cfg: RDTRunnerConfig, shape, device, generator=None) -> dict:
+    """The loss's draws for an action batch of ``shape`` (B, horizon, D):
+    ``noise`` float32 ~ N(0, 1) and ``timesteps`` int32 in [0, T)."""
+    return {"noise": torch.randn(shape, generator=generator, device=device),
+            "timesteps": torch.randint(0, cfg.noise.num_train_timesteps, shape[:1],
+                                       generator=generator, device=device,
+                                       dtype=torch.int32)}
+
+
+def rdt_compute_loss(cfg: RDTRunnerConfig, module: RDTRunnerModule, batch: dict,
+                     noise=None, timesteps=None,
+                     generator: Optional[torch.Generator] = None):
+    """The training loss: the MSE between the model's output on the noised
+    chunk and the ``prediction_type`` target ("epsilon": the noise;
+    "sample": the clean chunk), as a float32 scalar.
+
+    ``batch``: lang_tokens (B, L, Dl), lang_mask (B, L) bool, img_tokens
+    (B, Li, Di), state_tokens (B, 1, 128), action_gt (B, H, 128),
+    action_mask (B, 1, 128) float, ctrl_freqs (B,).  ``noise`` (B, H, 128)
+    and ``timesteps`` (B,) are drawn from ``generator`` when not given."""
+    schedule = sched_lib.DiffusionSchedule.create(cfg.noise.num_train_timesteps,
+                                                  cfg.noise.beta_schedule)
+    action_gt = batch["action_gt"].float()
+    if noise is None or timesteps is None:
+        draws = loss_draws(cfg, action_gt.shape, action_gt.device, generator)
+        noise = draws["noise"] if noise is None else noise
+        timesteps = draws["timesteps"] if timesteps is None else timesteps
+    noise = torch.as_tensor(noise, dtype=torch.float32, device=action_gt.device)
+    timesteps = torch.as_tensor(timesteps, device=action_gt.device)
+    noisy_action = schedule.add_noise(action_gt, noise, timesteps)
+    state_action = torch.cat([batch["state_tokens"].float(), noisy_action], dim=1)
+    mask = batch["action_mask"].float().expand(state_action.shape)
+    state_action = torch.cat([state_action, mask], dim=2)
+    pred = module(batch["lang_tokens"], batch["img_tokens"], state_action,
+                  batch["ctrl_freqs"], timesteps, lang_mask=batch.get("lang_mask"))
+    if cfg.noise.prediction_type == "epsilon":
+        target = noise
+    elif cfg.noise.prediction_type == "sample":
+        target = action_gt
+    else:
+        raise ValueError(cfg.noise.prediction_type)
+    return torch.mean(torch.square(pred.float() - target))
 
 
 def start_noise(m, B, dev, init_noise, generator):

@@ -144,7 +144,39 @@ def flash_attention(q, k, v, kv_mask=None, scale=None):
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_mask=kv_mask, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel writes through a raw pointer: its output has no
+        # grad_fn, and every gradient through it would be cut silently
+        raise RuntimeError("flash_attention: an operand requires grad; call "
+                           "ops.attention.dot_product_attention (the autograd "
+                           "route, FlashAttentionFn) instead")
     return _launch(q, k, v, kv_mask, scale, card_plan)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K1 under autograd.  The forward is :func:`flash_attention` (the
+    kernel on CUDA, :func:`attention_plain` on the CPU) and saves q, k, v
+    and the mask; the backward recomputes :func:`attention_plain` on them
+    and returns its ``torch.autograd.grad``.  That is the program the JAX
+    package differentiates when it trains: its attention under grad is the
+    float32 einsum and softmax (``_attention_xla``), and it has no backward
+    kernel for any attention, so neither has the port."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.scale = scale
+        return flash_attention(q, k, v, kv_mask=kv_mask, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        ops = [t.detach().requires_grad_(t.requires_grad) for t in (q, k, v)]
+        need = [t for t in ops if t.requires_grad]
+        with torch.enable_grad():
+            out = attention_plain(*ops, kv_mask=kv_mask, scale=ctx.scale)
+            grads = iter(torch.autograd.grad(out, need, g))
+        return tuple(next(grads) if t.requires_grad else None for t in ops) + (None, None)
 
 
 def _launch(q, k, v, kv_mask, scale, plan):

@@ -181,6 +181,42 @@ class RmsNorm(nn.Module):
         return (y * self.weight.float()).to(x.dtype)
 
 
+def compute_dtype_of(linear) -> torch.dtype:
+    """The dtype a Linear computes in: a :class:`CastLinear`'s
+    ``compute_dtype``, else its weight's."""
+    return getattr(linear, "compute_dtype", linear.weight.dtype)
+
+
+class CastLinear(nn.Linear):
+    """A Linear over master weights that computes in ``compute_dtype``, as
+    flax's ``Dense(dtype=compute, param_dtype=float32)`` does: input, weight
+    and bias are cast to the compute dtype (differentiably, so gradients
+    land in the master dtype), the product is rounded, then the bias is
+    added and rounded again."""
+
+    compute_dtype: torch.dtype = torch.float32
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        y = F.linear(x.to(cd), self.weight.to(cd))
+        return y if self.bias is None else y + self.bias.to(cd)
+
+
+def cast_linears_(module: nn.Module, compute_dtype: torch.dtype) -> nn.Module:
+    """Replace every ``nn.Linear`` under ``module`` by a :class:`CastLinear`
+    computing in ``compute_dtype`` that holds the same parameters (names
+    and tensors unchanged)."""
+    for parent in list(module.modules()):
+        for name, child in list(parent.named_children()):
+            if type(child) is nn.Linear:
+                new = CastLinear(child.in_features, child.out_features,
+                                 bias=child.bias is not None, device="meta")
+                new.weight, new.bias = child.weight, child.bias
+                new.compute_dtype = compute_dtype
+                setattr(parent, name, new)
+    return module
+
+
 class Mlp(nn.Module):
     """fc1 -> tanh-GELU -> fc2, both with bias."""
 

@@ -66,6 +66,29 @@ class DiffusionSchedule:
                beta_start: float = 0.0001, beta_end: float = 0.02):
         return cls(num_train_timesteps, beta_schedule, beta_start, beta_end)
 
+    def _scales(self, x0, timesteps):
+        """(sqrt(acp_t), sqrt(1 - acp_t)), float32 tables taken with numpy's
+        correctly rounded square root (torch's CPU float32 sqrt is not
+        always) and indexed at ``timesteps`` on x0's device, shaped to
+        broadcast over x0's trailing dims, cast to x0's dtype."""
+        acp = self.alphas_cumprod
+        t = torch.as_tensor(timesteps, device=x0.device).long()
+        shape = tuple(t.shape) + (1,) * (x0.dim() - t.dim())
+        return tuple(torch.as_tensor(table, device=x0.device)[t].reshape(shape).to(x0.dtype)
+                     for table in (np.sqrt(acp), np.sqrt(np.float32(1) - acp)))
+
+    # ---- DDPM forward process (training) ----------------------------------
+    def add_noise(self, x0, noise, timesteps):
+        """x_t = sqrt(acp_t) x0 + sqrt(1 - acp_t) eps; ``timesteps`` int
+        (B,), broadcast over x0's trailing dims."""
+        sa, sn = self._scales(x0, timesteps)
+        return sa * x0 + sn * noise
+
+    def velocity(self, x0, noise, timesteps):
+        """v-prediction target: v = sqrt(acp) eps - sqrt(1 - acp) x0."""
+        sa, sn = self._scales(x0, timesteps)
+        return sa * noise - sn * x0
+
 
 @dataclasses.dataclass(frozen=True)
 class DPMSolverTables:
@@ -202,3 +225,40 @@ def dpm_renoise(x0, noise, schedule: DiffusionSchedule,
     a = float(tables.alpha_t[start_index])
     s = float(tables.sigma_t[start_index])
     return (a * x0.double() + (s * noise.float()).double()).float()
+
+
+def sample_ddpm(model_fn: Callable, x_init: torch.Tensor, schedule: DiffusionSchedule,
+                prediction_type: str = "sample", clip_sample: bool = False,
+                noises=None, generator=None):
+    """Full-length ancestral DDPM sampling (T = train timesteps), t from
+    T - 1 down to 0.  The posterior noise of the step at t is ``noises[T -
+    1 - t]`` ((T,) + x's shape) when given, else a draw from ``generator``;
+    the step at t = 0 adds none."""
+    acp = torch.as_tensor(schedule.alphas_cumprod, device=x_init.device)
+    T = schedule.num_train_timesteps
+    acp_prev = torch.cat([torch.ones(1, device=acp.device), acp[:-1]])
+    alphas = acp / acp_prev
+    batch = x_init.shape[0]
+    x = x_init.float()
+    for i, t in enumerate(range(T - 1, -1, -1)):
+        out = model_fn(x, torch.full((batch,), t, dtype=torch.int32,
+                                     device=x.device)).float()
+        a_t, acp_t, acp_p = alphas[t], acp[t], acp_prev[t]
+        beta_t = 1.0 - a_t
+        if prediction_type == "sample":
+            x0 = out
+        elif prediction_type == "epsilon":
+            x0 = (x - torch.sqrt(1 - acp_t) * out) / torch.sqrt(acp_t)
+        else:
+            raise ValueError(prediction_type)
+        if clip_sample:
+            x0 = torch.clamp(x0, -1.0, 1.0)
+        coef_x0 = torch.sqrt(acp_p) * beta_t / (1 - acp_t)
+        coef_xt = torch.sqrt(a_t) * (1 - acp_p) / (1 - acp_t)
+        mean = coef_x0 * x0 + coef_xt * x
+        var = torch.clamp(beta_t * (1 - acp_p) / (1 - acp_t), min=1e-20)
+        noise = (torch.as_tensor(noises[i], dtype=torch.float32, device=x.device)
+                 if noises is not None else
+                 torch.randn(x.shape, generator=generator, device=x.device))
+        x = mean + (torch.sqrt(var) if t > 0 else 0.0) * noise
+    return x.to(x_init.dtype)

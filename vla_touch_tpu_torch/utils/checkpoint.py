@@ -7,15 +7,21 @@ A tree file is flax's msgpack state-dict format, byte for byte as
 maps whose leaves are msgpack ext type 1, each holding the msgpack array
 ``(shape, dtype name, C-order bytes)``.  A numpy scalar is ext type 3 with
 the same payload.  The codec below is written on the standard library and
-numpy, since the card has no ``msgpack`` package.  flax chunks an array
-over 2^30 bytes into a ``__msgpack_chunked_array__`` map; the controllers'
-leaves are far smaller, so the reader raises on one.
+numpy.  A bfloat16 leaf (a torch tensor; numpy has no bfloat16) is the
+payload ``(shape, "bfloat16", bytes)`` as flax writes ml_dtypes' bfloat16,
+and is read back as a torch bfloat16 tensor.  flax chunks an array over
+2^30 bytes into a ``__msgpack_chunked_array__`` map; the port's leaves are
+far smaller (RDT-1B's largest is 36 MB), so the reader raises on one.  A
+tree is written to its file as it is encoded, leaf by leaf, and read
+through a memory map, so a multi-GB tree (RDT-1B's optimizer state) is
+never held twice in host memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import mmap
 import os
 import re
 import shutil
@@ -67,26 +73,41 @@ def _pack_len(n: int, small: int, small_max: int, codes: tuple, out: list) -> No
     raise OverflowError(n)
 
 
-def _pack_ext(code: int, data: bytes, out: list) -> None:
-    n = len(data)
+def _ext_header(code: int, n: int) -> bytes:
+    """The header of an ext object of ``n`` payload bytes."""
     fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
     if n in fixed:
-        out.append(bytes([fixed[n], code]))
-    elif n < 1 << 8:
-        out.append(bytes([0xC7, n, code]))
-    elif n < 1 << 16:
-        out.append(b"\xc8" + struct.pack(">H", n) + bytes([code]))
-    else:
-        out.append(b"\xc9" + struct.pack(">I", n) + bytes([code]))
-    out.append(data)
+        return bytes([fixed[n], code])
+    if n < 1 << 8:
+        return bytes([0xC7, n, code])
+    if n < 1 << 16:
+        return b"\xc8" + struct.pack(">H", n) + bytes([code])
+    return b"\xc9" + struct.pack(">I", n) + bytes([code])
 
 
-def _array_payload(arr: np.ndarray) -> bytes:
-    """msgpack of (shape, dtype name, C-order bytes), as flax's
-    ``_ndarray_to_bytes``."""
+class _BF16:
+    """A bfloat16 leaf on its way to the file: its 16-bit patterns."""
+
+    def __init__(self, t: torch.Tensor):
+        self.bits = t.detach().contiguous().cpu().view(torch.int16).numpy()
+
+
+def _pack_array(code: int, arr: np.ndarray, out: list, name: str = None) -> None:
+    """Ext ``code`` holding the msgpack of (shape, dtype name, C-order
+    bytes), as flax's ``_ndarray_to_bytes``; the data goes to ``out`` as a
+    view of the array, not a copy."""
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("object and structured dtypes cannot be serialized")
-    return packb((tuple(int(d) for d in arr.shape), arr.dtype.name, arr.tobytes("C")))
+    if not arr.flags.c_contiguous:
+        arr = arr.copy(order="C")
+    head: list = [b"\x93"]
+    _pack(tuple(int(d) for d in arr.shape), head)
+    _pack(name or arr.dtype.name, head)
+    _pack_len(arr.nbytes, 0, 0, (0xC4, 0xC5, 0xC6), head)
+    head = b"".join(head)
+    out.append(_ext_header(code, len(head) + arr.nbytes))
+    out.append(head)
+    out.append(memoryview(arr.reshape(-1)).cast("B"))
 
 
 def _pack(obj, out: list) -> None:
@@ -94,12 +115,13 @@ def _pack(obj, out: list) -> None:
         out.append(b"\xc0")
     elif obj is True or obj is False:
         out.append(b"\xc3" if obj else b"\xc2")
-    elif isinstance(obj, np.ndarray):
-        if obj.size * obj.dtype.itemsize > MAX_CHUNK_SIZE:
-            raise ValueError(f"array of {obj.nbytes} bytes: chunked leaves are not written")
-        _pack_ext(EXT_NDARRAY, _array_payload(obj), out)
+    elif isinstance(obj, (np.ndarray, _BF16)):
+        arr, name = (obj.bits, "bfloat16") if isinstance(obj, _BF16) else (obj, None)
+        if arr.nbytes > MAX_CHUNK_SIZE:
+            raise ValueError(f"array of {arr.nbytes} bytes: chunked leaves are not written")
+        _pack_array(EXT_NDARRAY, arr, out, name)
     elif isinstance(obj, np.generic):
-        _pack_ext(EXT_NPSCALAR, _array_payload(np.asarray(obj)), out)
+        _pack_array(EXT_NPSCALAR, np.asarray(obj), out)
     elif isinstance(obj, int):
         _pack_int(obj, out)
     elif isinstance(obj, float):
@@ -132,9 +154,13 @@ def packb(obj) -> bytes:
 
 
 class _Reader:
-    def __init__(self, data: bytes):
+    """``raw_bin``: bin objects come back as views of the data, not copies
+    (an array payload's buffer, copied once into its array)."""
+
+    def __init__(self, data: bytes, raw_bin: bool = False):
         self.data = memoryview(data)
         self.pos = 0
+        self.raw_bin = raw_bin
 
     def take(self, n: int) -> memoryview:
         if self.pos + n > len(self.data):
@@ -163,7 +189,8 @@ class _Reader:
             return simple[c]
         sized = {0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}
         if c in sized:
-            return bytes(self.take(self.num(sized[c])))
+            b = self.take(self.num(sized[c]))
+            return b if self.raw_bin else bytes(b)
         ext = {0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}
         if c in ext:
             n = self.num(ext[c])
@@ -192,12 +219,12 @@ class _Reader:
         return out
 
     def ext(self, code: int, n: int):
-        payload = bytes(self.take(n))
         if code not in (EXT_NDARRAY, EXT_NPSCALAR):
             raise ValueError(f"unsupported msgpack ext type {code}")
-        shape, name, buf = unpackb(payload)
+        shape, name, buf = _Reader(self.take(n), raw_bin=True).read()
         if name == "bfloat16":
-            raise ValueError("bfloat16 leaves are not read: the controllers' trees are float32")
+            bits = np.frombuffer(buf, dtype=np.int16).reshape(shape).copy()
+            return torch.from_numpy(bits).view(torch.bfloat16)
         arr = np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape).copy()
         return arr if code == EXT_NDARRAY else arr[()]
 
@@ -205,7 +232,9 @@ class _Reader:
 def unpackb(data: bytes):
     r = _Reader(data)
     out = r.read()
-    if r.pos != len(r.data):
+    trailing = r.pos != len(r.data)
+    r.data.release()
+    if trailing:
         raise ValueError("trailing bytes after the msgpack object")
     return out
 
@@ -222,8 +251,10 @@ def _numpy_tree(tree):
         return {str(i): _numpy_tree(v) for i, v in enumerate(tree)}
     if isinstance(tree, torch.Tensor):
         if tree.dtype == torch.bfloat16:
-            raise ValueError("bfloat16 tensors are not written: save float32")
-        return tree.detach().cpu().numpy()
+            return _BF16(tree)
+        # made contiguous where it lies (a transposed view on the card), then
+        # one copy to the host
+        return tree.detach().contiguous().cpu().numpy()
     return np.asarray(tree)
 
 
@@ -241,10 +272,10 @@ def _match(tree, target, path=()):
     ``from_state_dict``: every key of ``target`` must be there; leaves must
     agree in shape."""
     if not isinstance(target, dict):
-        t_shape = tuple(np.shape(target.detach().cpu() if isinstance(target, torch.Tensor)
-                                 else target))
-        if tuple(np.shape(tree)) != t_shape:
-            raise ValueError(f"{'/'.join(path)}: shape {np.shape(tree)} != {t_shape}")
+        t_shape, shape = (tuple(t.shape) if isinstance(t, torch.Tensor) else np.shape(t)
+                          for t in (target, tree))
+        if shape != t_shape:
+            raise ValueError(f"{'/'.join(path)}: shape {shape} != {t_shape}")
         return tree
     if not isinstance(tree, dict):
         raise ValueError(f"{'/'.join(path)}: a leaf where the target has a subtree")
@@ -254,17 +285,28 @@ def _match(tree, target, path=()):
     return {k: _match(tree[str(k)], v, path + (str(k),)) for k, v in target.items()}
 
 
-def save_pytree(path: str, tree: Any) -> None:
+class _FileOut:
+    """``_pack``'s output list, written straight to a file."""
+
+    def __init__(self, f):
+        self.append = f.write
+
+
+def save_pytree(path: str, tree: Any) -> int:
+    """Write ``tree`` (numpy arrays, tensors, numbers; dicts, lists) as
+    flax's bytes; returns the file's size."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        f.write(packb(_numpy_tree(tree)))
+        _pack(_numpy_tree(tree), _FileOut(f))
+        return f.tell()
 
 
 def load_pytree(path: str, target: Any = None) -> Any:
-    """The file's tree of numpy arrays; with ``target``, restricted to its
-    structure (keys and shapes validated)."""
-    with open(path, "rb") as f:
-        tree = unpackb(f.read())
+    """The file's tree of numpy arrays (bfloat16 leaves: torch tensors);
+    with ``target``, restricted to its structure (keys and shapes
+    validated)."""
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+        tree = unpackb(m)
     _check_chunked(tree)
     return tree if target is None else _match(tree, target)
 

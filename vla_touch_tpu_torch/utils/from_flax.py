@@ -461,3 +461,100 @@ def tactile_projector(params: dict, device=None):
         m = TactileProjector(k1.shape[0], k1.shape[1])
     m = m.to_empty(device=device).float()
     return load_into(m, to_state_dict(params)).eval().requires_grad_(False)
+
+
+# ---- the RDT training state ------------------------------------------------------
+
+
+def flax_paths(module: torch.nn.Module) -> dict:
+    """name -> (flax path, transposed) of each of ``module``'s parameters:
+    where it sits in the JAX package's tree, and whether its layout there
+    is the transpose (a Linear weight as a Dense kernel).  For modules of
+    Linears, RmsNorms and bare parameters (the RDT runner)."""
+    out = {}
+    for mname, m in module.named_modules():
+        path = tuple(re.sub(r"(^|\.)blocks\.(\d+)", r"\1block\2", mname).split(".")
+                     if mname else ())
+        for k in dict(m.named_parameters(recurse=False)):
+            full = f"{mname}.{k}" if mname else k
+            linear = isinstance(m, torch.nn.Linear) and k == "weight"
+            out[full] = (path + ("kernel" if linear else k,), linear)
+    return out
+
+
+def _torch(a) -> torch.Tensor:
+    """A numpy leaf (bfloat16 as ml_dtypes stores it) or tensor -> tensor."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def nest(paths: dict, values: dict, transpose: bool = True) -> dict:
+    """{name: tensor} -> the flax tree of :func:`flax_paths` (transposed
+    leaves as their transpose unless ``transpose`` is False: the 8-bit
+    moments' blocks)."""
+    tree: dict = {}
+    for name, v in values.items():
+        path, t = paths[name]
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = v.t() if t and transpose else v
+    return tree
+
+
+def unnest(paths: dict, tree: dict, device=None, transpose: bool = True) -> dict:
+    """The inverse of :func:`nest`: {name: tensor on ``device``}.  Every
+    name of ``paths`` must be in the tree."""
+    out = {}
+    for name, (path, t) in paths.items():
+        node = tree
+        for p in path:
+            if p not in node:
+                raise KeyError(f"{'/'.join(path)} missing from the tree")
+            node = node[p]
+        v = _torch(node)
+        v = (v.t() if t and transpose else v).contiguous()
+        out[name] = v if device is None else v.to(device)
+    return out
+
+
+def rdt_train_state_to_flax(state, optimizer) -> dict:
+    """A ``train.rdt_train.TrainState`` -> the JAX package's checkpoint
+    trees: ``params``, ``ema`` (the shadow), ``opt_state`` (optax's chain
+    state) and ``meta`` (step, EMA update count)."""
+    paths = flax_paths(state.module)
+    return {"params": nest(paths, state.params),
+            "ema": nest(paths, state.ema.shadow),
+            "opt_state": optimizer.to_tree(
+                state.opt_state, lambda d: nest(paths, d),
+                lambda d: nest(paths, d, transpose=False)),
+            "meta": {"step": int(state.step),
+                     "ema_num_updates": int(state.ema.num_updates)}}
+
+
+def rdt_train_state_from_flax(trees: dict, state, optimizer):
+    """The inverse of :func:`rdt_train_state_to_flax`, into ``state``: its
+    module's parameters are overwritten in place (cast to their dtype),
+    the EMA shadow and optimizer state replaced, on the module's device.
+    Returns ``state``."""
+    from vla_touch_tpu_torch.utils import ema as ema_lib
+
+    paths = flax_paths(state.module)
+    dev = next(state.module.parameters()).device
+    params = unnest(paths, trees["params"], dev)
+    with torch.no_grad():
+        for name, p in state.module.named_parameters():
+            p.copy_(params[name].to(p.dtype))
+    shadow = unnest(paths, trees["ema"], dev)
+    state.ema = ema_lib.EmaState(
+        shadow={n: shadow[n].to(s.dtype) for n, s in state.ema.shadow.items()},
+        num_updates=torch.tensor(trees["meta"]["ema_num_updates"], dtype=torch.int32))
+    state.opt_state = optimizer.from_tree(
+        trees["opt_state"], lambda t: unnest(paths, t, dev),
+        lambda t: unnest(paths, t, dev, transpose=False))
+    state.step = int(trees["meta"]["step"])
+    return state

@@ -12,10 +12,16 @@ import numpy as np
 
 
 def normalize_vector(v, eps: float = 1e-8):
-    """L2-normalise along the last axis with a magnitude floor."""
+    """L2-normalise along the last axis with a magnitude floor.  The squares
+    are summed as XLA:CPU reduces them: a float32 accumulator taking one
+    fused multiply-add per element, in order (a product of two float32
+    values is exact in float64)."""
     v = np.asarray(v, np.float32)
-    mag = np.sqrt(np.sum(v * v, axis=-1, keepdims=True))
-    return v / np.maximum(mag, np.float32(eps))
+    acc = np.zeros(v.shape[:-1], np.float32)
+    for i in range(v.shape[-1]):
+        x = v[..., i].astype(np.float64)
+        acc = (x * x + acc).astype(np.float32)
+    return v / np.maximum(np.sqrt(acc)[..., None], np.float32(eps))
 
 
 def quaternion_to_rotation_matrix(quat):

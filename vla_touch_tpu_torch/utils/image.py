@@ -1,8 +1,8 @@
 """Image preprocessing (counterpart of ``vla_touch_tpu/utils/image.py``).
 
 ``pad_and_resize_for_siglip`` is the host-side zero-pad-to-square + area
-resize of the deployment wrapper; ``siglip_normalize`` maps uint8 pixels to
-[-1, 1] on the device.
+resize of the deployment wrapper (``pad_and_resize_batch`` over frames);
+``siglip_normalize`` maps uint8 pixels to [-1, 1] on the device.
 """
 
 from __future__ import annotations
@@ -29,6 +29,15 @@ def pad_and_resize_for_siglip(image: np.ndarray, target_size: int = 384) -> np.n
 
     return cv2.resize(canvas, (target_size, target_size),
                       interpolation=cv2.INTER_AREA)
+
+
+def pad_and_resize_batch(images: np.ndarray, target_size: int = 384) -> np.ndarray:
+    """(N, H, W, C) frames, each through :func:`pad_and_resize_for_siglip`."""
+    out = np.zeros((images.shape[0], target_size, target_size, images.shape[-1]),
+                   dtype=images.dtype)
+    for i, img in enumerate(images):
+        out[i] = pad_and_resize_for_siglip(img, target_size)
+    return out
 
 
 # The JAX package's normalizations run under jit, where XLA turns x / c into
