@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's control tick (cold and steady-state), its residual
-controllers' training and evaluation, RDT-1B finetuning, and its planner on
-one NVIDIA GPU.
+"""Drive the PyTorch port's control tick (cold and steady-state), its serving
+pool and replay CLI, its residual controllers' training and evaluation,
+RDT-1B finetuning, and its planner on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -71,6 +71,23 @@ one NVIDIA GPU.
    and 6 frames (token corr gates, K1's launches, ms beside the module's)
    and one warm tick through each, and the reference-style chunk (the full
    model every step, K1 280 launches) against the cached chunk.
+   Then the deployment entry points.  ``serving_phase``: the multi-robot
+   pool (``runtime/serving_pool.py::from_policy``) on the bf16 runner and
+   on the int8 twin, one batch per bucket (1, 2, 3 and 7 requests into
+   buckets 1, 2, 4, 8; instructions of 20-64 tokens padded to 1024), its
+   launches asserted (K1 307; the twin's K6 868, and 18 at bucket 8 where
+   the blocks' linears pass 512 rows), every row equal to the direct
+   batched ``policy_step`` on the same padded batch and noise bit for bit
+   and held to the request alone at bucket 1 (corr > CHUNK_CORR_MIN), the
+   int8 rows to the bf16 rows (> INT8_CHUNK_CORR_MIN), each batch also a
+   checked run; then 8 robot threads x 4 requests with the 3 ms window
+   (requests/s, latency p50/p95, buckets dispatched, batch ms).
+   ``replay_phase``: an npz episode, the bf16 runner written as an
+   HF-layout safetensors checkpoint (validated against the rdt_1b
+   manifest, read back bit for bit; bytes and seconds), BRIDGeR and LSTM
+   checkpoints, then ``replay_cli.main`` for 48 steps with the refiner
+   none, bridge (warm skip 2) and lstm (launch and stage counts asserted)
+   and one bridge replan as a checked run.
 7. The residual controllers (``controllers_phase``): BRIDGeR (``down_dims``
    (256, 512, 512), hidden 256, force and the DinoV2-small pair at 384^2)
    and the LSTM controller (hidden 256, 2 layers) trained 30 steps each at
@@ -116,8 +133,10 @@ one NVIDIA GPU.
    call held to its plain version on its own operands; the decode tiers (unfused, fused, fused + megakernels),
    best-of-8 throughput and a profiled decode.
 9. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
-   tick's, the controllers phase's and RDT finetuning's, K2's the tick's
-   and the controllers', each path counted from 0; K1 also carries its
+   tick's, the serving pool's, the replay's, the controllers phase's and
+   RDT finetuning's, K2's the tick's, the replay's and the controllers',
+   K6's tick (a)'s and the serving pool's, each path counted from 0
+   (``launches_by_path``); K1 also carries its
    sums over a training step's calls (``train_step``);
    K5's and K7's are the shadow calls of (f)'s checked tick), the ``nvidia-smi`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
@@ -569,6 +588,13 @@ K1_SHAPES = [
     # one fused projection) on the warm tick's 3 frames and a cold tick's 6
     ("siglip_serve_self_3", 3, 729, 729, 16, 72, "fused", None, 0),
     ("siglip_serve_self_6", 6, 729, 729, 16, 72, "fused", None, 0),
+    # check only: the serving pool's bucket 8 (serving_phase): SigLIP over
+    # 48 frames, and RDT-1B's attentions at B 8 with the language condition
+    # padded to 1024 keys, 20-62 valid and none in the last (pad) row
+    ("pool_siglip_self_b48", 48, 729, 729, 16, 72, "vit", None, 0),
+    ("pool_rdt_self_b8", 8, 67, 67, 32, 64, "self", None, 0),
+    ("pool_image_cross_b8", 8, 67, 4374, 32, 64, "cross", None, 0),
+    ("pool_lang_cross_b8", 8, 67, 1024, 32, 64, "cross", "pool", 0),
     # RDT finetuning (rdt_train_phase), calls per training step of
     # batch_size 4 x grad_accum 4: the forward of each micro-batch (28
     # self-attentions, 14 image and 14 language cross-attentions over the
@@ -629,12 +655,18 @@ def k1_mask(B, Lq, Lkv, H, kind):
     """None, or a (B, Lkv) mask: row 0 keeps 50 keys ("ragged"), and row 1
     keeps none as well ("empty"); row 0 keeps its first Lkv // 3 keys and
     row 1 none ("empty_wide"); "short", every row keeps its first
-    RDT_LANG_LEN keys; or "dead_split", every key of K1's second split (at
-    D 64) masked."""
+    RDT_LANG_LEN keys; "pool", row i keeps its first 20 + 7 i keys and the
+    last row none (a serving pool's padded batch); or "dead_split", every
+    key of K1's second split (at D 64) masked."""
     import torch
 
     if kind is None:
         return None
+    if kind == "pool":
+        mask = torch.zeros((B, Lkv), dtype=torch.bool, device="cuda")
+        for i in range(B - 1):
+            mask[i, :20 + 7 * i] = True
+        return mask
     if kind == "short":
         mask = torch.zeros((B, Lkv), dtype=torch.bool, device="cuda")
         mask[:, :RDT_LANG_LEN] = True
@@ -1929,6 +1961,376 @@ def warm_phase(t, int8_runner) -> dict:
         res["vit_tiers"][f"warm_tick_{tier}_chunk_corr_vs_module"] = c
         log(f"warm tick through the SigLIP {tier} tier: chunk corr vs the module's {c:.6f}")
     res["reference_style"] = reference_style_chunk(t, feed)
+    return res
+
+
+# ---- the deployment entry points: the serving pool and the replay CLI ---------------
+
+# (bucket, requests) of the serving phase's deterministic batches: buckets 4
+# and 8 carry one zero pad row each
+SERVE_BATCHES = ((1, 1), (2, 2), (4, 3), (8, 7))
+SERVE_WAIT_MS = 200.0              # the deterministic batches' coalescing window
+SERVE_ROBOTS = 8
+SERVE_ROUNDS = 4                   # requests per robot thread, one after another
+SERVE_TIMEOUT_S = 120.0
+
+
+def serving_requests(t, n: int, seed: int = 11) -> list:
+    """``n`` robots' requests at full width: six 384^2 frames, a 20-64
+    token instruction of 4096-wide embeddings (padded to the model's 1024
+    by the pool), the 10-D state."""
+    rng = np.random.default_rng(seed)
+    S, D = t["pcfg"].image_size, t["pcfg"].rdt.model.lang_token_dim
+    out = []
+    for _ in range(n):
+        L = int(rng.integers(20, 65))
+        out.append(dict(proprio=rng.normal(size=(10,)).astype(np.float32),
+                        images=rng.integers(0, 256, (6, S, S, 3)).astype(np.uint8),
+                        image_mask=np.ones((6,), bool),
+                        text_embeds=rng.normal(size=(L, D)).astype(np.float32),
+                        text_mask=np.ones((L,), bool)))
+    return out
+
+
+def pool_batch(t, rdt, reqs, seed: int) -> np.ndarray:
+    """``reqs`` through a fresh ``from_policy`` pool (seeded ``seed``), all
+    submitted within its coalescing window: one batch; each future's row."""
+    from vla_touch_tpu_torch.runtime import serving_pool as SP
+
+    with SP.from_policy(t["pcfg"], rdt, t["model"].vision, seed=seed,
+                        max_wait_ms=SERVE_WAIT_MS) as pool:
+        futs = [pool.submit(**r) for r in reqs]
+        return np.stack([f.result(timeout=SERVE_TIMEOUT_S) for f in futs])
+
+
+def padded_batch(t, reqs, bucket: int) -> dict:
+    """The tensors the pool hands ``policy_step`` for ``reqs`` at
+    ``bucket``: zero pad rows, text padded to ``max_lang_cond_len``."""
+    import torch
+
+    from vla_touch_tpu_torch.runtime import serving_pool as SP
+
+    L = t["pcfg"].rdt.model.max_lang_cond_len
+    return {k: torch.as_tensor(SP._pad_rows([r[k] for r in reqs], bucket,
+                                            L if k.startswith("text") else None),
+                               device="cuda") for k in reqs[0]}
+
+
+def pool_noise(t, bucket: int, seed: int):
+    """The first draw of a pool seeded ``seed``: its first batch's noise."""
+    import torch
+
+    m = t["pcfg"].rdt.model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((bucket, m.horizon, m.output_dim), generator=gen, device="cuda")
+
+
+def serve_need(t, bucket: int, quant: bool) -> dict:
+    """Launches of one pool batch: SigLIP's layers (one encode of 6 x
+    bucket frames), 2 x depth K1 calls a solver step.  The int8 twin's K6
+    calls are its linears at M <= 512 (``qdense_kernel_a8w8``; above, the
+    plain route): per step the blocks' 6 (qkv, proj, q, cross proj, fc1,
+    fc2) and the final head's 2 at M = 67 x bucket, and the action
+    adaptor's at M = 64 x bucket; once, the state adaptor's at M = bucket,
+    the language adaptor's at M = 1024 x bucket and the image adaptor's at
+    M = 4374 x bucket (at RDT-1B's widths those two take the plain
+    route)."""
+    m = t["pcfg"].rdt.model
+    steps = t["pcfg"].rdt.noise.num_inference_timesteps
+    need = {"K1": t["pcfg"].vision.num_layers + steps * 2 * m.depth}
+    if quant:
+        rdt = t["model"].rdt
+
+        def k6(M, calls):
+            return calls if M <= 512 else 0
+
+        per_step = (k6(bucket * (m.horizon + 3), 6 * m.depth + 2)
+                    + k6(bucket * m.horizon, rdt.state_adaptor.depth))
+        need["K6"] = (steps * per_step + k6(bucket, rdt.state_adaptor.depth)
+                      + k6(bucket * m.max_lang_cond_len, rdt.lang_adaptor.depth)
+                      + k6(bucket * m.img_cond_len, rdt.img_adaptor.depth))
+    return need
+
+
+def serving_phase(t, int8_runner) -> dict:
+    """The multi-robot serving pool at full width (SigLIP-so400m, RDT-1B):
+    one deterministic batch per bucket through ``from_policy`` on the bf16
+    runner and on the int8 twin, each row held to the direct batched
+    ``policy_step`` on the same padded batch and noise (bit for bit) and to
+    the request served alone at bucket 1 with its noise row (chunk corr >
+    CHUNK_CORR_MIN), the int8 rows to the bf16 rows (> INT8_CHUNK_CORR_MIN),
+    each batch also a checked run; then SERVE_ROBOTS robot threads with the
+    default 3 ms window.  Returns the launch counts of the pool runs."""
+    import threading
+
+    import torch
+
+    from vla_touch_tpu_torch.runtime import policy as P
+    from vla_touch_tpu_torch.runtime import serving_pool as SP
+
+    pcfg, vision = t["pcfg"], t["model"].vision
+    reqs = serving_requests(t, max(n for _, n in SERVE_BATCHES))
+    total = {k: 0 for k in WRAPPERS}
+    res = {"batches": {}}
+    bf16_rows = {}
+
+    def count(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    for name, rdt, quant in (("bf16", t["model"].rdt, False), ("int8", int8_runner, True)):
+        for bucket, n in SERVE_BATCHES:
+            what = f"serving {name} bucket {bucket} ({n} requests)"
+            seed = 100 + bucket
+            zero_counts()
+            rows = pool_batch(t, rdt, reqs[:n], seed)
+            counts = read_counts()
+            count(counts)
+            check_counts(what, counts, serve_need(t, bucket, quant))
+            batch = padded_batch(t, reqs[:n], bucket)
+            noise = pool_noise(t, bucket, seed)
+            direct = P.policy_step(pcfg, rdt, vision, **batch, init_noise=noise).cpu().numpy()
+            if not np.isfinite(direct).all():
+                raise AssertionError(f"{what}: a row of the direct batch is not finite")
+            diff = float(np.abs(rows - direct[:n]).max())
+            if diff != 0.0:
+                raise AssertionError(f"{what}: pool rows differ from the direct batched call "
+                                     f"by {diff}")
+            alone = []
+            for i in range(n):
+                one = padded_batch(t, reqs[i:i + 1], 1)
+                alone.append(P.policy_step(pcfg, rdt, vision, **one,
+                                           init_noise=noise[i:i + 1]).cpu().numpy()[0])
+            c_alone = min(action_corr(t, rows[i], alone[i]) for i in range(n))
+            if not c_alone > CHUNK_CORR_MIN:
+                raise AssertionError(f"{what}: a row against its request served alone at "
+                                     f"bucket 1: corr {c_alone} <= {CHUNK_CORR_MIN}")
+            entry = {"pool_vs_direct_max_abs": diff, "min_corr_vs_alone": c_alone,
+                     "launches": counts}
+            if quant:
+                c8 = min(action_corr(t, rows[i], bf16_rows[bucket][i]) for i in range(n))
+                if not c8 > INT8_CHUNK_CORR_MIN:
+                    raise AssertionError(f"{what}: int8 vs bf16 rows corr {c8} <= "
+                                         f"{INT8_CHUNK_CORR_MIN}")
+                entry["min_corr_vs_bf16"] = c8
+            else:
+                bf16_rows[bucket] = rows
+            need = serve_need(t, bucket, quant)
+            chk = checked_run(lambda: pool_batch(t, rdt, reqs[:n], seed))
+            check_chk(f"{what} checked", chk, need)
+            entry["checked"] = {k: v for k, v in chk.items() if v["calls"]}
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                P.policy_step(pcfg, rdt, vision, **batch, init_noise=noise).cpu()
+                ms.append(1e3 * (time.perf_counter() - t1))
+            entry["batch_ms_p50"] = float(np.median(ms))
+            log(f"{what}: rows = direct call (max abs {diff}), min corr vs alone "
+                f"{c_alone:.6f}" + (f", vs bf16 {entry['min_corr_vs_bf16']:.6f}" if quant else "")
+                + f", batch p50 {entry['batch_ms_p50']:.2f} ms ({[round(x, 2) for x in ms]})")
+            res["batches"][f"{name}_b{bucket}"] = entry
+
+    # SERVE_ROBOTS robots, each submitting SERVE_ROUNDS requests one after
+    # another, through one pool with the default window
+    robot_reqs = serving_requests(t, SERVE_ROBOTS * SERVE_ROUNDS, seed=12)
+    lat, dispatched, errors = [], [], []
+    pool = SP.from_policy(pcfg, t["model"].rdt, vision, seed=7)
+    inner = pool._fn
+
+    def timed(proprio, *a):
+        t1 = time.perf_counter()
+        out = inner(proprio, *a)
+        torch.cuda.synchronize()
+        dispatched.append((int(proprio.shape[0]), 1e3 * (time.perf_counter() - t1)))
+        return out
+
+    pool._fn = timed
+    results = [None] * len(robot_reqs)
+
+    def robot(r):
+        try:
+            for k in range(SERVE_ROUNDS):
+                i = r * SERVE_ROUNDS + k
+                t1 = time.perf_counter()
+                results[i] = pool.submit(**robot_reqs[i]).result(timeout=SERVE_TIMEOUT_S)
+                lat.append(1e3 * (time.perf_counter() - t1))
+        except Exception as e:                       # noqa: BLE001
+            errors.append(e)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=robot, args=(r,)) for r in range(SERVE_ROBOTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    pool.close()
+    counts = read_counts()
+    count(counts)
+    if errors:
+        raise errors[0]
+    shape = (pcfg.rdt.model.horizon, len(pcfg.state_indices))
+    for i, row in enumerate(results):
+        if row is None or row.shape != shape or not np.isfinite(row).all():
+            raise AssertionError(f"robot request {i}: {None if row is None else row.shape}")
+    check_counts("serving robots", counts,
+                 {"K1": serve_need(t, 1, False)["K1"] * len(dispatched)})
+    hist = {b: sum(1 for x, _ in dispatched if x == b) for b in (1, 2, 4, 8)}
+    res["robots"] = {
+        "robots": SERVE_ROBOTS, "requests": len(results), "wall_s": wall,
+        "requests_per_s": len(results) / wall,
+        "latency_ms_p50": float(np.percentile(lat, 50)),
+        "latency_ms_p95": float(np.percentile(lat, 95)),
+        "buckets_dispatched": hist,
+        "batch_ms_p50": {b: float(np.median([ms for x, ms in dispatched if x == b]))
+                         for b in hist if hist[b]}}
+    log("serving robots: " + json.dumps(res["robots"]))
+    res["launches"] = total
+    return res
+
+
+REPLAY_STEPS = 48
+REPLAY_EPISODE_STEPS = 96
+
+
+def replay_need(t, refiner: str, warm_skip: int) -> dict:
+    """Launches of one replay of REPLAY_STEPS steps (a replan every 16):
+    each replan encodes both frames' cameras (two SigLIP encodes: the t-1
+    frames never equal the previous replan's t frames) and runs the solver
+    (2 x depth K1 calls a step; a warm replan skips ``warm_skip`` steps);
+    BRIDGeR adds the DinoV2 pair and 120 UNet blocks a replan, the LSTM the
+    DinoV2 pair at each replan."""
+    from vla_touch_tpu_torch.models.encoders.vit import DINOV2_SMALL
+
+    m, steps = t["pcfg"].rdt.model, t["pcfg"].rdt.noise.num_inference_timesteps
+    replans = -(-REPLAY_STEPS // 16)
+    siglip = 2 * t["pcfg"].vision.num_layers
+    warm = replans - 1 if warm_skip else 0
+    k1 = replans * siglip + 2 * m.depth * ((replans - warm) * steps + warm * (steps - warm_skip))
+    need = {"K1": k1}
+    if refiner != "none":
+        need["K1"] += replans * 2 * DINOV2_SMALL.num_layers
+    if refiner == "bridge":
+        need["K2"] = replans * 12 * K2_STEPS
+    return need
+
+
+def replay_phase(t) -> dict:
+    """The replay CLI at full width: an npz episode (REPLAY_EPISODE_STEPS
+    steps, 384^2 cameras, a 64 x 4096 instruction), the bf16 runner written
+    as an HF-layout RDT-1B checkpoint (validated against the rdt_1b
+    manifest, read back bit for bit), BRIDGeR and LSTM checkpoints with a
+    persisted DinoV2, then ``replay_cli.main`` over REPLAY_STEPS steps with
+    the refiner none, bridge (warm replans, skip 2) and lstm, launch counts
+    and stage counts asserted; one bridge replan as a checked run."""
+    import argparse
+    import logging
+    import shutil
+
+    import torch
+
+    from vla_touch_tpu_torch.config import BridgeControllerConfig, LSTMControllerConfig
+    from vla_touch_tpu_torch.data.episode import write_synthetic_episode
+    from vla_touch_tpu_torch.models.controllers import bridge as BR
+    from vla_touch_tpu_torch.models.controllers import lstm as LC
+    from vla_touch_tpu_torch.models.encoders import dinov2_runtime as dino
+    from vla_touch_tpu_torch.runtime import replay_cli as RC
+    from vla_touch_tpu_torch.runtime.control_loop import EpisodeReplay
+    from vla_touch_tpu_torch.utils import checkpoint_manifest as CM
+    from vla_touch_tpu_torch.utils import torch_port as TP
+
+    out = os.path.join(ROOT, "build", "replay")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    res = {}
+    level = logging.getLogger().level         # the CLI's main sets INFO
+    try:
+        ep = os.path.join(out, "episode.npz")
+        write_synthetic_episode(ep, num_steps=REPLAY_EPISODE_STEPS,
+                                img_size=t["pcfg"].image_size, lang_len=64,
+                                lang_dim=t["pcfg"].rdt.model.lang_token_dim, with_vla=False)
+        rdt = t["model"].rdt
+        ckpt = os.path.join(out, "model.safetensors")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        TP.save_rdt_checkpoint(ckpt, rdt)
+        write_s = time.perf_counter() - t1
+        diff = CM.validate_checkpoint(ckpt, "rdt_1b")
+        log("replay checkpoint: " + diff.summary("rdt_1b"))
+        if not diff.ok:
+            raise AssertionError("the written RDT-1B checkpoint fails the rdt_1b manifest")
+        t1 = time.perf_counter()
+        loaded = TP.load_rdt_runner(ckpt, t["pcfg"].rdt)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t1
+        want = rdt.state_dict()
+        for name, v in loaded.state_dict().items():
+            if v.dtype != want[name].dtype or not torch.equal(v, want[name]):
+                raise AssertionError(f"checkpoint round trip: {name} differs")
+        del loaded
+        res["checkpoint"] = {"bytes": os.path.getsize(ckpt), "write_s": write_s,
+                             "read_s": read_s}
+        log("replay checkpoint: " + json.dumps(res["checkpoint"]))
+        stats = t["stats"]
+        bdir, ldir = os.path.join(out, "bridge"), os.path.join(out, "lstm")
+        bst = BR.init_bridge_controller(BridgeControllerConfig(inference_dtype="bfloat16",
+                                                               horizon=16), seed=21)
+        bst.stats = stats
+        BR.save_bridge_controller(bdir, bst)
+        lst = LC.init_lstm_controller(LSTMControllerConfig(), seed=22)
+        lst.stats = stats
+        LC.save_lstm_controller(ldir, lst)
+        enc = dino.init_params("dinov2-small", seed=23)
+        for d in (bdir, ldir):
+            dino.save_params(d, "dinov2-small", enc)
+        del bst, lst, enc
+
+        base = ["--episode", ep, "--rdt_checkpoint", ckpt, "--steps", str(REPLAY_STEPS),
+                "--bridge_ckpt", bdir, "--lstm_ckpt", ldir]
+        runs = (("none", []), ("bridge", ["--warm_skip", str(WARM_SKIP)]), ("lstm", []))
+        total = {k: 0 for k in WRAPPERS}
+        res["runs"] = {}
+        for refiner, extra in runs:
+            zero_counts()
+            report = RC.main(base + ["--refiner", refiner] + extra)
+            counts = read_counts()
+            for k, v in counts.items():
+                total[k] += v
+            warm = WARM_SKIP if extra else 0
+            check_counts(f"replay {refiner}", counts, replay_need(t, refiner, warm))
+            replans = -(-REPLAY_STEPS // 16)
+            stage_need = ({"vla_plan": 1, "vla_plan_warm": replans - 1} if warm
+                          else {"vla_plan": replans})
+            stage_need.update({"bridge": {"bridge_refine": replans},
+                               "lstm": {"lstm_step": REPLAY_STEPS}}.get(refiner, {}))
+            got = {k: v["count"] for k, v in report["stages"].items()}
+            if got != stage_need or report["steps"] != REPLAY_STEPS \
+                    or not np.isfinite(report["tracking_mse"]):
+                raise AssertionError(f"replay {refiner}: stages {got} (need {stage_need}), "
+                                     f"report {report}")
+            log(f"replay {refiner} report: " + json.dumps(report))
+            res["runs"][refiner] = report
+        # one replan of the bridge run (its first tick) as a checked run
+        args = argparse.Namespace(rdt_checkpoint=ckpt, refiner="bridge", bridge_ckpt=bdir,
+                                  lstm_ckpt=None, replan_interval=16, refine_horizon=16,
+                                  gripper_deadband=2.0, warm_skip=WARM_SKIP, device=None)
+        replay = EpisodeReplay(ep)
+        sched = RC.build_scheduler(args, replay)
+        acts = []
+        chk = checked_run(lambda: acts.append(sched.tick(replay.observation(0))))
+        if not np.isfinite(acts[0]).all():
+            raise AssertionError("replay checked replan: the action is not finite")
+        need = replay_need(t, "bridge", 0)
+        replans = -(-REPLAY_STEPS // 16)
+        check_chk("replay bridge replan checked", chk,
+                  {k: v // replans for k, v in need.items()})
+        res["checked_replan"] = {k: v for k, v in chk.items() if v["calls"]}
+        res["launches"] = total
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        logging.getLogger().setLevel(level)
     return res
 
 
@@ -3369,6 +3771,16 @@ def main() -> int:
     # ---- the steady-state tick
     warm = warm_phase(t, q["runners"]["int8"])
     log("warm ticks: " + json.dumps(warm))
+
+    # ---- the deployment entry points: the serving pool and the replay CLI
+    t1 = time.perf_counter()
+    serve = serving_phase(t, q["runners"]["int8"])
+    log(f"serving phase: {time.perf_counter() - t1:.1f} s")
+    log("serving: " + json.dumps({k: v for k, v in serve.items()}))
+    t1 = time.perf_counter()
+    rep = replay_phase(t)
+    log(f"replay phase: {time.perf_counter() - t1:.1f} s")
+    log("replay: " + json.dumps(rep))
     del q["runners"], qa, t
 
     # ---- the residual controllers, trained and evaluated
@@ -3407,10 +3819,15 @@ def main() -> int:
                     bound_ms=tot["bound_ms"], bound_by=bound_by(tot),
                     library_ms=tot.get("library_ms"), **extra)
 
-    # K1 runs on three main paths, K2 on two: the cold tick, the controllers
-    # phase (training and evaluation) and RDT finetuning, each counted from 0
-    by_path = {k: {"tick": counts[k], "controllers": ctrl["launches"][k],
+    # K1 runs on five main paths, K2 on three: the cold tick, the serving
+    # pool, the replay CLI, the controllers phase (training and evaluation)
+    # and RDT finetuning, each counted from 0; K6 on quantized tick (a) and
+    # the serving pool's int8 batches
+    by_path = {k: {"tick": counts[k], "serving": serve["launches"][k],
+                   "replay": rep["launches"][k], "controllers": ctrl["launches"][k],
                    "rdt_train": rdt["launches"][k]} for k in ("K1", "K2")}
+    by_path["K6"] = {"tick_a": q["a"]["launches"]["K6"], "serving": serve["launches"]["K6"],
+                     "replay": rep["launches"]["K6"]}
     kernels = [
         entry("flash_attention", "flash_attention.cu", "ops/pallas_attention.py:126",
               sum(by_path["K1"].values()), k1, launches_by_path=by_path["K1"],
@@ -3426,7 +3843,7 @@ def main() -> int:
         entry("w8a16_matmul", "w8a16_matmul.cu", "ops/pallas_matmul.py:98",
               q["f"]["shadow_launches"]["K5"], k5),
         entry("a8w8_matmul", "a8w8_matmul.cu", "ops/pallas_matmul.py:192",
-              q["a"]["launches"]["K6"], k6),
+              sum(by_path["K6"].values()), k6, launches_by_path=by_path["K6"]),
         entry("a8w8_matmul_large", "a8w8_matmul_large.cu", "ops/pallas_matmul.py:272",
               q["f"]["shadow_launches"]["K7"], k7),
         entry("w4a8_matmul", "w4a8_matmul.cu", "ops/pallas_matmul.py:395",

@@ -970,3 +970,67 @@ def test_warm_chunk_on_cuda_matches_plain(cuda, quant):
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
     assert np.corrcoef(got.numpy().ravel(), want.numpy().ravel())[0, 1] > 0.999
+
+
+def test_serving_pool_batch_on_the_card_equals_the_direct_call(cuda):
+    """A bucket-4 batch of 3 requests through ``from_policy`` on the card
+    (a bf16 runner at D 64 and a one-block SigLIP, K1 throughout): every row
+    equals the direct batched ``policy_step`` on the same padded batch and
+    the pool's first noise draw, bit for bit, and the zero pad row (every
+    frame and language key masked) is finite."""
+    import numpy as np
+
+    from vla_touch_tpu_torch import config as TC
+    from vla_touch_tpu_torch.models.encoders.vit import ViTConfig
+    from vla_touch_tpu_torch.models.rdt import runner as R
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+    from vla_touch_tpu_torch.runtime import policy as P
+    from vla_touch_tpu_torch.runtime import serving_pool as SP
+
+    m = TC.rdt_tiny(dtype="bfloat16", hidden_size=256, num_heads=4, img_token_dim=256,
+                    max_lang_cond_len=64)
+    cfg = P.PolicyConfig(rdt=R.RDTRunnerConfig(model=m), image_size=28,
+                         vision=ViTConfig(hidden_size=256, num_layers=1, num_heads=4,
+                                          mlp_dim=512, image_size=28, patch_size=14,
+                                          use_cls_token=False, use_layerscale=False,
+                                          gelu_tanh=True))
+    model = P.create_model(cfg, seed=0, cache_frames=False)
+    with torch.no_grad():
+        fc2 = model.rdt.model.final_ffn.fc2.weight
+        fc2.copy_(torch.randn(fc2.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                              device=cuda).to(fc2.dtype) * 0.05)
+    r = np.random.default_rng(3)
+    reqs = [dict(proprio=r.normal(size=(10,)).astype(np.float32),
+                 images=r.integers(0, 256, (6, 28, 28, 3)).astype(np.uint8),
+                 image_mask=np.ones((6,), bool),
+                 text_embeds=r.normal(size=(L, m.lang_token_dim)).astype(np.float32),
+                 text_mask=np.ones((L,), bool)) for L in (5, 20, 33)]
+    before = FA.flash_attention.launches
+    with SP.from_policy(cfg, model.rdt, model.vision, seed=9, max_wait_ms=200) as pool:
+        rows = np.stack([f.result(timeout=120) for f in [pool.submit(**q) for q in reqs]])
+    assert FA.flash_attention.launches - before == 1 + 2 * m.depth * \
+        cfg.rdt.noise.num_inference_timesteps
+    batch = {k: torch.as_tensor(SP._pad_rows([q[k] for q in reqs], 4,
+                                             64 if k.startswith("text") else None), device=cuda)
+             for k in reqs[0]}
+    noise = torch.randn((4, m.horizon, m.output_dim), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(9))
+    direct = P.policy_step(cfg, model.rdt, model.vision, **batch, init_noise=noise).cpu().numpy()
+    assert np.isfinite(direct).all()
+    np.testing.assert_array_equal(rows, direct[:3])
+
+
+def test_safetensors_load_onto_the_card_gives_the_cpu_bits(cuda, tmp_path):
+    """``load_file(device="cuda")`` gives the CPU read's bits, every dtype."""
+    from vla_touch_tpu_torch.utils import safetensors_io as ST
+
+    g = torch.Generator().manual_seed(0)
+    tensors = {"f32": torch.randn(33, 7, generator=g), "bf16": torch.randn(129, generator=g).bfloat16(),
+               "f16": torch.randn(4, 4, generator=g).half(), "i8": torch.arange(-5, 6, dtype=torch.int8),
+               "bool": torch.tensor([True, False]), "i64": torch.arange(3), "empty": torch.zeros(0, 2)}
+    path = str(tmp_path / "t.safetensors")
+    ST.save_file(tensors, path)
+    cpu, card = ST.load_file(path), ST.load_file(path, device="cuda")
+    for k, t in tensors.items():
+        assert card[k].device.type == "cuda" and card[k].dtype == t.dtype, k
+        assert torch.equal(card[k].cpu(), cpu[k]) and torch.equal(cpu[k], t), k

@@ -764,7 +764,8 @@ def test_closed_loop_through_the_warm_step(policy):
 
 def test_port_modules_import_no_jax():
     """Every module of the port and ``chip_smoke.py`` import neither JAX nor
-    the JAX package (the new modules of the steady-state tick included)."""
+    the JAX package (the new modules of the steady-state tick and of the
+    deployment entry points included)."""
     pat = re.compile(r"^\s*(import jax|from jax|.*vla_touch_tpu\.)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "vla_touch_tpu_torch")):
@@ -773,7 +774,14 @@ def test_port_modules_import_no_jax():
         assert not pat.search(open(f).read()), f
     rel = {os.path.relpath(f, ROOT) for f in files}
     assert {"vla_touch_tpu_torch/runtime/control_loop.py",
-            "vla_touch_tpu_torch/models/encoders/vit_serve.py"} <= rel
+            "vla_touch_tpu_torch/models/encoders/vit_serve.py",
+            "vla_touch_tpu_torch/runtime/serving_pool.py",
+            "vla_touch_tpu_torch/runtime/replay_cli.py",
+            "vla_touch_tpu_torch/runtime/ros_adapter.py",
+            "vla_touch_tpu_torch/utils/profiling.py",
+            "vla_touch_tpu_torch/utils/safetensors_io.py",
+            "vla_touch_tpu_torch/utils/torch_port.py",
+            "vla_touch_tpu_torch/utils/checkpoint_manifest.py"} <= rel
 
 
 def test_warm_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, vit_towers):

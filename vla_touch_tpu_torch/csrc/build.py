@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent
@@ -32,6 +33,9 @@ BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
 SOURCES = ("flash_attention", "resblock", "a8w8_matmul", "w4a8_matmul",
            "flash_attention_q8", "w4_swiglu", "w4_postattn", "a8w8_matmul_large",
            "w8a16_matmul")
+# one build at a time in a process: a serving pool's dispatcher thread may
+# load a library while the main thread does
+_BUILD_LOCK = threading.Lock()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -96,16 +100,18 @@ def ptxas_report(name: str) -> str:
     first if missing)."""
     path = _report_path(_lib_path(name))
     if not path.exists():
-        build_all()
+        with _BUILD_LOCK:
+            build_all()
     return path.read_text()
 
 
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built first if missing)."""
-    path = _lib_path(name)
-    if not path.exists():
-        path = build_all()[name]
+    with _BUILD_LOCK:
+        path = _lib_path(name)
+        if not path.exists():
+            path = build_all()[name]
     lib = ctypes.CDLL(str(path))
     lib.vtt_error_string.argtypes = [ctypes.c_int]
     lib.vtt_error_string.restype = ctypes.c_char_p

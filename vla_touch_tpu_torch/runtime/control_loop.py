@@ -13,7 +13,7 @@
   instruction switching that makes the scheduler replan at once.
 
 The loop consumes :class:`Observation`\\ s; a robot or a recorded episode
-drives it.
+(:class:`EpisodeReplay`) drives it.
 """
 
 from __future__ import annotations
@@ -187,3 +187,42 @@ class ChunkScheduler:
         self.chunk_pos += 1
         self.t += 1
         return action
+
+
+class EpisodeReplay:
+    """Drive the scheduler from a recorded episode (the harness that takes
+    the ROS robot's place): an h5 file where ``h5py`` imports, an npz file
+    everywhere (``data/episode.py::EpisodeFile``)."""
+
+    def __init__(self, path: str):
+        from vla_touch_tpu_torch.data.episode import EpisodeFile, qpos_from_episode
+
+        self.path = path
+        with EpisodeFile(path) as f:
+            self.qpos = qpos_from_episode(f)
+            self.forces = np.asarray(f["gelsight_force/forces"])
+            self.cam1 = np.asarray(f["camera1/camera1"])
+            self.cam2 = np.asarray(f["camera2/camera2"])
+        self.T = self.qpos.shape[0]
+
+    def instruction(self) -> np.ndarray:
+        """The episode's instruction embedding (L, D): the first of
+        ``instruct_embeddings``."""
+        from vla_touch_tpu_torch.data.episode import EpisodeFile
+
+        with EpisodeFile(self.path) as f:
+            return np.asarray(f["instruct_embeddings"])[0]
+
+    def observation(self, t: int) -> Observation:
+        t = min(t, self.T - 1)
+        return Observation(state=self.qpos[t], images=[self.cam1[t], self.cam2[t], None],
+                           force=self.forces[t])
+
+    def run(self, scheduler: ChunkScheduler, steps: Optional[int] = None) -> dict:
+        """Closed-loop replay: observations come from the recording; returns
+        the executed actions and the tracking MSE, the action at t against
+        the recorded state at t + 1."""
+        steps = steps or self.T - 1
+        actions = np.stack([scheduler.tick(self.observation(t)) for t in range(steps)])
+        mse = float(np.mean((actions - self.qpos[1:steps + 1]) ** 2))
+        return {"actions": actions, "tracking_mse": mse, "steps": steps}

@@ -66,8 +66,8 @@ def to_state_dict(tree: dict, lists: tuple = ()) -> dict:
 
 def load_into(module: torch.nn.Module, state: dict) -> torch.nn.Module:
     """Copy a converted state dict into ``module`` (strict: every parameter
-    must be present and no extra key may remain), casting to each
-    parameter's dtype and device."""
+    must be present and no extra key may remain), leaf by leaf, each moved
+    to its parameter's device and cast there to its dtype."""
     own = module.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
@@ -76,10 +76,11 @@ def load_into(module: torch.nn.Module, state: dict) -> torch.nn.Module:
                        f"unexpected {extra[:8]}")
     with torch.no_grad():
         for name, t in own.items():
-            src = torch.from_numpy(np.array(state[name], np.float32))
+            a = np.asarray(state[name], np.float32)     # a memory map stays one
+            src = torch.from_numpy(a if a.flags.writeable else a.copy())
             if tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(t.shape)}")
-            t.copy_(src.to(t.dtype))
+            t.copy_(src.to(t.device).to(t.dtype))
     return module
 
 
