@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's control tick (cold and steady-state), its serving
 pool and replay CLI, its residual controllers' training and evaluation,
-RDT-1B finetuning, and its planner on one NVIDIA GPU.
+RDT-1B finetuning, its planner and the planner's VLM on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -132,11 +132,34 @@ RDT-1B finetuning, and its planner on one NVIDIA GPU.
    request again at 4 tokens (and the int8 request at 2) with each kernel
    call held to its plain version on its own operands; the decode tiers (unfused, fused, fused + megakernels),
    best-of-8 throughput and a profiled decode.
-9. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
-   tick's, the serving pool's, the replay's, the controllers phase's and
-   RDT finetuning's, K2's the tick's, the replay's and the controllers',
-   K6's tick (a)'s and the serving pool's, each path counted from 0
-   (``launches_by_path``); K1 also carries its
+9. The planner's VLM (``vlm_phase``): K1 at the Qwen2-VL vision tower's
+   shapes (frames as the batch, 1024 patches, 16 heads of 80; one 448^2
+   image, and a 448^2 beside a 336^2 one with its keys masked past 576),
+   timed beside SDPA; Qwen2-VL-7B built at full width and depth from
+   seeded weights (the decoder in grouped int4 layer by layer, its fused
+   twin and an int8 tree; the tower as float32 copies of bf16-rounded
+   weights); request A (one image, 64 greedy tokens) and request B (both
+   images in one tower run, 64 tokens) on the fused tree with
+   ``MEGAKERNELS`` on, request C (A on the int8 tree, 16 tokens), each
+   with its launches asserted from ``planner_launches`` (K1 one per vision
+   block a tower run; K8/K9/K10 per prompt pass and step, none in a prompt
+   pass above 512 rows; K6 per int8 linear); the vision-token corr against
+   the tower with float32 attention and the teacher-forced logits corr at
+   the M-RoPE positions; A and B at 4 tokens and C at 2 as checked runs;
+   the tower ms, TTFT and decode ms a token; a three-turn planner session
+   (``PlannerSession``, the VLM over request A's image and the messages,
+   feedback from the marker-tracked force of a GelSight frame and the
+   tactile service's ``describe``), its log, launches and its
+   ``trial_row`` re-driven through ``replay_trial``; and an HF-layout
+   checkpoint at full width cut to 2 decoder layers and 2 vision blocks,
+   written by the port's writer, checked against the qwen2_vl_7b manifest
+   and read back in bf16, int4 and int8 bit for bit.
+10. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
+   tick's, the serving pool's, the replay's, the controllers phase's, RDT
+   finetuning's and the VLM's, K2's the tick's, the replay's and the
+   controllers', K6's tick (a)'s, the serving pool's and the VLM's, K8's
+   tick (e)'s and the VLM's, K9's and K10's the planner's and the VLM's,
+   each path counted from 0 (``launches_by_path``); K1 also carries its
    sums over a training step's calls (``train_step``);
    K5's and K7's are the shadow calls of (f)'s checked tick), the ``nvidia-smi`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
@@ -656,7 +679,9 @@ def k1_mask(B, Lq, Lkv, H, kind):
     keeps none as well ("empty"); row 0 keeps its first Lkv // 3 keys and
     row 1 none ("empty_wide"); "short", every row keeps its first
     RDT_LANG_LEN keys; "pool", row i keeps its first 20 + 7 i keys and the
-    last row none (a serving pool's padded batch); or "dead_split", every
+    last row none (a serving pool's padded batch); "vlm", row 1 keeps its
+    first VLM_PATCHES_B keys (the 336^2 image beside a 448^2 one); or
+    "dead_split", every
     key of K1's second split (at D 64) masked."""
     import torch
 
@@ -670,6 +695,10 @@ def k1_mask(B, Lq, Lkv, H, kind):
     if kind == "short":
         mask = torch.zeros((B, Lkv), dtype=torch.bool, device="cuda")
         mask[:, :RDT_LANG_LEN] = True
+        return mask
+    if kind == "vlm":
+        mask = torch.ones((B, Lkv), dtype=torch.bool, device="cuda")
+        mask[1, VLM_PATCHES_B:] = False
         return mask
     if kind == "dead_split":
         return dead_split_mask(B, Lkv, k1_splits(B, Lq, Lkv, H))
@@ -2527,8 +2556,8 @@ def build_planner(seed: int = 0) -> dict:
 
 @contextlib.contextmanager
 def recording_generate():
-    """Record every decode (B, Lp, N, T, prompt embeds, tokens) and the
-    logits of each step, by wrapping ``planning/llm.py``'s
+    """Record every decode (B, Lp, N, T, prompt embeds and positions,
+    tokens) and the logits of each step, by wrapping ``planning/llm.py``'s
     ``_generate_impl`` and ``lm_logits``."""
     import torch
 
@@ -2546,7 +2575,8 @@ def recording_generate():
     def generate_impl(cfg, params, prompt_embeds, max_new_tokens, *args, **kw):
         B, Lp, _ = prompt_embeds.shape
         rec = dict(B=B, Lp=Lp, N=kw.get("num_return_sequences", 1), T=max_new_tokens,
-                   embeds=prompt_embeds, params=params, logits=[])
+                   embeds=prompt_embeds, params=params, logits=[],
+                   positions=kw.get("prompt_positions"))
         calls.append(rec)
         out = gen_impl(cfg, params, prompt_embeds, max_new_tokens, *args, **kw)
         rec["tokens"] = out[0]
@@ -2562,22 +2592,25 @@ def recording_generate():
         L._generate_impl, L.lm_logits = gen_impl, logits_fn
 
 
-def planner_launches(calls, layers: int, encodes: int, clip_layers: int = 12) -> list:
+def planner_launches(calls, layers: int, encodes: int, clip_layers: int = 12,
+                     vision_blocks: int = 0) -> list:
     """(kernel, M, launches) that the planner requests must make on the
     fused w4 tree with MEGAKERNELS on, from the code.  Per decode of T
-    tokens over B prompts of Lp <= 512 tokens, N samples each: the prompt
-    pass (M = B Lp) runs qkv and o through K8 and the MLP through K9 (M <=
-    32) or K8's gateup and down, then the lm_head (K8, M = B); each of the
-    T - 1 steps (M = B N) runs qkv through K8 and K10 per layer, plus the
-    lm_head.  K1: one per CLIP layer per tactile encode."""
-    out = [("K1", None, clip_layers * encodes)]
+    tokens over B prompts of Lp tokens, N samples each: the prompt pass (M
+    = B Lp) runs qkv and o through K8 and the MLP through K9 (M <= 32) or
+    K8's gateup and down, and above 512 rows none of them (the plain
+    ``qdense_w4``, as JAX's dispatcher sends it to XLA); then the lm_head
+    (K8, M = B); each of the T - 1 steps (M = B N) runs qkv through K8 and
+    K10 per layer, plus the lm_head.  K1: one per CLIP layer per tactile
+    encode, and one per Qwen2-VL vision block per tower run
+    (``vision_blocks`` in all)."""
+    out = [("K1", None, clip_layers * encodes + vision_blocks)]
     for c in calls:
         Mp, Ms, steps = c["B"] * c["Lp"], c["B"] * c["N"], c["T"] - 1
-        if Mp > 512:
-            raise AssertionError(f"a prompt of {c['Lp']} tokens leaves the kernels' M <= 512")
-        out += [("K8", Mp, 2 * layers),
-                ("K9", Mp, layers) if Mp <= 32 else ("K8", Mp, 2 * layers),
-                ("K8", c["B"], 1),
+        if Mp <= 512:
+            out += [("K8", Mp, 2 * layers),
+                    ("K9", Mp, layers) if Mp <= 32 else ("K8", Mp, 2 * layers)]
+        out += [("K8", c["B"], 1),
                 ("K8", Ms, steps * (layers + 1)), ("K10", Ms, steps * layers)]
     return out
 
@@ -2620,7 +2653,8 @@ def planner_requests(P, T=PLAN_TOKENS):
 
 def teacher_forced(P, call):
     """Per-step logits corr of a recorded greedy decode against the plain
-    versions fed the kernel run's tokens (one forward over prompt + tokens),
+    versions fed the kernel run's tokens (one forward over prompt + tokens,
+    at the recorded prompt positions and the decode's after them),
     and how many greedy tokens the plain logits would pick alike."""
     import torch
 
@@ -2628,9 +2662,14 @@ def teacher_forced(P, call):
 
     cfg, params = P["cfg"], call["params"]
     toks = call["tokens"][0]
+    pos, pp = None, call["positions"]
+    if pp is not None:
+        # the decode resumes at max(prompt position) + 1, every component alike
+        tail = int(pp.max()) + 1 + torch.arange(len(toks) - 1, device=pp.device)
+        pos = torch.cat([pp, tail.expand(*pp.shape[:-1], -1)], dim=-1)
     with plain_kernels():
         seq = torch.cat([call["embeds"][0], L.embed_tokens(params, toks[:-1])], dim=0)
-        hidden = L.llm_forward(cfg, params, seq[None])[0, call["Lp"] - 1:]
+        hidden = L.llm_forward(cfg, params, seq[None], positions=pos)[0, call["Lp"] - 1:]
         plain = L.lm_logits(cfg, params, hidden).float()
     kern = call["logits"][0]
     corrs = [corr(kern[t].cpu().numpy(), plain[t].cpu().numpy()) for t in range(len(toks))]
@@ -2797,6 +2836,465 @@ def planner_kernel_totals(res, kernel) -> dict:
         for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
             tot[key] += n * rows[M][key]
     return tot
+
+
+# ---- the planner's VLM: Qwen2-VL-7B --------------------------------------------
+
+# Request A: one 448^2 image, a (1, 32, 32) patch grid (1024 patches, 256
+# merged tokens); request B: that image and a 336^2 one, (1, 24, 24) (576
+# patches, 144 merged tokens), in one tower run.  The instructions keep each
+# prompt + its 64 tokens within 512 rows, so the prompt pass runs K8 and the
+# teacher-forced plain forward the same quantized product.
+VLM_GRID_A = (1, 32, 32)
+VLM_GRID_B = (1, 24, 24)
+VLM_PATCHES_B = 576
+VLM_TEXT_A = ("Describe the object in the image, then name the one primitive action "
+              "the robot should take next to test how ripe it is without bruising it.")
+VLM_TEXT_B = "Which mango is riper?"
+VLM_TOKENS = 64
+VLM_INT8_TOKENS = 16
+VLM_SESSION_TOKENS = 16
+VLM_SESSION_TURNS = 3
+# the depth cut of the HF-layout round trip (full width, full embedding and head)
+VLM_RT_LAYERS, VLM_RT_BLOCKS = 2, 2
+# K1 at the tower's attention: frames as the batch, D 80; calls per tower
+# run of request A / B (one per block)
+K1_VLM_SHAPES = [("qwen2vl_vision_a", 1, 1024, 1024, 16, 80, "vit", None, 32),
+                 ("qwen2vl_vision_b", 2, 1024, 1024, 16, 80, "vit", "vlm", 32)]
+
+
+def draw_small_params(module, gen):
+    """Every 1-D parameter drawn: norm weights 1 + N(0, 0.1^2), biases
+    N(0, 0.1^2), so that a kernel or a loader that drops one shows."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() == 1:
+                z = 0.1 * torch.randn(p.shape, generator=gen, device=p.device)
+                p.copy_(z if name.endswith("bias") else 1 + z)
+
+
+def build_vlm(seed: int = 0) -> dict:
+    """Qwen2-VL-7B at full width and depth from seeded weights, on the card:
+    the decoder in grouped int4 (quantized layer by layer), its fused twin
+    and an int8 tree from the same draw, norms and biases drawn; the vision
+    tower (32 x 1280) as float32 copies of bf16-rounded weights, as JAX's
+    loader tree promotes them; seeded patches of the two images."""
+    import torch
+
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.planning import qwen2vl as VL
+
+    tcfg, vcfg = L.backbone("qwen2-vl-7b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trees = {}
+    for weights in ("int4", "int8"):
+        tree = L.init_llm(tcfg, seed, dtype=torch.bfloat16, weights=weights)
+        g = torch.Generator(device="cuda").manual_seed(seed + 3)
+        with torch.no_grad():
+            for w in [p for lp in tree.layers for p in (lp.input_norm, lp.post_norm)] + [
+                    tree.final_norm]:
+                w.copy_(1 + 0.1 * torch.randn(w.shape, generator=g, device="cuda"))
+        trees[weights] = tree
+    fused = L.fuse_quantized_layers(trees["int4"])
+    tower = VL.init_vision(vcfg, seed + 4, dtype=torch.bfloat16)
+    draw_small_params(tower, torch.Generator(device="cuda").manual_seed(seed + 5))
+    tower = tower.float()
+    rng = np.random.default_rng(seed + 6)
+    patches = {g: torch.as_tensor(rng.normal(size=(g[0] * g[1] * g[2], vcfg.patch_dim))
+                                  .astype(np.float32), device="cuda")
+               for g in (VLM_GRID_A, VLM_GRID_B)}
+    torch.cuda.synchronize()
+    log(f"VLM built: Qwen2-VL-7B decoder w4 + fused twin + int8 tree, vision tower "
+        f"{vcfg.depth} x {vcfg.embed_dim} (float32 copies of bf16 values) in "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    return dict(cfg=tcfg, vcfg=vcfg, w4=trees["int4"], i8=trees["int8"], fused=fused,
+                tower=tower, patches=patches)
+
+
+def vlm_prompt(V, params, parts):
+    """The prompt of ``parts`` [("text", str) | ("image", grid)]: one tower
+    run over its images (their frames one K1 batch), the merged tokens
+    spliced in place of byte-tokenizer pad placeholders, and its M-RoPE
+    positions.  Returns (embeds (1, L, D), positions (3, 1, L), vision
+    tokens)."""
+    import torch
+
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.planning import qwen2vl as VL
+
+    tok, m = L.ByteTokenizer(), V["vcfg"].spatial_merge_size
+    grids = [spec for kind, spec in parts if kind == "image"]
+    vtok = VL.vision_forward(V["vcfg"], V["tower"],
+                             torch.cat([V["patches"][g] for g in grids]),
+                             VL.vision_rot_pos_ids(grids, m), VL.vision_segment_ids(grids))
+    ids, segs, spans = [], [], []
+    for kind, spec in parts:
+        if kind == "text":
+            t = tok.encode(spec)
+            ids += t
+            segs.append(("text", len(t)))
+        else:
+            n = spec[0] * spec[1] * spec[2] // m ** 2
+            spans.append((len(ids), n))
+            ids += [tok.PAD] * n
+            segs.append(("image", spec))
+    emb, at = L.embed_tokens(params, ids), 0
+    for start, n in spans:
+        emb = VL.splice_embeds(emb, vtok[at:at + n], start)
+        at += n
+    pos = torch.as_tensor(VL.mrope_positions(segs, m), device="cuda")[:, None, :]
+    return emb[None], pos, vtok
+
+
+def vlm_request(V, params, parts, T):
+    """One greedy request: the prompt, then T tokens on ``params``."""
+    from vla_touch_tpu_torch.planning import llm as L
+
+    emb, pos, vtok = vlm_prompt(V, params, parts)
+    toks, _, _ = L.greedy_generate(V["cfg"], params, emb, max_new_tokens=T,
+                                   eos_id=L.ByteTokenizer.EOS, prompt_positions=pos)
+    return toks, vtok
+
+
+REQ_A = [("text", "user: "), ("image", VLM_GRID_A), ("text", f"\n{VLM_TEXT_A}\nassistant:")]
+REQ_B = [("text", "user: "), ("image", VLM_GRID_A), ("text", " and "), ("image", VLM_GRID_B),
+         ("text", f"\n{VLM_TEXT_B}\nassistant:")]
+
+
+def vlm_requests(V, T=VLM_TOKENS) -> dict:
+    """Requests A and B on the fused w4 tree (MEGAKERNELS on)."""
+    return {name: vlm_request(V, V["fused"], parts, T)
+            for name, parts in (("A", REQ_A), ("B", REQ_B))}
+
+
+@contextlib.contextmanager
+def plain_vision():
+    """The tower's attention as JAX computes it: float32 operands, no bf16
+    rounding for K1 (comparison runs only)."""
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+    from vla_touch_tpu_torch.planning import qwen2vl as VL
+
+    orig = VL.frame_attention
+    VL.frame_attention = FA.attention_plain
+    try:
+        yield
+    finally:
+        VL.frame_attention = orig
+
+
+def marker_frame(shift, rows=7, cols=9, H=140, W=180, radius=3):
+    """A GelSight-style frame: dark marker dots on a bright field, the grid
+    shifted by ``shift`` pixels."""
+    yy, xx = np.mgrid[0:H, 0:W]
+    img = np.full((H, W), 200.0, np.float32)
+    ch, cw = H // rows, W // cols
+    for r in range(rows):
+        for c in range(cols):
+            d2 = (yy - (r * ch + ch / 2 + shift[1])) ** 2 + (xx - (c * cw + cw / 2 + shift[0])) ** 2
+            img[d2 <= radius ** 2] = 40.0
+    return img
+
+
+def vlm_session(V, out_dir: str, seed: int = 0) -> dict:
+    """A planner session (mango, three turns) whose VLM is Qwen2-VL over
+    request A's image and the messages as ``role: content`` lines, its
+    feedback the marker-tracked force of a seeded GelSight frame and the
+    tactile service's ``describe`` of a tactile video (CLIP, K1).  Returns
+    the session, its summary, the replies, and the tower runs and
+    describes it made."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import marker_tracking as MT
+    from vla_touch_tpu_torch.planning import encoder as PE
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.planning.planner import (PlannerConfig, PlannerSession,
+                                                       TactileFeedback)
+    from vla_touch_tpu_torch.planning.serving import TactileDescriptionService
+
+    tok = L.ByteTokenizer()
+    enc = PE.init_tactile_encoder(seed=seed + 1)
+    frames = write_video(os.path.join(out_dir, "tactile"), seed)
+    svc = TactileDescriptionService(enc)
+    mcfg = MT.TrackerConfig(grid_rows=7, grid_cols=9, min_cell_mass=4.0)
+    baseline = MT.calibrate(torch.as_tensor(marker_frame((0.0, 0.0)), device="cuda"), mcfg)
+    rng = np.random.default_rng(seed + 7)
+    replies, n = [], dict(tower=0, describe=0)
+
+    def vlm_fn(messages):
+        text = "\n".join(f"{m['role']}: {m['content']}" for m in messages) + "\nassistant:"
+        toks, _ = vlm_request(V, V["fused"], [("image", VLM_GRID_A), ("text", "\n" + text)],
+                              VLM_SESSION_TOKENS)
+        n["tower"] += 1
+        ids = [int(t) for t in toks[0].tolist()]
+        reply = tok.decode(ids[:ids.index(tok.EOS)] if tok.EOS in ids else ids)
+        replies.append(reply)
+        return reply
+
+    fb = TactileFeedback()
+
+    def feedback_fn(action, turn):
+        shift = (float(rng.uniform(0.5, 3.0)), float(rng.uniform(-1.0, 1.0)))
+        force = MT.estimate_force(torch.as_tensor(marker_frame(shift), device="cuda"),
+                                  baseline, mcfg)["force"]
+        desc = svc.describe(frames)
+        n["describe"] += 1
+        return (fb.from_force(force.cpu().numpy()) + " "
+                + fb.from_properties(desc["hardness"], desc["roughness"]))
+
+    cfg = PlannerConfig("mango", max_turns=VLM_SESSION_TURNS,
+                        results_dir=os.path.join(out_dir, "results"), session_name="vlm")
+    session = PlannerSession(cfg, vlm_fn, fb)
+    summary = session.run(feedback_fn)
+    return dict(session=session, summary=summary, replies=replies, **n)
+
+
+def check_session(S):
+    """The session's jsonl log against its messages and replies, then its
+    transcript row re-driven through ``replay_trial``: the same steps."""
+    from vla_touch_tpu_torch.planning import transcripts as TR
+
+    session, summary = S["session"], S["summary"]
+    rows = [json.loads(line) for line in open(summary["log_path"])]
+    roles = [r["role"] for r in rows]
+    want_roles = ["assistant"] + ["user", "assistant"] * (len(S["replies"]) - 1)
+    if roles != want_roles or [r["content"] for r in rows if r["role"] == "assistant"] \
+            != S["replies"]:
+        raise AssertionError(f"session log: roles {roles}, want {want_roles}")
+    feedback = [r["content"] for r in rows if r["role"] == "user"]
+    if not all("Force measurement" in f and "Tactile properties" in f for f in feedback):
+        raise AssertionError(f"session feedback lacks a channel: {feedback}")
+    done = any("DONE" in r.upper() for r in S["replies"])
+    if summary["turns"] != len(S["replies"]) or summary["completed"] != done or (
+            not done and len(S["replies"]) != VLM_SESSION_TURNS + 1):
+        raise AssertionError(f"session summary {summary}, {len(S['replies'])} replies")
+    trial = TR.trial_row(session, trial_number=1, image="request_a_448.png")
+    again = TR.replay_trial(trial, os.path.dirname(summary["log_path"]))
+    if again["steps"] != trial["steps"] or again["initial_prompt"] != trial["initial_prompt"]:
+        raise AssertionError("replay_trial did not give the session's steps back")
+    return dict(rows=len(rows), turns=summary["turns"], completed=summary["completed"],
+                steps=len(trial["steps"]), replies=[r[:40] for r in S["replies"]])
+
+
+def vlm_round_trip(V, out_dir: str, seed: int = 0) -> dict:
+    """Qwen2-VL-7B at full width, depth cut to VLM_RT_LAYERS decoder layers
+    and VLM_RT_BLOCKS vision blocks (embedding and lm_head full): built on
+    the card in bf16, written as an HF-layout safetensors file by the port's
+    writer, validated against the qwen2_vl_7b manifest (the only
+    differences the cut layers' and blocks' keys), and read back through
+    ``load_qwen2vl_from_hf`` in bf16, int4 and int8: bit for bit the built
+    trees and ``quantize_llm_params`` of them, and the lm_head (quantized in
+    row chunks) the leaf one quantizer call makes of the whole head."""
+    import dataclasses
+
+    import torch
+
+    from vla_touch_tpu_torch.ops import quant as Q
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.planning import qwen2vl as VL
+    from vla_touch_tpu_torch.utils import checkpoint_manifest as TM
+    from vla_touch_tpu_torch.utils import safetensors_io as ST
+
+    tcfg = dataclasses.replace(V["cfg"], num_layers=VLM_RT_LAYERS)
+    vcfg = dataclasses.replace(V["vcfg"], depth=VLM_RT_BLOCKS)
+    dec = L.init_llm(tcfg, seed + 11, dtype=torch.bfloat16)
+    draw_small_params(dec, torch.Generator(device="cuda").manual_seed(seed + 12))
+    tower = VL.init_vision(vcfg, seed + 13, dtype=torch.bfloat16)
+    draw_small_params(tower, torch.Generator(device="cuda").manual_seed(seed + 14))
+    dsd, vsd = dec.state_dict(), tower.state_dict()
+    tensors = {hf: dsd[name] for hf, name in L.hf_key_map(tcfg).items()}
+    for hf, (name, tf) in VL.vision_hf_key_map(vcfg).items():
+        t = vsd[name]
+        tensors[hf] = t.reshape(t.shape[0], vcfg.in_channels, vcfg.temporal_patch_size,
+                                vcfg.patch_size, vcfg.patch_size) if tf == "conv" else t
+    path = os.path.join(out_dir, "model.safetensors")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = ST.save_file(tensors, path)
+    write_s = time.perf_counter() - t0
+    del tensors
+    diff = TM.validate_checkpoint(out_dir, "qwen2_vl_7b")
+    cut = [k for k in diff.missing
+           if not any(k.startswith(f"{p}.{i}.") for p in ("model.layers", "visual.blocks")
+                      for i in range(VLM_RT_LAYERS if p == "model.layers" else VLM_RT_BLOCKS))
+           and (k.startswith("model.layers.") or k.startswith("visual.blocks."))]
+    if diff.extra or diff.shape_mismatch or sorted(cut) != sorted(diff.missing):
+        raise AssertionError("round-trip file vs the qwen2_vl_7b manifest: " + diff.summary(
+            "qwen2_vl_7b"))
+
+    def same(what, got, want):
+        g, w = got.state_dict(), want.state_dict()
+        bad = [k for k in w if k not in g or g[k].dtype != w[k].dtype or not torch.equal(g[k], w[k])]
+        if set(g) != set(w) or bad:
+            raise AssertionError(f"round trip {what}: {len(bad)} tensors differ, e.g. {bad[:4]}, "
+                                 f"names {sorted(set(g) ^ set(w))[:4]}")
+
+    res = dict(bytes=nbytes, write_s=write_s, tensors=len(dsd) + len(vsd))
+    torch.cuda.empty_cache()
+    for weights in (None, "int4", "int8"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got_t, got_v = VL.load_qwen2vl_from_hf(tcfg, vcfg, out_dir, weights=weights)
+        torch.cuda.synchronize()
+        key = weights or "bf16"
+        res[f"read_s_{key}"] = time.perf_counter() - t0
+        res[f"peak_gib_{key}"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        res[f"tree_gib_{key}"] = (torch.cuda.memory_allocated() - base) / 2**30
+        same(f"{key} decoder", got_t, dec if weights is None else L.quantize_llm_params(dec, weights))
+        same(f"{key} tower", got_v, tower)
+        if weights is not None:
+            # the 152064-row head, quantized in row chunks, against one call
+            whole = (Q.quantize_linear_w4 if weights == "int4" else Q.quantize_linear)(dec.lm_head)
+            same(f"{key} lm_head in one call", got_t.lm_head, whole)
+            del whole
+        del got_t, got_v
+    log(f"VLM HF round trip ({VLM_RT_LAYERS} decoder layers, {VLM_RT_BLOCKS} vision blocks, "
+        f"full width, embedding and head): {nbytes} bytes written in {write_s:.2f} s, read "
+        f"bf16 / int4 / int8 in {res['read_s_bf16']:.2f} / {res['read_s_int4']:.2f} / "
+        f"{res['read_s_int8']:.2f} s, peak device memory above the resident trees "
+        f"{res['peak_gib_bf16']:.2f} / {res['peak_gib_int4']:.2f} / {res['peak_gib_int8']:.2f} "
+        f"GiB (trees {res['tree_gib_bf16']:.2f} / {res['tree_gib_int4']:.2f} / "
+        f"{res['tree_gib_int8']:.2f} GiB); manifest: only the {len(diff.missing)} cut keys "
+        f"missing; every tensor bit for bit [{gpu_line()}]")
+    return res
+
+
+def vlm_phase(gen) -> dict:
+    """Everything of the planner's VLM slice; returns what the kernels line
+    and the log need."""
+    import shutil
+
+    import torch
+
+    from vla_touch_tpu_torch.planning import llm as L
+
+    t_phase = time.perf_counter()
+    default_megakernels = L.MEGAKERNELS
+    L.MEGAKERNELS = True
+    card = gpu_line()
+    res = {}
+    res["k1_vlm_rows"], _ = check_k1(gen, K1_VLM_SHAPES)
+    V = build_vlm(seed=0)
+    cfg, nl, depth = V["cfg"], V["cfg"].num_layers, V["vcfg"].depth
+    vlm_requests(V, T=4)                                    # warm-up
+
+    # ---- requests A and B, counted
+    zero_counts()
+    with recording_generate() as calls:
+        out = vlm_requests(V)
+    torch.cuda.synchronize()
+    counts_ab = read_counts()
+    res["launches"] = planner_launches(calls, nl, encodes=0, vision_blocks=2 * depth)
+    check_counts(f"VLM requests A and B (fused w4, MEGAKERNELS) [{card}]", counts_ab,
+                 planner_need(res["launches"]))
+    res["calls"] = [dict(B=c["B"], Lp=c["Lp"], N=c["N"], T=c["T"]) for c in calls]
+    for (name, (toks, vtok)), c in zip(out.items(), calls):
+        ok = (toks.shape == (1, VLM_TOKENS) and bool(torch.isfinite(vtok).all())
+              and bool(torch.isfinite(c["logits"]).all()) and c["Lp"] + VLM_TOKENS - 1 <= 512)
+        if not ok:
+            raise AssertionError(f"VLM request {name}: tokens {tuple(toks.shape)}, vision "
+                                 f"tokens {tuple(vtok.shape)}, prompt {c['Lp']}")
+    log(f"VLM requests: {res['calls']}; vision tokens A {tuple(out['A'][1].shape)}, B "
+        f"{tuple(out['B'][1].shape)}")
+
+    # ---- request C: request A on the int8 tree (K6)
+    zero_counts()
+    toks_c, _ = vlm_request(V, V["i8"], REQ_A, VLM_INT8_TOKENS)
+    torch.cuda.synchronize()
+    counts_c = read_counts()
+    check_counts(f"VLM request C (int8, {VLM_INT8_TOKENS} tokens) [{card}]", counts_c,
+                 {"K1": depth, "K6": VLM_INT8_TOKENS * (7 * nl + 1)})
+
+    # ---- kernel vs plain: vision tokens, teacher-forced logits
+    with plain_kernels(), plain_vision():
+        plain_vtok = {name: vlm_prompt(V, V["fused"], parts)[2]
+                      for name, parts in (("A", REQ_A), ("B", REQ_B))}
+    res["vision_corr"] = {k: corr(out[k][1].cpu().numpy(), plain_vtok[k].cpu().numpy())
+                          for k in out}
+    P = dict(cfg=cfg)
+    res["teacher_forced"] = [(c["Lp"],) + teacher_forced(P, c) for c in calls]
+    log(f"VLM kernel vs plain [{card}]: vision-token corr {res['vision_corr']} (min "
+        f"{TOKEN_CORR_MIN}); teacher-forced logits (prompt tokens, min per-step corr, token "
+        f"agreement, first-step corr, median corr) {res['teacher_forced']} (corr min "
+        f"{LOGITS_CORR_MIN})")
+    if not (all(v > TOKEN_CORR_MIN for v in res["vision_corr"].values())
+            and all(t[1] > LOGITS_CORR_MIN for t in res["teacher_forced"])):
+        raise AssertionError("VLM: the kernel run disagrees with the plain run")
+
+    # ---- checked runs: A and B at 4 tokens, C at 2
+    with recording_generate() as calls4:
+        chk = checked_run(lambda: vlm_requests(V, T=4))
+    check_chk(f"VLM checked requests A and B (4 tokens) [{card}]", chk,
+              planner_need(planner_launches(calls4, nl, encodes=0, vision_blocks=2 * depth)))
+    chk8 = checked_run(lambda: vlm_request(V, V["i8"], REQ_A, 2))
+    check_chk(f"VLM checked request C (int8, 2 tokens) [{card}]", chk8,
+              {"K1": depth, "K6": 2 * (7 * nl + 1)})
+    res.update(checked={k: v for k, v in chk.items() if v["calls"]},
+               checked_int8={k: v for k, v in chk8.items() if v["calls"]})
+
+    # ---- times
+    def timed(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t1))
+        return float(np.median(ts))
+
+    times = {}
+    for name, parts in (("A", REQ_A), ("B", REQ_B)):
+        grids = [spec for kind, spec in parts if kind == "image"]
+        vis = timed(lambda: vlm_prompt(V, V["fused"], parts))
+        ttft = timed(lambda: vlm_request(V, V["fused"], parts, 1))
+        full = timed(lambda: vlm_request(V, V["fused"], parts, VLM_TOKENS), reps=2)
+        times[name] = dict(patches=sum(g[0] * g[1] * g[2] for g in grids), vision_ms=vis,
+                           ttft_ms=ttft, decode_ms_per_token=(full - ttft) / (VLM_TOKENS - 1),
+                           request_ms=full)
+    times["C_int8_request_ms"] = timed(lambda: vlm_request(V, V["i8"], REQ_A,
+                                                           VLM_INT8_TOKENS), reps=2)
+    log(f"VLM times [{card}]: " + json.dumps(times))
+    res["times"] = times
+
+    # ---- the planner session, then the HF round trip
+    work = os.path.join(ROOT, "build", "vlm")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        zero_counts()
+        with recording_generate() as scalls:
+            t1 = time.perf_counter()
+            S = vlm_session(V, work)
+            torch.cuda.synchronize()
+            session_s = time.perf_counter() - t1
+        counts_s = read_counts()
+        need = planner_need(planner_launches(scalls, nl, encodes=S["describe"],
+                                             vision_blocks=S["tower"] * depth))
+        check_counts(f"VLM planner session [{card}]", counts_s, need)
+        res["session"] = check_session(S)
+        res["session"].update(calls=[dict(Lp=c["Lp"], T=c["T"]) for c in scalls],
+                              wall_s=session_s, s_per_turn=session_s / len(S["replies"]))
+        log(f"VLM planner session [{card}]: " + json.dumps(res["session"]))
+        del S
+        del V
+        torch.cuda.empty_cache()
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        res["round_trip"] = vlm_round_trip(dict(cfg=cfg, vcfg=L.backbone("qwen2-vl-7b")[1]),
+                                           work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["counts"] = {k: counts_ab[k] + counts_c[k] + counts_s[k] for k in counts_ab}
+    L.MEGAKERNELS = default_megakernels
+    log(f"VLM phase: {time.perf_counter() - t_phase:.1f} s")
+    return res
 
 
 # ---- the residual controllers -------------------------------------------------
@@ -3797,13 +4295,16 @@ def main() -> int:
     log(f"rdt_train phase: {time.perf_counter() - t1:.1f} s")
     log("rdt_train: " + json.dumps(rdt))
 
-    # ---- the planner
+    # ---- the planner, then its VLM
     pl = planner_phase(gen)
+    torch.cuda.empty_cache()
+    vl = vlm_phase(gen)
     for name, rows in (("k1", k1_rows), ("k2", k2_rows), ("k3", k3_rows), ("k4", k4_rows),
                        ("k5", k5_rows), ("k6", k6_rows), ("k7", k7_rows), ("k8", k8_rows),
                        ("k8 llm", pl["k8_llm_rows"]),
                        ("k6 llm", pl["k6_llm_rows"]),
-                       ("k1 clip", pl["k1_clip_rows"]), ("k9", list(pl["k9_rows"].values())),
+                       ("k1 clip", pl["k1_clip_rows"]), ("k1 vlm", vl["k1_vlm_rows"]),
+                       ("k9", list(pl["k9_rows"].values())),
                        ("k10", list(pl["k10_rows"].values()))):
         log(f"{name} shapes: " + json.dumps(rows))
     log("planner: " + json.dumps({k: pl[k] for k in ("counts", "calls", "feature_corr",
@@ -3811,6 +4312,9 @@ def main() -> int:
                                                      "teacher_forced", "checked",
                                                      "checked_int8", "tiers",
                                                      "fastest", "best_of_8_ms")}))
+    log("vlm: " + json.dumps({k: vl[k] for k in ("counts", "calls", "vision_corr",
+                                                 "teacher_forced", "checked", "checked_int8",
+                                                 "times", "session", "round_trip")}))
 
     def entry(name, source, replaces, launches, tot, **extra):
         return dict(name=name, route="cuda", source=f"vla_touch_tpu_torch/csrc/{source}",
@@ -3819,15 +4323,21 @@ def main() -> int:
                     bound_ms=tot["bound_ms"], bound_by=bound_by(tot),
                     library_ms=tot.get("library_ms"), **extra)
 
-    # K1 runs on five main paths, K2 on three: the cold tick, the serving
-    # pool, the replay CLI, the controllers phase (training and evaluation)
-    # and RDT finetuning, each counted from 0; K6 on quantized tick (a) and
-    # the serving pool's int8 batches
+    # K1 runs on six main paths, K2 on three: the cold tick, the serving
+    # pool, the replay CLI, the controllers phase (training and evaluation),
+    # RDT finetuning and (K1) the planner's VLM, each counted from 0; K6 on
+    # quantized tick (a), the serving pool's int8 batches and the VLM's int8
+    # request; K8 on tick (e) and the VLM; K9 and K10 on the planner and the
+    # VLM
     by_path = {k: {"tick": counts[k], "serving": serve["launches"][k],
                    "replay": rep["launches"][k], "controllers": ctrl["launches"][k],
                    "rdt_train": rdt["launches"][k]} for k in ("K1", "K2")}
+    by_path["K1"]["vlm"] = vl["counts"]["K1"]
     by_path["K6"] = {"tick_a": q["a"]["launches"]["K6"], "serving": serve["launches"]["K6"],
-                     "replay": rep["launches"]["K6"]}
+                     "replay": rep["launches"]["K6"], "vlm": vl["counts"]["K6"]}
+    by_path["K8"] = {"tick_e": q["e"]["launches"]["K8"], "vlm": vl["counts"]["K8"]}
+    for k in ("K9", "K10"):
+        by_path[k] = {"planner": pl["counts"][k], "vlm": vl["counts"][k]}
     kernels = [
         entry("flash_attention", "flash_attention.cu", "ops/pallas_attention.py:126",
               sum(by_path["K1"].values()), k1, launches_by_path=by_path["K1"],
@@ -3847,11 +4357,13 @@ def main() -> int:
         entry("a8w8_matmul_large", "a8w8_matmul_large.cu", "ops/pallas_matmul.py:272",
               q["f"]["shadow_launches"]["K7"], k7),
         entry("w4a8_matmul", "w4a8_matmul.cu", "ops/pallas_matmul.py:395",
-              q["e"]["launches"]["K8"], k8),
+              sum(by_path["K8"].values()), k8, launches_by_path=by_path["K8"]),
         entry("w4_swiglu_mlp", "w4_swiglu.cu", "ops/pallas_matmul.py:648",
-              pl["counts"]["K9"], planner_kernel_totals(pl, "K9")),
+              sum(by_path["K9"].values()), planner_kernel_totals(pl, "K9"),
+              launches_by_path=by_path["K9"]),
         entry("w4_postattn_fused", "w4_postattn.cu", "ops/pallas_matmul.py:858",
-              pl["counts"]["K10"], planner_kernel_totals(pl, "K10")),
+              sum(by_path["K10"].values()), planner_kernel_totals(pl, "K10"),
+              launches_by_path=by_path["K10"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1034,3 +1034,57 @@ def test_safetensors_load_onto_the_card_gives_the_cpu_bits(cuda, tmp_path):
     for k, t in tensors.items():
         assert card[k].device.type == "cuda" and card[k].dtype == t.dtype, k
         assert torch.equal(card[k].cpu(), cpu[k]) and torch.equal(cpu[k], t), k
+
+
+@pytest.mark.parametrize("B,masked_past", [(1, None), (2, 576)])
+def test_flash_attention_kernel_at_the_qwen2vl_vision_shapes(cuda, B, masked_past):
+    """K1 at Qwen2-VL's vision tower: head dim 80, 16 heads, frames of 1024
+    patches as the batch (a 448^2 image); with two images of 448^2 and
+    336^2 the second row's keys past its 576 patches are masked.  Max abs
+    error <= 2e-2 x max|plain|; the pad query rows are computed (and dropped
+    by the tower)."""
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((B, 1024, 16, 80), generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    mask = None
+    if masked_past is not None:
+        mask = torch.ones((B, 1024), dtype=torch.bool, device=cuda)
+        mask[1, masked_past:] = False
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, kv_mask=mask)
+    assert FA.flash_attention.launches == before + 1
+    want = FA.attention_plain(q, k, v, kv_mask=mask).float()
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+def test_load_llm_from_hf_int4_on_the_card_equals_quantize_llm_params(cuda, tmp_path):
+    """``load_llm_from_hf(weights="int4")`` quantizes layer by layer on the
+    card to the codes, scales and biases ``quantize_llm_params`` gives on
+    the loaded bf16 tree."""
+    import dataclasses
+
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.planning import qwen2vl as VL
+    from vla_touch_tpu_torch.utils import safetensors_io as ST
+
+    cfg = dataclasses.replace(VL.qwen2vl_tiny()[0], hidden_size=256, num_heads=2,
+                              num_kv_heads=1, mlp_dim=640, vocab_size=512)
+    g = torch.Generator().manual_seed(2)
+    with torch.device("meta"):
+        shapes = {n: tuple(p.shape) for n, p in L.LLM(
+            cfg, torch.nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_size)),
+            [L.DecoderLayer(cfg) for _ in range(cfg.num_layers)],
+            torch.nn.Parameter(torch.empty(cfg.hidden_size)),
+            torch.nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)).state_dict().items()}
+    ST.save_file({hf: torch.randn(shapes[ours], generator=g).bfloat16()
+                  for hf, ours in L.hf_key_map(cfg).items()}, str(tmp_path / "m.safetensors"))
+    got = L.load_llm_from_hf(cfg, str(tmp_path), weights="int4")
+    want = L.quantize_llm_params(L.load_llm_from_hf(cfg, str(tmp_path)), "int4")
+    w = want.state_dict()
+    for name, t in got.state_dict().items():
+        assert t.device.type == "cuda" and t.dtype == w[name].dtype, name
+        assert torch.equal(t, w[name]), name
+    assert isinstance(got.layers[0].gate, type(want.layers[0].gate))

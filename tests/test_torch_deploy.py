@@ -853,6 +853,7 @@ def test_manifest_copies_equal_the_jax_files_and_the_rest_raise():
         assert filecmp.cmp(os.path.join(TM.MANIFEST_DIR, f"{name}.json"),
                            os.path.join(ROOT, "vla_touch_tpu", "data", "hf_manifests",
                                         f"{name}.json"), shallow=False), name
+    assert set(TM.PENDING) == {"clip_vit_b16_text", "t5_v1_1_xxl"}
     for name, item in TM.PENDING.items():
         assert os.path.exists(os.path.join(ROOT, "vla_touch_tpu", "data", "hf_manifests",
                                            f"{name}.json"))

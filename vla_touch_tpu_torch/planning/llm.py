@@ -91,15 +91,18 @@ def llama31_8b() -> LLMConfig:
                      rope_theta=5e5, tie_embeddings=False, qkv_bias=False)
 
 
-def backbone(model_type: str) -> LLMConfig:
-    """The planner's text backbones by name: 'llama-3.1-8b' or
-    'qwen2.5-7b'.  The Qwen2-VL variant is not ported yet."""
+def backbone(model_type: str):
+    """The planner's three backbones by name: 'llama-3.1-8b' and
+    'qwen2.5-7b' -> :class:`LLMConfig`; 'qwen2-vl-7b' -> (the M-RoPE text
+    config, ``planning/qwen2vl.py``'s ``Qwen2VLVisionConfig``)."""
     if model_type == "llama-3.1-8b":
         return llama31_8b()
     if model_type == "qwen2.5-7b":
         return qwen25_7b()
     if model_type == "qwen2-vl-7b":
-        raise NotImplementedError("the Qwen2-VL backbone is not ported yet")
+        from vla_touch_tpu_torch.planning.qwen2vl import qwen2vl_7b, qwen2vl_7b_vision
+
+        return qwen2vl_7b(), qwen2vl_7b_vision()
     raise ValueError(f"unknown model_type {model_type!r} (expected "
                      "'llama-3.1-8b', 'qwen2.5-7b' or 'qwen2-vl-7b')")
 
@@ -158,7 +161,28 @@ class LLM(nn.Module):
         return LLM(self.cfg, self.embed, layers, self.final_norm, head)
 
 
+# Output rows a quantizer call takes at once: 2^26 weights (256 MiB in
+# float32) a call bound its transients (the clip search holds several float32
+# copies), which for Qwen's 152064-row lm_head would otherwise reach ~14 GiB.
+QUANT_CHUNK = 1 << 26
+
+
 def _quantize_leaf(lin: nn.Linear, weights: str):
+    """int8 or grouped int4 of one linear, :data:`QUANT_CHUNK` weights'
+    worth of output rows at a time.  Exact: every scale and code belongs to
+    one output row (column of the JAX kernel), so the rows' leaves
+    concatenate to the whole leaf's."""
+    N, K = lin.weight.shape
+    rows = max(1, QUANT_CHUNK // K)
+    if N > rows:
+        parts = []
+        for lo in range(0, N, rows):
+            sub = nn.Linear(K, 1, bias=lin.bias is not None, device="meta")
+            sub.weight = nn.Parameter(lin.weight[lo:lo + rows], requires_grad=False)
+            if lin.bias is not None:
+                sub.bias = nn.Parameter(lin.bias[lo:lo + rows], requires_grad=False)
+            parts.append(_quantize_leaf(sub, weights))
+        return _cat_leaves(parts)
     if weights == "int4":
         try:
             return Q.quantize_linear_w4(lin)
@@ -296,6 +320,117 @@ def fuse_quantized_layers(params: LLM) -> LLM:
             del parts["gate"], parts["up"]
         layers.append(DecoderLayer(**parts))
     return params.with_layers(layers)
+
+
+# --------------------------------------------------------------------------
+# HF checkpoints
+# --------------------------------------------------------------------------
+
+_HF_LAYER_KEYS = {
+    "input_layernorm.weight": "input_norm",
+    "self_attn.q_proj.weight": "q.weight", "self_attn.q_proj.bias": "q.bias",
+    "self_attn.k_proj.weight": "k.weight", "self_attn.k_proj.bias": "k.bias",
+    "self_attn.v_proj.weight": "v.weight", "self_attn.v_proj.bias": "v.bias",
+    "self_attn.o_proj.weight": "o.weight",
+    "post_attention_layernorm.weight": "post_norm",
+    "mlp.gate_proj.weight": "gate.weight", "mlp.up_proj.weight": "up.weight",
+    "mlp.down_proj.weight": "down.weight",
+}
+
+
+def hf_key_map(cfg: LLMConfig) -> dict:
+    """HF safetensors key -> the :class:`LLM`'s state-dict name, for
+    Qwen2 / LLaMA checkpoints.  Torch and the port both store a linear
+    weight as (out, in), so every tensor loads as it is stored."""
+    m = {"model.embed_tokens.weight": "embed"}
+    for i in range(cfg.num_layers):
+        for hf, ours in _HF_LAYER_KEYS.items():
+            if ours.endswith(".bias") and not cfg.qkv_bias:
+                continue
+            m[f"model.layers.{i}.{hf}"] = f"layers.{i}.{ours}"
+    m["model.norm.weight"] = "final_norm"
+    if not cfg.tie_embeddings:
+        m["lm_head.weight"] = "lm_head.weight"
+    return m
+
+
+def read_safetensors_dir(model_dir: str) -> dict:
+    """{key: CPU tensor} over every ``*.safetensors`` shard of ``model_dir``,
+    each a view of its file's memory map (``utils/safetensors_io.py``)."""
+    import glob
+    import os
+
+    from vla_touch_tpu_torch.utils.safetensors_io import load_file
+
+    files = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
+    if not files:
+        raise FileNotFoundError(f"no *.safetensors under {model_dir}")
+    tensors = {}
+    for fp in files:
+        tensors.update(load_file(fp))
+    return tensors
+
+
+def _require(what: str, model_dir: str, kmap: dict, tensors: dict) -> None:
+    """Raise a KeyError naming the mapped tensors the checkpoint lacks: a
+    dropped qkv bias or shard would otherwise give a wrong model silently."""
+    missing = sorted(k for k in kmap if k not in tensors)
+    if missing:
+        raise KeyError(
+            f"checkpoint at {model_dir} is missing {len(missing)} {what} the config "
+            f"requires, e.g. {missing[:4]} - wrong config (qkv_bias/tie_embeddings/"
+            f"num_layers?) or incomplete download")
+
+
+@torch.no_grad()
+def load_llm_from_hf(cfg: LLMConfig, model_dir: str, weights: Optional[str] = None,
+                     dtype=torch.bfloat16, fuse: bool = False, device=None) -> LLM:
+    """A Qwen2 / LLaMA safetensors checkpoint (a directory of shards) as an
+    :class:`LLM` on ``device`` (default CUDA): every tensor of two or more
+    dimensions in ``dtype``, norms and biases in float32, as the JAX
+    package's loader casts them.  The files are read through the port's
+    own reader (no ``safetensors`` package).
+
+    ``weights='int8'|'int4'`` quantizes each decoder layer as it loads
+    (:func:`_quantize_layer`, as :func:`quantize_llm_params` does), and the
+    untied ``lm_head`` after, so the device holds the quantized tree plus
+    one float layer at a time.  ``fuse=True`` (quantized loads only) then
+    applies :func:`fuse_quantized_layers`."""
+    if fuse and weights is None:
+        raise ValueError("fuse=True requires weights='int8'|'int4'")
+    if weights is not None:
+        _check_weights(weights)
+    dev = resolve_device(device)
+    tensors = read_safetensors_dir(model_dir)
+    kmap = hf_key_map(cfg)
+    _require("tensors", model_dir, kmap, tensors)
+
+    def get(hf_key):
+        t = tensors[hf_key].to(dev)
+        return t.to(dtype if t.dim() >= 2 else torch.float32)
+
+    layers = []
+    for i in range(cfg.num_layers):
+        prefix = f"layers.{i}."
+        state = {name[len(prefix):]: get(hf) for hf, name in kmap.items()
+                 if name.startswith(prefix)}
+        with torch.device("meta"):
+            lp = DecoderLayer(cfg)
+        lp.load_state_dict(state, assign=True)
+        lp.requires_grad_(False)
+        layers.append(_quantize_layer(lp, weights) if weights else lp)
+    embed = nn.Parameter(get("model.embed_tokens.weight"), requires_grad=False)
+    final_norm = nn.Parameter(get("model.norm.weight"), requires_grad=False)
+    lm_head = None
+    if not cfg.tie_embeddings:
+        w = get("lm_head.weight")
+        with torch.device("meta"):
+            lm_head = nn.Linear(w.shape[1], w.shape[0], bias=False)
+        lm_head.weight = nn.Parameter(w, requires_grad=False)
+        if weights:
+            lm_head = _quantize_leaf(lm_head, weights)
+    model = LLM(cfg, embed, layers, final_norm, lm_head).eval()
+    return fuse_quantized_layers(model) if fuse else model
 
 
 # --------------------------------------------------------------------------

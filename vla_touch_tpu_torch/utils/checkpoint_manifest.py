@@ -4,7 +4,8 @@
 The port carries the literal key + shape manifests of the checkpoints its
 converters read (``vla_touch_tpu_torch/data/hf_manifests/*.json``, byte
 for byte the JAX package's).  Run this validator before converting
-downloaded weights with a ``utils/torch_port.py`` converter: it names
+downloaded weights with the converter ``KNOWN`` names (a ``utils/torch_port.py``
+converter or a planner loader): it names
 missing, unexplained and mis-shaped keys of a wrong variant, a truncated
 shard or a renamed key instead of failing mid-conversion.
 
@@ -37,14 +38,15 @@ KNOWN = {
     "dinov2_small": ("facebook/dinov2-small", "utils.torch_port.dinov2_from_hf"),
     "clip_vit_b16_vision": ("openai/clip-vit-base-patch16 (vision)",
                             "utils.torch_port.clip_vision_from_hf"),
+    "qwen2_5_7b": ("Qwen/Qwen2.5-7B-Instruct", "planning.llm.load_llm_from_hf"),
+    "qwen2_vl_7b": ("Qwen/Qwen2-VL-7B-Instruct",
+                    "planning.qwen2vl.load_qwen2vl_from_hf"),
 }
 
 #: manifests of the JAX package whose converters the port has not yet;
 #: each comes with the ROADMAP item that ports its converter
 PENDING = {
     "clip_vit_b16_text": "A7 (the prompt-learning CLIP towers, clip_text.py)",
-    "qwen2_5_7b": "A7 (load_llm_from_hf)",
-    "qwen2_vl_7b": "A7 (qwen2vl.py)",
     "t5_v1_1_xxl": "A9 (t5_native.py)",
 }
 

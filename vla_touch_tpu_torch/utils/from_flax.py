@@ -451,6 +451,18 @@ def tactile_encoder(state, device=None, dtype=torch.float32):
                                   feature_dim=state.feature_dim)
 
 
+def qwen2vl_vision(params: dict, vcfg, device=None):
+    """A JAX Qwen2-VL vision tree (``planning/qwen2vl.py``'s ``init_vision``
+    or ``load_qwen2vl_from_hf``: ``patch_embed``, a list of ``blocks``,
+    ``merger``) -> the port's ``VisionTower`` on ``device`` (default CUDA),
+    each leaf in its own dtype (bf16 weights stay bf16)."""
+    from vla_touch_tpu_torch.planning import qwen2vl as VL
+
+    tree = dict(params, blocks={str(i): b for i, b in enumerate(params["blocks"])})
+    state = {k: _torch(v) for k, v in to_state_dict(tree).items()}
+    return VL.tower_from_state(vcfg, state, device=device)
+
+
 def tactile_projector(params: dict, device=None):
     """A JAX ``TactileProjector`` tree (fc1, fc2) -> the port's, float32."""
     from vla_touch_tpu_torch.planning.llm_splice import TactileProjector
