@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's control tick (cold and steady-state), its serving
 pool and replay CLI, its residual controllers' training and evaluation,
-RDT-1B finetuning, its planner and the planner's VLM on one NVIDIA GPU.
+RDT-1B finetuning, its planner, the planner's VLM and the training and
+evaluation of the planner's tactile encoder on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -154,13 +155,31 @@ RDT-1B finetuning, its planner and the planner's VLM on one NVIDIA GPU.
    checkpoint at full width cut to 2 decoder layers and 2 vision blocks,
    written by the port's writer, checked against the qwen2_vl_7b manifest
    and read back in bf16, int4 and int8 bit for bit.
-10. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
+10. The planner's tactile encoder (``tactile_encoder_phase``): K1's
+   autograd route against the plain autograd at the contrastive step's
+   shapes (32 frames, 201 and 197 tokens, 12 heads of 64); a seeded raw
+   PhysiCLeAR tree (16 train and 4 test objects, both procedures, 8 frames
+   of 240 x 320) through ``extract_physiclear``, ``build_samples_json``,
+   both PhysiCLeAR QA generators, ``write_qa_file`` and
+   ``TactileLLMDataset``; ``train_vificlip_contrastive`` at full width
+   (CLIP ViT-B/16 and the B/16 text tower, 4 prompts to depth 9, the
+   512-wide projections; batches of 8 videos x 4 frames with seeded
+   captions, lr 1e-4, 20 steps, text frozen) with K1's launches asserted
+   (one a vision block a step, none in the text tower), the loss fall
+   gated, the frozen text tower bit for bit, one step as a checked run, a
+   depth-2 step against the CPU's, the step's p50, videos/s and a profile
+   (K1's share of the device time); then ``train_property_encoder`` and
+   ``evaluate_encoder`` on the processed samples (launches asserted, the
+   metrics printed) and the saved encoder read back bit for bit, serving
+   the same features; the peak memory.
+11. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
    tick's, the serving pool's, the replay's, the controllers phase's, RDT
-   finetuning's and the VLM's, K2's the tick's, the replay's and the
+   finetuning's, the VLM's and the tactile encoder's, K2's the tick's, the replay's and the
    controllers', K6's tick (a)'s, the serving pool's and the VLM's, K8's
    tick (e)'s and the VLM's, K9's and K10's the planner's and the VLM's,
    each path counted from 0 (``launches_by_path``); K1 also carries its
-   sums over a training step's calls (``train_step``);
+   sums over an RDT training step's calls (``train_step``) and over a
+   contrastive step's (``contrastive_step``);
    K5's and K7's are the shadow calls of (f)'s checked tick), the ``nvidia-smi`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -627,10 +646,18 @@ K1_SHAPES = [
     ("rdt_train_image_cross", 4, 67, 4374, 32, 64, "cross", None, 56),
     ("rdt_train_lang_cross", 4, 67, 1024, 32, 64, "cross", "short", 56),
     ("siglip_train_b96", 96, 729, 729, 16, 72, "vit", None, 27),
+    # the tactile encoder's contrastive step (tactile_encoder_phase): the
+    # prompt-learned CLIP ViT-B/16 over 8 videos x 4 frames, 197 patch
+    # tokens + 4 prompts in the 9 blocks before the prompt depth, 197 in
+    # the 3 after
+    ("vificlip_prompt_self", 32, 201, 201, 12, 64, "vit", None, 9),
+    ("vificlip_self", 32, 197, 197, 12, 64, "vit", None, 3),
 ]
-# the rows above whose calls are per RDT training step, not per tick
-K1_TRAIN_ROWS = ("rdt_train_self", "rdt_train_image_cross", "rdt_train_lang_cross",
-                 "siglip_train_b96")
+# the rows above whose calls are per training step, not per tick: an RDT
+# training step's, and a contrastive step of the tactile encoder's
+K1_STEP_ROWS = {"rdt_train_self": "train_step", "rdt_train_image_cross": "train_step",
+                "rdt_train_lang_cross": "train_step", "siglip_train_b96": "train_step",
+                "vificlip_prompt_self": "contrastive_step", "vificlip_self": "contrastive_step"}
 
 
 def k1_operands(gen, B, Lq, Lkv, H, D, layout):
@@ -729,8 +756,9 @@ def k1_bound_ms(B, Lq, Lkv, H, D, masked):
 
 def check_k1(gen, shapes=None):
     """Every K1 shape held to its plain version and timed.  Returns (rows,
-    the tick's sums over its calls, with those of K1_TRAIN_ROWS' calls per
-    RDT training step under "train_step")."""
+    the tick's sums over its calls, with those of K1_STEP_ROWS' calls per
+    training step under the step's name: "train_step" for RDT finetuning,
+    "contrastive_step" for the tactile encoder)."""
     import torch.nn.functional as F
 
     from vla_touch_tpu_torch.ops import flash_attention as FA
@@ -738,8 +766,8 @@ def check_k1(gen, shapes=None):
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
                bytes_ms=0.0, ops_ms=0.0)
-    train = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, calls=0)
-    tot["train_step"] = train
+    for step in set(K1_STEP_ROWS.values()):
+        tot[step] = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, calls=0)
     for name, B, Lq, Lkv, H, D, layout, mask_kind, calls in shapes or K1_SHAPES:
         # enough distinct operand sets that a timing loop misses the L2 cache
         n_sets = max(1, min(8, -(-2 * L2_BYTES // (2 * 2 * B * Lkv * H * D))))
@@ -782,16 +810,16 @@ def check_k1(gen, shapes=None):
         rows.append(dict(shape=name, B=B, Lq=Lq, Lkv=Lkv, H=H, D=D, layout=layout,
                          calls=calls, splits=splits, max_abs_err=err, tol=tol, ms=ms, eager_ms=eager_ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound))
-        per_step = name in K1_TRAIN_ROWS
+        step = K1_STEP_ROWS.get(name)
         log(f"{where}: err {err:.3e} "
             f"(tol {tol:.3e}) kernel {ms:.4f} ms (eager loop {eager_ms:.4f}) "
             f"plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound {bound:.4f} ms "
-            f"x{calls}/{'training step' if per_step else 'tick'}")
-        if per_step:
-            train["calls"] += calls
+            f"x{calls}/{step or 'tick'}")
+        if step:
+            tot[step]["calls"] += calls
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                            ("bound_ms", bound)):
-                train[key] += calls * v
+                tot[step][key] += calls * v
             continue
         tot["ms"] += calls * ms
         tot["plain_ms"] += calls * plain_ms
@@ -2490,22 +2518,31 @@ def check_mk(gen, kernel, leaves):
     return rows
 
 
-def write_video(path, seed, n=8, size=224):
-    """A synthetic GelSight press as PNG frames: a textured field, then a
-    contact blob that grows over frames 3..6 (the salient span)."""
+def write_video(path, seed, n=8, size=224, width=None, varied=False):
+    """A synthetic GelSight press as PNG frames of size x width (default
+    square): a textured field, then a contact blob that grows over frames
+    3..6 (the salient span).  ``varied``: the texture's frequencies, the
+    blob's centre and the colour drawn from ``seed`` (one object's
+    recording unlike another's)."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
     os.makedirs(path, exist_ok=True)
-    yy, xx = np.mgrid[:size, :size] / size
-    base = 110 + 40 * np.sin(12 * xx) * np.cos(9 * yy)
+    yy, xx = np.mgrid[:size, :width or size] / np.array([size, width or size])[:, None, None]
+    fx, fy, cx, cy, tint = 12.0, 9.0, 0.5, 0.45, np.array([1.0, 0.6, 0.3])
+    if varied:
+        fx, fy = rng.uniform(3.0, 30.0, 2)
+        cx, cy = rng.uniform(0.25, 0.75, 2)
+        tint = rng.uniform(0.2, 1.2, 3)
+    base = 110 + 40 * np.sin(fx * xx) * np.cos(fy * yy)
     frames = []
     for i in range(n):
         amp = 90.0 * min(max(i - 2, 0), 4) / 4
-        blob = amp * np.exp(-((xx - 0.5) ** 2 + (yy - 0.45) ** 2) / 0.02)
-        img = base[..., None] + blob[..., None] * np.array([1.0, 0.6, 0.3])
+        blob = amp * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 0.02)
+        img = base[..., None] + blob[..., None] * tint
         img = np.clip(img + rng.normal(0, 2, img.shape), 0, 255).astype(np.uint8)
-        Image.fromarray(img).save(os.path.join(path, f"{i:03d}.png"))
+        # zlib level 1: the same pixels, written 4 x faster than level 6
+        Image.fromarray(img).save(os.path.join(path, f"{i:03d}.png"), compress_level=1)
         frames.append(img)
     return np.stack(frames)
 
@@ -3297,6 +3334,328 @@ def vlm_phase(gen) -> dict:
     return res
 
 
+# ---- the planner's tactile encoder, trained and evaluated ----------------------
+
+# The JAX trainers' defaults: batches of 8 videos x 4 frames at 224^2, lr
+# 1e-4; the prompt-learned towers with 4 prompts to depth 9 in both, and
+# CLIP's 512-wide projections (ViT-B/16's 768 beside the text tower's 512).
+TACT_BATCH = 8
+TACT_FRAMES = 4
+TACT_LR = 1e-4
+TACT_PROMPTS = 4
+TACT_DEPTH = 9
+TACT_PROJ = 512
+# the raw PhysiCLeAR tree: 16 train and 4 test objects, a recording of each
+# under both exploratory procedures, 8 frames of a 240 x 320 GelSight
+# image; so 32 train samples, 4 contrastive batches, 20 steps in 5 epochs
+TACT_TRAIN_OBJECTS = 16
+TACT_TEST_OBJECTS = 4
+TACT_RAW = (8, 240, 320)
+TACT_EPOCHS = 5
+TACT_PROP_EPOCHS = 2
+TACT_SOT, TACT_EOS, TACT_FILLER = 49406, 49407, 343    # CLIP's start, end and "x" ids
+# The contrastive loss fall over the 20 steps (loss_fall: the first 3
+# steps' mean against the last 5's), written before the first run on the
+# card: 4 batches seen 5 times each, so a sound trainer memorises them,
+# and one that does not update keeps the first and last steps' means
+# within the batches' spread.  Controls on the 2-layer cut (CPU,
+# tools/torch_vificlip_loss_fall.py): sound 0.397, every recording the same
+# press 0.014, lr 0 -0.003.
+TACT_FALL_MIN = 0.2
+# A depth-cut (2-layer) step on the card in bf16 against the CPU's in
+# float32: bf16 against float32 on the CPU reads loss 9.5e-5, gradient
+# L2 2.2e-2, corr 0.99977 at this model and batch
+# (tools/torch_vificlip_bf16_step.py full).
+TACT_LOSS_RTOL = 2e-3
+TACT_GRAD_L2_TOL = 6e-2
+TACT_GRAD_CORR_MIN = 0.999
+K1_TACT_GRAD_SHAPES = [("vificlip_prompt_self", 32, 201, 201, 12, 64, "vit", None),
+                       ("vificlip_self", 32, 197, 197, 12, 64, "vit", None)]
+
+
+def tactile_objects() -> tuple:
+    """(train, test) object ids of the raw tree: the scenario targets of
+    the train split first, then the train split in order; the first test
+    objects."""
+    from vla_touch_tpu_torch.planning import physiclear as PC
+
+    targets = [t for sc in PC.SCENARIOS.values() for t in sc["target_sample"]
+               if t in PC.TRAIN_OBJECTS]
+    train = list(dict.fromkeys(targets + PC.TRAIN_OBJECTS))[:TACT_TRAIN_OBJECTS]
+    return train, PC.TEST_OBJECTS[:TACT_TEST_OBJECTS]
+
+
+def tactile_data(root: str) -> dict:
+    """The PhysiCLeAR pipeline on a seeded raw tree: recordings written,
+    extracted into sample dirs, the split registries built, both QA
+    generators' files written and read back through ``TactileLLMDataset``;
+    returns the paths, counts and seconds."""
+    from vla_touch_tpu_torch.planning import datasets as D
+    from vla_touch_tpu_torch.planning import process_datasets as PD
+    from vla_touch_tpu_torch.planning import qa as QA
+
+    train, test = tactile_objects()
+    raw, samples = os.path.join(root, "raw"), os.path.join(root, "samples")
+    n, H, W = TACT_RAW
+    t0 = time.perf_counter()
+    for e, ep in enumerate(("pressing", "sliding")):
+        for i, obj in enumerate(train + test):
+            write_video(os.path.join(raw, ep, f"{obj[len('physiclear_'):]}_{e}"),
+                        seed=100 * e + i, n=n, size=H, width=W, varied=True)
+    t1 = time.perf_counter()
+    count = PD.extract_physiclear(raw, samples)
+    regs = PD.build_samples_json(samples, *(os.path.join(root, f"{s}_samples.json")
+                                            for s in ("train", "val", "test")))
+    if count != 2 * (len(train) + len(test)) or sorted(regs["train"]) != sorted(train) \
+            or sorted(regs["test"]) != sorted(test) or regs["val"]:
+        raise AssertionError(f"tactile data: {count} samples, registries "
+                             f"{ {k: len(v) for k, v in regs.items()} }")
+    desc = QA.generate_physiclear_description_ranking_qa(regs["train"], 32, seed=0)
+    scen = QA.generate_physiclear_scenario_qa(regs["train"], 4, seed=0)
+    paths = [QA.write_qa_file(desc, os.path.join(root, "qa", "description_ranking.json")),
+             QA.write_qa_file(scen, os.path.join(root, "qa", "scenario.json"))]
+    ds = D.TactileLLMDataset(paths, "train")
+    rows = [ds[i] for i in range(len(ds))]
+    missing = [p for r in rows for p in r["info"]["tactile"] if not os.path.isdir(p)]
+    if len(rows) != len(desc) + len(scen) or len(scen) != 4 or missing:
+        raise AssertionError(f"tactile QA: {len(rows)} rows read back of "
+                             f"{len(desc)} + {len(scen)}, missing recordings {missing[:2]}")
+    return dict(samples=samples, train_samples=2 * len(train), test_samples=2 * len(test),
+                qa_rows=len(rows), write_s=t1 - t0, process_s=time.perf_counter() - t1)
+
+
+def caption_batch(rng, B: int, L: int = 77):
+    """Seeded caption ids: start, the 4 filler slots the text prompts
+    overwrite, 6..40 random ids, end; zeros after, the mask through the
+    end token."""
+    ids = np.zeros((B, L), np.int64)
+    mask = np.zeros((B, L), np.int64)
+    for b in range(B):
+        k = int(rng.integers(6, 41))
+        row = [TACT_SOT] + [TACT_FILLER] * TACT_PROMPTS + list(rng.integers(1, TACT_SOT, k)) \
+            + [TACT_EOS]
+        ids[b, :len(row)] = row
+        mask[b, :len(row)] = 1
+    return ids, mask
+
+
+def contrastive_batches(samples: str) -> list:
+    """The train samples as contrastive batches: the regression dataset's
+    frames (224^2, 4 frames, one shuffled pass) with a seeded caption per
+    video."""
+    from vla_touch_tpu_torch.planning import datasets as D
+
+    ds = D.TactilePropertyRegressionDataset(samples, "train", ["physiclear"], frame_size=224,
+                                            max_frames=TACT_FRAMES, seed=0)
+    rng = np.random.default_rng(7)
+    out = []
+    for b in ds.batches(TACT_BATCH):
+        ids, mask = caption_batch(rng, len(b["paths"]))
+        out.append({"frames": b["frames"], "input_ids": ids, "attention_mask": mask})
+    return out
+
+
+def tactile_step_vs_cpu(batch) -> dict:
+    """One contrastive loss and gradient of a depth-cut (2-layer) full-width
+    model on the card in bf16 against the CPU's in float32 (master weights
+    equal, text frozen): the loss's relative error, the gradient's
+    relative L2 error and corr, K1's launches on the card."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from vla_touch_tpu_torch.models.encoders import clip_text as CT
+    from vla_touch_tpu_torch.models.encoders import vit as V
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+    from vla_touch_tpu_torch.planning import encoder as PE
+    from vla_touch_tpu_torch.planning import train_encoder as TE
+
+    vc = dataclasses.replace(V.CLIP_VIT_B16, num_layers=2)
+    tc = dataclasses.replace(CT.CLIP_TEXT_B16, num_layers=2)
+    cpu = PE.init_vificlip_model(vc, tc, seed=1, device="cpu", prompt_learning=True,
+                                 num_prompts=TACT_PROMPTS, prompt_depth_vision=TACT_DEPTH,
+                                 prompt_depth_text=TACT_DEPTH, projection_dim=TACT_PROJ)
+    card = copy.deepcopy(cpu).cuda()
+    out = {}
+    for name, m, dt, dev in (("card", card, torch.bfloat16, "cuda"),
+                             ("cpu", cpu, torch.float32, "cpu")):
+        V.master_weights_(m, dt).requires_grad_(True)
+        m.text.requires_grad_(False)
+        before = FA.flash_attention.launches
+        loss = TE.contrastive_loss(m, batch, dev)
+        loss.backward()
+        grads = torch.cat([p.grad.double().flatten().cpu() for p in m.parameters()
+                           if p.grad is not None])
+        out[name] = (float(loss.detach()), grads, FA.flash_attention.launches - before)
+    (l_card, a, k1), (l_cpu, b, _) = out["card"], out["cpu"]
+    res = dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel_err=abs(l_card - l_cpu) / abs(l_cpu),
+               grad_l2_rel=float((a - b).norm() / b.norm()),
+               grad_corr=float(torch.corrcoef(torch.stack([a, b]))[0, 1]), k1_launches=k1)
+    log("tactile depth-2 step, card (bf16) vs CPU (float32): " + json.dumps(res) +
+        f" (tolerances: loss {TACT_LOSS_RTOL}, L2 {TACT_GRAD_L2_TOL}, corr min "
+        f"{TACT_GRAD_CORR_MIN})")
+    if not (res["loss_rel_err"] <= TACT_LOSS_RTOL and res["grad_l2_rel"] <= TACT_GRAD_L2_TOL
+            and res["grad_corr"] >= TACT_GRAD_CORR_MIN and k1 == vc.num_layers):
+        raise AssertionError(f"tactile encoder: the card's step disagrees with the CPU's: {res}")
+    return res
+
+
+def check_encoder_round_trip(st, path: str, frames) -> dict:
+    """``load_tactile_encoder`` of the trainer's saved directory: every
+    tensor of the CLIP tower, the adapters and the classifier with the
+    trained state's dtype and bits, and one ``encode_tactile_video`` equal
+    to the trained state's."""
+    import torch
+
+    from vla_touch_tpu_torch.planning import encoder as PE
+
+    t0 = time.perf_counter()
+    loaded = PE.load_tactile_encoder(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for what in ("clip", "adapters", "classifier"):
+        check_round_trip(f"tactile encoder {what}", getattr(loaded, what).state_dict(),
+                         getattr(st, what).state_dict())
+    frames = torch.as_tensor(frames, device="cuda")
+    if not torch.equal(PE.encode_tactile_video(loaded, frames),
+                       PE.encode_tactile_video(st, frames)):
+        raise AssertionError("tactile encoder: the loaded encoder serves other features")
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    return dict(bytes=nbytes, load_s=load_s)
+
+
+def tactile_encoder_phase(gen) -> dict:
+    """The planner's tactile encoder trained and evaluated at full width
+    (CLIP ViT-B/16 and the B/16 text tower, prompt-learned, seeded weights):
+    K1's autograd route at the contrastive step's shapes; the PhysiCLeAR
+    data pipeline on a seeded raw tree; ``train_vificlip_contrastive`` for
+    20 steps (text frozen) with K1's launches asserted (one a vision
+    block a step, none in the text tower), the loss fall gated, the frozen
+    text tower bit for bit, one step as a checked run, a depth-cut step
+    against the CPU's, the step's times and profile; then
+    ``train_property_encoder`` and ``evaluate_encoder`` on the processed
+    samples (launches asserted) and the saved encoder read back bit for
+    bit."""
+    import math
+    import shutil
+
+    import torch
+
+    from vla_touch_tpu_torch.planning import encoder as PE
+    from vla_touch_tpu_torch.planning import train_encoder as TE
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"k1_autograd": k1_grad_check(gen, K1_TACT_GRAD_SHAPES)}
+    root = os.path.join(ROOT, "build", "tactile")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        data = tactile_data(root)
+        batches = contrastive_batches(data["samples"])
+        res["data"] = data
+        log(f"tactile data [{card}]: " + json.dumps(data))
+
+        # ---- the contrastive trainer, counted
+        model = PE.init_vificlip_model(
+            seed=0, prompt_learning=True, num_prompts=TACT_PROMPTS,
+            prompt_depth_vision=TACT_DEPTH, prompt_depth_text=TACT_DEPTH,
+            projection_dim=TACT_PROJ)
+        text0 = {n: t.clone() for n, t in model.text.state_dict().items()}
+        blocks = model.vision.cfg.num_layers
+        steps = TACT_EPOCHS * len(batches)
+        zero_counts()
+        t1 = time.perf_counter()
+        model, losses = TE.train_vificlip_contrastive(batches, model=model, epochs=TACT_EPOCHS,
+                                                      lr=TACT_LR)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        counts_c = read_counts()
+        check_counts(f"tactile contrastive training, {steps} steps [{card}]", counts_c,
+                     {"K1": blocks * steps})
+        check_round_trip("tactile contrastive: the frozen text tower",
+                         model.text.state_dict(), text0)
+        fall = loss_fall(losses)
+        log(f"tactile contrastive losses: {[round(x, 4) for x in losses]}; fall {fall:.4f} "
+            f"(min {TACT_FALL_MIN})")
+        if not (np.all(np.isfinite(losses)) and fall >= TACT_FALL_MIN):
+            raise AssertionError(f"tactile contrastive: the loss does not fall ({fall})")
+        res["contrastive"] = dict(steps=steps, losses=losses, fall=fall, train_s=train_s,
+                                  launches=counts_c["K1"])
+
+        # ---- one step as a checked run; the depth-cut step against the CPU
+        chk = checked_run(lambda: TE.train_vificlip_contrastive([batches[0]], model=model,
+                                                                lr=TACT_LR))
+        check_chk(f"tactile checked contrastive step [{card}]", chk, {"K1": blocks})
+        res["checked"] = {k: v for k, v in chk.items() if v["calls"]}
+        res["step_vs_cpu"] = tactile_step_vs_cpu(batches[0])
+
+        # ---- times: one trainer step a call, and one profiled
+        def step(i=[0]):
+            i[0] += 1
+            TE.train_vificlip_contrastive([batches[i[0] % len(batches)]], model=model,
+                                          lr=TACT_LR)
+
+        ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+        prof = profile_run(step)
+        k1_ms = prof["groups_ms"]["K1 flash_fwd_kernel"] + prof["groups_ms"][
+            "K1 flash_combine_kernel"]
+        res["contrastive"].update(
+            step_ms=ms[1:], step_ms_p50=float(np.median(ms[1:])),
+            videos_per_s=TACT_BATCH / (float(np.median(ms[1:])) / 1e3),
+            k1_share_of_busy=k1_ms / prof["device_busy_ms"], profile=prof)
+        log(f"tactile contrastive step [{card}]: p50 {res['contrastive']['step_ms_p50']:.2f} ms "
+            f"({res['contrastive']['videos_per_s']:.1f} videos/s), K1 {k1_ms:.3f} ms of "
+            f"{prof['device_busy_ms']:.3f} ms busy, idle {prof['idle_share']:.3f}")
+        del model
+        torch.cuda.empty_cache()
+
+        # ---- the property encoder: training, evaluation, the saved encoder
+        out_dir = os.path.join(root, "encoder_run")
+        prop_steps = TACT_PROP_EPOCHS * math.ceil(data["train_samples"] / TACT_BATCH)
+        zero_counts()
+        t1 = time.perf_counter()
+        st = TE.train_property_encoder(data["samples"], out_dir, epochs=TACT_PROP_EPOCHS,
+                                       batch_size=TACT_BATCH, lr=TACT_LR, frame_size=224,
+                                       max_frames=TACT_FRAMES, seed=0)
+        torch.cuda.synchronize()
+        prop_s = time.perf_counter() - t1
+        counts_p = read_counts()
+        check_counts(f"tactile property training, {prop_steps} steps [{card}]", counts_p,
+                     {"K1": blocks * prop_steps})
+        zero_counts()
+        t1 = time.perf_counter()
+        metrics = TE.evaluate_encoder(st, data["samples"], split="test", frame_size=224,
+                                      max_frames=TACT_FRAMES)
+        eval_ms = 1e3 * (time.perf_counter() - t1)
+        counts_e = read_counts()
+        check_counts(f"tactile encoder evaluation [{card}]", counts_e,
+                     {"K1": blocks * math.ceil(data["test_samples"] / 8)})
+        if metrics["num_samples"] != data["test_samples"] or not np.isfinite(metrics["mse"]):
+            raise AssertionError(f"tactile evaluation: {metrics}")
+        res["property"] = dict(steps=prop_steps, train_s=prop_s,
+                               step_ms=1e3 * prop_s / prop_steps, eval_ms=eval_ms,
+                               metrics=metrics,
+                               round_trip=check_encoder_round_trip(
+                                   st, os.path.join(out_dir, "encoder"),
+                                   batches[0]["frames"][:2]))
+        log(f"tactile property encoder [{card}]: " + json.dumps(res["property"]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["counts"] = {k: counts_c[k] + counts_p[k] + counts_e[k] for k in counts_c}
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"tactile encoder phase: {res['phase_s']:.1f} s, peak {res['peak_gib']:.2f} GiB")
+    return res
+
+
 # ---- the residual controllers -------------------------------------------------
 
 # Training steps per controller, the steps before the timed ones, and the
@@ -3838,9 +4197,9 @@ def rdt_fall_run(vision, files, out_dir, learning_rate=None, skip_step=False) ->
     return dict(probe_before=before, probe_after=after, fall=(before - after) / before)
 
 
-def k1_grad_check(gen) -> list:
+def k1_grad_check(gen, shapes=None) -> list:
     """K1's autograd Function against attention_plain's autograd on the
-    card at the RDT training shapes (q, k, v as the modules lay them out,
+    card at ``shapes`` (default the RDT training shapes; q, k, v as the modules lay them out,
     requiring grad; a random cotangent), and the guard: a direct wrapper
     call with grad-requiring operands raises, the attention entry returns
     an output with a grad_fn."""
@@ -3850,7 +4209,7 @@ def k1_grad_check(gen) -> list:
     from vla_touch_tpu_torch.ops import flash_attention as FA
 
     rows = []
-    for name, B, Lq, Lkv, H, D, layout, mask_kind in K1_GRAD_SHAPES:
+    for name, B, Lq, Lkv, H, D, layout, mask_kind in shapes or K1_GRAD_SHAPES:
         ops = [t.detach().clone().requires_grad_(True)
                for t in k1_operands(gen, B, Lq, Lkv, H, D, layout)]
         mask = k1_mask(B, Lq, Lkv, H, mask_kind)
@@ -4299,6 +4658,10 @@ def main() -> int:
     pl = planner_phase(gen)
     torch.cuda.empty_cache()
     vl = vlm_phase(gen)
+    torch.cuda.empty_cache()
+
+    # ---- the planner's tactile encoder, trained and evaluated
+    te = tactile_encoder_phase(gen)
     for name, rows in (("k1", k1_rows), ("k2", k2_rows), ("k3", k3_rows), ("k4", k4_rows),
                        ("k5", k5_rows), ("k6", k6_rows), ("k7", k7_rows), ("k8", k8_rows),
                        ("k8 llm", pl["k8_llm_rows"]),
@@ -4315,6 +4678,7 @@ def main() -> int:
     log("vlm: " + json.dumps({k: vl[k] for k in ("counts", "calls", "vision_corr",
                                                  "teacher_forced", "checked", "checked_int8",
                                                  "times", "session", "round_trip")}))
+    log("tactile_encoder: " + json.dumps(te))
 
     def entry(name, source, replaces, launches, tot, **extra):
         return dict(name=name, route="cuda", source=f"vla_touch_tpu_torch/csrc/{source}",
@@ -4323,9 +4687,10 @@ def main() -> int:
                     bound_ms=tot["bound_ms"], bound_by=bound_by(tot),
                     library_ms=tot.get("library_ms"), **extra)
 
-    # K1 runs on six main paths, K2 on three: the cold tick, the serving
+    # K1 runs on seven main paths, K2 on three: the cold tick, the serving
     # pool, the replay CLI, the controllers phase (training and evaluation),
-    # RDT finetuning and (K1) the planner's VLM, each counted from 0; K6 on
+    # RDT finetuning and (K1) the planner's VLM and its tactile encoder's
+    # training and evaluation, each counted from 0; K6 on
     # quantized tick (a), the serving pool's int8 batches and the VLM's int8
     # request; K8 on tick (e) and the VLM; K9 and K10 on the planner and the
     # VLM
@@ -4333,6 +4698,7 @@ def main() -> int:
                    "replay": rep["launches"][k], "controllers": ctrl["launches"][k],
                    "rdt_train": rdt["launches"][k]} for k in ("K1", "K2")}
     by_path["K1"]["vlm"] = vl["counts"]["K1"]
+    by_path["K1"]["tactile_encoder"] = te["counts"]["K1"]
     by_path["K6"] = {"tick_a": q["a"]["launches"]["K6"], "serving": serve["launches"]["K6"],
                      "replay": rep["launches"]["K6"], "vlm": vl["counts"]["K6"]}
     by_path["K8"] = {"tick_e": q["e"]["launches"]["K8"], "vlm": vl["counts"]["K8"]}
@@ -4341,7 +4707,7 @@ def main() -> int:
     kernels = [
         entry("flash_attention", "flash_attention.cu", "ops/pallas_attention.py:126",
               sum(by_path["K1"].values()), k1, launches_by_path=by_path["K1"],
-              train_step=k1["train_step"]),
+              train_step=k1["train_step"], contrastive_step=k1["contrastive_step"]),
         entry("resblock_fused", "resblock.cu", "ops/pallas_unet.py:203",
               sum(by_path["K2"].values()), k2, launches_by_path=by_path["K2"]),
         entry("flash_attention_q8", "flash_attention_q8.cu", "ops/pallas_attention.py:275",

@@ -1088,3 +1088,85 @@ def test_load_llm_from_hf_int4_on_the_card_equals_quantize_llm_params(cuda, tmp_
         assert t.device.type == "cuda" and t.dtype == w[name].dtype, name
         assert torch.equal(t, w[name]), name
     assert isinstance(got.layers[0].gate, type(want.layers[0].gate))
+
+
+@pytest.mark.parametrize("Lq", [201, 197])
+def test_flash_attention_at_the_vificlip_training_shapes(cuda, Lq):
+    """K1 at the prompt-learned CLIP ViT-B/16's contrastive step, 8 videos x
+    4 frames as the batch, 12 heads of 64: 197 patch tokens + 4 prompts in
+    the blocks before the prompt depth, 197 after.  The forward within 2e-2
+    x max|plain|; through ``dot_product_attention`` under grad
+    (``FlashAttentionFn``) the q, k, v gradients within 1e-3 x max|plain
+    grad| of the plain autograd's."""
+    from vla_touch_tpu_torch.ops import attention as A
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ops = [torch.randn((32, Lq, 12, 64), generator=g, device=cuda).to(torch.bfloat16)
+           .requires_grad_(True) for _ in range(3)]
+    with torch.no_grad():
+        got = FA.flash_attention(*ops)
+        want = FA.attention_plain(*ops).float()
+    assert float((got.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    cot = torch.randn((32, Lq, 12, 64), generator=g, device=cuda)
+    before = FA.flash_attention.launches
+    out = A.dot_product_attention(*ops)
+    assert FA.flash_attention.launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad((out.float() * cot).sum(), ops)
+    want = torch.autograd.grad((FA.attention_plain(*ops).float() * cot).sum(), ops)
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-3 * float(b.float().abs().max())
+
+
+def test_contrastive_step_on_the_card_matches_the_cpu_step(cuda):
+    """One contrastive loss and gradient (prompt-learned towers, text
+    frozen, CLIP projections; 2 layers, 128 wide, 2 heads of 64) on the
+    card in bf16 over float32 master weights against the CPU in float32:
+    the loss within 5e-3 relative, the gradient within 6e-2 relative L2
+    and at corr >= 0.999 (bf16 against float32 on the CPU reads 1.5e-3,
+    2.2e-2 and 0.99975 here, ``tools/torch_vificlip_bf16_step.py tiny``); K1
+    runs once a vision block.  Then one ``train_vificlip_contrastive``
+    step on the card leaves the frozen text tower bit for bit as it was."""
+    import copy
+
+    from vla_touch_tpu_torch.models.encoders import clip_text as CT
+    from vla_touch_tpu_torch.models.encoders import vit as V
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+    from vla_touch_tpu_torch.planning import encoder as PE
+    from vla_touch_tpu_torch.planning import train_encoder as TE
+
+    vc = V.ViTConfig(hidden_size=128, num_layers=2, num_heads=2, mlp_dim=256, patch_size=16,
+                     image_size=32, use_layerscale=False, quick_gelu=True, use_pre_norm=True,
+                     layernorm_eps=1e-5, patch_bias=False)
+    tc = CT.CLIPTextConfig(vocab_size=64, hidden_size=128, num_layers=2, num_heads=2,
+                           mlp_dim=256, max_positions=16, eos_token_id=63)
+    kw = dict(prompt_learning=True, num_prompts=2, prompt_depth_vision=1, prompt_depth_text=1,
+              projection_dim=64)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 63, (4, 12))
+    ids[:, -1] = 63
+    batch = {"frames": rng.normal(size=(4, 2, 32, 32, 3)).astype(np.float32), "input_ids": ids}
+    cpu = PE.init_vificlip_model(vc, tc, seed=0, device="cpu", **kw)
+    card = copy.deepcopy(cpu).to(cuda)
+    out = {}
+    for name, m, dt, dev in (("cpu", cpu, torch.float32, "cpu"), ("card", card, torch.bfloat16, cuda)):
+        V.master_weights_(m, dt).requires_grad_(True)
+        m.text.requires_grad_(False)
+        before = FA.flash_attention.launches
+        loss = TE.contrastive_loss(m, batch, dev)
+        loss.backward()
+        launches = FA.flash_attention.launches - before
+        out[name] = (float(loss.detach()), {n: p.grad.cpu().double() for n, p in m.named_parameters()
+                                   if p.grad is not None}, launches)
+    (l_cpu, g_cpu, _), (l_card, g_card, k1) = out["cpu"], out["card"]
+    assert k1 == vc.num_layers
+    assert abs(l_card - l_cpu) <= 5e-3 * abs(l_cpu)
+    assert set(g_card) == set(g_cpu) and not any(n.startswith("text.") for n in g_cpu)
+    a = torch.cat([g_cpu[n].flatten() for n in g_cpu])
+    b = torch.cat([g_card[n].flatten() for n in g_cpu])
+    assert float((b - a).norm() / a.norm()) <= 6e-2
+    assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) >= 0.999
+    text = {n: p.detach().clone() for n, p in card.text.named_parameters()}
+    card, _ = TE.train_vificlip_contrastive([batch], model=card)
+    for n, p in card.text.named_parameters():
+        assert torch.equal(p, text[n]), n

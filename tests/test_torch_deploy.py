@@ -51,6 +51,7 @@ from vla_touch_tpu.utils import profiling as JPR
 from vla_touch_tpu.utils import torch_port as JTP
 from vla_touch_tpu_torch import config as TC
 from vla_touch_tpu_torch.models.controllers import bridge as TB
+from vla_touch_tpu_torch.models.encoders import clip_text as TCT
 from vla_touch_tpu_torch.models.encoders import dinov2_runtime as TD
 from vla_touch_tpu_torch.models.encoders import vit as TV
 from vla_touch_tpu_torch.models.rdt import runner as TR
@@ -816,7 +817,7 @@ def _meta_shapes(factory):
 
 
 @pytest.mark.parametrize("name", ["rdt_1b", "siglip_so400m", "dinov2_small",
-                                  "clip_vit_b16_vision"])
+                                  "clip_vit_b16_vision", "clip_vit_b16_text"])
 def test_manifest_keys_load_into_the_ports_modules(name):
     """Each converter consumes every key of its manifest once (the
     documented exceptions apart) and its tree lands on the port module's
@@ -840,9 +841,14 @@ def test_manifest_keys_load_into_the_ports_modules(name):
         tree, want = TTP.dinov2_from_hf(sd, num_layers=12), _meta_shapes(
             lambda: TV.DinoV2Encoder(TV.DINOV2_SMALL))
         sd.assert_consumed(exceptions=TM.OPTIONAL["dinov2_small"])
-    else:
+    elif name == "clip_vit_b16_vision":
         tree, want = TTP.clip_vision_from_hf(sd, num_layers=12), _meta_shapes(
             lambda: CLIPVisionPooled(TV.CLIP_VIT_B16))
+        sd.assert_consumed()
+    else:
+        # the text tower at full width (CLIP_TEXT_B16), shapes only
+        tree, want = TCT.clip_text_from_hf(sd, num_layers=12), _meta_shapes(
+            lambda: TCT.CLIPTextTower(TCT.CLIP_TEXT_B16))
         sd.assert_consumed()
     got = {k: v.shape for k, v in FF.to_state_dict(tree, lists=("block",)).items()}
     assert got == want
@@ -853,7 +859,7 @@ def test_manifest_copies_equal_the_jax_files_and_the_rest_raise():
         assert filecmp.cmp(os.path.join(TM.MANIFEST_DIR, f"{name}.json"),
                            os.path.join(ROOT, "vla_touch_tpu", "data", "hf_manifests",
                                         f"{name}.json"), shallow=False), name
-    assert set(TM.PENDING) == {"clip_vit_b16_text", "t5_v1_1_xxl"}
+    assert set(TM.PENDING) == {"t5_v1_1_xxl"}
     for name, item in TM.PENDING.items():
         assert os.path.exists(os.path.join(ROOT, "vla_touch_tpu", "data", "hf_manifests",
                                            f"{name}.json"))

@@ -578,7 +578,8 @@ def test_from_flax_llm_consumes_every_leaf(trees):
 
 
 def test_planning_modules_import_no_jax():
-    """The port's planning modules and the megakernel wrappers import
+    """The port's planning modules (the tactile encoder's training, data
+    and evaluation modules among them) and the megakernel wrappers import
     neither JAX nor the JAX package."""
     files = [os.path.join(ROOT, "vla_touch_tpu_torch", "ops", "w4_fused.py")]
     pdir = os.path.join(ROOT, "vla_touch_tpu_torch", "planning")
@@ -586,4 +587,6 @@ def test_planning_modules_import_no_jax():
     pat = re.compile(r"^\s*(import jax|from jax|.*vla_touch_tpu\.)", re.M)
     for f in files:
         assert not pat.search(open(f).read()), f
-    assert len(files) >= 9
+    assert {"eval.py", "physiclear.py", "process_datasets.py", "train_encoder.py",
+            "encoder.py", "datasets.py", "qa.py"} <= {os.path.basename(f) for f in files}
+    assert len(files) >= 14

@@ -764,8 +764,9 @@ def test_closed_loop_through_the_warm_step(policy):
 
 def test_port_modules_import_no_jax():
     """Every module of the port and ``chip_smoke.py`` import neither JAX nor
-    the JAX package (the new modules of the steady-state tick and of the
-    deployment entry points included)."""
+    the JAX package (the new modules of the steady-state tick, of the
+    deployment entry points and of the tactile encoder's training
+    included)."""
     pat = re.compile(r"^\s*(import jax|from jax|.*vla_touch_tpu\.)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "vla_touch_tpu_torch")):
@@ -781,7 +782,12 @@ def test_port_modules_import_no_jax():
             "vla_touch_tpu_torch/utils/profiling.py",
             "vla_touch_tpu_torch/utils/safetensors_io.py",
             "vla_touch_tpu_torch/utils/torch_port.py",
-            "vla_touch_tpu_torch/utils/checkpoint_manifest.py"} <= rel
+            "vla_touch_tpu_torch/utils/checkpoint_manifest.py",
+            "vla_touch_tpu_torch/models/encoders/clip_text.py",
+            "vla_touch_tpu_torch/planning/eval.py",
+            "vla_touch_tpu_torch/planning/physiclear.py",
+            "vla_touch_tpu_torch/planning/process_datasets.py",
+            "vla_touch_tpu_torch/planning/train_encoder.py"} <= rel
 
 
 def test_warm_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, vit_towers):

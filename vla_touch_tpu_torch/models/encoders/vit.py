@@ -19,6 +19,12 @@ an antialiasing kernel stretched by 1/scale when downsampling, which
 ``torch.nn.functional.interpolate(mode="bicubic")`` (a = -0.75, no
 antialias) is not.  :func:`resize_weights` builds that separable weight
 matrix in numpy, once per grid pair.
+
+Training keeps float32 master weights and computes in bf16, as flax's
+``dtype=bfloat16`` with float32 parameters does: :func:`master_weights_`
+makes every Linear cast its weight and bias at use, every LayerNorm compute
+in float32 and round its output to the input's dtype, and the towers cast
+their embeddings and tokens to ``compute_dtype``.
 """
 
 from __future__ import annotations
@@ -28,10 +34,11 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vla_touch_tpu_torch.ops import attention as A
-from vla_touch_tpu_torch.ops.nn import gelu_erf, gelu_tanh, quick_gelu
+from vla_touch_tpu_torch.ops.nn import cast_linears_, gelu_erf, gelu_tanh, quick_gelu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,7 +154,7 @@ class ViTBlock(nn.Module):
         c = self.cfg
         h = self.attention(self.norm1(x), mask)
         if c.use_layerscale:
-            h = h * self.layerscale1
+            h = h * self.layerscale1.to(h.dtype)
         x = x + h
         h = self.fc1(self.norm2(x))
         if c.quick_gelu:
@@ -158,13 +165,42 @@ class ViTBlock(nn.Module):
             h = gelu_erf(h)
         h = self.fc2(h)
         if c.use_layerscale:
-            h = h * self.layerscale2
+            h = h * self.layerscale2.to(h.dtype)
         return x + h
+
+
+class CastLayerNorm(nn.LayerNorm):
+    """flax's ``LayerNorm(dtype=...)`` over float32 parameters: statistics
+    and normalisation in float32, the output in the input's dtype."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+def master_weights_(module: nn.Module, compute_dtype: torch.dtype) -> nn.Module:
+    """Make ``module`` (float32 parameters) compute in ``compute_dtype``:
+    its Linears become ``CastLinear``, its LayerNorms :class:`CastLayerNorm`
+    (parameters, names and tensors unchanged), and every submodule with a
+    ``compute_dtype`` attribute (the towers) casts its embeddings to it."""
+    cast_linears_(module, compute_dtype)
+    for parent in list(module.modules()):
+        for name, child in list(parent.named_children()):
+            if type(child) is nn.LayerNorm:
+                new = CastLayerNorm(child.normalized_shape, eps=child.eps, device="meta")
+                new.weight, new.bias = child.weight, child.bias
+                setattr(parent, name, new)
+        if hasattr(parent, "compute_dtype"):
+            parent.compute_dtype = compute_dtype
+    return module
 
 
 class ViTEncoder(nn.Module):
     """Patchify -> [CLS] -> +pos -> [pre LayerNorm] -> blocks -> final
     LayerNorm."""
+
+    # None: compute in the weights' dtype (serving); set by master_weights_
+    compute_dtype = None
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -186,22 +222,31 @@ class ViTEncoder(nn.Module):
         if self.cfg.use_cls_token:
             self.cls_token.zero_()
 
-    def forward(self, pixels):
-        """pixels: (B, H, W, C) already normalised, channels-last."""
+    def _dtype(self) -> torch.dtype:
+        return self.compute_dtype or self.patch_embed.weight.dtype
+
+    def embed(self, pixels):
+        """pixels (B, H, W, C) -> [CLS] + patch tokens + positions, in the
+        compute dtype (before the pre LayerNorm)."""
         c = self.cfg
         B, H, W, Cc = pixels.shape
         p = c.patch_size
+        dt = self._dtype()
         # VALID patchify: trailing pixels that do not fill a patch drop
         # (384 / 14 -> a 27 x 27 grid).
         gh, gw = (H - p) // p + 1, (W - p) // p + 1
-        x = pixels[:, : gh * p, : gw * p].to(self.patch_embed.weight.dtype)
+        x = pixels[:, : gh * p, : gw * p].to(dt)
         x = x.reshape(B, gh, p, gw, p, Cc).permute(0, 1, 3, 2, 4, 5)
         x = self.patch_embed(x.reshape(B, gh * gw, p * p * Cc))
         if c.use_cls_token:
-            x = torch.cat([self.cls_token.expand(B, 1, -1), x], dim=1)
-        x = x + interpolate_pos_embed(self.pos_embed, gh, c.image_size // p,
-                                      c.use_cls_token)
-        if c.use_pre_norm:
+            x = torch.cat([self.cls_token.to(dt).expand(B, 1, -1), x], dim=1)
+        return x + interpolate_pos_embed(self.pos_embed, gh, c.image_size // p,
+                                         c.use_cls_token).to(dt)
+
+    def forward(self, pixels):
+        """pixels: (B, H, W, C) already normalised, channels-last."""
+        x = self.embed(pixels)
+        if self.cfg.use_pre_norm:
             x = self.pre_norm(x)
         for blk in self.blocks:
             x = blk(x)

@@ -38,6 +38,8 @@ KNOWN = {
     "dinov2_small": ("facebook/dinov2-small", "utils.torch_port.dinov2_from_hf"),
     "clip_vit_b16_vision": ("openai/clip-vit-base-patch16 (vision)",
                             "utils.torch_port.clip_vision_from_hf"),
+    "clip_vit_b16_text": ("openai/clip-vit-base-patch16 (text)",
+                          "models.encoders.clip_text.clip_text_from_hf"),
     "qwen2_5_7b": ("Qwen/Qwen2.5-7B-Instruct", "planning.llm.load_llm_from_hf"),
     "qwen2_vl_7b": ("Qwen/Qwen2-VL-7B-Instruct",
                     "planning.qwen2vl.load_qwen2vl_from_hf"),
@@ -46,7 +48,6 @@ KNOWN = {
 #: manifests of the JAX package whose converters the port has not yet;
 #: each comes with the ROADMAP item that ports its converter
 PENDING = {
-    "clip_vit_b16_text": "A7 (the prompt-learning CLIP towers, clip_text.py)",
     "t5_v1_1_xxl": "A9 (t5_native.py)",
 }
 
@@ -62,6 +63,8 @@ OPTIONAL = {
 SIBLING_PREFIXES = {
     "clip_vit_b16_vision": ("text_model.", "text_projection",
                             "visual_projection", "logit_scale"),
+    "clip_vit_b16_text": ("vision_model.", "text_projection",
+                          "visual_projection", "logit_scale"),
     "siglip_so400m": ("text_model.", "logit_scale", "logit_bias"),
 }
 

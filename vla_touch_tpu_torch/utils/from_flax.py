@@ -60,7 +60,8 @@ def to_state_dict(tree: dict, lists: tuple = ()) -> dict:
             mods = mods[:-1]
         elif leaf == "scale":
             leaf = "weight"
-        out[".".join(mods + [leaf])] = np.ascontiguousarray(arr)
+        # (ascontiguousarray makes a 0-d leaf 1-d: a logit scale keeps its ())
+        out[".".join(mods + [leaf])] = np.ascontiguousarray(arr).reshape(arr.shape)
     return out
 
 
@@ -169,7 +170,7 @@ def to_flax(module: torch.nn.Module, state: dict = None) -> dict:
         node = tree
         for p in path:
             node = node.setdefault(p, {})
-        node[key] = np.ascontiguousarray(arr)
+        node[key] = np.ascontiguousarray(arr).reshape(arr.shape)
 
     for mname, m in module.named_modules():
         own = dict(m.named_parameters(recurse=False))
@@ -449,6 +450,23 @@ def tactile_encoder(state, device=None, dtype=torch.float32):
     classifier = build(lambda: PE.PropertyClassifier(D), state.classifier_params, torch.float32)
     return PE.TactileEncoderState(cfg=cfg, clip=clip, adapters=adapters, classifier=classifier,
                                   feature_dim=state.feature_dim)
+
+
+def vificlip_model(params: dict, vision_cfg, text_cfg, device=None, **kw):
+    """A JAX ``ViFiCLIPModel`` tree (``vision``, ``text`` and the two logit
+    scales; plain or prompt-learned towers, ``kw`` as the model's:
+    ``prompt_learning``, ``num_prompts``, the prompt depths, ``gate_prior``)
+    -> the port's model, float32, on ``device`` (default CUDA).  The vision
+    tower's patch conv becomes its bias-free patch Linear; :func:`to_flax`
+    is the inverse."""
+    from vla_touch_tpu_torch.planning import encoder as PE
+    from vla_touch_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    with torch.device("meta"):
+        m = PE.ViFiCLIPModel(vision_cfg, text_cfg, **kw)
+    m = m.to_empty(device=device).float()
+    return load_into(m, to_state_dict(params, lists=("block",))).eval().requires_grad_(False)
 
 
 def qwen2vl_vision(params: dict, vcfg, device=None):

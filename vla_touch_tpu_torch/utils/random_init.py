@@ -4,7 +4,7 @@ The weights of a full-size model (RDT-1B: 1.2 B parameters) are created
 directly on the target device from a ``torch.Generator`` seed, so
 ``chip_smoke.py`` needs neither checkpoints nor the JAX package.  Rules:
 matrices and conv kernels ~ N(0, 1/fan_in) (lecun-normal, as flax's
-default), biases 0, 1-D norm weights and layer scales 1; modules with an
+default), biases 0, 1-D norm weights, layer scales and scalars 1; modules with an
 ``init_special_(generator)`` method then set their own parameters
 (positional tables, zero-initialised heads).
 """
@@ -25,7 +25,7 @@ def init_module_(module: nn.Module, seed: int) -> nn.Module:
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "bias":
             p.zero_()
-        elif p.dim() == 1:
+        elif p.dim() <= 1:
             p.fill_(1.0)
         else:
             fan_in = p.numel() // p.shape[0]
