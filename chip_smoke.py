@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's control tick (cold and steady-state), its serving
 pool and replay CLI, its residual controllers' training and evaluation,
-RDT-1B finetuning, its planner, the planner's VLM and the training and
-evaluation of the planner's tactile encoder on one NVIDIA GPU.
+RDT-1B finetuning, its planner and the planner's LLM training, the
+planner's VLM and the training and evaluation of the planner's tactile
+encoder on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -133,6 +134,20 @@ evaluation of the planner's tactile encoder on one NVIDIA GPU.
    request again at 4 tokens (and the int8 request at 2) with each kernel
    call held to its plain version on its own operands; the decode tiers (unfused, fused, fused + megakernels),
    best-of-8 throughput and a profiled decode.
+   Then the planner's LLM training (``llm_train_phase``) on the same
+   fused w4 tree and CLIP encoder: PR 16's seeded PhysiCLeAR tree, its QA
+   flattened by ``chat_rows_to_llm_rows`` (LLM_ROWS rows, 150-495 tokens)
+   and two short rows (22 tokens); ``train_projection_and_lora`` (rank 8
+   on the seven targets, lr 1e-3, 3 epochs) with every step's launches
+   asserted from the code (K8 on each w4 linear and the lm_head at M <=
+   512 under ``W4A8MatmulFn``, none above; K1 per encoded video), the loss
+   fall gated, the frozen base bit for bit, the B factors moved, both
+   msgpack files read back bit for bit; one step as a checked run, one with
+   the backwards (the plain vjp) timed, one profiled; ``test_llm`` with the
+   adapter in bf16 (launches asserted); ``train_projection`` on the short
+   rows (K9 in every layer under ``W4SwigluFn``, K8 on qkv, o and the
+   lm_head), a checked and a timed step, its file, ``test_llm`` (K9, K10);
+   a depth-2 step on the card against the CPU's; step times, peak memory.
 9. The planner's VLM (``vlm_phase``): K1 at the Qwen2-VL vision tower's
    shapes (frames as the batch, 1024 patches, 16 heads of 80; one 448^2
    image, and a 448^2 beside a 336^2 one with its keys masked past 576),
@@ -176,10 +191,12 @@ evaluation of the planner's tactile encoder on one NVIDIA GPU.
    tick's, the serving pool's, the replay's, the controllers phase's, RDT
    finetuning's, the VLM's and the tactile encoder's, K2's the tick's, the replay's and the
    controllers', K6's tick (a)'s, the serving pool's and the VLM's, K8's
-   tick (e)'s and the VLM's, K9's and K10's the planner's and the VLM's,
+   tick (e)'s, the VLM's and the LLM training's, K9's and K10's the
+   planner's, the VLM's and the LLM training's,
    each path counted from 0 (``launches_by_path``); K1 also carries its
    sums over an RDT training step's calls (``train_step``) and over a
-   contrastive step's (``contrastive_step``);
+   contrastive step's (``contrastive_step``), K8 over a LoRA step's
+   (``llm_train_step``) and K8's and K9's backward ms a step;
    K5's and K7's are the shadow calls of (f)'s checked tick), the ``nvidia-smi`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -2394,21 +2411,32 @@ def replay_phase(t) -> dict:
 # ---- the planner: K9 / K10, and K8 and K1 at its shapes ---------------------------
 
 QWEN_D, QWEN_F = 3584, 18944        # Qwen2.5-7B hidden and MLP widths
-K9_MS = (1, 8, 24)
+# the rows of the LLM training steps' forwards (llm_train_phase): the LoRA
+# run's four PhysiCLeAR rows and the projector run's short rows (asserted
+# against the data)
+K8_TRAIN_MS = (495, 150, 178, 210, 22)
+K9_MS = (1, 8, 22, 24)
 K10_MS = (1, 8)
 # (M, K, N, calls per decode token or prompt pass) of the planner's w4
 # linears through K8: the unfused tree's q and o (3584 -> 3584), k and v
 # (-> 512), gate and up (-> 18944) and down (18944 -> 3584, 148 groups);
 # the fused tree's qkv (-> 4608) and gateup (-> 37888); the lm_head (->
 # 152064).  M = 1 greedy, M = 8 the best-of-8 decode; M = 72 and 442 the
-# prompt passes of describe and guess (qkv, o, gateup and down, rolled G).
+# prompt passes of describe and guess (qkv, o, gateup and down, rolled G);
+# then the LLM training steps' forwards (llm_train_phase, calls per step):
+# the LoRA run's rows (K8_TRAIN_MS but the last) on every linear and the
+# lm_head, the projector run's short rows on qkv, o and the lm_head (K9
+# takes their MLPs).
 K8_PROMPT_MS = (72, 442)
 K8_LLM_SHAPES = [
     (1, 3584, 3584, 56), (1, 3584, 512, 56), (1, 3584, 18944, 56), (1, 18944, 3584, 28),
     (1, 3584, 4608, 28), (1, 3584, 37888, 28), (1, 3584, 152064, 1),
     (8, 3584, 4608, 28), (8, 3584, 152064, 1),
 ] + [(M, K, N, 28) for M in K8_PROMPT_MS
-     for K, N in ((3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584))]
+     for K, N in ((3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584))] + [
+    (M, K, N, n) for M in K8_TRAIN_MS
+    for K, N, n in ((3584, 4608, 28), (3584, 3584, 28), (3584, 37888, 28), (18944, 3584, 28),
+                    (3584, 152064, 1)) if M > 32 or (K, N) not in ((3584, 37888), (18944, 3584))]
 # (M, K, N, calls per prompt pass or decode token) of the int8 request's
 # linears through K6 (the unfused int8 tree, a 24-token prompt): q and o,
 # k and v, gate and up, down; the lm_head at M = 1.
@@ -2704,7 +2732,7 @@ def teacher_forced(P, call):
         # the decode resumes at max(prompt position) + 1, every component alike
         tail = int(pp.max()) + 1 + torch.arange(len(toks) - 1, device=pp.device)
         pos = torch.cat([pp, tail.expand(*pp.shape[:-1], -1)], dim=-1)
-    with plain_kernels():
+    with plain_kernels(), torch.no_grad():
         seq = torch.cat([call["embeds"][0], L.embed_tokens(params, toks[:-1])], dim=0)
         hidden = L.llm_forward(cfg, params, seq[None], positions=pos)[0, call["Lp"] - 1:]
         plain = L.lm_logits(cfg, params, hidden).float()
@@ -2856,6 +2884,8 @@ def planner_phase(gen) -> dict:
     res.update(tiers=tiers, fastest=fastest, best_of_8_ms=best8, profile=prof)
     L.MEGAKERNELS = default_megakernels
     log(f"planner phases: {time.perf_counter() - t_phase:.1f} s")
+    # the planner's trees and encoder go on to llm_train_phase
+    res["P"] = P
     return res
 
 
@@ -2873,6 +2903,538 @@ def planner_kernel_totals(res, kernel) -> dict:
         for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
             tot[key] += n * rows[M][key]
     return tot
+
+
+# ---- the planner's LLM training: the projector and LoRA through the w4 base -------
+
+# The LoRA run (train_projection_and_lora at its defaults: rank 8 on the
+# seven targets, lr 1e-3): the first LLM_ROWS rows of the seeded PhysiCLeAR
+# tree's QA (PR 16's tactile_data, flattened by qa.chat_rows_to_llm_rows)
+# for LLM_EPOCHS epochs, one row a step.  The projector run
+# (train_projection at its default lr 1e-4) on LLM_SHORT's rows, as short
+# as examples/planning_pipeline.py's, so that each fits K9's 32 rows.
+LLM_ROWS = 4
+LLM_EPOCHS = 3
+LLM_LR = 1e-3
+LLM_RANK = 8
+LLM_PROJ_LR = 1e-4
+LLM_PROJ_EPOCHS = 2
+LLM_SHORT = (("the surface is <tact>", "soft"), ("the surface is <tact>", "hard"))
+LLM_TEST_TOKENS = 16
+# The LoRA run's loss fall, mean of the first epoch's losses minus the
+# last's (the same rows), in nats; written before the first run on the
+# card from the controls of tools/torch_qlora_loss_fall.py (the 2-layer
+# cut on the CPU, bf16, the vocabulary cut to LLM_CUT_VOCAB): sound 0.145
+# (the fall is over by the second epoch: random weights, the final norm
+# caps the logits), lr 0 exactly 0.
+LLM_FALL_MIN = 0.05
+# The depth-2 step on the card (bf16, the kernels) against the CPU's in
+# float32 and in bf16 (the plain program), vocabulary cut to LLM_CUT_VOCAB,
+# on the first short row (22 tokens).  Its loss is stable: bf16 against
+# float32 on the CPU reads 7.6e-4..7.3e-3 over five draws of the weights
+# (tools/torch_qlora_bf16_step.py), so the loss is gated at LLM_LOSS_RTOL.
+# Its gradient is not: every quantized product passes its input's gradient
+# through each row's amax alone, the lm_head's too, so the whole backward
+# enters the network through one element a row and moves with which element
+# is largest.  The same tool reads the gradient's corr 0.42..0.999 between
+# bf16 and float32, and 0.64..0.999 between two bf16 steps whose projectors
+# differ by 2e-3 of their weights; so the card's gradient is printed, and
+# only held to be finite and nonzero.  The kernels' backwards are held
+# exactly on equal operands instead (tests/test_torch_cuda.py).
+LLM_CUT_VOCAB = 4096
+LLM_LOSS_RTOL = 2e-2
+
+
+def llm_rows(samples_root: str, out_dir: str) -> dict:
+    """The phase's datasets: the seeded tree's QA files (``tactile_data``
+    under ``samples_root``) read through ``TactileLLMDataset``, flattened
+    by ``chat_rows_to_llm_rows``, the first LLM_ROWS written as one QA file
+    and read back; LLM_SHORT over the first two of those rows' recordings
+    likewise.  Returns both datasets."""
+    from vla_touch_tpu_torch.planning import datasets as D
+    from vla_touch_tpu_torch.planning import qa as QA
+
+    qa_dir = os.path.join(samples_root, "qa")
+    chat = D.TactileLLMDataset([os.path.join(qa_dir, f) for f in
+                                ("description_ranking.json", "scenario.json")], "train")
+    rows = QA.chat_rows_to_llm_rows([chat[i] for i in range(len(chat))])[:LLM_ROWS]
+    short = [{"question": q, "answer": a, "tactile": [rows[i]["tactile"][0]]}
+             for i, (q, a) in enumerate(LLM_SHORT)]
+    long_path = QA.write_qa_file(rows, os.path.join(out_dir, "llm_rows.json"))
+    short_path = QA.write_qa_file(short, os.path.join(out_dir, "llm_short_rows.json"))
+    return dict(long=D.TactileLLMDataset([long_path]), short=D.TactileLLMDataset([short_path]))
+
+
+def llm_row_tokens(row, tok) -> tuple:
+    """(prompt rows, rows of the loss's forward) of a QA row: the question's
+    bytes with each ``<tact>`` three rows (start, feature, end), then the
+    answer + EOS less the last token."""
+    from vla_touch_tpu_torch.planning.llm_splice import TACTILE_PLACEHOLDER
+
+    q = row["question"]
+    n = q.count(TACTILE_PLACEHOLDER)
+    Lp = len(tok.encode(q.replace(TACTILE_PLACEHOLDER, ""))) + 3 * n
+    return Lp, Lp + len(tok.encode(row["answer"]))
+
+
+def llm_step_need(M: int, layers: int, lora_mlp: bool, videos: int, clip_layers: int) -> dict:
+    """Launches of one training step whose forward runs M rows, from the
+    code: K1 one a CLIP layer a video (the frozen encoder); at M <= 512 K8
+    on qkv and o and the lm_head, and on gate|up and down unless the MLP
+    takes K9 (M <= 32, no LoRA on it: W4SwigluFn); above 512 rows none (the
+    plain qdense_w4, the lm_head too)."""
+    need = {"K1": clip_layers * videos}
+    if M <= 512:
+        mlp_k9 = M <= 32 and not lora_mlp
+        need["K8"] = (2 if mlp_k9 else 4) * layers + 1
+        need["K9"] = layers if mlp_k9 else 0
+    return need
+
+
+def lora_decode_need(Lp: int, T: int, layers: int) -> dict:
+    """Launches of a greedy decode of T tokens with LoRA on every target (no
+    K9 or K10: the adapters block both), from the code: the prompt pass's
+    qkv, o, gate|up and down through K8 at Lp <= 512, then the lm_head;
+    each of the T - 1 steps the four per layer and the lm_head."""
+    per = 4 * layers + 1
+    return {"K8": (T - 1) * per + (per if Lp <= 512 else 1)}
+
+
+def add_need(total: dict, need: dict) -> dict:
+    for k, v in need.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+@contextlib.contextmanager
+def recording_steps():
+    """Each logged step of the run_llm trainers: the host time at its log
+    line (which reads the loss, so it follows the step's work on the
+    device) and the kernels' launches since the step before (the counts
+    are zeroed after each)."""
+    from vla_touch_tpu_torch.planning import run_llm as RL
+
+    steps = []
+    log_step = RL._log_step
+
+    def logged(*a):
+        log_step(*a)
+        steps.append((time.perf_counter(), read_counts()))
+        zero_counts()
+
+    RL._log_step = logged
+    try:
+        yield steps
+    finally:
+        RL._log_step = log_step
+
+
+@contextlib.contextmanager
+def timed_backwards():
+    """Device ms of W4A8MatmulFn's and W4SwigluFn's backwards (the plain
+    vjp), CUDA events around each call, summed per Function."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    events = {"K8": [], "K9": []}
+    orig = {"K8": QM.W4A8MatmulFn.backward, "K9": W4F.W4SwigluFn.backward}
+
+    def wrap(kernel):
+        fn = orig[kernel]
+
+        def backward(ctx, *g):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            out = fn(ctx, *g)
+            end.record()
+            events[kernel].append((start, end))
+            return out
+        return staticmethod(backward)
+
+    QM.W4A8MatmulFn.backward, W4F.W4SwigluFn.backward = wrap("K8"), wrap("K9")
+    ms = {}
+    try:
+        yield ms
+    finally:
+        QM.W4A8MatmulFn.backward = staticmethod(orig["K8"])
+        W4F.W4SwigluFn.backward = staticmethod(orig["K9"])
+        torch.cuda.synchronize()
+        for k, ev in events.items():
+            ms[k] = dict(calls=len(ev), ms=sum(a.elapsed_time(b) for a, b in ev))
+
+
+def qlora_step_grads(cfg, tree, projector, lora, feats, row) -> tuple:
+    """(loss, the trainables' gradient as one float64 vector) of one
+    ``train_projection_and_lora`` step's loss on ``row`` with its tactile
+    features ``feats`` given (the frozen encoder left out), on ``tree``'s
+    device and in its embeddings' dtype."""
+    import torch
+
+    from vla_touch_tpu_torch.planning import run_llm as RL
+    from vla_touch_tpu_torch.planning.llm_splice import process_user_input
+
+    iface = RL.make_llm_interface(cfg, tree)
+    leaves = list(projector.parameters()) + [ab[k] for lp in lora["layers"]
+                                             for ab in lp.values() for k in ("A", "B")]
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(True)
+    embeds = process_user_input(row["question"], feats, iface.embed_text, lambda f: f,
+                                RL._projected(projector, iface.start_embed),
+                                iface.start_embed, iface.end_embed)
+    loss = iface.loss_fn(embeds, row["answer"],
+                         lora_override=RL.lora_in(lora, iface.start_embed.dtype))
+    loss.backward()
+    grads = torch.cat([t.grad.double().flatten().cpu() for t in leaves])
+    for t in leaves:
+        t.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def qlora_depth2(seed: int = 0, device="cuda", vocab: int = LLM_CUT_VOCAB):
+    """(cfg, the fused grouped-int4 tree in bf16 on ``device``, projector,
+    LoRA factors with B drawn) of the depth-2 cut of Qwen2.5-7B (full
+    widths, the vocabulary cut to ``vocab``): what the card-vs-CPU step
+    and tools/torch_qlora_bf16_step.py differentiate."""
+    import dataclasses
+
+    import torch
+
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.planning.llm_splice import init_tactile_projector
+
+    cfg = dataclasses.replace(L.qwen25_7b(), num_layers=2, vocab_size=vocab)
+    tree = L.fuse_quantized_layers(L.init_llm(cfg, seed, device=device, dtype=torch.bfloat16,
+                                              weights="int4"))
+    proj = init_tactile_projector(768, cfg.hidden_size, seed=seed + 2, device=device)
+    lora = L.init_lora(cfg, rank=LLM_RANK, seed=seed + 3, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    for lp in lora["layers"]:
+        for ab in lp.values():
+            ab["B"].normal_(0.0, 0.01, generator=gen)
+    return cfg, tree, proj, lora
+
+
+def qlora_to(tree, proj, lora, device, dtype):
+    """Copies of the depth-2 trainables and tree on ``device``, the tree's
+    embeddings in ``dtype`` (its quantized leaves and norms as they are)."""
+    import copy
+
+    tree = copy.deepcopy(tree).to(device)
+    tree.embed.data = tree.embed.data.to(dtype)
+    lora = {"layers": [{t: {k: ab[k].detach().to(device).clone() for k in ab}
+                        for t, ab in lp.items()} for lp in lora["layers"]],
+            "scale": lora["scale"]}
+    return tree, copy.deepcopy(proj).to(device), lora
+
+
+def llm_step_vs_cpu(feats, row, M: int) -> dict:
+    """One ``train_projection_and_lora`` step's loss and gradient on the
+    depth-2 cut (:func:`qlora_depth2`) on the card in bf16 (K8 under
+    W4A8MatmulFn) against the CPU's in float32 and in bf16 (the plain
+    program), the same quantized leaves, trainables and features."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    cfg, tree, proj, lora = qlora_depth2()
+    before = QM.w4a8_matmul.launches
+    l_card, a = qlora_step_grads(cfg, tree, proj, lora, feats, row)
+    k8 = QM.w4a8_matmul.launches - before
+    res = {"loss_card": l_card, "k8_launches": k8}
+    for name, dt in (("cpu", torch.float32), ("cpu_bf16", torch.bfloat16)):
+        l_cpu, b = qlora_step_grads(cfg, *qlora_to(tree, proj, lora, "cpu", dt),
+                                    [f.cpu() for f in feats], row)
+        res[name] = dict(loss=l_cpu, loss_rel_err=abs(l_card - l_cpu) / abs(l_cpu),
+                         grad_l2_rel=float((a - b).norm() / b.norm()),
+                         grad_corr=float(torch.corrcoef(torch.stack([a, b]))[0, 1]))
+    res["grad_finite_nonzero"] = bool(torch.isfinite(a).all()) and bool(a.any())
+    log("LLM depth-2 step, card (bf16) vs CPU (float32, bf16): " + json.dumps(res) +
+        f" (the losses within {LLM_LOSS_RTOL}; the gradients printed, not gated)")
+    if not (res["cpu"]["loss_rel_err"] <= LLM_LOSS_RTOL
+            and res["cpu_bf16"]["loss_rel_err"] <= LLM_LOSS_RTOL
+            and res["grad_finite_nonzero"]
+            and k8 == llm_step_need(M, cfg.num_layers, True, 0, 0)["K8"]):
+        raise AssertionError(f"LLM training: the card's step disagrees with the CPU's: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def lora_step(enc, cfg, tree, projector, lora, row):
+    """The LoRA trainer's step on ``row`` as a function (``RL.joint_loss``,
+    backward, the AdamW update, the loss read), without the trainer's file
+    writes: for the checked, timed and profiled steps."""
+    from vla_touch_tpu_torch.planning import run_llm as RL
+    from vla_touch_tpu_torch.train import optim
+
+    iface = RL.make_llm_interface(cfg, tree)
+    leaves = list(projector.parameters()) + [ab[k] for lp in lora["layers"]
+                                             for ab in lp.values() for k in ("A", "B")]
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = optim.AdamW(leaves, weight_decay=RL.ADAMW_DECAY)
+
+    def step():
+        loss = RL.joint_loss(iface, projector, lora, enc, row)
+        loss.backward()
+        opt.step(LLM_LR)
+        opt.zero_grad()
+        return float(loss.detach())
+
+    try:
+        yield step
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+
+
+def epoch_fall(losses, epochs: int) -> float:
+    """Mean loss of the first epoch minus the last's (the same rows), nats."""
+    per = len(losses) // epochs
+    return float(np.mean(losses[:per]) - np.mean(losses[-per:]))
+
+
+def read_losses(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line)["loss"] for line in f]
+
+
+def llm_train_phase(P, gen) -> dict:
+    """The planner's LLM training at Qwen2.5-7B's full width on the
+    planner's fused grouped-int4 tree and CLIP encoder (``build_planner``):
+    ``train_projection_and_lora`` and ``train_projection`` through the
+    frozen base with K8 and K9 under their autograd Functions, launches
+    asserted from the code step by step, a checked step each, the loss
+    fall, the frozen base bit for bit, the files read back; ``test_llm``
+    after each; the depth-2 step against the CPU's; times, the backwards'
+    ms and a profile."""
+    import copy
+    import shutil
+
+    import torch
+
+    from vla_touch_tpu_torch.planning import llm as L
+    from vla_touch_tpu_torch.planning import run_llm as RL
+    from vla_touch_tpu_torch.utils import checkpoint as ckpt
+    from vla_touch_tpu_torch.utils import from_flax as FF
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    cfg, tree, enc = P["cfg"], P["fused"], P["enc"]
+    nl, clip_layers = cfg.num_layers, enc.cfg.num_layers
+    tok = L.ByteTokenizer()
+    L.MEGAKERNELS = True
+    torch.cuda.reset_peak_memory_stats()
+    res, parts = {}, {}
+    root = os.path.join(ROOT, "build", "llm_train")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t1 = time.perf_counter()
+        data = tactile_data(os.path.join(root, "tree"))
+        sets = llm_rows(os.path.join(root, "tree"), root)
+        long, short = sets["long"], sets["short"]
+        lens = [llm_row_tokens(long[i], tok) for i in range(len(long))]
+        slens = [llm_row_tokens(short[i], tok) for i in range(len(short))]
+        Ms = [m for _, m in lens] + [m for _, m in slens]
+        if not set(Ms) <= set(K8_TRAIN_MS):
+            raise AssertionError(f"LLM training rows of {Ms} tokens: K8_TRAIN_MS {K8_TRAIN_MS}")
+        res["rows"] = dict(lora=[dict(prompt=p, tokens=m, videos=len(long[i]["tactile"]))
+                                 for i, (p, m) in enumerate(lens)],
+                           projector=[dict(prompt=p, tokens=m) for p, m in slens],
+                           at_most_512=sum(m <= 512 for m in Ms),
+                           above_512=sum(m > 512 for m in Ms), data=data)
+        log(f"LLM training rows [{card}]: " + json.dumps(res["rows"]))
+        parts["data"] = time.perf_counter() - t1
+
+        # ---- train_projection_and_lora, counted step by step
+        frozen = {n: t.clone() for n, t in tree.state_dict().items()}
+        proj0 = copy.deepcopy(P["proj"])
+        lora0 = L.init_lora(cfg, rank=LLM_RANK, seed=5, device=tree.embed.device)
+        need_step = [llm_step_need(m, nl, True, len(long[i]["tactile"]), clip_layers)
+                     for i, (_, m) in enumerate(lens)]
+        out_lora = os.path.join(root, "lora_run")
+        with recording_steps() as logged:
+            zero_counts()
+            t0 = time.perf_counter()
+            proj, lora = RL.train_projection_and_lora(
+                enc, cfg, tree, long, out_lora, epochs=LLM_EPOCHS, lr=LLM_LR,
+                lora_rank=LLM_RANK, projector=proj0, lora=lora0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        steps = LLM_EPOCHS * len(long)
+        if len(logged) != steps:
+            raise AssertionError(f"LoRA run: {len(logged)} steps logged of {steps}")
+        stamps = [t0] + [t for t, _ in logged]
+        total = {}
+        for s, (_, got) in enumerate(logged):
+            need = need_step[s % len(long)]
+            check_counts(f"LoRA run step {s} ({lens[s % len(long)][1]} rows) [{card}]", got,
+                         need)
+            add_need(total, got)
+        losses = read_losses(os.path.join(out_lora, "llm_training.jsonl"))
+        fall = epoch_fall(losses, LLM_EPOCHS)
+        log(f"LoRA run losses: {[round(x, 4) for x in losses]}; fall {fall:.4f} nats "
+            f"(min {LLM_FALL_MIN})")
+        if not (np.all(np.isfinite(losses)) and fall >= LLM_FALL_MIN):
+            raise AssertionError(f"LoRA run: the loss does not fall ({fall})")
+        bad = [n for n, t in tree.state_dict().items() if not torch.equal(t, frozen[n])]
+        if bad:
+            raise AssertionError(f"LoRA run: the frozen base changed: {bad[:4]}")
+        del frozen
+        if not all(bool(ab["B"].any()) for lp in lora["layers"] for ab in lp.values()):
+            raise AssertionError("LoRA run: a B factor is still 0")
+        dev = tree.embed.device
+        got_p = FF.tactile_projector(ckpt.load_pytree(os.path.join(out_lora,
+                                                                   "projection.msgpack")), dev)
+        check_round_trip("projection.msgpack", got_p.state_dict(), proj.state_dict())
+        got_l = FF.llm_lora(ckpt.load_pytree(os.path.join(out_lora, "lora.msgpack")), dev)
+        check_round_trip("lora.msgpack", {f"{i}.{t}.{k}": ab[k] for i, lp in
+                                          enumerate(got_l["layers"]) for t, ab in lp.items()
+                                          for k in ab},
+                         {f"{i}.{t}.{k}": ab[k] for i, lp in enumerate(lora["layers"])
+                          for t, ab in lp.items() for k in ab})
+        if got_l["scale"] != lora["scale"]:
+            raise AssertionError("lora.msgpack: scale differs")
+        step_ms = list(1e3 * np.diff(stamps))
+        res["lora"] = dict(steps=steps, losses=losses, fall=fall, wall_s=wall,
+                           step_ms=step_ms, step_ms_p50=float(np.median(step_ms)),
+                           rows_per_s=1e3 / float(np.median(step_ms)), launches=total,
+                           file_bytes={f: os.path.getsize(os.path.join(out_lora, f))
+                                       for f in ("projection.msgpack", "lora.msgpack")})
+        log(f"LoRA run [{card}]: " + json.dumps({k: v for k, v in res["lora"].items()
+                                                 if k != "losses"}))
+
+        parts["lora_run"] = time.perf_counter() - t0
+        # ---- one step as a checked run, one with its backwards timed, one profiled
+        t1 = time.perf_counter()
+        need1 = llm_step_need(lens[1][1], nl, True, len(long[1]["tactile"]), clip_layers)
+        with lora_step(enc, cfg, tree, proj, lora, long[1]) as one_lora_step:
+            chk = checked_run(one_lora_step)
+            check_chk(f"LoRA run checked step [{card}]", chk, need1)
+            with timed_backwards() as bw:
+                one_lora_step()
+            if bw["K8"]["calls"] != need1["K8"]:
+                raise AssertionError(f"LoRA step: {bw['K8']['calls']} K8 backwards, need "
+                                     f"{need1['K8']}")
+            prof = profile_run(one_lora_step)
+        res["lora"].update(checked={k: v for k, v in chk.items() if v["calls"]},
+                           backward_ms=bw, profile=prof,
+                           k8_share_of_busy=prof["groups_ms"]["K8 w4a8_*"]
+                           / prof["device_busy_ms"])
+        log(f"LoRA step [{card}]: backwards {json.dumps(bw)}; profile busy "
+            f"{prof['device_busy_ms']:.2f} ms, idle {prof['idle_share']:.3f}, K8 "
+            f"{prof['groups_ms']['K8 w4a8_*']:.3f} ms")
+
+        parts["lora_step_checks"] = time.perf_counter() - t1
+        # ---- test_llm with the trained adapter, in bf16
+        t1 = time.perf_counter()
+        T = LLM_TEST_TOKENS
+        lora16 = RL.lora_in(lora, torch.bfloat16)
+        iface = RL.make_llm_interface(cfg, tree, lora=lora16, max_new_tokens=T)
+        zero_counts()
+        preds = RL.test_llm(enc, iface, proj, long, os.path.join(root, "test_lora"))
+        need = {"K1": clip_layers * sum(len(long[i]["tactile"]) for i in range(len(long)))}
+        for p, _ in lens:
+            add_need(need, lora_decode_need(p, T, nl))
+        check_counts(f"test_llm after the LoRA run [{card}]", read_counts(), need)
+        check_predictions(os.path.join(root, "test_lora"), preds, long)
+        res["lora"]["test_llm"] = dict(launches=need, predictions=[p["prediction"][:60]
+                                                                   for p in preds])
+
+        parts["test_llm_lora"] = time.perf_counter() - t1
+        # ---- train_projection on the short rows: K9 in every layer
+        t1 = time.perf_counter()
+        proj_s = copy.deepcopy(P["proj"])
+        base_if = RL.make_llm_interface(cfg, tree)
+        need_s = [llm_step_need(m, nl, False, 1, clip_layers) for _, m in slens]
+        zero_counts()
+        t0 = time.perf_counter()
+        proj_s = RL.train_projection(enc, base_if, short, os.path.join(root, "proj_run"),
+                                     epochs=LLM_PROJ_EPOCHS, lr=LLM_PROJ_LR, projector=proj_s)
+        torch.cuda.synchronize()
+        proj_wall = time.perf_counter() - t0
+        got = read_counts()
+        need = {}
+        for _ in range(LLM_PROJ_EPOCHS):
+            for n in need_s:
+                add_need(need, n)
+        check_counts(f"train_projection, {LLM_PROJ_EPOCHS * len(short)} steps [{card}]",
+                     got, need)
+        got_p = FF.tactile_projector(ckpt.load_pytree(os.path.join(root, "proj_run",
+                                                                   "projection.msgpack")), dev)
+        check_round_trip("train_projection's projection.msgpack", got_p.state_dict(),
+                         proj_s.state_dict())
+        chk_s = checked_run(lambda: RL.train_projection(
+            enc, base_if, [short[0]], os.path.join(root, "proj_step"), epochs=1,
+            lr=LLM_PROJ_LR, projector=proj_s))
+        check_chk(f"train_projection checked step [{card}]", chk_s, need_s[0])
+        with timed_backwards() as bw_s:
+            RL.train_projection(enc, base_if, [short[0]], os.path.join(root, "proj_step"),
+                                epochs=1, lr=LLM_PROJ_LR, projector=proj_s)
+        if bw_s["K9"]["calls"] != nl or bw_s["K8"]["calls"] != need_s[0]["K8"]:
+            raise AssertionError(f"train_projection step backwards {bw_s}")
+        res["projector"] = dict(steps=LLM_PROJ_EPOCHS * len(short), wall_s=proj_wall,
+                                step_ms=1e3 * proj_wall / (LLM_PROJ_EPOCHS * len(short)),
+                                launches=got, backward_ms=bw_s,
+                                checked={k: v for k, v in chk_s.items() if v["calls"]})
+        iface = RL.make_llm_interface(cfg, tree, max_new_tokens=T)
+        zero_counts()
+        with recording_generate() as calls:
+            preds = RL.test_llm(enc, iface, got_p, short, os.path.join(root, "test_proj"))
+        need = planner_need(planner_launches(calls, nl, encodes=len(short),
+                                             clip_layers=clip_layers))
+        check_counts(f"test_llm after train_projection [{card}]", read_counts(), need)
+        check_predictions(os.path.join(root, "test_proj"), preds, short)
+        res["projector"]["test_llm"] = dict(launches=need, predictions=[
+            p["prediction"][:60] for p in preds])
+        log(f"train_projection [{card}]: " + json.dumps(res["projector"]))
+        parts["projector"] = time.perf_counter() - t1
+
+        # ---- the depth-2 step against the CPU's, on a short row (the CPU's
+        # int32 products take seconds a step there, ~30 s at 150 rows)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            feats = [RL._encode_video(enc, v, 224) for v in short[0]["tactile"]]
+        res["step_vs_cpu"] = llm_step_vs_cpu(feats, short[0], slens[0][1])
+        parts["step_vs_cpu"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["counts"] = add_need(dict(res["lora"]["launches"]), res["projector"]["launches"])
+    for what in ("lora", "projector"):
+        add_need(res["counts"], res[what]["test_llm"]["launches"])
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["parts_s"] = parts
+    log(f"LLM training phase [{card}]: {res['phase_s']:.1f} s ({json.dumps(parts)}), peak "
+        f"{res['peak_gib']:.2f} GiB, launches {json.dumps(res['counts'])}")
+    return res
+
+
+def llm_step_totals(rows, M: int) -> dict:
+    """K8's per-shape figures (the K8_LLM_SHAPES rows at M) summed over the
+    calls of one LoRA training step of M rows."""
+    tot = dict(M=M, calls=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    for r in rows:
+        if r["M"] == M:
+            tot["calls"] += r["calls"]
+            for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+                tot[key] += r["calls"] * r[key]
+    tot["bound_by"] = bound_by(tot)
+    return tot
+
+
+def check_predictions(out_dir: str, preds: list, dataset) -> None:
+    """``predictions.json`` holds one row a dataset row: its question and
+    answer, and the decoded text ``test_llm`` returned."""
+    with open(os.path.join(out_dir, "predictions.json")) as f:
+        rows = json.load(f)
+    if rows != preds or len(rows) != len(dataset) or any(
+            r["question"] != dataset[i]["question"] or r["answer"] != dataset[i]["answer"]
+            or not isinstance(r["prediction"], str) for i, r in enumerate(rows)):
+        raise AssertionError(f"test_llm: predictions.json disagrees: {rows[:1]}")
 
 
 # ---- the planner's VLM: Qwen2-VL-7B --------------------------------------------
@@ -4654,8 +5216,9 @@ def main() -> int:
     log(f"rdt_train phase: {time.perf_counter() - t1:.1f} s")
     log("rdt_train: " + json.dumps(rdt))
 
-    # ---- the planner, then its VLM
+    # ---- the planner, its LLM training on the same trees, then its VLM
     pl = planner_phase(gen)
+    lt = llm_train_phase(pl.pop("P"), gen)
     torch.cuda.empty_cache()
     vl = vlm_phase(gen)
     torch.cuda.empty_cache()
@@ -4679,6 +5242,7 @@ def main() -> int:
                                                  "teacher_forced", "checked", "checked_int8",
                                                  "times", "session", "round_trip")}))
     log("tactile_encoder: " + json.dumps(te))
+    log("llm_train: " + json.dumps(lt))
 
     def entry(name, source, replaces, launches, tot, **extra):
         return dict(name=name, route="cuda", source=f"vla_touch_tpu_torch/csrc/{source}",
@@ -4699,11 +5263,14 @@ def main() -> int:
                    "rdt_train": rdt["launches"][k]} for k in ("K1", "K2")}
     by_path["K1"]["vlm"] = vl["counts"]["K1"]
     by_path["K1"]["tactile_encoder"] = te["counts"]["K1"]
+    by_path["K1"]["llm_train"] = lt["counts"].get("K1", 0)
     by_path["K6"] = {"tick_a": q["a"]["launches"]["K6"], "serving": serve["launches"]["K6"],
                      "replay": rep["launches"]["K6"], "vlm": vl["counts"]["K6"]}
-    by_path["K8"] = {"tick_e": q["e"]["launches"]["K8"], "vlm": vl["counts"]["K8"]}
+    by_path["K8"] = {"tick_e": q["e"]["launches"]["K8"], "vlm": vl["counts"]["K8"],
+                     "llm_train": lt["counts"].get("K8", 0)}
     for k in ("K9", "K10"):
-        by_path[k] = {"planner": pl["counts"][k], "vlm": vl["counts"][k]}
+        by_path[k] = {"planner": pl["counts"][k], "vlm": vl["counts"][k],
+                      "llm_train": lt["counts"].get(k, 0)}
     kernels = [
         entry("flash_attention", "flash_attention.cu", "ops/pallas_attention.py:126",
               sum(by_path["K1"].values()), k1, launches_by_path=by_path["K1"],
@@ -4723,10 +5290,13 @@ def main() -> int:
         entry("a8w8_matmul_large", "a8w8_matmul_large.cu", "ops/pallas_matmul.py:272",
               q["f"]["shadow_launches"]["K7"], k7),
         entry("w4a8_matmul", "w4a8_matmul.cu", "ops/pallas_matmul.py:395",
-              sum(by_path["K8"].values()), k8, launches_by_path=by_path["K8"]),
+              sum(by_path["K8"].values()), k8, launches_by_path=by_path["K8"],
+              llm_train_step=llm_step_totals(pl["k8_llm_rows"], lt["rows"]["lora"][1]["tokens"]),
+              llm_train_backward_ms=lt["lora"]["backward_ms"]["K8"]["ms"]),
         entry("w4_swiglu_mlp", "w4_swiglu.cu", "ops/pallas_matmul.py:648",
               sum(by_path["K9"].values()), planner_kernel_totals(pl, "K9"),
-              launches_by_path=by_path["K9"]),
+              launches_by_path=by_path["K9"],
+              llm_train_backward_ms=lt["projector"]["backward_ms"]["K9"]["ms"]),
         entry("w4_postattn_fused", "w4_postattn.cu", "ops/pallas_matmul.py:858",
               sum(by_path["K10"].values()), planner_kernel_totals(pl, "K10"),
               launches_by_path=by_path["K10"]),

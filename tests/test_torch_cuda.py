@@ -1170,3 +1170,127 @@ def test_contrastive_step_on_the_card_matches_the_cpu_step(cuda):
     card, _ = TE.train_vificlip_contrastive([batch], model=card)
     for n, p in card.text.named_parameters():
         assert torch.equal(p, text[n]), n
+
+
+# ---- the planner's LLM training: K8 and K9 under autograd, the grad guards ------
+
+@pytest.mark.parametrize("M,K,N", [(37, 3584, 4608), (300, 3584, 512)])
+def test_w4a8_fn_on_the_card_matches_the_cpu_plain_gradient(cuda, M, K, N):
+    """``qdense_kernel_w4`` under grad on the card (``W4A8MatmulFn``: K8
+    forward, warp loop at M 37 and tile body at M 300, the plain vjp
+    backward) against the plain ``qdense_w4`` differentiated on the CPU, at
+    Qwen2.5-7B training widths: the forward within 1e-2 x max|plain|, one
+    launch counted; x's gradient nonzero exactly at each row's largest |x|
+    (bf16 rows can tie there, and the gradient splits evenly), its values
+    within 1e-5 relative (float32 sums over N in other orders)."""
+    from vla_touch_tpu_torch.ops import quant as Q
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    leaf = _w4_leaf(g, N, K, cuda, bias=True)
+    x = (torch.randn((M, K), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    c = torch.randn((M, N), generator=g, device=cuda)
+    xc = x.detach().requires_grad_(True)
+    before = QM.w4a8_matmul.launches
+    y = QM.qdense_kernel_w4(xc, leaf)
+    assert QM.w4a8_matmul.launches == before + 1
+    assert y.grad_fn.name() == "W4A8MatmulFnBackward"
+    (y.float() * c).sum().backward()
+    cpu = Q.QLinearW4(leaf.w4_pack.cpu(), leaf.scale4.cpu(), leaf.bias.cpu())
+    xp = x.cpu().requires_grad_(True)
+    yp = Q.qdense_w4(xp, cpu, out_dtype=torch.float32)
+    (yp.to(torch.bfloat16).float() * c.cpu()).sum().backward()
+    yp = yp.detach()
+    assert float((y.detach().float().cpu() - yp).abs().max()) <= 1e-2 * float(yp.abs().max())
+    got, want = xc.grad.float().cpu(), xp.grad.float()
+    ax = x.float().cpu().abs()
+    assert torch.equal(got != 0, ax == ax.amax(1, keepdim=True))
+    assert torch.allclose(got, want, rtol=1e-5, atol=0)
+
+
+def test_w4_swiglu_fn_on_the_card_matches_the_cpu_plain_gradient(cuda):
+    """``qdense_kernel_swiglu`` under grad on the card (``W4SwigluFn``: K9
+    forward, the vjp of ``w4_swiglu_plain`` backward) at Qwen2.5-7B width
+    and a short training row (M 24) against the plain composition
+    differentiated on the CPU: the forward within 2e-2 x max|plain|, x's
+    gradient within 1e-2 of its largest element (the bf16 intermediates'
+    roundings, taken in other orders on the card, can move an activation
+    code)."""
+    from vla_touch_tpu_torch.ops import quant as Q
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    g = torch.Generator(device=cuda).manual_seed(18)
+    D, F, M = 3584, 18944, 24
+    gu, down = _w4_leaf(g, 2 * F, D, cuda), _w4_leaf(g, D, F, cuda)
+    x = (torch.randn((M, D), generator=g, device=cuda) * 2).to(torch.bfloat16)
+    c = torch.randn((M, D), generator=g, device=cuda)
+    xc = x.detach().requires_grad_(True)
+    before = W4F.w4_swiglu_mlp.launches
+    y = W4F.qdense_kernel_swiglu(xc, gu, down)
+    assert W4F.w4_swiglu_mlp.launches == before + 1
+    assert y.grad_fn.name() == "W4SwigluFnBackward"
+    (y.float() * c).sum().backward()
+
+    def cpu(qp):
+        return Q.QLinearW4(qp.w4_pack.cpu(), qp.scale4.cpu(), None)
+
+    xp = x.cpu().requires_grad_(True)
+    yp = W4F.w4_swiglu_plain(xp, cpu(gu), cpu(down))
+    (yp.float() * c.cpu()).sum().backward()
+    assert float((y.detach().float().cpu() - yp.detach().float()).abs().max()) <= \
+        2e-2 * float(yp.detach().float().abs().max())
+    got, want = xc.grad.float().cpu(), xp.grad.float()
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10"])
+def test_kernel_wrappers_refuse_a_grad_requiring_card_operand(cuda, kernel):
+    """Every raw-pointer wrapper (K2-K10, as K1) raises on a CUDA operand
+    that requires grad under autograd, naming K8's and K9's autograd
+    Functions, instead of returning an output with no ``grad_fn``; the
+    same call under ``no_grad`` launches."""
+    from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+    from vla_touch_tpu_torch.ops import quant as Q
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+    from vla_touch_tpu_torch.ops import unet_kernels as UK
+    from vla_touch_tpu_torch.ops import w4_fused as W4F
+
+    g = torch.Generator(device=cuda).manual_seed(19)
+
+    def bf(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    if kernel == "K2":
+        x, cond, p = _k2_case(g, 16, 256, 256, cuda)
+        fn, args, grad_at = UK.resblock_fused, (x, cond, p), 0
+    elif kernel in ("K3", "K4"):
+        kv = bf(1, 64, 2, 4, 64)
+        quant = FQ.quantize_kv_t if kernel == "K4" else FQ.quantize_kv
+        fn = FQ.flash_attention_q8t if kernel == "K4" else FQ.flash_attention_q8
+        args, grad_at = (bf(1, 8, 4, 64),) + tuple(quant(kv[:, :, 0], kv[:, :, 1])), 0
+    elif kernel in ("K5", "K6", "K7"):
+        lin = torch.nn.Linear(1024, 512, device=cuda)
+        qp = Q.quantize_linear(lin)
+        fn = {"K5": QM.w8a16_matmul, "K6": QM.a8w8_matmul, "K7": QM.a8w8_matmul_large}[kernel]
+        args, grad_at = (bf(4, 1024), qp.w_i8, qp.scale, qp.bias), 0
+    elif kernel == "K8":
+        qp = _w4_leaf(g, 512, 1024, cuda)
+        fn, args, grad_at = QM.w4a8_matmul, (bf(4, 1024), qp.w4_pack, qp.scale4, qp.bias), 0
+    else:
+        gu, down, o = _w4_leaf(g, 2048, 512, cuda), _w4_leaf(g, 512, 1024, cuda), \
+            _w4_leaf(g, 512, 512, cuda)
+        if kernel == "K9":
+            fn, args, grad_at = W4F.w4_swiglu_mlp, (bf(4, 512), gu, down), 0
+        else:
+            fn = W4F.w4_postattn_fused
+            args, grad_at = (bf(4, 512), bf(4, 512), o, gu, down, torch.ones(512, device=cuda)), 1
+    route = {"K8": "W4A8MatmulFn", "K9": "W4SwigluFn"}.get(kernel, "no autograd route")
+    grad_args = list(args)
+    grad_args[grad_at] = args[grad_at].detach().clone().requires_grad_(True)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match=f"requires grad.*{route}"):
+        fn(*grad_args)
+    assert fn.launches == before
+    with torch.no_grad():
+        fn(*grad_args)
+    assert fn.launches == before + 1

@@ -579,8 +579,9 @@ def test_from_flax_llm_consumes_every_leaf(trees):
 
 def test_planning_modules_import_no_jax():
     """The port's planning modules (the tactile encoder's training, data
-    and evaluation modules among them) and the megakernel wrappers import
-    neither JAX nor the JAX package."""
+    and evaluation modules and the LLM's trainers among them) and the
+    megakernel wrappers (with K9's autograd Function) import neither JAX
+    nor the JAX package."""
     files = [os.path.join(ROOT, "vla_touch_tpu_torch", "ops", "w4_fused.py")]
     pdir = os.path.join(ROOT, "vla_touch_tpu_torch", "planning")
     files += [os.path.join(pdir, f) for f in sorted(os.listdir(pdir)) if f.endswith(".py")]
@@ -588,5 +589,12 @@ def test_planning_modules_import_no_jax():
     for f in files:
         assert not pat.search(open(f).read()), f
     assert {"eval.py", "physiclear.py", "process_datasets.py", "train_encoder.py",
-            "encoder.py", "datasets.py", "qa.py"} <= {os.path.basename(f) for f in files}
+            "encoder.py", "datasets.py", "qa.py", "run_llm.py", "llm.py"} <= {
+        os.path.basename(f) for f in files}
     assert len(files) >= 14
+    # the planner's LLM training lives in these modules
+    for name in ("train_projection", "train_projection_and_lora", "test_llm", "lora_in"):
+        assert callable(getattr(TR, name)), name
+    for name in ("init_lora", "lm_loss", "train_lm", "LORA_TARGETS"):
+        assert hasattr(TL, name), name
+    assert issubclass(W4F.W4SwigluFn, torch.autograd.Function)

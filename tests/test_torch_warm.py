@@ -765,8 +765,8 @@ def test_closed_loop_through_the_warm_step(policy):
 def test_port_modules_import_no_jax():
     """Every module of the port and ``chip_smoke.py`` import neither JAX nor
     the JAX package (the new modules of the steady-state tick, of the
-    deployment entry points and of the tactile encoder's training
-    included)."""
+    deployment entry points, of the tactile encoder's training and of the
+    planner's LLM training included)."""
     pat = re.compile(r"^\s*(import jax|from jax|.*vla_touch_tpu\.)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "vla_touch_tpu_torch")):
@@ -787,7 +787,16 @@ def test_port_modules_import_no_jax():
             "vla_touch_tpu_torch/planning/eval.py",
             "vla_touch_tpu_torch/planning/physiclear.py",
             "vla_touch_tpu_torch/planning/process_datasets.py",
-            "vla_touch_tpu_torch/planning/train_encoder.py"} <= rel
+            "vla_touch_tpu_torch/planning/train_encoder.py",
+            "vla_touch_tpu_torch/planning/run_llm.py",
+            "vla_touch_tpu_torch/ops/quant_matmul.py",
+            "vla_touch_tpu_torch/ops/w4_fused.py",
+            "vla_touch_tpu_torch/csrc/build.py"} <= rel
+    # the planner's LLM training (K8's autograd Function, the trainers)
+    assert "class W4A8MatmulFn" in open(os.path.join(
+        ROOT, "vla_touch_tpu_torch", "ops", "quant_matmul.py")).read()
+    assert "def train_projection_and_lora" in open(os.path.join(
+        ROOT, "vla_touch_tpu_torch", "planning", "run_llm.py")).read()
 
 
 def test_warm_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, vit_towers):

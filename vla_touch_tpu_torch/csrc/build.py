@@ -135,3 +135,22 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.vtt_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def refuse_grad(what: str, route: str | None, *operands) -> None:
+    """Raise where a kernel would run under autograd: under
+    ``torch.is_grad_enabled()``, with a floating operand that requires grad.
+    The kernels write through raw pointers, so their outputs have no
+    ``grad_fn`` and every gradient through them would be cut silently.
+    ``route``: the autograd Function to call instead, or None where there
+    is none (the JAX package gives that kernel no differentiation rule)."""
+    import torch
+
+    if not torch.is_grad_enabled():
+        return
+    if not any(t is not None and t.is_floating_point() and t.requires_grad for t in operands):
+        return
+    how = (f"call {route} (the autograd route) instead" if route else
+           "it has no autograd route (nor has the JAX package's kernel a differentiation "
+           "rule); call it under torch.no_grad()")
+    raise RuntimeError(f"{what}: an operand requires grad; {how}")

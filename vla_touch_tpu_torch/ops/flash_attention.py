@@ -144,12 +144,10 @@ def flash_attention(q, k, v, kv_mask=None, scale=None):
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_mask=kv_mask, scale=scale)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        # the kernel writes through a raw pointer: its output has no
-        # grad_fn, and every gradient through it would be cut silently
-        raise RuntimeError("flash_attention: an operand requires grad; call "
-                           "ops.attention.dot_product_attention (the autograd "
-                           "route, FlashAttentionFn) instead")
+    from vla_touch_tpu_torch.csrc import build
+
+    build.refuse_grad("flash_attention", "ops.attention.dot_product_attention "
+                      "(FlashAttentionFn)", q, k, v)
     return _launch(q, k, v, kv_mask, scale, card_plan)
 
 

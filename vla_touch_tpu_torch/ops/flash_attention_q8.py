@@ -106,6 +106,7 @@ def attention_q8t_plain(q, k_t, k_scale, v_t, v_scale, kv_mask=None, scale=None)
 
 
 def _launch(name, transposed, q, k, k_scale, v, v_scale, kv_mask, scale):
+    build.refuse_grad(name, None, q, k_scale, v_scale)
     B, Lq, H, D = q.shape
     if q.dtype != torch.bfloat16:
         raise TypeError(f"{name}: q must be bfloat16, got {q.dtype}")

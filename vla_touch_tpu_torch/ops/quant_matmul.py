@@ -21,6 +21,11 @@ which the JAX package leaves to XLA) goes to the plain ``qdense`` /
 ``qdense_w4``, and so does an int4 leaf whose N is not a multiple of 128 or
 whose group size is not a multiple of 32; everything else goes to the
 kernel of the leaf's layout, int8 -> K6, grouped int4 -> K8.
+
+On a CUDA tensor that requires grad, under autograd, every wrapper raises
+(``csrc/build.py::refuse_grad``): K8's autograd route is
+:class:`W4A8MatmulFn`, which :func:`qdense_kernel_w4` takes under grad;
+K5-K7 have none, as their JAX kernels have no differentiation rule.
 """
 
 from __future__ import annotations
@@ -186,6 +191,7 @@ def _a8w8_launch(x, w_i8, scale, bias, plan):
     and check other plans)."""
     if x.device.type != "cuda":
         raise ValueError(f"a8w8_matmul: unsupported device {x.device}")
+    build.refuse_grad("a8w8_matmul", None, x, scale, bias)
     *lead, K = x.shape
     _check_w_i8("a8w8_matmul", w_i8, K, x.device)
     if K % 16:
@@ -351,6 +357,8 @@ def _w4a8_launch(x, w4_pack, scale4, bias, plan):
     plans)."""
     if x.device.type != "cuda":
         raise ValueError(f"w4a8_matmul: unsupported device {x.device}")
+    build.refuse_grad("w4a8_matmul", "ops.quant_matmul.W4A8MatmulFn (qdense_kernel_w4 takes "
+                      "it under grad)", x, scale4, bias)
     *lead, K = x.shape
     if w4_pack.dtype != torch.int8 or w4_pack.dim() != 2 or 2 * w4_pack.shape[1] != K \
             or not w4_pack.is_contiguous() or w4_pack.device != x.device \
@@ -394,6 +402,46 @@ def _w4a8_launch(x, w4_pack, scale4, bias, plan):
 w4a8_matmul.launches = 0
 
 
+class W4A8MatmulFn(torch.autograd.Function):
+    """K8 under autograd (the counterpart of ``pallas_matmul.py::
+    _w4a8_matmul_diff``).  The forward is :func:`w4a8_matmul` (the kernel on
+    CUDA, :func:`w4a8_plain` on the CPU) and saves x and the leaf; the
+    backward is ``torch.autograd.grad`` of the plain ``ops/quant.py::
+    qdense_w4`` on the saved x, for x and a float bias.  The packs and
+    scales are frozen.
+
+    That plain program rounds x to per-token int8 codes, and ``round`` has
+    a zero derivative, so x's gradient flows only through each row's
+    ``amax``: one nonzero a row (ties split it), at the element that sets
+    the row's scale.  The JAX package's backward is that same vjp, so the
+    port keeps it: its QLoRA training takes this gradient through every
+    quantized linear at M <= 512."""
+
+    @staticmethod
+    def forward(ctx, x, w4_pack, scale4, bias):
+        ctx.save_for_backward(x, w4_pack, scale4, bias)
+        return w4a8_matmul(x, w4_pack, scale4, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w4_pack, scale4, bias = ctx.saved_tensors
+        xx = x.detach().requires_grad_(ctx.needs_input_grad[0])
+        bb = None if bias is None else bias.detach().requires_grad_(ctx.needs_input_grad[3])
+        need = [t for t in (xx, bb) if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            y = Q.qdense_w4(xx, _Int4Leaf(w4_pack, scale4, bb))
+            grads = iter(torch.autograd.grad(y, need, g))
+        dx = next(grads) if xx.requires_grad else None
+        db = next(grads) if bb is not None and bb.requires_grad else None
+        return dx, None, None, db
+
+
+def needs_grad(*ts) -> bool:
+    """Whether autograd records a call on ``ts``: grad enabled and a
+    tensor among them that requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
 def a8w8_large_takes(K: int, N: int) -> bool:
     """Whether :func:`a8w8_matmul_large` sends a (K, N) product to K7: K a
     multiple of 128 and N of 512, as ``a8w8_matmul_large`` (:249, at its
@@ -421,6 +469,7 @@ def a8w8_matmul_large(x, w_i8, scale, bias=None):
         return a8w8_large_plain(x, w_i8, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"a8w8_matmul_large: unsupported device {x.device}")
+    build.refuse_grad("a8w8_matmul_large", None, x, scale, bias)
     _check_w_i8("a8w8_matmul_large", w_i8, K, x.device)
     _check_vec("a8w8_matmul_large", "scale", scale, N, x.device)
     if bias is not None:
@@ -470,6 +519,7 @@ def _w8a16_launch(x, w_i8, scale, bias, plan):
     N = w_i8.shape[0]
     if x.device.type != "cuda":
         raise ValueError(f"w8a16_matmul: unsupported device {x.device}")
+    build.refuse_grad("w8a16_matmul", None, x, scale, bias)
     _check_w_i8("w8a16_matmul", w_i8, K, x.device)
     _check_vec("w8a16_matmul", "scale", scale, N, x.device)
     if bias is not None:
@@ -511,14 +561,18 @@ def qdense_kernel_a8w8(x, qp: Q.QLinear):
 
 
 def qdense_kernel_w4(x, qp):
-    """Layout-dispatching entry of the serving path, bf16 out: int8 leaves
-    to :func:`qdense_kernel_a8w8`; grouped-int4 leaves to K8, except at
-    M > 512, N % 128 != 0 or a group size not a multiple of 32, which go to
-    the plain :func:`ops.quant.qdense_w4` as JAX's go to XLA."""
+    """Layout-dispatching entry of the serving and training paths, bf16
+    out: int8 leaves to :func:`qdense_kernel_a8w8`; grouped-int4 leaves to
+    K8, except at M > 512, N % 128 != 0 or a group size not a multiple of
+    32, which go to the plain :func:`ops.quant.qdense_w4` as JAX's go to
+    XLA.  Under autograd K8 runs inside :class:`W4A8MatmulFn`, as JAX's
+    ``qdense_pallas_w4`` runs its kernel inside ``_w4a8_matmul_diff``."""
     if not isinstance(qp, Q.QLinearW4):
         return qdense_kernel_a8w8(x, qp)
     K = x.shape[-1]
     N, G = qp.w4_pack.shape[0], qp.scale4.shape[0]
     if math.prod(x.shape[:-1]) > 512 or (K // G) % 32 or N % 128:
         return Q.qdense_w4(x, qp)
+    if needs_grad(x, qp.bias):
+        return W4A8MatmulFn.apply(x, qp.w4_pack, qp.scale4, qp.bias)
     return w4a8_matmul(x, qp.w4_pack, qp.scale4, qp.bias)

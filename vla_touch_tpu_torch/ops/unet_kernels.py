@@ -181,6 +181,9 @@ def resblock_fused(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
         return resblock_ref(x, cond, p, n_groups=n_groups, eps=eps).to(x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"resblock_fused: unsupported device {x.device}")
+    from vla_touch_tpu_torch.csrc import build
+
+    build.refuse_grad("resblock_fused", None, x, cond, *p.values())
     S, B, T, Cin = x.shape
     k, C = p["w0"].shape[1], p["w0"].shape[-1]
     G = cond.shape[-1]
@@ -214,8 +217,6 @@ def resblock_fused(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
     wr = p["wr"].data_ptr() if has_res else None
     br = p["br"].data_ptr() if has_res else None
     lib = _lib()
-    from vla_touch_tpu_torch.csrc import build
-
     err = lib.resblock_bf16(
         x.data_ptr(), cond.data_ptr(), p["w0"].data_ptr(), p["b0"].data_ptr(),
         p["g0w"].data_ptr(), p["g0b"].data_ptr(), p["fw"].data_ptr(),

@@ -10,7 +10,11 @@ pallas_matmul.py:463-986``).
   MLP and the residual, in one launch;
 - :func:`qdense_kernel_swiglu`, the counterpart of ``qdense_pallas_swiglu``:
   a non-w4 leaf or M > 32 composes the per-matmul route
-  (``ops/quant_matmul.py::qdense_kernel_w4``: K6 / K8 / plain), else K9.
+  (``ops/quant_matmul.py::qdense_kernel_w4``: K6 / K8 / plain), else K9,
+  under autograd inside :class:`W4SwigluFn` (``_w4_swiglu_diff``).  K10
+  has no autograd route (nor has its JAX kernel a differentiation rule):
+  on a CUDA operand that requires grad, under autograd, it raises, and so
+  does K9 called directly.
 
 Each wrapper computes its plain version (:func:`w4_swiglu_plain`,
 :func:`w4_postattn_plain`: the JAX package's ``_w4_swiglu_ref`` and
@@ -172,6 +176,8 @@ def w4_swiglu_mlp(x, gu, down):
     x = x.to(torch.bfloat16)
     if x.device.type == "cpu":
         return w4_swiglu_plain(x, gu, down)
+    build.refuse_grad("w4_swiglu_mlp", "ops.w4_fused.W4SwigluFn (qdense_kernel_swiglu takes it "
+                      "under grad)", x, gu.scale4, gu.bias, down.scale4, down.bias)
     x2 = _rows("w4_swiglu_mlp", x, K)
     F, N = gu.w4_pack.shape[0] // 2, down.w4_pack.shape[0]
     dev = x.device
@@ -210,6 +216,8 @@ def w4_postattn_fused(x, att, o, gu, down, norm_w, eps: float = 1e-6):
         return x2 + w4_swiglu_mlp(rmsnorm(x2, norm_w, eps), gu, down)
     if x.device.type == "cpu":
         return w4_postattn_plain(x, att, o, gu, down, norm_w, eps)
+    build.refuse_grad("w4_postattn_fused", None, x, att, norm_w,
+                      *(t for qp in (o, gu, down) for t in (qp.scale4, qp.bias)))
     dev = x.device
     xr, ar = _rows("w4_postattn_fused", x, D), _rows("w4_postattn_fused", att, Ka)
     if norm_w.dtype != torch.float32 or norm_w.shape != (D,) or norm_w.device != dev \
@@ -241,10 +249,39 @@ def w4_postattn_fused(x, att, o, gu, down, norm_w, eps: float = 1e-6):
 w4_postattn_fused.launches = 0
 
 
+class W4SwigluFn(torch.autograd.Function):
+    """K9 under autograd (the counterpart of ``pallas_matmul.py::
+    _w4_swiglu_diff``): the forward is :func:`w4_swiglu_mlp` and saves x;
+    the backward is ``torch.autograd.grad`` of :func:`w4_swiglu_plain` on
+    the saved x in its own dtype (JAX's ``_w4_swiglu_ref``, with
+    :func:`silu_mul`'s float32 logistic).  The leaves are frozen.  As in
+    :class:`~vla_touch_tpu_torch.ops.quant_matmul.W4A8MatmulFn`, each
+    quantized product passes gradient to its input only through the rows'
+    ``amax``."""
+
+    @staticmethod
+    def forward(ctx, x, gu, down):
+        ctx.save_for_backward(x)
+        ctx.leaves = (gu, down)
+        return w4_swiglu_mlp(x, gu, down)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xx = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            y = w4_swiglu_plain(xx, *ctx.leaves)
+            (dx,) = torch.autograd.grad(y, [xx], g)
+        return dx, None, None
+
+
 def qdense_kernel_swiglu(x, gu, down):
     """The SwiGLU dispatcher (``qdense_pallas_swiglu``): w4 leaves at M <= 32
-    go to :func:`w4_swiglu_mlp` (K9); anything else composes the
-    per-matmul route, bf16 out."""
+    go to :func:`w4_swiglu_mlp` (K9; under autograd through
+    :class:`W4SwigluFn`); anything else composes the per-matmul route, bf16
+    out."""
     if not (_w4(gu) and _w4(down)) or math.prod(x.shape[:-1]) > MAX_M:
         return _composed_swiglu(x, gu, down)
+    if QM.needs_grad(x):
+        return W4SwigluFn.apply(x, gu, down)
     return w4_swiglu_mlp(x, gu, down)

@@ -21,6 +21,14 @@ qdense_kernel_swiglu``) and each decode step's post-attention half to K10
 (``w4_postattn_fused``), where the JAX package takes them on a TPU.
 Attention stays a float32 einsum outside any kernel, as in the JAX package.
 
+Training (:func:`lm_loss`, :func:`train_lm`; ``run_llm.py``'s projector and
+LoRA trainers): :func:`llm_forward` is differentiable, as JAX's is.  Under
+autograd a w4 leaf at M <= 512 runs K8 inside
+``ops/quant_matmul.py::W4A8MatmulFn`` and the K9 route inside
+``ops/w4_fused.py::W4SwigluFn``, whose backwards are the plain program's
+vjp (so x's gradient through a quantized product passes only through each
+row's ``amax``, as in the JAX package).  Decoding runs under ``no_grad``.
+
 JAX's type promotion is kept where it shows: a float leaf multiplies in
 the promoted type of x and the kernel and adds its bias with promotion, and
 a LoRA residual runs in float32.  Greedy decoding takes the first maximal
@@ -245,6 +253,34 @@ def init_llm(cfg: LLMConfig, seed: int = 0, device=None, dtype=torch.float32,
             lm_head = _quantize_leaf(lm_head, weights)
     model = LLM(cfg, embed, layers, nn.Parameter(torch.ones(D, device=dev)), lm_head)
     return model.eval().requires_grad_(False)
+
+
+LORA_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+@torch.no_grad()
+def init_lora(cfg: LLMConfig, rank: int = 8, alpha: float = 16.0, targets=LORA_TARGETS,
+              seed: int = 0, device=None) -> dict:
+    """Per-layer (A, B) factors on ``device`` (default CUDA), float32: A ~
+    N(0, 1) * din^-0.5 drawn layer by layer and target by target from a
+    torch generator seeded by ``seed``, B zeros, so the adapted model starts
+    exactly at the base; ``scale`` alpha / rank (the JAX package's
+    ``init_lora``; other numbers: torch's generator)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D, hd = cfg.hidden_size, cfg.head_dim
+    dims = {"q": (D, cfg.num_heads * hd), "k": (D, cfg.num_kv_heads * hd),
+            "v": (D, cfg.num_kv_heads * hd), "o": (cfg.num_heads * hd, D),
+            "gate": (D, cfg.mlp_dim), "up": (D, cfg.mlp_dim), "down": (cfg.mlp_dim, D)}
+    layers = []
+    for _ in range(cfg.num_layers):
+        lp = {}
+        for t in targets:
+            din, dout = dims[t]
+            a = torch.empty((din, rank), device=dev).normal_(generator=gen) * din ** -0.5
+            lp[t] = {"A": a, "B": torch.zeros((rank, dout), device=dev)}
+        layers.append(lp)
+    return {"layers": layers, "scale": float(alpha) / float(rank)}
 
 
 def merge_lora(params: LLM, lora: dict) -> LLM:
@@ -592,7 +628,6 @@ def _layer(cfg: LLMConfig, lp, x, rope, mask, lora, lscale):
     return x, (k, v)
 
 
-@torch.no_grad()
 def llm_forward(cfg: LLMConfig, params: LLM, embeds, positions=None, attn_mask=None,
                 lora: Optional[dict] = None, return_kv: bool = False):
     """Causal forward over input embeddings (B, L, D); positions (B, L) or
@@ -624,6 +659,21 @@ def lm_logits(cfg: LLMConfig, params: LLM, hidden):
 
 def embed_tokens(params: LLM, ids):
     return F.embedding(torch.as_tensor(ids, device=params.embed.device), params.embed)
+
+
+def lm_loss(cfg: LLMConfig, params: LLM, input_embeds, target_ids, loss_mask,
+            lora: Optional[dict] = None):
+    """Teacher-forced cross-entropy: position t predicts ``target_ids[t]``
+    (shifted by the caller); float32 logits, ``log_softmax``, the mean over
+    ``loss_mask`` with its denominator at least 1.  Differentiable w.r.t.
+    ``input_embeds`` (the projector trains through it), ``lora`` and the
+    float parameters."""
+    hidden = llm_forward(cfg, params, input_embeds, lora=lora)
+    logp = torch.log_softmax(lm_logits(cfg, params, hidden).float(), dim=-1)
+    nll = -torch.gather(logp, -1, torch.as_tensor(target_ids, device=logp.device)
+                        .long()[..., None])[..., 0]
+    mask = torch.as_tensor(loss_mask, device=logp.device).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def token_entropy(logits):
@@ -772,6 +822,49 @@ def sample_generate(cfg: LLMConfig, params: LLM, prompt_embeds, seed: int = 0,
                           temperature=float(temperature), gumbel=gumbel, seed=seed,
                           num_return_sequences=int(num_return_sequences),
                           prompt_positions=prompt_positions)
+
+
+# --------------------------------------------------------------------------
+# Full-parameter LM training
+# --------------------------------------------------------------------------
+
+
+def train_lm(cfg: LLMConfig, params: LLM, texts, tokenizer=None, steps: int = 200,
+             lr: float = 1e-2):
+    """Full-parameter causal-LM training of a float tree on a list of
+    strings, in place: each text framed as BOS + bytes + EOS, padded with
+    PAD, every position after BOS predicted (the mask shifted with the
+    targets), all positions attendable; Adam (``optax.adam``: b1 0.9, b2
+    0.999, eps 1e-8, no decay) over every parameter.  Returns (params, the
+    last step's loss, taken before its update)."""
+    from vla_touch_tpu_torch.train import optim
+
+    tok = tokenizer or ByteTokenizer()
+    seqs = [[tok.BOS] + list(tok.encode(t)) + [tok.EOS] for t in texts]
+    Lmax = max(len(s) for s in seqs)
+    ids = np.full((len(seqs), Lmax), tok.PAD, np.int64)
+    msk = np.zeros((len(seqs), Lmax), np.float32)
+    for i, s in enumerate(seqs):
+        ids[i, :len(s)] = s
+        msk[i, 1:len(s)] = 1.0
+    dev = params.embed.device
+    ids = torch.as_tensor(ids, device=dev)
+    inp, tgt = ids[:, :-1], ids[:, 1:]
+    lmask = torch.as_tensor(msk[:, 1:], device=dev)
+    if dev.type == "cuda":
+        optim.float32_math()
+    params.requires_grad_(True)
+    opt = optim.AdamW(params.parameters(), weight_decay=0.0)
+    try:
+        loss = None
+        for _ in range(steps):
+            loss = lm_loss(cfg, params, embed_tokens(params, inp), tgt, lmask)
+            loss.backward()
+            opt.step(lr)
+            opt.zero_grad()
+    finally:
+        params.requires_grad_(False)
+    return params, float(loss.detach())
 
 
 # --------------------------------------------------------------------------

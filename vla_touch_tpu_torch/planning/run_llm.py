@@ -1,11 +1,22 @@
-"""The planner's LLM interface and scenario reasoning, inference only
-(counterpart of ``vla_touch_tpu/planning/run_llm.py``; the projector and
-LoRA training wait for the port's training slice).
+"""The planner's LLM interface, its training and its scenario reasoning
+(counterpart of ``vla_touch_tpu/planning/run_llm.py``).
 
 :func:`make_llm_interface` wraps the in-repo decoder (``planning/llm.py``)
-in the embedding-space contract the planning entry points use; :func:`reason_llm` walks a
-scenario's chat, greedy-generating the description turns and answering the
-final turn with N tempered samples reduced by :func:`select_generation`.
+in the embedding-space contract the planning entry points use, its
+``loss_fn`` the teacher-forced loss of an answer after spliced prompt
+embeddings.  :func:`train_projection` trains the tactile projector against
+the frozen LLM (AdamW as ``optax.adamw``), :func:`train_projection_and_lora`
+the projector and LoRA factors together over a frozen (for example grouped
+int4) base, and :func:`test_llm` greedy-decodes a split into
+``predictions.json``.  Torch cannot replay ``jax.random``, so the trainers
+take their initial trainables (a ``TactileProjector``, LoRA factors) as
+arguments and draw them from seeded torch generators when none are given.
+The trainables are float32 masters; the LoRA factors are cast to the
+activations' dtype inside the forward (on a bf16 tree: bf16, so every
+quantized linear keeps its kernel route) and the projector's float32
+output to the embeddings' dtype.  :func:`reason_llm` walks a scenario's
+chat, greedy-generating the description turns and answering the final
+turn with N tempered samples reduced by :func:`select_generation`.
 
 One choice differs from the JAX package: projected tactile features (and
 empty text segments) take the dtype of the LLM's embeddings before the
@@ -28,19 +39,29 @@ import torch
 from vla_touch_tpu_torch.planning import encoder as PE
 from vla_touch_tpu_torch.planning import llm as L
 from vla_touch_tpu_torch.planning.datasets import clip_preprocess, load_video_frames
-from vla_touch_tpu_torch.planning.llm_splice import TACTILE_PLACEHOLDER, process_user_input
+from vla_touch_tpu_torch.planning.llm_splice import (TACTILE_PLACEHOLDER, init_tactile_projector,
+                                                     process_user_input)
 from vla_touch_tpu_torch.planning.qa import TACT_MARKER
+from vla_touch_tpu_torch.utils import checkpoint as ckpt
+from vla_touch_tpu_torch.utils.from_flax import to_flax
+
+# optax.adamw's default weight decay, on every parameter
+ADAMW_DECAY = 1e-4
 
 
 @dataclasses.dataclass
 class LLMInterface:
     """Embedding-space LLM contract: ``embed_text(str) -> (L, D)``,
-    ``generate_fn(input_embeds) -> str`` (greedy), the delimiter embeddings
-    (D,), and ``sample_fn(input_embeds, num, temperature, seed) -> list`` of
-    ``{"text", "avg_surprisal", "total_surprisal"}`` dicts."""
+    ``loss_fn(input_embeds, answer, lora_override=None) -> scalar`` (the
+    teacher-forced loss, differentiable w.r.t. the embeddings and the
+    LoRA factors), ``generate_fn(input_embeds) -> str`` (greedy), the
+    delimiter embeddings (D,), and ``sample_fn(input_embeds, num,
+    temperature, seed) -> list`` of ``{"text", "avg_surprisal",
+    "total_surprisal"}`` dicts."""
 
     dim: int
     embed_text: Callable
+    loss_fn: Callable
     generate_fn: Callable
     start_embed: torch.Tensor
     end_embed: torch.Tensor
@@ -50,9 +71,12 @@ class LLMInterface:
 def make_llm_interface(cfg: L.LLMConfig, params: L.LLM, tokenizer=None, lora=None,
                        max_new_tokens: int = 32) -> LLMInterface:
     """An :class:`LLMInterface` over the decoder: ``embed_text`` is a table
-    lookup, ``generate_fn`` greedy-decodes (its per-token entropies kept
-    on ``iface.last_entropy``), ``sample_fn`` draws N tempered samples of
-    one prompt (the seed seeds torch's generator)."""
+    lookup, ``loss_fn`` the teacher-forced loss of ``answer`` + EOS after
+    the prompt embeddings (the targets written from the prompt's last
+    position, which predicts the answer's first token), ``generate_fn``
+    greedy-decodes (its per-token entropies kept on
+    ``iface.last_entropy``), ``sample_fn`` draws N tempered samples of one
+    prompt (the seed seeds torch's generator)."""
     tok = tokenizer or L.ByteTokenizer()
     emb = params.embed
 
@@ -61,6 +85,21 @@ def make_llm_interface(cfg: L.LLMConfig, params: L.LLM, tokenizer=None, lora=Non
         if not ids:
             return emb.new_zeros((0, cfg.hidden_size))
         return L.embed_tokens(params, ids)
+
+    def _answer_targets(input_embeds, answer):
+        ans = torch.as_tensor(list(tok.encode(answer)) + [tok.EOS], device=emb.device)
+        Lp = input_embeds.shape[0]
+        full = torch.cat([torch.as_tensor(input_embeds, device=emb.device),
+                          L.embed_tokens(params, ans[:-1])], dim=0)
+        pos = torch.arange(full.shape[0], device=emb.device)
+        tgt = torch.zeros(full.shape[0], dtype=torch.long, device=emb.device)
+        tgt[Lp - 1:Lp - 1 + len(ans)] = ans
+        return full, tgt, (pos >= Lp - 1).float()
+
+    def loss_fn(input_embeds, answer, lora_override=None):
+        full, tgt, mask = _answer_targets(input_embeds, answer)
+        return L.lm_loss(cfg, params, full[None], tgt[None], mask[None],
+                         lora=lora_override if lora_override is not None else lora)
 
     def generate_fn(input_embeds):
         toks, ents, lengths = L.greedy_generate(
@@ -87,8 +126,9 @@ def make_llm_interface(cfg: L.LLMConfig, params: L.LLM, tokenizer=None, lora=Non
         return out
 
     delims = L.embed_tokens(params, [tok.TACTILE_START, tok.TACTILE_END])
-    iface = LLMInterface(dim=cfg.hidden_size, embed_text=embed_text, generate_fn=generate_fn,
-                         start_embed=delims[0], end_embed=delims[1], sample_fn=sample_fn)
+    iface = LLMInterface(dim=cfg.hidden_size, embed_text=embed_text, loss_fn=loss_fn,
+                         generate_fn=generate_fn, start_embed=delims[0], end_embed=delims[1],
+                         sample_fn=sample_fn)
     iface.last_entropy = None
     iface.tokenizer = tok
     return iface
@@ -151,6 +191,154 @@ def _encode_video(encoder_state: PE.TactileEncoderState, video_dir: str, frame_s
     frames = load_video_frames(video_dir, max_frames=max_frames)
     pre = clip_preprocess(frames, frame_size)
     return PE.encode_tactile_video(encoder_state, pre[None], sensor)[0]
+
+
+def _projected(projector, start_embed):
+    """The splice's ``project_fn``: a feature (D,) through the float32
+    projector, (1, llm_dim) in the embeddings' dtype (with its graph under
+    autograd)."""
+    return lambda f: projector(f.float())[None].to(start_embed.dtype)
+
+
+def _splice(llm: LLMInterface, projector, encoder_state, row: dict, frame_size: int):
+    """A dataset row's question with its tactile videos encoded (frozen
+    encoder) and projected, as one (L, D) embedding sequence."""
+    feats = [_encode_video(encoder_state, v, frame_size) for v in row["tactile"]]
+    return process_user_input(row["question"], feats, llm.embed_text, lambda f: f,
+                              _projected(projector, llm.start_embed), llm.start_embed,
+                              llm.end_embed)
+
+
+def _log_step(path: str, step: int, epoch: int, loss) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({"step": step, "epoch": epoch, "loss": float(loss.detach())}) + "\n")
+
+
+def train_projection(encoder_state: PE.TactileEncoderState, llm: LLMInterface, dataset,
+                     output_dir: str, epochs: int = 3, lr: float = 1e-4, frame_size: int = 224,
+                     seed: int = 0, projector=None):
+    """Train the tactile projector against the frozen LLM's loss, one row a
+    step: AdamW as ``optax.adamw(lr)`` (weight decay 1e-4 on every
+    parameter).  ``projector``: the initial ``TactileProjector`` (trained
+    in place), default a seeded one on the LLM's device.  Appends
+    ``{"step", "epoch", "loss"}`` to ``llm_training.jsonl`` every 5 steps
+    and writes ``projection.msgpack`` (the flax tree, as the JAX package
+    writes it).  Returns the projector."""
+    from vla_touch_tpu_torch.train import optim
+
+    if projector is None:
+        projector = init_tactile_projector(encoder_state.feature_dim, llm.dim, seed=seed,
+                                           device=llm.start_embed.device)
+    if llm.start_embed.device.type == "cuda":
+        optim.float32_math()
+    os.makedirs(output_dir, exist_ok=True)
+    log_path = os.path.join(output_dir, "llm_training.jsonl")
+    projector.requires_grad_(True)
+    opt = optim.AdamW(projector.parameters(), weight_decay=ADAMW_DECAY)
+    try:
+        step = 0
+        for epoch in range(epochs):
+            for i in range(len(dataset)):
+                row = dataset[i]
+                loss = llm.loss_fn(_splice(llm, projector, encoder_state, row, frame_size),
+                                   row["answer"])
+                loss.backward()
+                opt.step(lr)
+                opt.zero_grad()
+                if step % 5 == 0:
+                    _log_step(log_path, step, epoch, loss)
+                step += 1
+    finally:
+        projector.requires_grad_(False)
+    ckpt.save_pytree(os.path.join(output_dir, "projection.msgpack"), to_flax(projector))
+    return projector
+
+
+@torch.no_grad()
+def test_llm(encoder_state: PE.TactileEncoderState, llm: LLMInterface, projector, dataset,
+             output_dir: str, frame_size: int = 224) -> list:
+    """Greedy-decode each row of ``dataset``; writes ``predictions.json``
+    (``question``, ``answer``, ``prediction`` per row) and returns the
+    rows."""
+    preds = []
+    for i in range(len(dataset)):
+        row = dataset[i]
+        preds.append({"question": row["question"], "answer": row.get("answer"),
+                      "prediction": llm.generate_fn(
+                          _splice(llm, projector, encoder_state, row, frame_size))})
+    os.makedirs(output_dir, exist_ok=True)
+    with open(os.path.join(output_dir, "predictions.json"), "w") as f:
+        json.dump(preds, f, indent=2)
+    return preds
+
+
+def lora_in(lora: dict, dtype) -> dict:
+    """LoRA factors cast to ``dtype`` (the activations'), the graph kept:
+    the trainers' float32 masters as the forward uses them."""
+    return {"layers": [{t: {k: ab[k].to(dtype) for k in ("A", "B")} for t, ab in lp.items()}
+                       for lp in lora["layers"]], "scale": lora["scale"]}
+
+
+def joint_loss(iface: LLMInterface, projector, lora: dict, encoder_state, row: dict,
+               frame_size: int = 224):
+    """One row's loss in :func:`train_projection_and_lora`: the row's videos
+    encoded and projected into its question, the LoRA masters cast to the
+    embeddings' dtype."""
+    return iface.loss_fn(_splice(iface, projector, encoder_state, row, frame_size),
+                         row["answer"], lora_override=lora_in(lora, iface.start_embed.dtype))
+
+
+def train_projection_and_lora(encoder_state: PE.TactileEncoderState, cfg: L.LLMConfig,
+                              params: L.LLM, dataset, output_dir: str, epochs: int = 3,
+                              lr: float = 1e-3, lora_rank: int = 8, frame_size: int = 224,
+                              seed: int = 0, tokenizer=None, projector=None, lora=None):
+    """The projector and LoRA factors on every projection trained jointly
+    through the frozen decoder (float, int8 or grouped int4), one row a
+    step: AdamW as ``optax.adamw(lr)`` over both.  ``projector`` / ``lora``:
+    the initial trainables (trained in place; default a seeded projector
+    and ``init_lora(cfg, lora_rank, seed=seed + 1)`` on the decoder's
+    device).  The factors are float32 masters, cast to the embeddings'
+    dtype in the forward.  Appends every step's loss to
+    ``llm_training.jsonl``; writes ``projection.msgpack`` and
+    ``lora.msgpack`` (``{"layers", "scale"}``, float32) as the JAX package
+    does.  Returns (projector, lora)."""
+    from vla_touch_tpu_torch.train import optim
+    from vla_touch_tpu_torch.utils.from_flax import llm_lora_to_flax
+
+    dev = params.embed.device
+    if projector is None:
+        projector = init_tactile_projector(encoder_state.feature_dim, cfg.hidden_size,
+                                           seed=seed, device=dev)
+    if lora is None:
+        lora = L.init_lora(cfg, rank=lora_rank, seed=seed + 1, device=dev)
+    iface = make_llm_interface(cfg, params, tokenizer)
+    if dev.type == "cuda":
+        optim.float32_math()
+    os.makedirs(output_dir, exist_ok=True)
+    log_path = os.path.join(output_dir, "llm_training.jsonl")
+    factors = [ab[k] for lp in lora["layers"] for ab in lp.values() for k in ("A", "B")]
+    projector.requires_grad_(True)
+    for t in factors:
+        t.requires_grad_(True)
+    opt = optim.AdamW(list(projector.parameters()) + factors, weight_decay=ADAMW_DECAY)
+    try:
+        step = 0
+        for epoch in range(epochs):
+            for i in range(len(dataset)):
+                loss = joint_loss(iface, projector, lora, encoder_state, dataset[i],
+                                  frame_size)
+                loss.backward()
+                opt.step(lr)
+                opt.zero_grad()
+                _log_step(log_path, step, epoch, loss)
+                step += 1
+    finally:
+        projector.requires_grad_(False)
+        for t in factors:
+            t.requires_grad_(False)
+    ckpt.save_pytree(os.path.join(output_dir, "projection.msgpack"), to_flax(projector))
+    ckpt.save_pytree(os.path.join(output_dir, "lora.msgpack"), llm_lora_to_flax(lora))
+    return projector, lora
 
 
 def reason_llm(encoder_state: PE.TactileEncoderState, llm: LLMInterface, projector,

@@ -413,11 +413,24 @@ def llm(params: dict, cfg, device=None):
 
 def llm_lora(lora: dict, device=None) -> dict:
     """JAX LoRA factors ``{"layers": [{target: {"A", "B"}}], "scale"}`` ->
-    the same structure of float32 tensors on ``device`` (default CUDA)."""
+    the same structure of float32 tensors on ``device`` (default CUDA).
+    ``layers`` may also be the ``{"0": ..., "1": ...}`` dict a msgpack file
+    of the tree reads back as."""
     from vla_touch_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
+    layers = lora["layers"]
+    if isinstance(layers, dict):
+        layers = [layers[str(i)] for i in range(len(layers))]
     layers = [{t: {k: _tensor(np.asarray(ab[k], np.float32), device) for k in ("A", "B")}
+               for t, ab in (lp or {}).items()} for lp in layers]
+    return {"layers": layers, "scale": float(np.asarray(lora["scale"]))}
+
+
+def llm_lora_to_flax(lora: dict) -> dict:
+    """The inverse of :func:`llm_lora`: the port's factors -> the JAX
+    package's tree of float32 numpy arrays (``scale`` a float)."""
+    layers = [{t: {k: ab[k].detach().float().cpu().numpy() for k in ("A", "B")}
                for t, ab in (lp or {}).items()} for lp in lora["layers"]]
     return {"layers": layers, "scale": float(lora["scale"])}
 
