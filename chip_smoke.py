@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's control tick (cold and steady-state), its serving
-pool and replay CLI, its residual controllers' training and evaluation,
-RDT-1B finetuning, its planner and the planner's LLM training, the
-planner's VLM and the training and evaluation of the planner's tactile
+pool and replay CLI, its language and tactile encoders, GelSight force
+sequences and warm-replan quality, its residual controllers' training and
+evaluation, RDT-1B finetuning, its planner and the planner's LLM training,
+the planner's VLM and the training and evaluation of the planner's tactile
 encoder on one NVIDIA GPU.
 
     python3 chip_smoke.py
@@ -187,9 +188,27 @@ encoder on one NVIDIA GPU.
    ``evaluate_encoder`` on the processed samples (launches asserted, the
    metrics printed) and the saved encoder read back bit for bit, serving
    the same features; the peak memory.
-11. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
+11. The encoders off the tick and the offline tools (``encoders_phase``,
+   right after the replay): T5-XXL (seeded, bf16, 9.5 GB, built on the
+   card) through ``LanguageEncoder(NativeT5Embedder(...))`` on instructions
+   of 8-64 byte tokens and one of 1024, the dict saved and read back, one
+   embedding as the language of a cold bf16 RDT-1B ``policy_step`` (K1 307),
+   encode ms at 32 and 1024 tokens, and the 2-layer cut on the card in bf16
+   against float32 on the CPU (gated; two planted bucket-bias faults must
+   fail the gate); Sparsh ViT-B/16 on 32 frame pairs of 240^2 x 6 (K1 12,
+   CLS corr against the plain-version encoder, a checked run, ms, K1's
+   share, K1 at (32, 226, 12, 64) against its plain version and SDPA);
+   ``estimate_force_sequence`` on 600 GelSight frames of 240 x 320 in the
+   standard and HSR modes against the planted shifts and per-frame
+   ``estimate_force`` (bit for bit), frames/s; the warm-replan quality
+   protocol (``eval/warm_quality.py``) in bf16: K1 at its training and
+   solver shapes (D 32) against its plain version and SDPA, the run's
+   asserts and K1's launches, and one training step and one cold and warm
+   chunk as a checked run.
+12. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
    tick's, the serving pool's, the replay's, the controllers phase's, RDT
-   finetuning's, the VLM's and the tactile encoder's, K2's the tick's, the replay's and the
+   finetuning's, the VLM's, the tactile encoder's, the T5-embedded tick's,
+   Sparsh's and the warm-quality run's, K2's the tick's, the replay's and the
    controllers', K6's tick (a)'s, the serving pool's and the VLM's, K8's
    tick (e)'s, the VLM's and the LLM training's, K9's and K10's the
    planner's, the VLM's and the LLM training's,
@@ -670,11 +689,15 @@ K1_SHAPES = [
     ("vificlip_prompt_self", 32, 201, 201, 12, 64, "vit", None, 9),
     ("vificlip_self", 32, 197, 197, 12, 64, "vit", None, 3),
 ]
-# the rows above whose calls are per training step, not per tick: an RDT
-# training step's, and a contrastive step of the tactile encoder's
+# the rows whose calls are per training step, not per tick: an RDT training
+# step's, a contrastive step of the tactile encoder's, and the warm-replan
+# protocol's training step and cold chunk (K1_WARM_SHAPES)
 K1_STEP_ROWS = {"rdt_train_self": "train_step", "rdt_train_image_cross": "train_step",
                 "rdt_train_lang_cross": "train_step", "siglip_train_b96": "train_step",
-                "vificlip_prompt_self": "contrastive_step", "vificlip_self": "contrastive_step"}
+                "vificlip_prompt_self": "contrastive_step", "vificlip_self": "contrastive_step",
+                "warm_train_self": "warm_train_step", "warm_train_lang_cross": "warm_train_step",
+                "warm_train_image_cross": "warm_train_step", "warm_chunk_self": "warm_chunk",
+                "warm_chunk_lang_cross": "warm_chunk", "warm_chunk_image_cross": "warm_chunk"}
 
 
 def k1_operands(gen, B, Lq, Lkv, H, D, layout):
@@ -724,13 +747,16 @@ def k1_mask(B, Lq, Lkv, H, kind):
     row 1 none ("empty_wide"); "short", every row keeps its first
     RDT_LANG_LEN keys; "pool", row i keeps its first 20 + 7 i keys and the
     last row none (a serving pool's padded batch); "vlm", row 1 keeps its
-    first VLM_PATCHES_B keys (the 336^2 image beside a 448^2 one); or
+    first VLM_PATCHES_B keys (the 336^2 image beside a 448^2 one); "all",
+    every key valid (a mask the main path passes with nothing masked); or
     "dead_split", every
     key of K1's second split (at D 64) masked."""
     import torch
 
     if kind is None:
         return None
+    if kind == "all":
+        return torch.ones((B, Lkv), dtype=torch.bool, device="cuda")
     if kind == "pool":
         mask = torch.zeros((B, Lkv), dtype=torch.bool, device="cuda")
         for i in range(B - 1):
@@ -5099,6 +5125,440 @@ def rdt_train_phase() -> dict:
     return res
 
 
+# ---- the encoders off the tick and the offline tools ------------------------------------
+
+T5_SEED = 0
+# instructions of 8 to 64 byte tokens (EOS included), and one of 1024 (T5_LONG)
+T5_INSTRUCTIONS = ("wipe it",
+                   "pick up the mango",
+                   "pick up the ripe mango and put it into the bowl",
+                   "press the soft sponge gently, then lift the arm back up")
+T5_LONG = 1024
+T5_POLICY_INSTRUCTION = 2          # the one whose embedding drives the tick
+# The card's bf16 encoder against the port's float32 encoder on the CPU:
+# T5-XXL at full width cut to T5_GATE_LAYERS layers, the same (bf16) weights
+# and ids, an instruction of T5_GATE_TOKENS tokens (every bucket of the map).
+# Gate: the hidden states' relative L2 error.  The CPU's own bf16 run of the
+# same cut reads T5_CPU_BF16_REL over seeds 0-3, and bf16 with a planted
+# fault (the bucket map shifted by one; the bias transposed to (L_k, L_q))
+# T5_CPU_FAULT_REL (tools/torch_t5_bf16_gate.py): the gate sits 3.4 x above
+# the first and 7.8 x below the second.
+T5_GATE_LAYERS = 2
+T5_GATE_TOKENS = 200
+T5_REL_TOL = 2e-2
+T5_CPU_BF16_REL = (5.90e-3, 5.98e-3)
+T5_CPU_FAULT_REL = (0.155, 0.176)
+T5_FAULTS = ("bucket_shift", "bias_transposed")
+# Sparsh ViT-B/16 on 6-channel 240^2 frame pairs: 226 tokens with CLS
+SPARSH_BATCH = 32
+K1_SPARSH_SHAPES = [("sparsh_self", SPARSH_BATCH, 226, 226, 12, 64, "vit", None, 12)]
+# the warm-replan protocol's rdt_tiny (eval/warm_quality.py; hidden 128, 4
+# heads of 32, depth 2: block 0 crosses the 4 language tokens, all valid,
+# block 1 the 24 image tokens; 11 query tokens): calls per training step at
+# batch 64 (forward only: the backward is the plain program) and per cold
+# chunk of 5 solver steps at 16 rows
+K1_WARM_SHAPES = [
+    ("warm_train_self", 64, 11, 11, 4, 32, "self", None, 2),
+    ("warm_train_lang_cross", 64, 11, 4, 4, 32, "cross", "all", 1),
+    ("warm_train_image_cross", 64, 11, 24, 4, 32, "cross", None, 1),
+    ("warm_chunk_self", 16, 11, 11, 4, 32, "self", None, 10),
+    ("warm_chunk_lang_cross", 16, 11, 4, 4, 32, "cross", "all", 5),
+    ("warm_chunk_image_cross", 16, 11, 24, 4, 32, "cross", None, 5),
+]
+# GelSight force sequences: an episode of FORCE_T frames at the tick's size;
+# the recovered displacement within FORCE_TOL px of the planted shift (the
+# tracker tests' tolerance)
+FORCE_T, FORCE_H, FORCE_W = 600, 240, 320
+FORCE_TOL = 0.5
+
+
+class ByteT5Tokenizer:
+    """A seeded stand-in for T5's SentencePiece vocabulary: each byte maps to
+    one id of a seeded permutation of [3, vocab) (0, 1, 2 stay pad, EOS and
+    unk), EOS appended; called as an HF tokenizer is."""
+
+    def __init__(self, vocab_size: int, seed: int = 0):
+        self.ids = np.random.default_rng(seed).permutation(np.arange(3, vocab_size))[:256]
+
+    def __call__(self, text, truncation=True, max_length=1024):
+        ids = [int(self.ids[b]) for b in text.encode()]
+        if truncation:
+            ids = ids[: max_length - 1]
+        ids.append(1)
+        return {"input_ids": ids, "attention_mask": [1] * len(ids)}
+
+
+def byte_text(n: int, seed: int = 0) -> str:
+    """``n`` printable bytes of seeded words."""
+    rng = np.random.default_rng(seed)
+    words = ["move", "the", "gripper", "left", "slowly", "until", "it", "touches", "cup",
+             "then", "squeeze", "soft", "object", "and", "lift"]
+    out = ""
+    while len(out) < n:
+        out += words[int(rng.integers(len(words)))] + " "
+    return out[:n]
+
+
+def t5_phase_encoder(cfg, seed: int, device):
+    """Seeded T5 in bf16 (``init_t5_encoder``), then T5's own scales: q
+    times d_kv^-0.5 (T5 folds the attention's 1/sqrt(d) into q's init) and
+    the bucket table times 10, N(0, 1) as a trained table's order.  With
+    JAX's lecun q and k the logits' spread (8) makes the attention near one
+    hot, and a bucket fault would move nothing."""
+    import torch
+
+    from vla_touch_tpu_torch.models.encoders import t5_native as TT
+
+    enc = TT.init_t5_encoder(cfg, seed, device, torch.bfloat16)
+    with torch.no_grad():
+        for layer in enc.layers:
+            layer.q.weight.mul_(cfg.d_kv ** -0.5)
+        enc.rel_bias.mul_(10.0)
+    return enc
+
+
+def t5_cut(enc, layers: int):
+    """A T5Encoder holding ``enc``'s first ``layers`` layers and its tables
+    (the same tensors)."""
+    import dataclasses
+
+    import torch
+
+    from vla_touch_tpu_torch.models.encoders import t5_native as TT
+
+    with torch.device("meta"):
+        cut = TT.T5Encoder(dataclasses.replace(enc.cfg, num_layers=layers))
+    cut.embed, cut.rel_bias, cut.final_norm = enc.embed, enc.rel_bias, enc.final_norm
+    cut.layers = torch.nn.ModuleList(enc.layers[:layers])
+    return cut.eval()
+
+
+@contextlib.contextmanager
+def t5_fault(kind):
+    """A planted fault in the bucket bias for the block: the bucket map
+    shifted by one ("bucket_shift"), or the bias laid out (L_k, L_q)
+    ("bias_transposed")."""
+    from vla_touch_tpu_torch.models.encoders import t5_native as TT
+
+    orig = TT.relative_position_buckets
+
+    def bucket_shift(q, k, nb, md, device=None):
+        return (orig(q, k, nb, md, device) + 1) % nb
+
+    def bias_transposed(q, k, nb, md, device=None):
+        return orig(k, q, nb, md, device).T
+
+    TT.relative_position_buckets = {"bucket_shift": bucket_shift,
+                                    "bias_transposed": bias_transposed}[kind]
+    try:
+        yield
+    finally:
+        TT.relative_position_buckets = orig
+
+
+def rel_l2(got, want) -> float:
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+def t5_bf16_vs_float32(cut, ids) -> dict:
+    """``cut`` (bf16, on its device) against its float32 copy on the CPU on
+    (1, L) ``ids``: the relative L2 error and corr of the hidden states, and
+    the relative L2 error under each planted fault."""
+    import torch
+
+    from vla_touch_tpu_torch.models.encoders import t5_native as TT
+
+    cfg = cut.cfg
+    with torch.device("meta"):
+        ref = TT.T5Encoder(cfg)
+    ref = ref.to_empty(device="cpu").requires_grad_(False)
+    ref.load_state_dict({k: v.float().cpu() for k, v in cut.state_dict().items()})
+    mask = torch.ones_like(ids)
+    with torch.inference_mode():
+        want = TT.t5_encode(cfg, ref, ids, mask)
+        got = TT.t5_encode(cfg, cut, ids, mask)
+        out = {"rel_err": rel_l2(got, want), "corr": corr(got.float().cpu(), want)}
+        for kind in T5_FAULTS:
+            with t5_fault(kind):
+                out[kind] = rel_l2(TT.t5_encode(cfg, cut, ids, mask), want)
+    return out
+
+
+def language_path(t, gen) -> dict:
+    """T5-XXL (seeded, bf16, on the card) through ``LanguageEncoder`` and
+    ``NativeT5Embedder``: the instruction dict saved and read back, one
+    embedding as the language of a cold bf16 RDT-1B ``policy_step``, encode
+    times, and the gate of the 2-layer cut against float32 on the CPU."""
+    import shutil
+
+    import torch
+
+    from vla_touch_tpu_torch.models.encoders import t5 as T5
+    from vla_touch_tpu_torch.models.encoders import t5_native as TT
+    from vla_touch_tpu_torch.runtime import policy as P
+
+    card = gpu_line()
+    res = {}
+    cfg = TT.t5_v1_1_xxl()
+    t1 = time.perf_counter()
+    enc = t5_phase_encoder(cfg, T5_SEED, "cuda")
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t1
+    res["weights_gib"] = sum(p.numel() * p.element_size() for p in enc.parameters()) / 2 ** 30
+    res["parameters"] = sum(p.numel() for p in enc.parameters())
+    tok = ByteT5Tokenizer(cfg.vocab_size, T5_SEED)
+    emb = TT.NativeT5Embedder(cfg, enc, tok)
+    lang = T5.LanguageEncoder(emb)
+    texts = list(T5_INSTRUCTIONS) + [byte_text(T5_LONG - 1)]
+    lang.encode_instructions(texts[:1])                     # warm-up
+    d = lang.encode_instructions(texts)
+    lens = [d[x].shape[0] for x in texts]
+    if lens[-1] != T5_LONG or not all(8 <= n <= 64 for n in lens[:-1]):
+        raise AssertionError(f"instruction lengths {lens}")
+    for x in texts:
+        if d[x].shape[1] != cfg.d_model or not np.all(np.isfinite(d[x])):
+            raise AssertionError(f"embedding of {x[:20]!r}: {d[x].shape}, finite "
+                                 f"{np.all(np.isfinite(d[x]))}")
+    res["tokens"] = lens
+    work = os.path.join(ROOT, "build", "encoders")
+    os.makedirs(work, exist_ok=True)
+    try:
+        path = os.path.join(work, "instructions.npz")
+        T5.save_instruction_dict(path, d)
+        back = T5.load_instruction_dict(path)
+        if back["all_instructions"] != texts or not all(
+                np.array_equal(back[x], d[x]) for x in texts):
+            raise AssertionError("the instruction dict read back differs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for n, text in ((32, texts[3][:31]), (T5_LONG, texts[-1])):
+        if len(tok(text)["input_ids"]) != n:
+            raise AssertionError(f"{n}-token instruction")
+        ms, _ = host_p50(lambda: emb.get_text_embeddings([text]))
+        res[f"encode_ms_{n}"] = ms
+
+    # the tick with the instruction's embedding as its language
+    ins = texts[T5_POLICY_INSTRUCTION]
+    pin = policy_inputs(t)
+    pin["text_embeds"] = torch.as_tensor(d[ins][None], device="cuda")
+    pin["text_mask"] = torch.ones((1, d[ins].shape[0]), dtype=torch.bool, device="cuda")
+    rdt, vision = t["model"].rdt, t["model"].vision
+    zero_counts()
+    actions = P.policy_step(t["pcfg"], rdt, vision, **pin,
+                            init_noise=t["inp"]["init_noise"]).cpu().numpy()
+    counts = read_counts()
+    check_counts(f"T5-embedded cold bf16 policy_step [{card}]", counts, {"K1": 307})
+    if actions.shape != (1, 64, 10) or not np.all(np.isfinite(actions)):
+        raise AssertionError(f"T5-embedded chunk {actions.shape}")
+    rand = P.policy_step(t["pcfg"], rdt, vision, **policy_inputs(t),
+                         init_noise=t["inp"]["init_noise"]).cpu().numpy()
+    res["tick_launches"] = counts
+    res["chunk_corr_vs_random_language"] = action_corr(t, actions, rand)
+
+    # bf16 on the card vs float32 on the CPU, the depth-cut model
+    gate_ids = torch.as_tensor([tok(byte_text(T5_GATE_TOKENS - 1, seed=1))["input_ids"]],
+                               device="cuda")
+    g = t5_bf16_vs_float32(t5_cut(enc, T5_GATE_LAYERS), gate_ids)
+    res["gate"] = g
+    log(f"T5 2-layer cut, card bf16 vs CPU float32: rel L2 {g['rel_err']:.4e} (tol "
+        f"{T5_REL_TOL}; CPU bf16 {T5_CPU_BF16_REL}), corr {g['corr']:.6f}; planted faults "
+        + ", ".join(f"{k} {g[k]:.4e}" for k in T5_FAULTS) + f" [{card}]")
+    if not g["rel_err"] <= T5_REL_TOL:
+        raise AssertionError(f"T5 bf16 on the card vs float32: {g['rel_err']} > {T5_REL_TOL}")
+    for kind in T5_FAULTS:
+        if not g[kind] > T5_REL_TOL:
+            raise AssertionError(f"T5 gate misses the planted fault {kind}: {g[kind]}")
+    del emb, lang, enc
+    torch.cuda.empty_cache()
+    return res
+
+
+def marker_frames(shifts, H=FORCE_H, W=FORCE_W, rows=7, cols=9, radius=3, bg=200.0,
+                  fg=40.0, gains=None):
+    """(T, H, W) float32 GelSight-style frames on the card: ``marker_frame``'s
+    grid of dark dots, frame t shifted by ``shifts[t]`` (x, y) pixels and
+    scaled by ``gains[t]`` (clipped to 255).  Each pixel is tested against
+    its nearest marker only (the dots are far apart)."""
+    import torch
+
+    s = torch.as_tensor(np.asarray(shifts, np.float32), device="cuda")
+    sx, sy = s[:, 0, None, None], s[:, 1, None, None]
+    ch, cw = H // rows, W // cols
+    yy = torch.arange(H, dtype=torch.float32, device="cuda")[None, :, None]
+    xx = torch.arange(W, dtype=torch.float32, device="cuda")[None, None, :]
+    r = torch.clamp(torch.round((yy - ch / 2 - sy) / ch), 0, rows - 1)
+    c = torch.clamp(torch.round((xx - cw / 2 - sx) / cw), 0, cols - 1)
+    d2 = (yy - (r * ch + ch / 2 + sy)) ** 2 + (xx - (c * cw + cw / 2 + sx)) ** 2
+    img = torch.where(d2 <= radius ** 2, fg, bg)
+    if gains is not None:
+        g = torch.as_tensor(np.asarray(gains, np.float32), device="cuda")
+        img = torch.clamp(img * g[:, None, None], 0, 255)
+    return img
+
+
+def force_path() -> dict:
+    """``estimate_force_sequence`` on an episode of FORCE_T frames, standard
+    and HSR, against the planted shifts and against per-frame
+    ``estimate_force`` (equal bit for bit); frames/s of both."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import marker_tracking as MT
+
+    card = gpu_line()
+    t = np.arange(FORCE_T)
+    shifts = np.stack([2.5 * np.sin(2 * np.pi * t / FORCE_T),
+                       1.5 * np.sin(4 * np.pi * t / FORCE_T)], axis=1)
+    res = {}
+    for version, kw in (("standard", {}),
+                        ("hsr", dict(bg=120.0, fg=30.0, gains=1.0 + 0.15 * t / FORCE_T))):
+        cfg = MT.TrackerConfig(gelsight_version=version)
+        frames = marker_frames(shifts, **kw)
+        base = MT.calibrate(frames[0], cfg)
+        if int(base["valid"].sum()) != cfg.grid_rows * cfg.grid_cols:
+            raise AssertionError(f"{version}: {int(base['valid'].sum())} valid cells")
+        MT.estimate_force_sequence(frames[:8], base, cfg)          # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        seq = MT.estimate_force_sequence(frames, base, cfg)
+        end.record()
+        torch.cuda.synchronize()
+        seq_ms = start.elapsed_time(end)
+        t1 = time.perf_counter()
+        one = torch.stack([MT.estimate_force(frames[i], base, cfg)["force"]
+                           for i in range(FORCE_T)])
+        torch.cuda.synchronize()
+        per_ms = 1e3 * (time.perf_counter() - t1)
+        disp = seq["displacements"].cpu().numpy()
+        err = float(np.abs(disp - shifts).max())
+        unlike = int((one != seq["forces"]).any(dim=1).sum())
+        res[version] = dict(frames=FORCE_T, max_disp_err_px=err, unlike_frames=unlike,
+                            batched_ms=seq_ms, batched_frames_per_s=1e3 * FORCE_T / seq_ms,
+                            per_frame_ms=per_ms, per_frame_frames_per_s=1e3 * FORCE_T / per_ms)
+        log(f"force sequence {version}: {FORCE_T} frames {FORCE_H}x{FORCE_W}, displacement "
+            f"err {err:.3f} px (tol {FORCE_TOL}), frames unlike per-frame estimate_force "
+            f"{unlike}; batched {seq_ms:.2f} ms ({1e3 * FORCE_T / seq_ms:.0f} frames/s), "
+            f"per-frame loop {per_ms:.1f} ms [{card}]")
+        if not err <= FORCE_TOL or unlike:
+            raise AssertionError(f"force sequence {version}: err {err}, unlike {unlike}")
+        del frames
+    return res
+
+
+def sparsh_path(gen) -> dict:
+    """Sparsh ViT-B/16 (seeded, bf16) on SPARSH_BATCH frame pairs: K1's
+    launches, the CLS against the plain-version encoder, a checked run,
+    ms, K1's share of the device time; K1 at the shape against its plain
+    version and SDPA."""
+    import torch
+
+    from vla_touch_tpu_torch.models.encoders import sparsh as TS
+
+    card = gpu_line()
+    res = {}
+    res["k1_sparsh_rows"], _ = check_k1(gen, K1_SPARSH_SHAPES)
+    sp = TS.load_pretrained_encoder(None, seed=0, device="cuda")
+    c = TS.SPARSH_VIT_B
+    x = torch.randn((SPARSH_BATCH, c.image_size, c.image_size, c.num_channels),
+                    generator=gen, device="cuda").to(torch.bfloat16)
+
+    def encode():
+        with torch.inference_mode():
+            return sp(x)
+
+    encode()                                                     # warm-up
+    zero_counts()
+    cls = encode()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(f"Sparsh ViT-B/16, {SPARSH_BATCH} frame pairs [{card}]", counts,
+                 {"K1": c.num_layers})
+    with plain_kernels():
+        cls_p = encode()
+    res["launches"] = counts
+    res["cls_corr"] = corr(cls.float().cpu(), cls_p.float().cpu())
+    if cls.shape != (SPARSH_BATCH, c.hidden_size) or not res["cls_corr"] > TOKEN_CORR_MIN:
+        raise AssertionError(f"Sparsh CLS {tuple(cls.shape)}, corr {res['cls_corr']} "
+                             f"(min {TOKEN_CORR_MIN})")
+    check_chk("Sparsh checked run", checked_run(encode), {"K1": c.num_layers})
+    res["ms"] = cuda_time_ms(encode, reps=10)
+    prof = profile_run(encode)
+    k1_ms = prof["groups_ms"]["K1 flash_fwd_kernel"] + prof["groups_ms"]["K1 flash_combine_kernel"]
+    res["k1_share"] = k1_ms / prof["device_busy_ms"]
+    res["profile"] = {k: prof[k] for k in ("device_busy_ms", "idle_share", "groups_ms")}
+    row = res["k1_sparsh_rows"][0]
+    log(f"Sparsh: {res['ms']:.3f} ms a call of {SPARSH_BATCH} pairs, K1 {row['ms']:.4f} ms "
+        f"x12 ({res['k1_share']:.3f} of the profiled device time), SDPA "
+        f"{row['library_ms']:.4f} ms at the shape, CLS corr {res['cls_corr']:.6f} [{card}]")
+    del sp
+    return res
+
+
+def warm_quality_path(gen) -> dict:
+    """``eval/warm_quality.py``'s protocol on the card in bf16 (K1 in the
+    tiny RDT's attention): K1 at the protocol's shapes against its plain
+    version and SDPA; the run, its four asserts and K1's launches (two a
+    block in each training step's forward; two a block at each solver step
+    of the first cold chunk and of REPLANS cold and warm replans); then, on
+    a fresh model, one training step and one cold and one warm chunk as a
+    checked run."""
+    from vla_touch_tpu_torch.config import rdt_tiny
+    from vla_touch_tpu_torch.eval import warm_quality as WQ
+    from vla_touch_tpu_torch.runtime.control_loop import shift_prior
+
+    card = gpu_line()
+    m = rdt_tiny()
+    shapes = {(B, Lq, Lkv, H, D) for _, B, Lq, Lkv, H, D, *_ in K1_WARM_SHAPES}
+    want = {(B, m.horizon + 3, Lkv, m.num_heads, m.hidden_size // m.num_heads)
+            for B in (WQ.BATCH, WQ.ROWS) for Lkv in (m.horizon + 3, 4, m.img_cond_len)}
+    if shapes != want or m.depth != 2:
+        raise AssertionError(f"K1_WARM_SHAPES {sorted(shapes)} are not the protocol's "
+                             f"{sorted(want)} (depth {m.depth})")
+    res = {}
+    res["k1_warm_rows"], tot = check_k1(gen, K1_WARM_SHAPES)
+    res["k1_warm_ms"] = {k: tot[k] for k in ("warm_train_step", "warm_chunk")}
+    per_pass = 2 * m.depth
+    need = per_pass * (WQ.STEPS + 5 * (1 + WQ.REPLANS) + (5 - WQ.WARM_SKIP) * WQ.REPLANS)
+    zero_counts()
+    r = WQ.run(device="cuda", dtype="bfloat16")
+    counts = read_counts()
+    check_counts(f"warm-replan quality, rdt_tiny bf16 [{card}]", counts, {"K1": need})
+    log("warm-replan quality: " + json.dumps(r) + f" [{card}]")
+    WQ.check(r)
+    res.update(r, launches=counts)
+
+    p = WQ.Protocol("cuda", "bfloat16")
+    check_chk("warm-quality training step checked", checked_run(p.train_step),
+              {"K1": per_pass})
+    phase = WQ.make_batch(p.rng, p.m, WQ.ROWS)[0]
+    t0 = np.full((WQ.ROWS,), 20.0)
+
+    def replan():
+        prior = np.stack([shift_prior(c, WQ.SHIFT) for c in p.chunk(phase, t0)])
+        p.chunk(phase, t0 + WQ.SHIFT, prior=prior, skip=WQ.WARM_SKIP)
+
+    check_chk("warm-quality cold and warm chunk checked", checked_run(replan),
+              {"K1": per_pass * (5 + 5 - WQ.WARM_SKIP)})
+    return res
+
+
+def encoders_phase(t, gen) -> dict:
+    """The language path (T5-XXL into the tick), Sparsh, the force
+    sequences and the warm-replan quality; each path counted from 0."""
+    t_phase = time.perf_counter()
+    res = {}
+    for name, run in (("language", lambda: language_path(t, gen)),
+                      ("sparsh", lambda: sparsh_path(gen)), ("force", force_path),
+                      ("warm_quality", lambda: warm_quality_path(gen))):
+        t1 = time.perf_counter()
+        res[name] = run()
+        res[name]["phase_s"] = time.perf_counter() - t1
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -5200,6 +5660,12 @@ def main() -> int:
     rep = replay_phase(t)
     log(f"replay phase: {time.perf_counter() - t1:.1f} s")
     log("replay: " + json.dumps(rep))
+
+    # ---- the encoders off the tick (T5-XXL into the tick, Sparsh), force
+    # sequences and the warm-replan quality
+    enc = encoders_phase(t, gen)
+    log(f"encoders phase: {enc['phase_s']:.1f} s")
+    log("encoders: " + json.dumps(enc))
     del q["runners"], qa, t
 
     # ---- the residual controllers, trained and evaluated
@@ -5230,6 +5696,7 @@ def main() -> int:
                        ("k8 llm", pl["k8_llm_rows"]),
                        ("k6 llm", pl["k6_llm_rows"]),
                        ("k1 clip", pl["k1_clip_rows"]), ("k1 vlm", vl["k1_vlm_rows"]),
+                       ("k1 sparsh", enc["sparsh"]["k1_sparsh_rows"]),
                        ("k9", list(pl["k9_rows"].values())),
                        ("k10", list(pl["k10_rows"].values()))):
         log(f"{name} shapes: " + json.dumps(rows))
@@ -5251,10 +5718,11 @@ def main() -> int:
                     bound_ms=tot["bound_ms"], bound_by=bound_by(tot),
                     library_ms=tot.get("library_ms"), **extra)
 
-    # K1 runs on seven main paths, K2 on three: the cold tick, the serving
+    # K1 runs on ten main paths, K2 on three: the cold tick, the serving
     # pool, the replay CLI, the controllers phase (training and evaluation),
-    # RDT finetuning and (K1) the planner's VLM and its tactile encoder's
-    # training and evaluation, each counted from 0; K6 on
+    # RDT finetuning and (K1) the planner's VLM, its tactile encoder's
+    # training and evaluation, its LLM training, the T5-embedded tick, Sparsh
+    # and the warm-replan quality run, each counted from 0; K6 on
     # quantized tick (a), the serving pool's int8 batches and the VLM's int8
     # request; K8 on tick (e) and the VLM; K9 and K10 on the planner and the
     # VLM
@@ -5264,6 +5732,9 @@ def main() -> int:
     by_path["K1"]["vlm"] = vl["counts"]["K1"]
     by_path["K1"]["tactile_encoder"] = te["counts"]["K1"]
     by_path["K1"]["llm_train"] = lt["counts"].get("K1", 0)
+    by_path["K1"]["t5_tick"] = enc["language"]["tick_launches"]["K1"]
+    by_path["K1"]["sparsh"] = enc["sparsh"]["launches"]["K1"]
+    by_path["K1"]["warm_quality"] = enc["warm_quality"]["launches"]["K1"]
     by_path["K6"] = {"tick_a": q["a"]["launches"]["K6"], "serving": serve["launches"]["K6"],
                      "replay": rep["launches"]["K6"], "vlm": vl["counts"]["K6"]}
     by_path["K8"] = {"tick_e": q["e"]["launches"]["K8"], "vlm": vl["counts"]["K8"],

@@ -766,8 +766,8 @@ def test_trainers_turn_tf32_off(tmp_path, small_dino):
 def test_controller_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path,
                                                                      episodes):
     """Without CUDA the trainers, the evaluations and the loaders raise;
-    ``device="cpu"`` runs them.  The ``.epc`` cache and ``visualize_dir``
-    raise until their modules are ported."""
+    ``device="cpu"`` runs them.  The ``.epc`` cache raises until its module
+    is ported."""
     from vla_touch_tpu_torch.eval import bridge_test as TBE
     from vla_touch_tpu_torch.eval import lstm_step_test as TLE
 
@@ -787,9 +787,6 @@ def test_controller_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch,
     assert st.module.se_fc1.weight.device.type == "cpu" and st.module.fd_fc1.weight.requires_grad
     with pytest.raises(NotImplementedError):
         TBT.main(argv + ["--data_format", "epc"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        TBE.test_diffusion_controller(str(tmp_path), episodes, visualize_dir=str(tmp_path),
-                                      device="cpu")
 
 
 def test_controller_modules_import_no_jax():

@@ -1294,3 +1294,58 @@ def test_kernel_wrappers_refuse_a_grad_requiring_card_operand(cuda, kernel):
     with torch.no_grad():
         fn(*grad_args)
     assert fn.launches == before + 1
+
+
+def test_flash_attention_kernel_at_the_sparsh_shape(cuda):
+    """K1 at the Sparsh tactile ViT-B/16's self-attention: 32 frame pairs of
+    226 tokens (15^2 patches and CLS), 12 heads of 64, q/k/v the strided
+    views of one projection as ``ViTSelfAttention`` passes them.  Max abs
+    error <= 2e-2 x max|plain|."""
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((32, 226, 3, 12, 64), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = x.unbind(2)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v)
+    assert FA.flash_attention.launches == before + 1
+    want = FA.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("version", ["standard", "hsr"])
+def test_force_sequence_on_the_card_equals_the_cpu(cuda, version):
+    """The batched GelSight pass over 16 frames of 240 x 320 on CUDA: masks
+    and validity equal the CPU's, forces within 1e-5 px; each frame's force
+    equals ``estimate_force`` on that frame on the card bit for bit."""
+    from vla_touch_tpu_torch.ops import marker_tracking as MT
+
+    H, W, rows, cols = 240, 320, 7, 9
+    yy, xx = np.mgrid[0:H, 0:W]
+    ch, cw = H // rows, W // cols
+    bg, fg = (120.0, 30.0) if version == "hsr" else (200.0, 40.0)
+
+    def frame(sx, sy):
+        img = np.full((H, W), bg, np.float32)
+        for r in range(rows):
+            for c in range(cols):
+                d2 = (yy - (r * ch + ch / 2 + sy)) ** 2 + (xx - (c * cw + cw / 2 + sx)) ** 2
+                img[d2 <= 16] = fg
+        return img
+
+    frames = torch.as_tensor(np.stack([frame(0.4 * t, -0.2 * t) for t in range(16)]))
+    cfg = MT.TrackerConfig(gelsight_version=version)
+    out = {}
+    for dev in ("cpu", cuda):
+        f = frames.to(dev)
+        base = MT.calibrate(f[0], cfg)
+        out[str(dev)] = (MT.estimate_force_sequence(f, base, cfg), base,
+                         MT.marker_mask(f[5], cfg))
+    (cpu, cbase, cmask), (card, kbase, kmask) = out["cpu"], out[str(cuda)]
+    assert torch.equal(cmask, kmask.cpu())
+    assert torch.equal(cbase["valid"], kbase["valid"].cpu())
+    torch.testing.assert_close(card["forces"].cpu(), cpu["forces"], atol=1e-5, rtol=0)
+    f = frames.to(cuda)
+    for t in (0, 7, 15):
+        assert torch.equal(MT.estimate_force(f[t], kbase, cfg)["force"], card["forces"][t])

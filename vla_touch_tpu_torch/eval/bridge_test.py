@@ -12,8 +12,9 @@ checkpoint's ``interpolant.sde_type`` ('vs' or 'bs') through the serving
 UNet and K2, in the checkpoint's ``inference_dtype``.  K2 takes bf16 only,
 so on CUDA a float32 controller is evaluated in bf16: a warning says so,
 and the result's ``inference_dtype`` names the dtype that ran.  To evaluate
-another SDE or dtype, pass ``state=`` with that config.  On CUDA unless the
-caller passes ``device="cpu"``.
+another SDE or dtype, pass ``state=`` with that config.  ``visualize_dir``
+saves the first samples' trajectory plots (``eval/visualize.py``, needs
+matplotlib).  On CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from vla_touch_tpu_torch.data.controller_dataset import ControllerDataModule
+from vla_touch_tpu_torch.eval.visualize import plot_samples
 from vla_touch_tpu_torch.models.controllers import bridge as B
 from vla_touch_tpu_torch.models.encoders import dinov2_runtime as dino
 from vla_touch_tpu_torch.utils.device import resolve_device
@@ -74,8 +76,6 @@ def test_diffusion_controller(ckpt_path: str, data_dir: str, num_samples: int = 
                               data_module=None, diffuse_steps: Optional[int] = None,
                               visualize_dir: Optional[str] = None, noise_seq=None,
                               device=None) -> dict:
-    if visualize_dir:
-        raise NotImplementedError("visualize_dir: eval/visualize.py is not ported yet")
     dev = resolve_device(device)
     st = state if state is not None else B.load_bridge_controller(ckpt_path, device=dev)
     ccfg = st.cfg
@@ -104,9 +104,11 @@ def test_diffusion_controller(ckpt_path: str, data_dir: str, num_samples: int = 
         pcfg, module, st.stats, torch.as_tensor(batch["states"][:, ctx - 1], device=dev),
         torch.as_tensor(batch["vla_actions"], device=dev), diffuse_steps=diffuse_steps,
         noise_seq=noise_seq, generator=torch.Generator(device=dev).manual_seed(seed), **kw)
-    return report("bridge_test", refined.cpu().numpy(), batch["expert_actions"],
-                  batch["vla_actions"], len(batch["states"]),
-                  inference_dtype=pcfg.inference_dtype)
+    refined = refined.cpu().numpy()
+    if visualize_dir:
+        plot_samples(batch["expert_actions"], batch["vla_actions"], refined, visualize_dir)
+    return report("bridge_test", refined, batch["expert_actions"], batch["vla_actions"],
+                  len(batch["states"]), inference_dtype=pcfg.inference_dtype)
 
 
 def main(argv=None, device=None):

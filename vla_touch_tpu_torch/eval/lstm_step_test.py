@@ -5,8 +5,9 @@
 
 Evaluates through the stateful step-by-step rollout
 (:func:`models.controllers.lstm.lstm_predict_sequence`) and reports the
-MSE / improvement triplet of ``bridge_test``.  On CUDA unless the caller
-passes ``device="cpu"``.
+MSE / improvement triplet of ``bridge_test``; ``visualize_dir`` saves the
+first samples' trajectory plots.  On CUDA unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from vla_touch_tpu_torch.data.controller_dataset import ControllerDataModule
 from vla_touch_tpu_torch.eval.bridge_test import eval_batch, image_encoder_for, report
+from vla_touch_tpu_torch.eval.visualize import plot_samples
 from vla_touch_tpu_torch.models.controllers import lstm as L
 from vla_touch_tpu_torch.models.encoders import dinov2_runtime as dino
 from vla_touch_tpu_torch.utils.device import resolve_device
@@ -30,8 +32,6 @@ def test_lstm_controller(ckpt_path: str, data_dir: str, num_samples: int = 50,
                          state: Optional[L.LSTMControllerState] = None,
                          data_module=None, visualize_dir: Optional[str] = None,
                          device=None) -> dict:
-    if visualize_dir:
-        raise NotImplementedError("visualize_dir: eval/visualize.py is not ported yet")
     dev = resolve_device(device)
     st = state if state is not None else L.load_lstm_controller(ckpt_path, device=dev)
     ccfg = st.cfg
@@ -52,8 +52,11 @@ def test_lstm_controller(ckpt_path: str, data_dir: str, num_samples: int = 50,
         ccfg, st.module, st.stats, obs_cond, torch.as_tensor(batch["vla_actions"], device=dev),
         # decision-time forces
         torch.as_tensor(batch["forces"][:, ctx - 1: ctx - 1 + H], device=dev))
-    return report("lstm_step_test", refined.cpu().numpy(), batch["expert_actions"],
-                  batch["vla_actions"], len(batch["states"]))
+    refined = refined.cpu().numpy()
+    if visualize_dir:
+        plot_samples(batch["expert_actions"], batch["vla_actions"], refined, visualize_dir)
+    return report("lstm_step_test", refined, batch["expert_actions"], batch["vla_actions"],
+                  len(batch["states"]))
 
 
 def main(argv=None, device=None):

@@ -26,9 +26,11 @@ generators seeded by (that seed, i) and batches are handed to the step in
 order, so a seed fixes the stream whatever the number of prefetch threads
 (the JAX trainer's free-running threads share one generator).
 
-Weights start seeded random: loading the HF ``rdt-1b`` and SigLIP
-checkpoints and the hub push wait for ROADMAP A9, multi-host training and
-ZeRO-3 for A11, ``.epc`` data for A6; their flags raise.
+Weights start seeded random, or from an HF-layout ``rdt-1b`` file
+(``--pretrained_model_name_or_path``) and HF SigLIP weights
+(``--siglip_checkpoint``); ``--push_to_hub`` uploads the output directory
+after the final checkpoint (``utils/hub.py``).  Multi-host training and
+ZeRO-3 wait for ROADMAP A11, ``.epc`` data for A6; their flags raise.
 """
 
 from __future__ import annotations
@@ -205,7 +207,7 @@ class RDTTrainer:
         seed = tcfg.seed if seed is None else seed
         if vision is None:
             logger.warning("no SigLIP weights supplied: image conditioning uses a RANDOM "
-                           "tower (loading the HF checkpoint waits for ROADMAP A9)")
+                           "tower (--siglip_checkpoint loads the HF weights)")
             vision = init_vit(SiglipVisionEncoder, self.vision_cfg, seed + 1, self.device,
                               rcfg.model.compute_dtype)
         state = T.init_train_state(rcfg, tcfg, seed, self.device, module=init_module)
@@ -352,13 +354,16 @@ def build_parser():
     p.add_argument("--model_scale", choices=["1b", "170m", "tiny"], default="1b",
                    help="tiny pairs rdt_tiny with a 1-layer SigLIP at 28 x 28")
     p.add_argument("--pretrained_model_name_or_path", default=None,
-                   help="loading the HF checkpoint waits for ROADMAP A9")
+                   help="HF-layout RDT checkpoint file (model.safetensors or "
+                        "pytorch_model.bin) to start from")
     p.add_argument("--siglip_checkpoint", "--pretrained_vision_encoder_name_or_path",
                    dest="siglip_checkpoint", default=None,
-                   help="loading the HF SigLIP weights waits for ROADMAP A9")
+                   help="HF SigLIP vision weights (.safetensors, or a torch pickle)")
     p.add_argument("--pretrained_text_encoder_name_or_path", default=None,
                    help="accepted; language embeddings are precomputed")
-    p.add_argument("--push_to_hub", action="store_true", help="waits for ROADMAP A9")
+    p.add_argument("--push_to_hub", action="store_true",
+                   help="upload the output directory after the final checkpoint "
+                        "(needs huggingface_hub and the network)")
     p.add_argument("--hub_model_id", default=None)
     p.add_argument("--hub_token", default=None)
     for flag in ("--config_path", "--deepspeed", "--report_to", "--logging_dir",
@@ -376,8 +381,30 @@ def build_parser():
 
 # flag -> the queue item its feature waits for
 _WAITING = {"coordinator": "A11", "num_processes": "A11", "process_id": "A11",
-            "zero3": "A11", "pretrained_model_name_or_path": "A9",
-            "siglip_checkpoint": "A9", "push_to_hub": "A9"}
+            "zero3": "A11"}
+
+
+def load_pretrained_rdt(rcfg: R.RDTRunnerConfig, path: str, seed: int, device):
+    """The float32 master-weight runner :func:`runner.init_rdt_train` makes,
+    filled from an HF-layout checkpoint file (``utils/torch_port.py``)."""
+    from vla_touch_tpu_torch.utils.torch_port import load_rdt_checkpoint
+
+    module = R.init_rdt_train(rcfg, seed, device)
+    depths = tuple(getattr(module, n).depth
+                   for n in ("lang_adaptor", "img_adaptor", "state_adaptor"))
+    tree = load_rdt_checkpoint(path, depth=rcfg.model.depth, adaptor_depths=depths)
+    return FF.load_into(module, FF.rdt_runner(tree))
+
+
+def load_siglip(vision_cfg: ViTConfig, path: str, device, dtype):
+    """The frozen SigLIP tower from HF ``SiglipVisionModel`` weights: a
+    ``.safetensors`` file (read by ``utils/safetensors_io.py``) or a torch
+    pickle (``weights_only``)."""
+    from vla_touch_tpu_torch.utils.torch_port import read_state_dict, siglip_from_hf
+
+    vision = init_vit(SiglipVisionEncoder, vision_cfg, 0, device, dtype)
+    tree = siglip_from_hf(read_state_dict(path), num_layers=vision_cfg.num_layers)
+    return FF.load_into(vision, FF.vit(tree))
 
 
 def main(argv=None):
@@ -419,7 +446,23 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     trainer = RDTTrainer(rcfg, tcfg, dcfg, args.output_dir, vision_cfg=vision_cfg,
                          device=args.device)
-    return trainer.train(resume_from=args.resume_from_checkpoint)
+    init_module = vision = None
+    if args.pretrained_model_name_or_path:
+        init_module = load_pretrained_rdt(rcfg, args.pretrained_model_name_or_path,
+                                          args.seed, trainer.device)
+    if args.siglip_checkpoint:
+        vision = load_siglip(vision_cfg, args.siglip_checkpoint, trainer.device,
+                             model_cfg.compute_dtype)
+    state = trainer.train(resume_from=args.resume_from_checkpoint, vision=vision,
+                          init_module=init_module)
+    if args.push_to_hub:
+        from vla_touch_tpu_torch.utils.hub import push_checkpoint_to_hub
+
+        repo = push_checkpoint_to_hub(args.output_dir, hub_model_id=args.hub_model_id,
+                                      token=args.hub_token,
+                                      base_model=args.pretrained_model_name_or_path)
+        logger.info("pushed to hub repo %s", repo)
+    return state
 
 
 if __name__ == "__main__":

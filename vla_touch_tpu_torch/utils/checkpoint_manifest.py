@@ -43,12 +43,7 @@ KNOWN = {
     "qwen2_5_7b": ("Qwen/Qwen2.5-7B-Instruct", "planning.llm.load_llm_from_hf"),
     "qwen2_vl_7b": ("Qwen/Qwen2-VL-7B-Instruct",
                     "planning.qwen2vl.load_qwen2vl_from_hf"),
-}
-
-#: manifests of the JAX package whose converters the port has not yet;
-#: each comes with the ROADMAP item that ports its converter
-PENDING = {
-    "t5_v1_1_xxl": "A9 (t5_native.py)",
+    "t5_v1_1_xxl": ("google/t5-v1_1-xxl (encoder)", "models.encoders.t5_native.t5_from_hf"),
 }
 
 #: keys a checkpoint may carry that the converters deliberately skip
@@ -70,9 +65,6 @@ SIBLING_PREFIXES = {
 
 
 def load_manifest(name: str) -> Dict[str, Tuple[int, ...]]:
-    if name in PENDING:
-        raise NotImplementedError(
-            f"manifest {name!r}: its converter is not ported yet (ROADMAP {PENDING[name]})")
     if name not in KNOWN:
         raise FileNotFoundError(f"unknown manifest {name!r}; available: {sorted(KNOWN)}")
     with open(os.path.join(MANIFEST_DIR, f"{name}.json")) as f:
@@ -163,8 +155,6 @@ def main(argv=None):
     if args.list or not (args.manifest and args.checkpoint):
         for name, (ckpt, conv) in KNOWN.items():
             print(f"{name:22s} {ckpt}  ->  {conv}")
-        for name, item in PENDING.items():
-            print(f"{name:22s} not ported yet (ROADMAP {item})")
         return 0
     diff = validate_checkpoint(args.checkpoint, args.manifest)
     print(diff.summary(args.manifest))

@@ -150,6 +150,25 @@ def dinov2_runtime(params: dict) -> dict:
     return to_state_dict(params, lists=("block",))
 
 
+def t5_encoder(params: dict) -> dict:
+    """JAX's T5 encoder tree (plain arrays: ``embed``, ``rel_bias``,
+    ``final_norm`` and a ``layers`` list whose ``q``, ``k``, ``v``, ``o``,
+    ``wi_*``, ``wo`` are (in, out)) -> ``models/encoders/t5_native.py::
+    T5Encoder``'s state."""
+    names = {"embed", "rel_bias", "layers", "final_norm"}
+    _expect_keys("t5 encoder", params, names, names)
+    out = {k: np.asarray(params[k]) for k in ("embed", "rel_bias", "final_norm")}
+    for i, layer in enumerate(params["layers"]):
+        for name, arr in layer.items():
+            arr = np.asarray(arr)
+            key = f"layers.{i}.{name}"
+            if name.startswith("norm"):
+                out[key] = arr
+            else:
+                out[f"{key}.weight"] = np.ascontiguousarray(arr.T)
+    return out
+
+
 def to_flax(module: torch.nn.Module, state: dict = None) -> dict:
     """The inverse of :func:`to_state_dict`: a port module -> the flax tree
     of numpy float32 arrays the JAX package's module holds.  Leaves come
