@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's control tick (cold and steady-state), its serving
 pool and replay CLI, its language and tactile encoders, GelSight force
-sequences and warm-replan quality, its residual controllers' training and
-evaluation, RDT-1B finetuning, its planner and the planner's LLM training,
-the planner's VLM and the training and evaluation of the planner's tactile
-encoder on one NVIDIA GPU.
+sequences and warm-replan quality, its episode data path (capture,
+distillation, ``.epc`` caches, training from them), its residual
+controllers' training and evaluation, RDT-1B finetuning, its planner and
+the planner's LLM training, the planner's VLM and the training and
+evaluation of the planner's tactile encoder on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -205,10 +206,26 @@ encoder on one NVIDIA GPU.
    solver shapes (D 32) against its plain version and SDPA, the run's
    asserts and K1's launches, and one training step and one cold and warm
    chunk as a checked run.
-12. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
+12. The episode data path (``data_phase``, right after the encoders): a
+   capture directory written with OpenCV (3 episodes of 40 steps, two
+   480 x 640 cameras, GelSight 240 x 320 with planted marker shifts),
+   ``precompute_instructions`` with T5-XXL (bf16, 4096 wide),
+   ``process_gelsight`` on the card (within FORCE_TOL px of the plant),
+   ``convert_to_hdf5`` to npz, the distillation pass over every timestep
+   with the tick's RDT-1B and SigLIP policy (K1 asserted: the cold tick
+   without refine per timestep; one tick a checked run), ``pack_dataset``
+   in both codecs (bytes against npz) and with ``--use_resized``; frames/s
+   of nvJPEG into device memory, nvJPEG plus the copy to the host and
+   ``cv2.imdecode`` on the host's threads (a yardstick), nvJPEG's frames
+   against cv2's; the consumer's samples/s from npz and ``.epc`` at 0 and 4
+   threads; ``rdt_loop`` (RDT-1B) and ``bridge_train`` (DinoV2 on K1, 2
+   prefetch threads) from ``.epc``, K1 asserted, their losses equal to the
+   npz runs' step by step; ``process_dataset`` from both.
+13. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
    tick's, the serving pool's, the replay's, the controllers phase's, RDT
    finetuning's, the VLM's, the tactile encoder's, the T5-embedded tick's,
-   Sparsh's and the warm-quality run's, K2's the tick's, the replay's and the
+   Sparsh's, the warm-quality run's and the data path's (distillation, RDT-1B
+   and BRIDGeR from ``.epc``), K2's the tick's, the replay's and the
    controllers', K6's tick (a)'s, the serving pool's and the VLM's, K8's
    tick (e)'s, the VLM's and the LLM training's, K9's and K10's the
    planner's, the VLM's and the LLM training's,
@@ -5559,6 +5576,535 @@ def encoders_phase(t, gen) -> dict:
     return res
 
 
+# ---- the episode data path ------------------------------------------------------------
+
+# The capture: DATA_EPISODES episodes of DATA_STEPS steps, two RGB cameras at
+# the reference's Franka frame size and a GelSight camera at the tracker's.
+# An episode is 40 steps, not fewer: the RDT sampler draws a step in
+# [onset - 1, T - 32) for RDT-1B's 64-step chunk (data/vla_dataset.py), so
+# T must pass 32 + onset; the robot moves from step DATA_ONSET on.
+DATA_EPISODES, DATA_STEPS, DATA_ONSET = 3, 40, 1
+DATA_CAM_H, DATA_CAM_W = 480, 640
+DATA_DATASET = "capture"
+DATA_INSTRUCTIONS = ("wipe the table with the sponge",
+                     "press the soft toy gently until it yields",
+                     "pick up the mango and place it in the bowl")
+# BRIDGeR from the distilled, resized frames: the tick's horizon (16), batch
+# 8 over the train split's windows (5 steps an epoch at these episodes)
+DATA_BRIDGE_HORIZON, DATA_BRIDGE_BATCH, DATA_BRIDGE_STEPS = 16, 8, 5
+# RDT-1B steps from each source: step 1's loss does not depend on the frames
+# (it reads the same on the JPEG cache), so steps 2 and 3 carry the
+# comparison
+DATA_RDT_STEPS = 3
+# samples/s through the consumer: batches of the RDT trainer's micro-batch
+# (4 samples), the rate read from the batches that arrive after batch
+# DATA_SAMPLE_SKIP, past the prefetcher's first fill (4 threads + depth 2
+# batches start at once)
+DATA_SAMPLE_BATCHES, DATA_SAMPLE_BATCH, DATA_SAMPLE_SKIP = 40, 4, 6
+DATA_DECODE_REPS = 5
+# nvJPEG's frames against cv2.imdecode's (libjpeg, through OpenCV) on the
+# same blobs, in uint8 levels: the two decoders' inverse DCT, chroma
+# upsampling and colour conversion round differently.  The first reading on
+# an H100 (NVIDIA H100 80GB HBM3, 700 W): max 4, mean 0.5359 over 240
+# frames of 480 x 640; the bounds leave 2 x for another nvJPEG backend's
+# rounding.  The same frames with R and B swapped read far above
+# (``vs_cv2_rb_swapped``, printed beside).
+NVJPEG_MAX_ABS = 8
+NVJPEG_MEAN_ABS = 1.0
+
+
+def capture_scene(ep: int, t: int, cam: int) -> np.ndarray:
+    """A 480 x 640 RGB frame of a moving scene: a gradient field and a bright
+    blob that moves along the episode, per camera."""
+    yy, xx = np.mgrid[0:DATA_CAM_H, 0:DATA_CAM_W].astype(np.float32)
+    ph = 0.7 * ep + 1.3 * cam
+    cx = DATA_CAM_W * (0.5 + 0.3 * np.sin(2 * np.pi * t / DATA_STEPS + ph))
+    cy = DATA_CAM_H * (0.5 + 0.3 * np.cos(2 * np.pi * t / DATA_STEPS + ph))
+    blob = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * 60.0 ** 2))
+    img = np.stack([40 + 150 * xx / DATA_CAM_W + 60 * blob,
+                    50 + 120 * yy / DATA_CAM_H + 90 * blob,
+                    80 + 40 * np.sin(xx / 37.0 + ph) + 100 * blob], axis=-1)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def capture_poses(ep: int):
+    """(T, 7) ee poses (xyz + xyzw quaternion), still until DATA_ONSET, and
+    (T,) gripper readings on the 0..255 scale."""
+    t = np.arange(DATA_STEPS)
+    ramp = np.clip((t - DATA_ONSET) / (DATA_STEPS - DATA_ONSET), 0, 1)[:, None]
+    rng = np.random.default_rng(100 + ep)
+    pos = 0.4 + 0.15 * np.sin(2 * np.pi * t[:, None] / DATA_STEPS
+                              * rng.uniform(0.5, 1.5, 3)) * ramp
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    ang = 0.6 * ramp[:, 0]
+    quat = np.concatenate([axis * np.sin(ang / 2)[:, None], np.cos(ang / 2)[:, None]], -1)
+    grip = 200.0 - 150.0 * ramp[:, 0]
+    return np.concatenate([pos, quat], -1), grip
+
+
+def write_capture(root: str) -> dict:
+    """The capture directory: per episode ``camera1/``, ``camera2/`` (JPEG,
+    480 x 640), ``gelsight/`` (240 x 320 marker frames, the grid shifted
+    along a planted path), ``ee_poses.npy``, ``gripper_pos.npy``; the
+    planted GelSight shifts per episode."""
+    import cv2
+
+    t = np.arange(DATA_STEPS)
+    shifts = {}
+    for ep in range(DATA_EPISODES):
+        d = os.path.join(root, f"episode_{ep}")
+        for sub in ("camera1", "camera2", "gelsight"):
+            os.makedirs(os.path.join(d, sub))
+        s = np.stack([1.8 * np.sin(np.pi * t / DATA_STEPS) * (1 + 0.2 * ep),
+                      -1.2 * np.sin(2 * np.pi * t / DATA_STEPS)], axis=1)
+        s -= s[0]                                        # frame 0 is the calibration
+        shifts[ep] = s
+        gel = marker_frames(s).round().clamp(0, 255).byte().cpu().numpy()
+        for i in range(DATA_STEPS):
+            for cam in (1, 2):
+                cv2.imwrite(os.path.join(d, f"camera{cam}", f"{i:06d}.jpg"),
+                            capture_scene(ep, i, cam)[:, :, ::-1])
+            cv2.imwrite(os.path.join(d, "gelsight", f"{i:06d}.jpg"),
+                        np.repeat(gel[i][:, :, None], 3, axis=2))
+        ee, grip = capture_poses(ep)
+        np.save(os.path.join(d, "ee_poses.npy"), ee)
+        np.save(os.path.join(d, "gripper_pos.npy"), grip)
+    return shifts
+
+
+def decode_routes(epc_paths: list) -> dict:
+    """Frames/s of the three decode routes over every camera stream of the
+    JPEG caches: nvJPEG into device memory, nvJPEG and one copy to the host,
+    and, as a yardstick only, ``cv2.imdecode`` on a thread pool of the
+    host's cores; nvJPEG's frames against cv2's (max and mean abs uint8)."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import torch
+
+    from vla_touch_tpu_torch.runtime import native_loader as NL
+
+    caches = [NL.EpisodeCache(p) for p in epc_paths]
+    streams = [(c, cam) for c in caches for cam in range(c.n_cams)]
+    frames = sum(c.T for c, _ in streams)
+    workers = os.cpu_count() or 1
+
+    def nvjpeg():
+        return [c.decode_frames(cam, 0, c.T, device="cuda") for c, cam in streams]
+
+    def nvjpeg_host():
+        return [c.decode_frames(cam, 0, c.T, device="cuda").cpu().numpy()
+                for c, cam in streams]
+
+    blobs = []
+    for c, cam in streams:
+        ptrs, lens = c.frame_blobs(cam, 0, c.T)
+        blobs += [np.frombuffer(ctypes.string_at(int(p), int(n)), np.uint8)
+                  for p, n in zip(ptrs, lens)]
+    pool = ThreadPoolExecutor(max_workers=workers)
+
+    def imdecode():
+        return list(pool.map(lambda b: cv2.imdecode(b, cv2.IMREAD_COLOR)[:, :, ::-1], blobs))
+
+    res = {"frames": frames, "size": [caches[0].H, caches[0].W], "host_threads": workers}
+    try:
+        for name, run in (("nvjpeg_device", nvjpeg), ("nvjpeg_to_host", nvjpeg_host),
+                          ("cv2_imdecode_threads", imdecode)):
+            run()                                                  # warm-up
+            ts = []
+            for _ in range(DATA_DECODE_REPS):
+                t1 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t1)
+            res[name] = {"frames_per_s": frames / float(np.median(ts)),
+                         "s": [round(x, 4) for x in ts]}
+        dev = np.concatenate(nvjpeg_host())
+        ref = np.stack(imdecode())
+    finally:
+        pool.shutdown()
+        for c in caches:
+            c.close()
+    diff = np.abs(dev.astype(np.int16) - ref.astype(np.int16))
+    res["vs_cv2"] = {"max_abs": int(diff.max()), "mean_abs": float(diff.mean()),
+                     "share_unlike": float((diff > 0).mean())}
+    swapped = np.abs(dev[..., ::-1].astype(np.int16) - ref.astype(np.int16))
+    res["vs_cv2_rb_swapped"] = {"max_abs": int(swapped.max()),
+                                "mean_abs": float(swapped.mean())}
+    return res
+
+
+def consumer_rates(data_roots: dict) -> dict:
+    """Steady-state samples/s of ``UnifiedVLADataset`` through
+    ``data/consumer.py``: the RDT trainer's micro-batches
+    (``VLAConsumerDataset`` forks, ``collate``) built by ``PrefetchLoader``
+    on 0 and 4 threads, per data source, over the batches after the first
+    DATA_SAMPLE_SKIP."""
+    from vla_touch_tpu_torch.config import DataConfig
+    from vla_touch_tpu_torch.data.consumer import VLAConsumerDataset, collate
+    from vla_touch_tpu_torch.data.pipeline import PrefetchLoader
+
+    res = {}
+    for name, (root, fmt) in data_roots.items():
+        dcfg = DataConfig(data_root=root, dataset_names=(DATA_DATASET,), data_format=fmt,
+                          chunk_size=64, image_size=384)
+        ds = VLAConsumerDataset(dcfg, seed=0)
+
+        def make(i):
+            part = ds.fork((0, i))
+            return collate([part.sample() for _ in range(DATA_SAMPLE_BATCH)],
+                           max_lang_len=1024)
+
+        for workers in (0, 4):
+            make(0)                                                # warm-up
+            shapes, arrived = [], []
+            with PrefetchLoader(make, workers=workers, num_batches=DATA_SAMPLE_BATCHES) as ld:
+                for b in ld:
+                    shapes.append(tuple(b["images"].shape))
+                    arrived.append(time.perf_counter())
+            if shapes != [(DATA_SAMPLE_BATCH, 6, 384, 384, 3)] * DATA_SAMPLE_BATCHES:
+                raise AssertionError(f"consumer batches from {name}: {shapes}")
+            n = DATA_SAMPLE_BATCHES - 1 - DATA_SAMPLE_SKIP
+            res[f"{name}_workers{workers}"] = (n * DATA_SAMPLE_BATCH
+                                               / (arrived[-1] - arrived[DATA_SAMPLE_SKIP]))
+    return res
+
+
+@contextlib.contextmanager
+def recorded(module, name: str, out: list, value):
+    """``module.name`` wrapped for the block: each call's ``value(result)``
+    and host time (after a synchronise) appended to ``out``."""
+    import torch
+
+    orig = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        t1 = time.perf_counter()
+        r = orig(*a, **kw)
+        torch.cuda.synchronize()
+        out.append((value(r), time.perf_counter(), 1e3 * (time.perf_counter() - t1)))
+        return r
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def rdt_from(root: str, fmt: str, out_dir: str) -> dict:
+    """``rdt_loop.main`` on RDT-1B (the JAX recipe's batch 4 x accumulation
+    4, seeded weights and SigLIP) for DATA_RDT_STEPS steps from ``root``:
+    each step's loss and host ms, K1's launches.  The final checkpoint
+    (19.65 GB; written and read back by ``rdt_train_phase``) is recorded,
+    not written."""
+    import gc
+
+    import torch
+
+    from vla_touch_tpu_torch.train import rdt_loop as RL
+
+    steps, saved = [], []
+    orig_save = RL.RDTTrainer.save_checkpoint
+    RL.RDTTrainer.save_checkpoint = lambda self, state, step: saved.append(step) or {}
+    try:
+        with recorded(RL.T, "train_step", steps, lambda r: float(r[1]["loss"])):
+            zero_counts()
+            t1 = time.perf_counter()
+            RL.main(["--data_root", root, "--dataset_name", DATA_DATASET, "--data_format", fmt,
+                     "--output_dir", out_dir, "--max_train_steps", str(DATA_RDT_STEPS),
+                     "--sample_period", "1000000", "--checkpointing_period", "1000000",
+                     "--lr_warmup_steps", "0", "--dataloader_num_workers", "2", "--seed", "0"])
+            run_s = time.perf_counter() - t1
+            counts = read_counts()
+    finally:
+        RL.RDTTrainer.save_checkpoint = orig_save
+    gc.collect()
+    torch.cuda.empty_cache()
+    if saved != [DATA_RDT_STEPS] or len(steps) != DATA_RDT_STEPS:
+        raise AssertionError(f"rdt from {fmt}: steps {len(steps)}, final save {saved}")
+    return {"losses": [s[0] for s in steps], "step_ms": [s[2] for s in steps],
+            "run_s": run_s, "launches": counts}
+
+
+def bridge_from(data_dir: str, fmt: str, out_dir: str) -> dict:
+    """``bridge_train.main`` (BRIDGeR at its defaults with the DinoV2-small
+    pair at 384^2, horizon DATA_BRIDGE_HORIZON, batch DATA_BRIDGE_BATCH, one
+    epoch, 2 prefetch threads) from ``data_dir``: each step's loss and host
+    ms, the validation batches, K1's launches.  cuDNN is held to its
+    deterministic algorithms for the run: its default convolution backwards
+    sum in an order that varies from run to run, so two runs on the same
+    batches part after the first step (by 2e-7 relative on an H100)."""
+    import torch
+
+    from vla_touch_tpu_torch.train import bridge_train as BT
+
+    steps = []
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with recorded(BT, "_train_step", steps, lambda r: float(r["loss"])):
+            zero_counts()
+            t1 = time.perf_counter()
+            _, trainer = BT.main(["--data_dir", data_dir, "--output_dir", out_dir,
+                                  "--horizon", str(DATA_BRIDGE_HORIZON),
+                                  "--batch_size", str(DATA_BRIDGE_BATCH), "--epochs", "1",
+                                  "--data_format", fmt, "--prefetch_workers", "2"])
+            run_s = time.perf_counter() - t1
+            counts = read_counts()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    del trainer
+    torch.cuda.empty_cache()
+    return {"losses": [s[0] for s in steps], "step_ms": [s[2] for s in steps],
+            "run_s": run_s, "launches": counts}
+
+
+def same_losses(what: str, got: dict, want: dict) -> dict:
+    """``got``'s losses against ``want``'s: equal, step by step."""
+    a, b = np.asarray(got["losses"]), np.asarray(want["losses"])
+    out = {"losses": got["losses"], "reference": want["losses"],
+           "equal": bool(a.shape == b.shape and np.array_equal(a, b))}
+    log(f"{what}: losses {got['losses']} against {want['losses']}: equal {out['equal']}")
+    if not out["equal"] or not np.all(np.isfinite(a)):
+        raise AssertionError(f"{what}: losses {got['losses']} unlike {want['losses']}")
+    return out
+
+
+def data_phase(t) -> dict:
+    """The episode data path at the deployment's sizes, each step's K1
+    launches counted from 0: a capture directory (DATA_EPISODES x
+    DATA_STEPS, two 480 x 640 cameras, GelSight 240 x 320), its
+    instructions embedded by T5-XXL (bf16, seeded), GelSight force on the
+    card, npz episodes, the distillation pass with the tick's RDT-1B policy
+    and SigLIP (``t``'s bf16 model, every timestep; K1 counted, one tick a
+    checked run), ``.epc`` caches in both codecs, the three decode routes,
+    the consumer's samples/s, RDT-1B and BRIDGeR trained from ``.epc``
+    against the npz run, and the dataset statistics."""
+    import gc
+    import shutil
+
+    import torch
+
+    from vla_touch_tpu_torch.config import DataConfig
+    from vla_touch_tpu_torch.csrc import build as KB
+    from vla_touch_tpu_torch.data import capture as CP
+    from vla_touch_tpu_torch.data import distill as DS
+    from vla_touch_tpu_torch.data import episode as EP
+    from vla_touch_tpu_torch.data import stats as ST
+    from vla_touch_tpu_torch.data.controller_dataset import ControllerDataModule
+    from vla_touch_tpu_torch.data.pack_epc import pack_dataset
+    from vla_touch_tpu_torch.models.encoders import t5_native as TT
+    from vla_touch_tpu_torch.models.encoders.vit import DINOV2_SMALL
+    from vla_touch_tpu_torch.runtime import native_loader as NL
+
+    card = gpu_line()
+    root = os.path.join(ROOT, "build", "data")
+    shutil.rmtree(root, ignore_errors=True)
+    res = {"has_libjpeg": NL.has_libjpeg()}
+    marks = {}
+    t_phase = time.perf_counter()
+    try:
+        res["has_nvjpeg"] = KB.buildable("jpeg_decode")
+        log(f"data: jpeglib.h on the host {res['has_libjpeg']}, nvjpeg.h in the toolkit "
+            f"{res['has_nvjpeg']} [{card}]")
+        if not res["has_nvjpeg"]:
+            raise AssertionError("the CUDA toolkit has no nvJPEG: JPEG caches cannot be "
+                                 "decoded on this card")
+        # 1. the capture
+        cap = os.path.join(root, "capture")
+        t1 = time.perf_counter()
+        shifts = write_capture(cap)
+        CP.label_instructions(cap, {f"episode_{e}": DATA_INSTRUCTIONS[e]
+                                    for e in range(DATA_EPISODES)})
+        marks["capture_s"] = time.perf_counter() - t1
+
+        # 2. instructions through T5-XXL
+        t1 = time.perf_counter()
+        cfg = TT.t5_v1_1_xxl()
+        enc = t5_phase_encoder(cfg, T5_SEED, "cuda")
+        emb = TT.NativeT5Embedder(cfg, enc, ByteT5Tokenizer(cfg.vocab_size, T5_SEED))
+        written = CP.precompute_instructions(cap, emb)
+        lens = [np.load(p).shape for p in written]
+        del emb, enc
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks["instructions_s"] = time.perf_counter() - t1
+        if len(written) != DATA_EPISODES or any(s[1] != cfg.d_model for s in lens):
+            raise AssertionError(f"instruction embeddings {lens}")
+        res["instruction_shapes"] = lens
+
+        # 3. GelSight force on the card
+        t1 = time.perf_counter()
+        err = 0.0
+        for ep in range(DATA_EPISODES):
+            f = CP.process_gelsight(os.path.join(cap, f"episode_{ep}"))
+            err = max(err, float(np.abs(f["displacements"] - shifts[ep]).max()))
+        marks["force_s"] = time.perf_counter() - t1
+        res["force_max_disp_err_px"] = err
+        log(f"data: GelSight force of {DATA_EPISODES} x {DATA_STEPS} frames on the card, "
+            f"displacement within {err:.3f} px of the planted path (tol {FORCE_TOL})")
+        if not err <= FORCE_TOL:
+            raise AssertionError(f"GelSight force: {err} px off the planted path")
+
+        # 4. npz episodes
+        t1 = time.perf_counter()
+        raw_dir = os.path.join(root, "raw", f"{DATA_DATASET}_hdf5_gelsight")
+        for ep in range(DATA_EPISODES):
+            CP.convert_to_hdf5(os.path.join(cap, f"episode_{ep}"),
+                               os.path.join(raw_dir, f"episode_{ep}.npz"))
+        marks["episodes_s"] = time.perf_counter() - t1
+
+        # 5. the distillation pass: the cold bf16 tick without refine
+        model = t["model"]
+        need = {"K1": t["pcfg"].vision.num_layers
+                + t["pcfg"].rdt.noise.num_inference_timesteps * 2 * t["pcfg"].rdt.model.depth}
+        if need["K1"] != warm_need(t, 0, False)["K1"] - DINOV2_SMALL.num_layers:
+            raise AssertionError(f"the cold tick's K1 need {need} is not warm_need's")
+        ticks = []
+
+        def policy_step(proprio, images, text):
+            ticks.append(images)
+            return model.step(proprio, images, text)
+
+        npz_root = os.path.join(root, "npz")
+        npz_dir = os.path.join(npz_root, f"{DATA_DATASET}_hdf5_gelsight")
+        zero_counts()
+        t1 = time.perf_counter()
+        outs = DS.record_vla_actions_for_dataset(raw_dir, npz_dir, policy_step, image_size=384)
+        torch.cuda.synchronize()
+        marks["distill_s"] = time.perf_counter() - t1
+        counts = read_counts()
+        log(f"data: distillation of {len(ticks)} timesteps in {marks['distill_s']:.1f} s "
+            f"({len(ticks) / marks['distill_s']:.2f} ticks/s) [{card}]")
+        n_ticks = DATA_EPISODES * DATA_STEPS
+        check_counts(f"distillation, {n_ticks} cold bf16 ticks without refine [{card}]",
+                     counts, {"K1": n_ticks * need["K1"]})
+        res["distill"] = {"ticks": len(ticks), "launches": counts,
+                          "ticks_per_s": len(ticks) / marks["distill_s"]}
+        horizon = t["pcfg"].rdt.model.horizon
+        for p in outs:
+            with EP.EpisodeFile(p) as f:
+                vla = np.asarray(f["vla_action"])
+                r1 = np.asarray(f["camera1_resized"])
+            if vla.shape != (DATA_STEPS, horizon, 10) or not np.all(np.isfinite(vla)) \
+                    or r1.shape != (DATA_STEPS, 384, 384, 3):
+                raise AssertionError(f"{p}: vla_action {vla.shape}, resized {r1.shape}")
+        last = ticks[-1]
+        with EP.EpisodeFile(outs[-1]) as f:
+            qpos = EP.qpos_from_episode(f)
+            text = np.array(np.asarray(f["instruct_embeddings"])[0])
+        check_chk("distillation tick checked",
+                  checked_run(lambda: model.step(qpos[-1], last, text)), need)
+
+        # 6. the caches
+        t1 = time.perf_counter()
+        epc_root = {codec: os.path.join(root, f"epc_{codec}") for codec in ("jpeg", "raw")}
+        epc = {codec: pack_dataset(npz_dir, os.path.join(r, f"{DATA_DATASET}_hdf5_gelsight"),
+                                   codec=codec)
+               for codec, r in epc_root.items()}
+        ctrl_dir = os.path.join(root, "ctrl_epc")
+        pack_dataset(npz_dir, ctrl_dir, codec="raw", use_resized=True)
+        marks["pack_s"] = time.perf_counter() - t1
+        size = {"npz": sum(os.path.getsize(p) for p in outs)}
+        for codec, paths in epc.items():
+            size[f"epc_{codec}"] = sum(os.path.getsize(p) for p in paths)
+        res["bytes"] = size
+        log(f"data: bytes {json.dumps(size)} ({DATA_EPISODES} episodes) [{card}]")
+
+        # 7. decode routes
+        t1 = time.perf_counter()
+        dec = decode_routes(epc["jpeg"])
+        marks["decode_s"] = time.perf_counter() - t1
+        res["decode"] = dec
+        log(f"data: decode {dec['frames']} frames of {dec['size']}: nvJPEG to device "
+            f"{dec['nvjpeg_device']['frames_per_s']:.0f} frames/s, nvJPEG + copy to host "
+            f"{dec['nvjpeg_to_host']['frames_per_s']:.0f}, cv2.imdecode on "
+            f"{dec['host_threads']} threads {dec['cv2_imdecode_threads']['frames_per_s']:.0f}; "
+            f"nvJPEG vs cv2 max abs {dec['vs_cv2']['max_abs']} (bound {NVJPEG_MAX_ABS}), mean "
+            f"abs {dec['vs_cv2']['mean_abs']:.4f} (bound {NVJPEG_MEAN_ABS}); R and B swapped: max "
+            f"{dec['vs_cv2_rb_swapped']['max_abs']}, mean "
+            f"{dec['vs_cv2_rb_swapped']['mean_abs']:.2f} [{card}]")
+        if not (dec["vs_cv2"]["max_abs"] <= NVJPEG_MAX_ABS
+                and dec["vs_cv2"]["mean_abs"] <= NVJPEG_MEAN_ABS):
+            raise AssertionError(f"nvJPEG frames unlike cv2's: {dec['vs_cv2']}")
+        c = NL.EpisodeCache(epc["jpeg"][0])
+        res["datasets_decode_on"] = "host (libjpeg)" if c.host_decode else \
+            "card (nvJPEG), one copy back"
+        c.close()
+
+        # 8. samples/s through the consumer
+        t1 = time.perf_counter()
+        res["samples_per_s"] = consumer_rates({"npz": (npz_root, "h5"),
+                                               "epc_jpeg": (epc_root["jpeg"], "epc"),
+                                               "epc_raw": (epc_root["raw"], "epc")})
+        marks["samples_s"] = time.perf_counter() - t1
+        log(f"data: consumer samples/s {json.dumps(res['samples_per_s'])} [{card}]")
+
+        # 9. training from .epc against npz
+        t1 = time.perf_counter()
+        from vla_touch_tpu_torch.config import TrainConfig, rdt_1b
+
+        m = rdt_1b()
+        step_k1 = rdt_k1_need(m, TrainConfig(), t["pcfg"].vision.num_layers)["step"]
+        rdt = {}
+        for name, r in (("npz", npz_root), ("epc_raw", epc_root["raw"]),
+                        ("epc_jpeg", epc_root["jpeg"])):
+            rdt[name] = rdt_from(r, "h5" if name == "npz" else "epc",
+                                 os.path.join(root, f"rdt_{name}"))
+            log(f"data: RDT-1B from {name}: step ms {rdt[name]['step_ms']}, run "
+                f"{rdt[name]['run_s']:.1f} s [{card}]")
+            check_counts(f"RDT-1B, {DATA_RDT_STEPS} steps from {name} [{card}]",
+                         rdt[name]["launches"], {"K1": DATA_RDT_STEPS * step_k1})
+        res["rdt"] = rdt
+        res["rdt_epc_vs_npz"] = same_losses("RDT-1B from the raw .epc against npz",
+                                            rdt["epc_raw"], rdt["npz"])
+        # the comparison sees the frames: the JPEG cache's pixels differ, and
+        # so does each of its losses after step 1
+        jpeg, npz = np.asarray(rdt["epc_jpeg"]["losses"]), np.asarray(rdt["npz"]["losses"])
+        if not np.all(np.isfinite(jpeg)) or np.any(jpeg[1:] == npz[1:]):
+            raise AssertionError(f"RDT-1B from the JPEG .epc: losses {list(jpeg)} against "
+                                 f"npz's {rdt['npz']['losses']}: the frames do not reach them")
+        dm = ControllerDataModule(ctrl_dir, horizon=DATA_BRIDGE_HORIZON, data_format="epc")
+        n_train = len(dm.train_dataset) // DATA_BRIDGE_BATCH
+        n_val = len(dm.val_dataset) // min(DATA_BRIDGE_BATCH, len(dm.val_dataset))
+        if n_train != DATA_BRIDGE_STEPS:
+            raise AssertionError(f"BRIDGeR: {n_train} steps an epoch, want {DATA_BRIDGE_STEPS}")
+        bridge = {}
+        for name, d, fmt in (("npz", npz_dir, "h5"), ("epc_raw", ctrl_dir, "epc")):
+            bridge[name] = bridge_from(d, fmt, os.path.join(root, f"bridge_{name}"))
+            log(f"data: BRIDGeR from {name}: step ms "
+                f"{[round(x, 2) for x in bridge[name]['step_ms']]}, run "
+                f"{bridge[name]['run_s']:.1f} s [{card}]")
+            check_counts(f"BRIDGeR, {n_train} steps and {n_val} validation batches from "
+                         f"{name} [{card}]", bridge[name]["launches"],
+                         {"K1": 2 * DINOV2_SMALL.num_layers * (n_train + n_val)})
+        res["bridge"] = bridge
+        res["bridge_epc_vs_npz"] = same_losses("BRIDGeR from the raw .epc against npz",
+                                               bridge["epc_raw"], bridge["npz"])
+        marks["train_s"] = time.perf_counter() - t1
+
+        # 10. dataset statistics
+        t1 = time.perf_counter()
+        stats = {}
+        for name, (r, fmt) in (("npz", (npz_root, "h5")), ("epc_raw", (epc_root["raw"], "epc"))):
+            stats[name] = ST.process_dataset(
+                DataConfig(data_root=r, dataset_names=(DATA_DATASET,), data_format=fmt),
+                os.path.join(root, f"stats_{name}.json"))[DATA_DATASET]
+        if stats["npz"] != stats["epc_raw"] or not stats["npz"]["num_steps"]:
+            raise AssertionError("dataset statistics from .epc differ from npz")
+        res["stats_num_steps"] = stats["npz"]["num_steps"]
+        marks["stats_s"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["marks"] = marks
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"data phase: {res['phase_s']:.1f} s ({json.dumps(marks)}) [{card}]")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -5666,6 +6212,11 @@ def main() -> int:
     enc = encoders_phase(t, gen)
     log(f"encoders phase: {enc['phase_s']:.1f} s")
     log("encoders: " + json.dumps(enc))
+
+    # ---- the episode data path: capture, distillation with the tick's
+    # policy, .epc caches, decode routes, training from .epc
+    data = data_phase(t)
+    log("data: " + json.dumps(data))
     del q["runners"], qa, t
 
     # ---- the residual controllers, trained and evaluated
@@ -5718,11 +6269,12 @@ def main() -> int:
                     bound_ms=tot["bound_ms"], bound_by=bound_by(tot),
                     library_ms=tot.get("library_ms"), **extra)
 
-    # K1 runs on ten main paths, K2 on three: the cold tick, the serving
+    # K1 runs on thirteen main paths, K2 on three: the cold tick, the serving
     # pool, the replay CLI, the controllers phase (training and evaluation),
     # RDT finetuning and (K1) the planner's VLM, its tactile encoder's
-    # training and evaluation, its LLM training, the T5-embedded tick, Sparsh
-    # and the warm-replan quality run, each counted from 0; K6 on
+    # training and evaluation, its LLM training, the T5-embedded tick, Sparsh,
+    # the warm-replan quality run, and the data path's distillation and its
+    # RDT-1B and BRIDGeR training from .epc, each counted from 0; K6 on
     # quantized tick (a), the serving pool's int8 batches and the VLM's int8
     # request; K8 on tick (e) and the VLM; K9 and K10 on the planner and the
     # VLM
@@ -5735,6 +6287,10 @@ def main() -> int:
     by_path["K1"]["t5_tick"] = enc["language"]["tick_launches"]["K1"]
     by_path["K1"]["sparsh"] = enc["sparsh"]["launches"]["K1"]
     by_path["K1"]["warm_quality"] = enc["warm_quality"]["launches"]["K1"]
+    by_path["K1"]["data_distill"] = data["distill"]["launches"]["K1"]
+    by_path["K1"]["data_rdt_epc"] = sum(data["rdt"][k]["launches"]["K1"]
+                                        for k in ("epc_raw", "epc_jpeg"))
+    by_path["K1"]["data_bridge_epc"] = data["bridge"]["epc_raw"]["launches"]["K1"]
     by_path["K6"] = {"tick_a": q["a"]["launches"]["K6"], "serving": serve["launches"]["K6"],
                      "replay": rep["launches"]["K6"], "vlm": vl["counts"]["K6"]}
     by_path["K8"] = {"tick_e": q["e"]["launches"]["K8"], "vlm": vl["counts"]["K8"],

@@ -766,8 +766,8 @@ def test_trainers_turn_tf32_off(tmp_path, small_dino):
 def test_controller_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path,
                                                                      episodes):
     """Without CUDA the trainers, the evaluations and the loaders raise;
-    ``device="cpu"`` runs them.  The ``.epc`` cache raises until its module
-    is ported."""
+    ``device="cpu"`` runs them.  ``--data_format epc`` on a directory that
+    holds no ``.epc`` caches raises."""
     from vla_touch_tpu_torch.eval import bridge_test as TBE
     from vla_touch_tpu_torch.eval import lstm_step_test as TLE
 
@@ -785,7 +785,7 @@ def test_controller_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch,
         TL.load_lstm_controller(str(tmp_path))
     st = TB.init_bridge_controller(TC.BridgeControllerConfig(**BKW), device="cpu")
     assert st.module.se_fc1.weight.device.type == "cpu" and st.module.fd_fc1.weight.requires_grad
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match=r"\.epc"):
         TBT.main(argv + ["--data_format", "epc"], device="cpu")
 
 

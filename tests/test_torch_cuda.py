@@ -1349,3 +1349,69 @@ def test_force_sequence_on_the_card_equals_the_cpu(cuda, version):
     f = frames.to(cuda)
     for t in (0, 7, 15):
         assert torch.equal(MT.estimate_force(f[t], kbase, cfg)["force"], card["forces"][t])
+
+
+def test_nvjpeg_decode_of_a_cache_matches_the_host_decoders(cuda, tmp_path):
+    """``EpisodeCache.decode_frames(device='cuda')`` (nvJPEG) on a JPEG
+    cache against OpenCV's decode of the same blobs: within
+    ``chip_smoke.py``'s NVJPEG_MAX_ABS 8 / NVJPEG_MEAN_ABS 1.0 uint8 levels;
+    a raw cache's frames copied up exactly; an empty batch."""
+    import ctypes
+
+    import cv2
+
+    from vla_touch_tpu_torch.data.episode import write_synthetic_episode
+    from vla_touch_tpu_torch.runtime import native_loader as NL
+
+    src = str(tmp_path / "ep.npz")
+    write_synthetic_episode(src, num_steps=12, img_size=96, chunk=4, lang_dim=8)
+    for codec in ("jpeg", "raw"):
+        c = NL.EpisodeCache(NL.pack_episode(src, str(tmp_path / f"{codec}.epc"), codec=codec))
+        got = c.decode_frames(1, 2, 9, device="cuda")
+        assert got.device.type == "cuda" and got.shape == (9, 96, 96, 3)
+        got = got.cpu().numpy()
+        if codec == "raw":
+            np.testing.assert_array_equal(got, c.decode_frames(1, 2, 9, device="cpu"))
+            continue
+        ptrs, lens = c.frame_blobs(1, 2, 9)
+        ref = np.stack([cv2.imdecode(np.frombuffer(ctypes.string_at(int(p), int(n)), np.uint8),
+                                     cv2.IMREAD_COLOR)[:, :, ::-1] for p, n in zip(ptrs, lens)])
+        diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+        assert diff.max() <= 8 and diff.mean() <= 1.0, (diff.max(), diff.mean())
+        assert NL.nvjpeg_decode(ptrs[:0], lens[:0], 96, 96).shape == (0, 96, 96, 3)
+        c.close()
+
+
+def test_nvjpeg_decoder_state_serves_any_batch_size_and_thread(cuda, tmp_path):
+    """A thread's nvJPEG decoder state, kept between calls and initialised
+    afresh when the batch size changes, decodes each frame as a decode of
+    the whole camera does: batch sizes in turn on one thread, calls on
+    three loader threads, and ``host_frames`` there (nvJPEG on the thread's
+    own stream where the build has no libjpeg), the caller's stream left
+    as it was."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vla_touch_tpu_torch.data.episode import write_synthetic_episode
+    from vla_touch_tpu_torch.runtime import native_loader as NL
+
+    src = str(tmp_path / "ep.npz")
+    write_synthetic_episode(src, num_steps=12, img_size=96, chunk=4, lang_dim=8)
+    c = NL.EpisodeCache(NL.pack_episode(src, str(tmp_path / "jpeg.epc"), codec="jpeg"))
+    want = c.decode_frames(0, 0, 12, device="cuda").cpu().numpy()
+    for start, count in ((0, 1), (3, 5), (0, 12), (3, 5), (11, 1)):
+        got = c.decode_frames(0, start, count, device="cuda").cpu().numpy()
+        np.testing.assert_array_equal(got, want[start:start + count])
+
+    def on_thread(start):
+        stream = torch.cuda.current_stream()
+        dev = c.decode_frames(0, start, 4, device="cuda").cpu().numpy()
+        host = None if c.host_decode else c.host_frames(0, start, 4)
+        assert torch.cuda.current_stream() == stream
+        return start, dev, host
+
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for start, dev, host in pool.map(on_thread, range(9)):
+            np.testing.assert_array_equal(dev, want[start:start + 4])
+            if host is not None:
+                np.testing.assert_array_equal(host, want[start:start + 4])
+    c.close()

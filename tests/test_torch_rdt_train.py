@@ -789,8 +789,7 @@ def test_cli_flag_surface_equals_jax_plus_device():
 
 @pytest.mark.parametrize("flags,item", [
     (["--coordinator", "h:1"], "A11"), (["--num_processes", "2"], "A11"),
-    (["--process_id", "0"], "A11"), (["--zero3"], "A11"),
-    (["--data_format", "epc"], "A6")])
+    (["--process_id", "0"], "A11"), (["--zero3"], "A11")])
 def test_cli_flags_left_out_raise(flags, item, tmp_path):
     from vla_touch_tpu_torch.train import rdt_loop as TRL
 

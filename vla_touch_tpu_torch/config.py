@@ -203,7 +203,7 @@ class DataConfig:
     state_noise_snr: Optional[float] = None
     image_aug: bool = False
     control_freq: int = 10           # Franka (agilex = 25)
-    data_format: str = "h5"          # "h5" (+npz); "epc" is not read yet
+    data_format: str = "h5"          # "h5" (+npz) or "epc": the native episode cache
 
 
 @dataclasses.dataclass(frozen=True)

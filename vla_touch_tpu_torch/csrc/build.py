@@ -15,6 +15,10 @@ source is rebuilt and a stale library is never loaded.  Libraries load with
 code, and keeps the compiler's report (registers, shared memory, spills)
 beside the library as ``<name>.<hash>.ptxas``: :func:`ptxas_report` reads
 it whether this process compiled the library or found it built.
+
+A source in ``TOOLKIT_LIBS`` (``jpeg_decode.cu``: nvJPEG, no kernel of its
+own) also links a toolkit library; where the toolkit lacks its header it is
+not built and loading it raises.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
 SOURCES = ("flash_attention", "resblock", "a8w8_matmul", "w4a8_matmul",
            "flash_attention_q8", "w4_swiglu", "w4_postattn", "a8w8_matmul_large",
-           "w8a16_matmul")
+           "w8a16_matmul", "jpeg_decode")
 # one build at a time in a process: a serving pool's dispatcher thread may
 # load a library while the main thread does
 _BUILD_LOCK = threading.Lock()
@@ -50,11 +54,38 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
+def _cuda_home() -> Path:
+    return Path(_nvcc()).resolve().parents[1]
+
+
+# sources that link a toolkit library beyond the CUDA runtime: name ->
+# (the header the toolkit must carry, the libraries to link)
+TOOLKIT_LIBS = {"jpeg_decode": ("nvjpeg.h", ("-lnvjpeg",))}
+
+
+def buildable(name: str) -> bool:
+    """Whether the CUDA toolkit carries the header source ``name`` needs."""
+    if name not in TOOLKIT_LIBS:
+        return True
+    home, header = _cuda_home(), TOOLKIT_LIBS[name][0]
+    return any(p.exists() for p in (home / "include" / header,
+                                    home / "targets" / "x86_64-linux" / "include" / header))
+
+
+def _link_flags(name: str) -> tuple:
+    """Libraries a source links beyond the CUDA runtime (with their
+    directory as the library's run path)."""
+    if name not in TOOLKIT_LIBS:
+        return ()
+    return (*TOOLKIT_LIBS[name][1], "-Xlinker", f"-rpath,{_cuda_home() / 'lib64'}")
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     for inc in sorted(CSRC.glob("*.cuh")):
         src += inc.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS + _link_flags(name))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}.{digest}.so"
 
 
@@ -65,16 +96,18 @@ def _report_path(lib: Path) -> Path:
 def build_all(verbose: bool = False) -> dict:
     """Compile every kernel library whose library or report is missing, in
     parallel; returns {name: path}.  ``verbose`` prints the compiler's
-    report of each source it compiles."""
+    report of each source it compiles.  A source whose toolkit header is
+    missing (``TOOLKIT_LIBS``) is left out."""
     flags = NVCC_FLAGS + ("-Xptxas", "-v")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(name) for name in SOURCES}
+    names = [n for n in SOURCES if buildable(n)]
+    paths = {name: _lib_path(name) for name in names}
     todo = {name: p for name, p in paths.items()
             if not (p.exists() and _report_path(p).exists())}
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu"), *_link_flags(name)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path)
@@ -108,6 +141,9 @@ def ptxas_report(name: str) -> str:
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built first if missing)."""
+    if not buildable(name):
+        raise RuntimeError(f"{TOOLKIT_LIBS[name][0]} is not in the CUDA toolkit at "
+                           f"{_cuda_home()}: {name}.cu cannot be built")
     with _BUILD_LOCK:
         path = _lib_path(name)
         if not path.exists():

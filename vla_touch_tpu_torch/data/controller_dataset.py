@@ -13,24 +13,40 @@ Windows over VLA-augmented episodes:
 - global per-dimension min/max stats over the files;
 - a deterministic train/val file split (:class:`ControllerDataModule`).
 
-Batches are numpy dicts; the trainer moves them to the device.
+Episodes are h5 or npz files, or with ``data_format='epc'`` the native
+``.epc`` caches packed with ``--use_resized`` (``data/pack_epc.py``), whose
+camera streams are the distillation pass's resized frames; with
+``codec='raw'`` the samples are those of the source files bit for bit.
+Batches are numpy dicts, built ahead on threads by ``batches(workers=N)``
+(``data/pipeline.py::OrderedPrefetcher``); the trainer moves them to the
+device.
 """
 
 from __future__ import annotations
 
-import collections
 from typing import Optional, Sequence
 
 import numpy as np
 
 from vla_touch_tpu_torch.data.episode import (GRIPPER_SCALE, EpisodeFile,
                                               list_episode_files, qpos_from_episode)
+from vla_touch_tpu_torch.data.pipeline import OrderedPrefetcher
 
 
 def _episode_files(data_dir: str, data_format: str) -> list:
-    if data_format == "epc":
-        raise NotImplementedError("the native .epc episode cache is not ported yet")
-    return list_episode_files(data_dir)
+    """h5 and npz episodes (an h5 file wins over an npz of its stem), or
+    the ``.epc`` caches; none raises."""
+    pattern = (".epc",) if data_format == "epc" else (".h5", ".npz")
+    files = list_episode_files(data_dir, pattern=pattern)
+    if not files:
+        raise FileNotFoundError(f"no {' / '.join(pattern)} episodes under {data_dir}")
+    return files
+
+
+def _cam_key(f: EpisodeFile, cam: int) -> str:
+    """The resized frames: ``camera{N}_resized``, or a ``.epc`` cache's
+    camera streams (packed from them)."""
+    return f"camera{cam}/camera{cam}" if f.is_epc else f"camera{cam}_resized"
 
 
 class ControllerDataset:
@@ -53,7 +69,7 @@ class ControllerDataset:
         self.episode_indices = []
         for file_idx, path in enumerate(self.file_paths):
             with EpisodeFile(path) as f:
-                ref = np.asarray(f["ee_poses"])
+                ref = np.asarray(f["ee_poses"] if "ee_poses" in f else f["qpos"])
                 n = ref.shape[0]
                 idx = np.where(np.any(np.abs(ref - ref[0:1]) > 1e-2, axis=1))[0]
                 if len(idx) == 0:
@@ -87,7 +103,7 @@ class ControllerDataset:
             if self.use_images:
                 for cam in (1, 2):
                     out[f"images_cam{cam}"] = np.asarray(
-                        f[f"camera{cam}_resized"][start:start + ctx], np.float32) / 255.0
+                        f[_cam_key(f, cam)][start:start + ctx], np.float32) / 255.0
         return out
 
     def get_normalization_stats(self) -> dict:
@@ -112,9 +128,10 @@ class ControllerDataset:
 
     def batches(self, batch_size: int, rng: np.random.Generator, shuffle: bool = True,
                 drop_last: bool = True, workers: int = 0, prefetch_depth: int = 2):
-        """Yield stacked numpy batch dicts.  ``workers`` > 0 builds them in a
-        thread pool, ``workers + prefetch_depth`` in flight; the order and
-        contents are those of the in-line path."""
+        """Yield stacked numpy batch dicts.  ``workers`` > 0 builds them on
+        ``workers`` threads (``OrderedPrefetcher``), ``workers +
+        prefetch_depth`` in flight; the order and contents are those of the
+        in-line path."""
         order = np.arange(len(self))
         if shuffle:
             rng.shuffle(order)
@@ -129,16 +146,9 @@ class ControllerDataset:
             for idxs in starts:
                 yield build(idxs)
             return
-        from concurrent.futures import ThreadPoolExecutor
-
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            pending = collections.deque()
-            for idxs in starts:
-                pending.append(pool.submit(build, idxs))
-                if len(pending) > workers + prefetch_depth:
-                    yield pending.popleft().result()
-            while pending:
-                yield pending.popleft().result()
+        with OrderedPrefetcher(build, starts, workers=workers,
+                               depth=prefetch_depth) as loader:
+            yield from loader
 
 
 class ControllerDataModule:

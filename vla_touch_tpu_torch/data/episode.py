@@ -9,8 +9,8 @@ xyzw quaternion, ``gripper_pos`` (T,) raw 0..255,
 and ``camera{1,2}_resized``.  The npz layout flattens the h5 groups
 (``camera1/camera1`` is ``camera1_images``, ``gelsight_force/forces`` is
 ``gelsight_forces``).  ``h5py`` is imported where an h5 file is opened, so
-a machine without it reads and writes npz episodes; the native ``.epc``
-cache is not read by the port yet.
+a machine without it reads and writes npz episodes.  Packed ``.epc``
+caches (``runtime/native_loader.py``) are read through the same keys.
 """
 
 from __future__ import annotations
@@ -87,22 +87,79 @@ def npz_member_map(path: str, zf, key: str):
                      order="F" if fortran else "C")
 
 
+class _EpcFrames:
+    """One camera of a ``.epc`` cache as an h5-dataset-like view: ``shape``
+    and integer or contiguous-slice indexing, decoding only the frames
+    asked for (``EpisodeCache.host_frames``: the host's threads, or nvJPEG
+    on the card and one copy back)."""
+
+    def __init__(self, cache, cam: int):
+        self._cache = cache
+        self._cam = cam
+        self.shape = (cache.T, cache.H, cache.W, 3)
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __getitem__(self, idx):
+        if isinstance(idx, (int, np.integer)):
+            return self._cache.host_frames(self._cam, int(idx), 1)[0]
+        start, stop, step = idx.indices(self.shape[0])
+        if step != 1:
+            raise IndexError("only contiguous slices supported")
+        return self._cache.host_frames(self._cam, start, max(stop - start, 0))
+
+    def __array__(self, dtype=None, copy=None):
+        out = self._cache.host_frames(self._cam, 0, self.shape[0])
+        return out if dtype is None else out.astype(dtype)
+
+
+class _EpcVla:
+    """The per-step VLA chunks of a ``.epc`` cache as an h5-dataset-like
+    view: an integer index reads one (chunk, D) record."""
+
+    def __init__(self, cache):
+        self._cache = cache
+        self.shape = (cache.T, cache.chunk, cache.state_dim)
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __getitem__(self, idx):
+        if isinstance(idx, (int, np.integer)):
+            return self._cache.read_window(int(idx), 1, vla_at=int(idx))["vla"]
+        start, stop, step = idx.indices(self.shape[0])
+        if step != 1:
+            raise IndexError("only contiguous slices supported")
+        if stop <= start:
+            return np.zeros((0,) + self.shape[1:], np.float32)
+        return np.stack([self[t] for t in range(start, stop)])
+
+    def __array__(self, dtype=None, copy=None):
+        out = self[0:self.shape[0]]
+        return out if dtype is None else out.astype(dtype)
+
+
 class EpisodeFile:
-    """Read access to an h5 or npz episode by h5-style key
+    """Read access to an h5, npz or ``.epc`` episode by h5-style key
     (``'camera1/camera1'``, ``'ee_poses'``, ...).  An uncompressed npz
     member comes back as a read-only memory map (:func:`npz_member_map`),
-    sliced like the array ``np.load`` reads."""
+    sliced like the array ``np.load`` reads.  A ``.epc`` cache is served by
+    the mmap'd C++ cache: numeric records as copies, cameras and VLA chunks
+    as lazy views that read on slice."""
 
     def __init__(self, path: str):
         self.path = path
-        self.is_h5 = not path.endswith(".npz")
+        self.is_epc = path.endswith(".epc")
+        self.is_h5 = not (path.endswith(".npz") or self.is_epc)
         self._f = None
 
     def __enter__(self):
-        if self.path.endswith(".epc"):
-            raise NotImplementedError(
-                f"{self.path}: the native .epc episode cache is not ported yet")
-        if self.is_h5:
+        if self.is_epc:
+            from vla_touch_tpu_torch.runtime.native_loader import EpisodeCache
+
+            self._f = EpisodeCache(self.path)
+        elif self.is_h5:
             import h5py
 
             self._f = h5py.File(self.path, "r")
@@ -116,12 +173,44 @@ class EpisodeFile:
         self._f = None
         return False
 
+    def _epc_keys(self) -> set:
+        c = self._f
+        keys = {"qpos", "gelsight_force/forces", "gelsight_force/displacement"}
+        if c.has_raw_pose:
+            keys |= {"ee_poses", "gripper_pos"}
+        if c.lang_len:
+            keys.add("instruct_embeddings")
+        if c.has_vla:
+            keys.add("vla_action")
+        keys |= {f"camera{i + 1}/camera{i + 1}" for i in range(c.n_cams)}
+        return keys
+
     def __contains__(self, key: str) -> bool:
+        if self.is_epc:
+            return key in self._epc_keys()
         if self.is_h5:
             return key in self._f
         return NPZ_ALIASES.get(key, key) in self._f.files
 
+    def _get_epc(self, key: str):
+        c = self._f
+        if key not in self._epc_keys():
+            raise KeyError(key)
+        if key in ("ee_poses", "gripper_pos"):
+            return c.read_raw_pose()[0 if key == "ee_poses" else 1]
+        if key == "instruct_embeddings":
+            return c.read_lang()[None]                 # the h5 shape (1, L, D)
+        if key == "vla_action":
+            return _EpcVla(c)
+        if key.startswith("camera"):
+            return _EpcFrames(c, int(key[len("camera")]) - 1)
+        field = {"qpos": "qpos", "gelsight_force/forces": "forces",
+                 "gelsight_force/displacement": "disps"}[key]
+        return c.read_window(0, c.T)[field]
+
     def __getitem__(self, key: str):
+        if self.is_epc:
+            return self._get_epc(key)
         if self.is_h5:
             return self._f[key]
         name = NPZ_ALIASES.get(key, key)
@@ -131,7 +220,10 @@ class EpisodeFile:
 
 def qpos_from_episode(f) -> np.ndarray:
     """[ee_pos (3), ortho6d (6), raw gripper (1)] (T, 10), float64; the
-    gripper stays on its raw 0..255 scale."""
+    gripper stays on its raw 0..255 scale.  A ``.epc`` cache packed without
+    raw poses (v1) has only its float32 qpos."""
+    if "ee_poses" not in f and "qpos" in f:
+        return np.asarray(f["qpos"], np.float64)
     ee = np.asarray(f["ee_poses"], np.float64)
     pos, quat = ee[:, :3], ee[:, 3:7]
     o6 = np.asarray(quaternion_to_ortho6d(quat), np.float64)

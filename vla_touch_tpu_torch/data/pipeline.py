@@ -17,6 +17,11 @@ Unlike the JAX package's loader, whose free-running builders call one
 calls ``make_batch(i)`` for batch ``i`` and hands them out in index order:
 when ``make_batch`` draws batch ``i`` from generators seeded by ``i``, the
 stream is a function of the seed, whatever the threads' timing.
+
+Both loaders are one pool, :class:`OrderedPrefetcher`, which maps a
+function over a task list the same way: results in task order, a bounded
+number in flight (the controller datasets' epoch batches);
+:class:`PrefetchLoader` is it over the batch indices.
 """
 
 from __future__ import annotations
@@ -24,42 +29,41 @@ from __future__ import annotations
 import collections
 import itertools
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Optional
+from typing import Callable, Iterable, Optional
+
+_END = object()
 
 
-class PrefetchLoader:
-    """Yield ``make_batch(0)``, ``make_batch(1)``, ... built ahead on
-    ``workers`` threads, at most ``depth`` batches beyond the workers in
-    flight; ``workers`` 0 builds each batch when it is asked for.
-    ``num_batches``: stop after N (None = infinite).  A builder's error is
-    raised where its batch would have been yielded."""
+class OrderedPrefetcher:
+    """Map ``fn`` over ``tasks`` on ``workers`` threads, yielding the results
+    in task order with at most ``workers + depth`` tasks in flight;
+    ``workers`` 0 runs each task when its result is asked for.  A task's
+    error is raised where its result would have been yielded.  The output
+    is that of ``map(fn, tasks)``, with the work overlapped."""
 
-    def __init__(self, make_batch: Callable[[int], dict], depth: int = 2,
-                 workers: int = 1, num_batches: Optional[int] = None):
-        self.make_batch = make_batch
-        self._indices = (itertools.count() if num_batches is None
-                         else iter(range(num_batches)))
+    def __init__(self, fn: Callable, tasks: Iterable, workers: int = 2, depth: int = 2):
+        self._fn = fn
+        self._tasks = iter(tasks)
         self._inflight = workers + max(0, depth)
         self._pool = ThreadPoolExecutor(max_workers=workers) if workers > 0 else None
         self._futures: collections.deque = collections.deque()
-        self._fill()
 
     def _fill(self):
         while self._pool is not None and len(self._futures) < self._inflight:
-            i = next(self._indices, None)
-            if i is None:
+            task = next(self._tasks, _END)
+            if task is _END:
                 return
-            self._futures.append(self._pool.submit(self.make_batch, i))
+            self._futures.append(self._pool.submit(self._fn, task))
 
     def __iter__(self):
         return self
 
     def __next__(self):
         if self._pool is None:
-            i = next(self._indices, None)
-            if i is None:
+            task = next(self._tasks, _END)
+            if task is _END:
                 raise StopIteration
-            return self.make_batch(i)
+            return self._fn(task)
         self._fill()
         if not self._futures:
             raise StopIteration
@@ -80,3 +84,18 @@ class PrefetchLoader:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+class PrefetchLoader(OrderedPrefetcher):
+    """Yield ``make_batch(0)``, ``make_batch(1)``, ... built ahead on
+    ``workers`` threads, at most ``depth`` batches beyond the workers in
+    flight, the first ones started at once; ``workers`` 0 builds each batch
+    when it is asked for.  ``num_batches``: stop after N (None =
+    infinite)."""
+
+    def __init__(self, make_batch: Callable[[int], dict], depth: int = 2,
+                 workers: int = 1, num_batches: Optional[int] = None):
+        super().__init__(make_batch, itertools.count() if num_batches is None
+                         else range(num_batches), workers, depth)
+        self.make_batch = make_batch
+        self._fill()

@@ -44,11 +44,7 @@ class UnifiedVLADataset:
         self.dataset_name = dataset_name or cfg.dataset_names[0]
         if file_paths is None:
             import os
-            if cfg.data_format == "epc":
-                raise NotImplementedError(
-                    "data_format 'epc' (the native episode cache) waits for "
-                    "the port's native_loader (ROADMAP A6)")
-            pattern = (".h5", ".npz")
+            pattern = (".epc",) if cfg.data_format == "epc" else (".h5", ".npz")
             file_paths = list_episode_files(
                 os.path.join(cfg.data_root,
                              f"{self.dataset_name}_hdf5_gelsight"),

@@ -29,8 +29,9 @@ order, so a seed fixes the stream whatever the number of prefetch threads
 Weights start seeded random, or from an HF-layout ``rdt-1b`` file
 (``--pretrained_model_name_or_path``) and HF SigLIP weights
 (``--siglip_checkpoint``); ``--push_to_hub`` uploads the output directory
-after the final checkpoint (``utils/hub.py``).  Multi-host training and
-ZeRO-3 wait for ROADMAP A11, ``.epc`` data for A6; their flags raise.
+after the final checkpoint (``utils/hub.py``).  ``--data_format epc`` reads
+the native episode caches ``data/pack_epc.py`` writes.  Multi-host training
+and ZeRO-3 wait for ROADMAP A11; their flags raise.
 """
 
 from __future__ import annotations
@@ -302,7 +303,7 @@ def build_parser():
     p.add_argument("--load_from_hdf5", action="store_true",
                    help="accepted for script compatibility; episodes are h5 or npz")
     p.add_argument("--data_format", default="h5", choices=("h5", "epc"),
-                   help="'epc' (the native episode cache) waits for ROADMAP A6")
+                   help="'h5' reads h5 and npz episodes, 'epc' the native episode caches")
     p.add_argument("--cond_mask_prob", type=float, default=0.1)
     p.add_argument("--cam_ext_mask_prob", type=float, default=-1.0)
     p.add_argument("--state_noise_snr", type=float, default=None)
@@ -414,9 +415,6 @@ def main(argv=None):
     for name, item in _WAITING.items():
         if getattr(args, name) is not None and getattr(args, name) is not False:
             raise NotImplementedError(f"--{name} is not in the port yet (ROADMAP {item})")
-    if args.data_format == "epc":
-        raise NotImplementedError("--data_format epc waits for the port's native_loader "
-                                  "(ROADMAP A6)")
     model_cfg = {"1b": rdt_1b, "170m": rdt_170m, "tiny": rdt_tiny}[args.model_scale]()
     if args.gradient_checkpointing:
         model_cfg = dataclasses.replace(model_cfg, remat_blocks=True)
