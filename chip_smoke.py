@@ -4,8 +4,10 @@ pool and replay CLI, its language and tactile encoders, GelSight force
 sequences and warm-replan quality, its episode data path (capture,
 distillation, ``.epc`` caches, training from them), its residual
 controllers' training and evaluation, RDT-1B finetuning, its planner and
-the planner's LLM training, the planner's VLM and the training and
-evaluation of the planner's tactile encoder on one NVIDIA GPU.
+the planner's LLM training, the planner's VLM, the training and
+evaluation of the planner's tactile encoder, and multi-device training and
+serving (world 1 over NCCL, two ranks sharing the card over Gloo) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -221,11 +223,22 @@ evaluation of the planner's tactile encoder on one NVIDIA GPU.
    threads; ``rdt_loop`` (RDT-1B) and ``bridge_train`` (DinoV2 on K1, 2
    prefetch threads) from ``.epc``, K1 asserted, their losses equal to the
    npz runs' step by step; ``process_dataset`` from both.
-13. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
+13. Multi-device training and serving (``parallel_phase``, after the
+   tactile encoder): K1 at the 16-head TP shapes against its plain version
+   and SDPA; RDT-1B at full depth through ``rdt_loop.main`` with
+   ``--coordinator`` at world 1 over NCCL (subprocesses of this script,
+   ``--record-rdt-loop``), ZeRO-2 and ``--zero3``, losses and grad norms
+   equal to the one-device run's bit for bit and K1 a step asserted; two
+   ranks sharing the card over Gloo (``--parallel-rank``; 4 blocks at full
+   width): DP2 ZeRO-2 / ZeRO-3 and TP2 steps against one process, the
+   ZeRO-3 checkpoint gathered, written by rank 0 and read back, TP2
+   serving, a checked TP2 step and chunk, the planner's TP2 decode (tokens
+   equal) and T5's TP2 encode against float32.
+14. Prints one ``kernels`` JSON line (ten kernels; K1's launches are the
    tick's, the serving pool's, the replay's, the controllers phase's, RDT
    finetuning's, the VLM's, the tactile encoder's, the T5-embedded tick's,
-   Sparsh's, the warm-quality run's and the data path's (distillation, RDT-1B
-   and BRIDGeR from ``.epc``), K2's the tick's, the replay's and the
+   Sparsh's, the warm-quality run's, the data path's (distillation, RDT-1B
+   and BRIDGeR from ``.epc``) and the parallel path's, K2's the tick's, the replay's and the
    controllers', K6's tick (a)'s, the serving pool's and the VLM's, K8's
    tick (e)'s, the VLM's and the LLM training's, K9's and K10's the
    planner's, the VLM's and the LLM training's,
@@ -6105,7 +6118,505 @@ def data_phase(t) -> dict:
     return res
 
 
+
+# ---- multi-device training and serving ----------------------------------------------
+
+PAR_STEPS = 3                      # rdt_loop steps of each world-1 run
+PAR_DEPTH = 4                      # RDT-1B / Qwen2.5-7B / T5-XXL blocks of the two-rank runs
+PAR_TRAIN_STEPS = 2                # sharded steps of each two-rank mode
+PAR_LR = 1e-4
+PAR_DECODE = 8                     # planner tokens
+PAR_T5_TOKENS = 32
+# Two ranks against one process at bf16 compute.  Gates: every step's loss
+# to RDT_LOSS_RTOL_BF16 (the card-vs-CPU bf16 gate of one step) and the
+# grad norm to PAR_GNORM_RTOL against one process on the global batch; and
+# the relative L2 of the parameters' update over the two steps.  Adam's
+# first update is lr * sign(g) an element, so a gradient within the bf16
+# noise of 0 moves by 2 lr whenever a GEMM rounds otherwise: one process
+# with each micro-batch's rows in two micro-batches of half (DP2's row
+# groups; on an H100, DP2 read 0.066 against the ungrouped update) is the
+# noise floor.  DP2 modes: against that regrouped process, under
+# PAR_UPDATE_REL (the same GEMMs; only the gradient sums' order differs);
+# TP2 (other GEMMs: row-parallel partial sums): against the ungrouped
+# process, under PAR_NOISE_FACTOR x the regrouped process's own distance
+# from it (on the CPU in float32 at rdt_tiny, TP2 read 1.84 x).  TP
+# serving: the chunk's corr above CHUNK_CORR_MIN.  T5 (the phase's T5
+# scales, ``t5_phase_encoder``): the TP2 bf16 hidden states against a
+# float32 copy, relative L2 under T5_REL_TOL, the gate that holds the
+# unsharded bf16 encoder against float32 (TP reorders bf16 roundings; with
+# lecun q the attention is near one-hot and a bf16 TP run read 0.039
+# against unsharded bf16 on an H100).
+PAR_GNORM_RTOL = 2e-3
+PAR_UPDATE_REL = 1e-2
+PAR_NOISE_FACTOR = 3.0
+PAR_T5_REL = T5_REL_TOL
+PAR_RANK_TIMEOUT_S = 400
+PAR_DEVICE = "cuda:0"              # the two ranks share this card
+# K1 at the two-rank runs' shapes (16 heads: TP2 of RDT-1B's 32): per TP2
+# training step (batch 4 x accumulation 2, depth PAR_DEPTH: 4 self, 2 image
+# and 2 language cross-attentions a micro-batch), per TP2 serving chunk
+# (B 1, 5 solver steps, the condition K/V once)
+K1_TP_SHAPES = [
+    ("tp_train_self", 4, 67, 67, 16, 64, "self", None, 2 * PAR_DEPTH),
+    ("tp_train_image_cross", 4, 67, 4374, 16, 64, "cross", None, PAR_DEPTH),
+    ("tp_train_lang_cross", 4, 67, 1024, 16, 64, "cross", "short", PAR_DEPTH),
+    ("tp_serve_self", 1, 67, 67, 16, 64, "self", None, 5 * PAR_DEPTH // 2),
+    ("tp_serve_image_cross", 1, 67, 4374, 16, 64, "cross", None, 5 * PAR_DEPTH // 4),
+    ("tp_serve_lang_cross", 1, 67, 1024, 16, 64, "cross", "short", 5 * PAR_DEPTH // 4),
+]
+K1_STEP_ROWS.update({n: ("tp_train_step" if "train" in n else "tp_chunk")
+                     for n, *_ in K1_TP_SHAPES})
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def record_rdt_loop(argv: list, out_path=None) -> dict:
+    """``rdt_loop.main(argv)`` (what ``python -m
+    vla_touch_tpu_torch.train.rdt_loop`` runs) with each step's loss, grad
+    norm, host ms and K1 launches recorded; the final checkpoint (RDT-1B:
+    19.65 GB, written and read back by ``rdt_train_phase``) recorded, not
+    written.  The counts start at 0.  Written to ``out_path`` as JSON when
+    given (a subprocess's report)."""
+    import torch
+
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+    from vla_touch_tpu_torch.train import rdt_loop as RL
+
+    steps, saved = [], []
+    step, save = RL.RDTTrainer.step, RL.RDTTrainer.save_checkpoint
+
+    def recorded_step(self, state, batch, vision, generator=None):
+        torch.cuda.synchronize()
+        k, t1 = FA.flash_attention.launches, time.perf_counter()
+        out = step(self, state, batch, vision, generator)
+        m = out[1]
+        steps.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                          ms=1e3 * (time.perf_counter() - t1),
+                          k1=FA.flash_attention.launches - k))
+        return out
+
+    RL.RDTTrainer.step = recorded_step
+    RL.RDTTrainer.save_checkpoint = lambda self, state, s: saved.append(s) or {}
+    try:
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        state = RL.main(argv)
+        run_s = time.perf_counter() - t1
+    finally:
+        RL.RDTTrainer.step, RL.RDTTrainer.save_checkpoint = step, save
+    res = dict(steps=steps, saved=saved, run_s=run_s, launches=read_counts(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               zero3=bool(state.plan is not None and state.plan.zero3),
+               sharded=state.plan is not None)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    return res
+
+
+def par_batch(m, tcfg, device, seed: int = 5) -> tuple:
+    """A seeded global (accumulation, rows, ...) batch at RDT-1B's widths
+    (the language padded to 1024 with RDT_LANG_LEN valid tokens, SigLIP's
+    4374 bf16 image tokens) and its draws, made on the card."""
+    import torch
+
+    from vla_touch_tpu_torch.models.rdt import runner as R
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    A, B = tcfg.grad_accum, tcfg.batch_size
+
+    def rn(*s, dtype=torch.float32):
+        return torch.randn((A, B) + s, generator=g, device=device).to(dtype)
+
+    mask = torch.zeros((A, B, m.max_lang_cond_len), dtype=torch.bool, device=device)
+    mask[..., :RDT_LANG_LEN] = True
+    batch = dict(lang_tokens=rn(m.max_lang_cond_len, m.lang_token_dim), lang_mask=mask,
+                 img_tokens=rn(m.img_cond_len, m.img_token_dim, dtype=torch.bfloat16),
+                 state_tokens=rn(1, m.state_token_dim), action_gt=rn(m.horizon, m.output_dim),
+                 action_mask=(torch.rand((A, B, 1, m.output_dim), generator=g,
+                                         device=device) > 0.3).float(),
+                 ctrl_freqs=torch.full((A, B), 25.0, device=device))
+    d = R.loss_draws(R.RDTRunnerConfig(model=m), (A * B, m.horizon, m.output_dim), device, g)
+    draws = {"noise": d["noise"].reshape(A, B, m.horizon, m.output_dim),
+             "timesteps": d["timesteps"].reshape(A, B)}
+    return batch, draws
+
+
+def par_train_modes(rank: int, d: str, device) -> dict:
+    """The two-rank RDT-1B steps (depth PAR_DEPTH, full width, batch 4 x
+    accumulation 2): one process's train_step (rank 0), then DP2 ZeRO-2,
+    DP2 ZeRO-3 (its checkpoint gathered by both ranks and written by rank
+    0) and TP2, each from the same seeded state, against it."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from vla_touch_tpu_torch.config import DataConfig, TrainConfig, rdt_1b
+    from vla_touch_tpu_torch.models.rdt import runner as R
+    from vla_touch_tpu_torch.parallel import launch
+    from vla_touch_tpu_torch.parallel import mesh as mesh_lib
+    from vla_touch_tpu_torch.train import rdt_loop as RL
+    from vla_touch_tpu_torch.train import rdt_train as T
+
+    m = rdt_1b(depth=PAR_DEPTH)
+    rcfg = R.RDTRunnerConfig(model=m)
+    tcfg = TrainConfig(batch_size=4, grad_accum=2, lr_warmup_steps=0, learning_rate=PAR_LR)
+    batch, draws = par_batch(m, tcfg, device)
+    p0 = {n: p.detach().clone() for n, p in
+          R.init_rdt_train(rcfg, 0, device).named_parameters()}
+
+    def one_process(b, dr):
+        st = T.init_train_state(rcfg, tcfg, 0, device)
+        metrics = []
+        for _ in range(PAR_TRAIN_STEPS):
+            st, mt = T.train_step(rcfg, tcfg, st, b, draws=dr)
+            metrics.append((float(mt["loss"]), float(mt["grad_norm"])))
+        return dict(metrics=metrics, params={n: p.detach().clone()
+                                             for n, p in st.params.items()})
+
+    def halves(t):
+        return t.reshape((2 * t.shape[0], t.shape[1] // 2) + tuple(t.shape[2:]))
+
+    def update_rel(params, want):
+        num = den = 0.0
+        for n, p in params.items():
+            du, dw = p.float() - p0[n].float(), want[n].float() - p0[n].float()
+            num += float((du - dw).square().sum())
+            den += float(dw.square().sum())
+        return (num / max(den, 1e-30)) ** 0.5
+
+    res, ref = {}, None
+    if rank == 0:
+        ref = one_process(batch, draws)
+        grouped = one_process({k: halves(v) for k, v in batch.items()},
+                              {k: halves(v) for k, v in draws.items()})
+        res["regrouped_update_rel_l2"] = update_rel(grouped["params"], ref["params"])
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for mode, shape, zero3 in (("dp2_zero2", (2, 1), False), ("dp2_zero3", (2, 1), True),
+                               ("tp2", (1, 2), False)):
+        mesh = mesh_lib.make_mesh(*shape)
+        t = dataclasses.replace(tcfg, zero3=zero3)
+        step_fn, plan = T.make_sharded_train_step(mesh, rcfg, t)
+        state = T.shard_train_state(mesh, T.init_train_state(rcfg, t, 0, device), plan)
+        b = launch.host_local_batch(mesh, batch, spec=(None, "data"), device=device)
+        dr = launch.host_local_batch(mesh, draws, spec=(None, "data"), device=device)
+        metrics, ms = [], []
+        k1 = kernel_fns()["K1"].launches
+        for _ in range(PAR_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, mt = step_fn(state, b, draws=dr)
+            metrics.append((float(mt["loss"]), float(mt["grad_norm"])))
+            ms.append(1e3 * (time.perf_counter() - t1))
+        row = dict(metrics=metrics, step_ms=ms, k1=kernel_fns()["K1"].launches - k1)
+        full = T.gather_train_state(state, to_host=False)
+        if rank == 0:
+            row["update_rel_l2"] = update_rel(full["params"], ref["params"])
+            row["loss_rel"] = [abs(a[0] - w[0]) / abs(w[0]) for a, w in
+                               zip(metrics, ref["metrics"])]
+            row["grad_norm_rel"] = [abs(a[1] - w[1]) / abs(w[1]) for a, w in
+                                    zip(metrics, ref["metrics"])]
+            if shape[0] == 2:
+                row["update_rel_l2_regrouped"] = update_rel(full["params"], grouped["params"])
+                update_ok = row["update_rel_l2_regrouped"] <= PAR_UPDATE_REL
+            else:
+                update_ok = (row["update_rel_l2"]
+                             <= PAR_NOISE_FACTOR * res["regrouped_update_rel_l2"])
+            if (not update_ok or max(row["loss_rel"]) > RDT_LOSS_RTOL_BF16
+                    or max(row["grad_norm_rel"]) > PAR_GNORM_RTOL):
+                raise AssertionError(f"two-rank {mode} against one process: {row}")
+        if zero3:
+            out = os.path.join(d, "ckpt")
+            trainer = RL.RDTTrainer(rcfg, t, DataConfig(), out, device=device, mesh=mesh)
+            trainer.optimizer = T.make_optimizer(t, state.module)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.save_checkpoint(state, PAR_TRAIN_STEPS)
+            dist.barrier()
+            row["checkpoint_s"] = time.perf_counter() - t1
+            path = os.path.join(out, f"checkpoint-{PAR_TRAIN_STEPS}")
+            if rank == 0:
+                row["checkpoint_bytes"] = sum(os.path.getsize(os.path.join(path, f))
+                                              for f in os.listdir(path))
+                back = T.init_train_state(rcfg, t, 1, device)
+                trainer.optimizer = T.make_optimizer(t, back.module)
+                back = trainer.load_checkpoint(back, path)
+                if any(not torch.equal(back.params[n], p) for n, p in full["params"].items()):
+                    raise AssertionError("two-rank ZeRO-3 checkpoint: read back unequal")
+                del back
+            dist.barrier()
+        if mode == "tp2":
+            # K1 on the TP step's own operands (16 heads a rank)
+            need = {"K1": row["k1"] // PAR_TRAIN_STEPS}
+            check_chk(f"rank {rank} TP2 checked step",
+                      checked_run(lambda: step_fn(state, b, draws=dr)), need)
+        res[mode] = row
+        log(f"rank {rank} {mode}: " + json.dumps(row))
+        del state, b, dr, step_fn, plan, full
+        torch.cuda.empty_cache()
+    return res
+
+
+def par_serving(rank: int, device) -> dict:
+    """TP2 ``rdt_predict_action`` on bf16 RDT-1B blocks (depth PAR_DEPTH)
+    against the same module unsharded."""
+    import torch
+
+    from vla_touch_tpu_torch.config import rdt_1b
+    from vla_touch_tpu_torch.models.rdt import runner as R
+    from vla_touch_tpu_torch.parallel import mesh as mesh_lib
+    from vla_touch_tpu_torch.parallel import tp as tp_lib
+
+    m = rdt_1b(depth=PAR_DEPTH)
+    rcfg = R.RDTRunnerConfig(model=m)
+    module = R.init_rdt(rcfg, 0, device)
+    g = torch.Generator(device=device).manual_seed(9)
+    bf16 = torch.bfloat16
+    # the zero-initialised head would make every chunk the same
+    fc2 = module.model.final_ffn.fc2.weight
+    fc2.copy_(0.02 * torch.randn(fc2.shape, generator=g, device=device))
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device=device)
+
+    mask = torch.zeros((1, m.max_lang_cond_len), dtype=torch.bool, device=device)
+    mask[:, :RDT_LANG_LEN] = True
+    args = (rn(1, m.max_lang_cond_len, m.lang_token_dim).to(bf16), mask,
+            rn(1, m.img_cond_len, m.img_token_dim).to(bf16), rn(1, 1, m.state_token_dim),
+            torch.ones((1, 1, m.output_dim), device=device), torch.full((1,), 25.0, device=device))
+    noise = rn(1, m.horizon, m.output_dim)
+    want = R.rdt_predict_action(rcfg, module, *args, init_noise=noise)
+    k = kernel_fns()["K1"].launches
+    tp_lib.shard_rdt_tp_(module, mesh_lib.make_mesh(1, 2))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = R.rdt_predict_action(rcfg, module, *args, init_noise=noise)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1)
+    k = kernel_fns()["K1"].launches - k
+    c = corr(got.float().cpu(), want.float().cpu())
+    if not (np.isfinite(c) and c > CHUNK_CORR_MIN):
+        raise AssertionError(f"TP2 serving chunk corr {c} (min {CHUNK_CORR_MIN})")
+    check_chk(f"rank {rank} TP2 checked chunk", checked_run(
+        lambda: R.rdt_predict_action(rcfg, module, *args, init_noise=noise)), {"K1": k})
+    return dict(chunk_corr=c, max_abs=float((got - want).abs().max()), ms=ms, k1=k)
+
+
+def par_planner(device) -> dict:
+    """Qwen2.5-7B's widths (4 layers, the full vocabulary, bf16): TP2
+    greedy decode against the unsharded tree's."""
+    import dataclasses
+
+    import torch
+
+    from vla_touch_tpu_torch.parallel import mesh as mesh_lib
+    from vla_touch_tpu_torch.planning import llm as L
+
+    cfg = dataclasses.replace(L.qwen25_7b(), num_layers=PAR_DEPTH)
+    tree = L.init_llm(cfg, 0, device, dtype=torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(3)
+    prompt = (torch.randn((1, 24, cfg.hidden_size), generator=g, device=device)
+              * 0.02).to(torch.bfloat16)
+    want, went, _ = L.greedy_generate(cfg, tree, prompt, max_new_tokens=PAR_DECODE, eos_id=-1)
+    sharded = L.shard_llm_params(mesh_lib.make_mesh(1, 2), tree)
+    del tree
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok, ent, _ = L.greedy_generate(cfg, sharded, prompt, max_new_tokens=PAR_DECODE, eos_id=-1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1)
+    if not torch.equal(tok, want):
+        raise AssertionError(f"TP2 planner tokens {tok.tolist()} != {want.tolist()}")
+    return dict(tokens=tok.tolist(), entropy_max_rel=float(((ent - went).abs()
+                                                          / went.abs().clamp_min(1e-6)).max()),
+                decode_ms=ms)
+
+
+def par_t5(device) -> dict:
+    """T5-XXL's widths (4 layers, bf16, ``t5_phase_encoder``'s scales): TP2
+    encode of PAR_T5_TOKENS tokens against a float32 copy on the card,
+    beside the unsharded bf16 module's error."""
+    import dataclasses
+
+    import torch
+
+    from vla_touch_tpu_torch.models.encoders import t5_native as T5
+    from vla_touch_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = dataclasses.replace(T5.t5_v1_1_xxl(), num_layers=PAR_DEPTH)
+    module = t5_phase_encoder(cfg, 0, device)
+    with torch.device("meta"):
+        ref = T5.T5Encoder(cfg)
+    ref = ref.to_empty(device=device).requires_grad_(False)
+    ref.load_state_dict({k: v.float() for k, v in module.state_dict().items()})
+    g = torch.Generator(device=device).manual_seed(4)
+    ids = torch.randint(0, cfg.vocab_size, (1, PAR_T5_TOKENS), generator=g, device=device)
+    mask = torch.ones_like(ids)
+    with torch.inference_mode():
+        want = T5.t5_encode(cfg, ref, ids, mask)
+        one = rel_l2(T5.t5_encode(cfg, module, ids, mask), want)
+    del ref
+    T5.shard_t5_(module, mesh_lib.make_mesh(1, 2))
+    with torch.inference_mode():
+        got = T5.t5_encode(cfg, module, ids, mask)
+    rel = rel_l2(got, want)
+    if not rel <= PAR_T5_REL:
+        raise AssertionError(f"TP2 T5 encode (bf16) against float32: rel L2 {rel} (max "
+                             f"{PAR_T5_REL}; one process {one})")
+    return dict(rel_l2=rel, one_process_rel_l2=one)
+
+
+def parallel_rank(rank: int, world: int, d: str) -> int:
+    """One of the two ranks sharing ``cuda:0`` over Gloo (NCCL refuses two
+    ranks on one card): the sharded training modes, TP serving, the
+    planner's and T5's TP; its report in ``d/rank<rank>.json``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from vla_touch_tpu_torch.parallel import launch
+
+    device = torch.device(PAR_DEVICE)
+    launch.initialize(f"file://{os.path.join(d, 'store')}", world, rank, device=device,
+                      backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    res = dict(rank=rank, train=par_train_modes(rank, d, device),
+               serving=par_serving(rank, device), planner=par_planner(device),
+               t5=par_t5(device))
+    # the sharded paths' launches (not the one-process references')
+    res["launches"] = {"K1": sum(r["k1"] for r in res["train"].values()
+                                 if isinstance(r, dict)) + res["serving"]["k1"]}
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    launch.shutdown()
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def run_ranks(world: int, d: str) -> list:
+    """``world`` processes of :func:`parallel_rank`, started together; a
+    rank that fails or hangs fails the phase."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               str(r), str(world), d], cwd=ROOT)
+             for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        # a rank that fails leaves the others waiting in a collective
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.perf_counter() - t0 > PAR_RANK_TIMEOUT_S):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"parallel ranks exited {[p.returncode for p in procs]}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def parallel_phase(gen) -> dict:
+    """Multi-device training and serving (``parallel/``): K1 at the TP
+    shapes against its plain version; RDT-1B (full depth and width) through
+    ``rdt_loop``'s distributed flags at world 1 over NCCL, ZeRO-2 and then
+    ``--zero3``, PAR_STEPS steps each, against the one-device trainer on the
+    same seed and data (losses and grad norms bit for bit, K1 a step
+    asserted); then two ranks sharing the card over Gloo (depth cut to
+    PAR_DEPTH): DP2 ZeRO-2, DP2 ZeRO-3 and TP2 training steps against one
+    process, the ZeRO-3 checkpoint gathered and written by rank 0 and read
+    back, TP2 serving, a checked TP2 step and chunk, the planner's TP2
+    greedy decode and T5's TP2 encode."""
+    import gc
+    import shutil
+
+    import torch
+
+    from vla_touch_tpu_torch.config import TrainConfig, rdt_1b
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    res = {}
+    try:
+        tp_rows, tp_tot = check_k1(gen, K1_TP_SHAPES)
+        res["k1_tp_rows"] = tp_rows
+        res["k1_tp"] = {k: tp_tot[k] for k in ("tp_train_step", "tp_chunk")}
+        rdt_episodes(os.path.join(root, "data", "mango_hdf5_gelsight"))
+        args = ["--data_root", os.path.join(root, "data"), "--max_train_steps",
+                str(PAR_STEPS), "--sample_period", "1000000", "--checkpointing_period",
+                "1000000", "--lr_warmup_steps", "0", "--dataloader_num_workers", "2",
+                "--seed", "0"]
+        need = rdt_k1_need(rdt_1b(), TrainConfig(), 27)["step"]
+        need3 = rdt_k1_need(rdt_1b(remat_blocks=True), TrainConfig(), 27)["step"]
+        ref = record_rdt_loop(args + ["--output_dir", os.path.join(root, "one")])
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs = {}
+        for mode, extra in (("world1_zero2", []), ("world1_zero3", ["--zero3"])):
+            out = os.path.join(root, f"{mode}.json")
+            cmd = [sys.executable, os.path.abspath(__file__), "--record-rdt-loop", out, "--",
+                   *args, "--output_dir", os.path.join(root, mode), "--coordinator",
+                   f"127.0.0.1:{free_port()}", "--num_processes", "1", "--process_id", "0",
+                   *extra]
+            subprocess.run(cmd, cwd=ROOT, check=True, timeout=PAR_RANK_TIMEOUT_S)
+            with open(out) as f:
+                runs[mode] = json.load(f)
+            r = runs[mode]
+            k1 = [s["k1"] for s in r["steps"]]
+            want_k1 = need3 if extra else need
+            same = [(s["loss"], s["grad_norm"]) for s in r["steps"]] == [
+                (s["loss"], s["grad_norm"]) for s in ref["steps"]]
+            log(f"parallel {mode}: losses {[s['loss'] for s in r['steps']]} grad norms "
+                f"{[s['grad_norm'] for s in r['steps']]} (one device: "
+                f"{[(s['loss'], s['grad_norm']) for s in ref['steps']]}); bit for bit {same}; "
+                f"K1 a step {k1} (want {want_k1}); step ms "
+                f"{[round(s['ms'], 1) for s in r['steps']]} (one device "
+                f"{[round(s['ms'], 1) for s in ref['steps']]}); peak {r['peak_gib']:.2f} GiB "
+                f"(one device {ref['peak_gib']:.2f}); run {r['run_s']:.1f} s")
+            if not (r["sharded"] and r["zero3"] == bool(extra)):
+                raise AssertionError(f"{mode}: rdt_loop did not take the sharded step")
+            if not same:
+                raise AssertionError(f"{mode}: losses / grad norms differ from one device")
+            if k1 != [want_k1] * PAR_STEPS or r["saved"] != [PAR_STEPS]:
+                raise AssertionError(f"{mode}: K1 a step {k1}, final save {r['saved']}")
+        res["world1"] = dict(runs, one_device=ref)
+        ranks = run_ranks(2, root)
+        for rk in ranks:
+            log(f"parallel rank {rk['rank']}: " + json.dumps(
+                {k: rk[k] for k in ("train", "serving", "planner", "t5", "peak_gib")}))
+            log(f"parallel rank {rk['rank']}: K1 launches {rk['launches']['K1']}")
+        res["ranks"] = ranks
+        res["launches"] = {"K1": runs["world1_zero2"]["launches"]["K1"]
+                           + runs["world1_zero3"]["launches"]["K1"]
+                           + sum(rk["launches"]["K1"] for rk in ranks)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"parallel phase: {res['phase_s']:.1f} s; K1 launches {res['launches']['K1']}")
+    return res
+
+
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -6242,12 +6753,19 @@ def main() -> int:
 
     # ---- the planner's tactile encoder, trained and evaluated
     te = tactile_encoder_phase(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- multi-device training and serving
+    par = parallel_phase(gen)
+    log("parallel: " + json.dumps({k: par[k] for k in ("k1_tp", "launches", "phase_s")}))
     for name, rows in (("k1", k1_rows), ("k2", k2_rows), ("k3", k3_rows), ("k4", k4_rows),
                        ("k5", k5_rows), ("k6", k6_rows), ("k7", k7_rows), ("k8", k8_rows),
                        ("k8 llm", pl["k8_llm_rows"]),
                        ("k6 llm", pl["k6_llm_rows"]),
                        ("k1 clip", pl["k1_clip_rows"]), ("k1 vlm", vl["k1_vlm_rows"]),
                        ("k1 sparsh", enc["sparsh"]["k1_sparsh_rows"]),
+                       ("k1 tp", par["k1_tp_rows"]),
                        ("k9", list(pl["k9_rows"].values())),
                        ("k10", list(pl["k10_rows"].values()))):
         log(f"{name} shapes: " + json.dumps(rows))
@@ -6291,6 +6809,7 @@ def main() -> int:
     by_path["K1"]["data_rdt_epc"] = sum(data["rdt"][k]["launches"]["K1"]
                                         for k in ("epc_raw", "epc_jpeg"))
     by_path["K1"]["data_bridge_epc"] = data["bridge"]["epc_raw"]["launches"]["K1"]
+    by_path["K1"]["parallel"] = par["launches"]["K1"]
     by_path["K6"] = {"tick_a": q["a"]["launches"]["K6"], "serving": serve["launches"]["K6"],
                      "replay": rep["launches"]["K6"], "vlm": vl["counts"]["K6"]}
     by_path["K8"] = {"tick_e": q["e"]["launches"]["K8"], "vlm": vl["counts"]["K8"],
@@ -6337,4 +6856,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--record-rdt-loop"]:
+        sys.path.insert(0, ROOT)
+        record_rdt_loop(sys.argv[4:], sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

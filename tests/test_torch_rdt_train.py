@@ -787,14 +787,72 @@ def test_cli_flag_surface_equals_jax_plus_device():
     assert port == _surface(_jax_parser())
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--coordinator", "h:1"], "A11"), (["--num_processes", "2"], "A11"),
-    (["--process_id", "0"], "A11"), (["--zero3"], "A11")])
-def test_cli_flags_left_out_raise(flags, item, tmp_path):
-    from vla_touch_tpu_torch.train import rdt_loop as TRL
+def _cli_data(episodes, root):
+    import shutil
 
-    with pytest.raises(NotImplementedError, match=item):
-        TRL.main(flags + ["--output_dir", str(tmp_path), "--device", "cpu"])
+    data = root / "data" / "mango_hdf5_gelsight"
+    data.mkdir(parents=True)
+    for p in episodes["npz"]:
+        shutil.copy(p, data)
+    return ["--model_scale", "tiny", "--data_root", str(root / "data"), "--batch_size", "2",
+            "--grad_accum", "2", "--lr_warmup_steps", "0", "--checkpointing_period", "2",
+            "--sample_period", "2", "--max_train_steps", "2", "--dataloader_num_workers", "1",
+            "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def plain_cli_run(episodes, tmp_path_factory):
+    """A one-device CLI run (2 steps): its final checkpoint's trees."""
+    from vla_touch_tpu_torch.train import rdt_loop as TRL
+    from vla_touch_tpu_torch.utils import checkpoint as ckpt
+
+    root = tmp_path_factory.mktemp("plain_cli")
+    args = _cli_data(episodes, root)
+    TRL.main(args + ["--output_dir", str(root / "out")])
+    return args, {k: ckpt.load_pytree(str(root / "out" / "checkpoint-2" / f"{k}.msgpack"))
+                  for k in ("params", "ema", "opt_state")}
+
+
+@pytest.mark.parametrize("case", ["coordinator", "launcher_env", "zero3",
+                                  "zero3_coordinator"])
+def test_cli_multi_rank_flags_train(case, plain_cli_run, tmp_path, monkeypatch):
+    """The multi-rank flags train: --coordinator (a file store) /
+    --num_processes 1 / --process_id 0 start a world-1 Gloo group on the
+    CPU, as a launcher's MASTER_ADDR / RANK / WORLD_SIZE do (a TCP store on
+    a port the OS picks), and the trainer takes the sharded step over a (1, 1)
+    mesh; --zero3 takes the ZeRO-3 step (with or without a group).  Each
+    run's checkpoint equals the one-device run's bit for bit (one rank: the
+    sums are copies, ZeRO-3's gathers whole tensors and its recomputed
+    blocks give the same bits).  The group is gone after main returns."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from vla_touch_tpu_torch.train import rdt_loop as TRL
+    from vla_touch_tpu_torch.utils import checkpoint as ckpt
+
+    args, want = plain_cli_run
+    flags = ["--output_dir", str(tmp_path / "out")]
+    if case in ("coordinator", "zero3_coordinator"):
+        flags += ["--coordinator", f"file://{tmp_path / 'store'}", "--num_processes", "1",
+                  "--process_id", "0"]
+    if case == "launcher_env":
+        # port 0: the one rank's store takes a free port (no race under xdist)
+        for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT="0", RANK="0",
+                         WORLD_SIZE="1", LOCAL_RANK="0").items():
+            monkeypatch.setenv(k, v)
+    if case.startswith("zero3"):
+        flags.append("--zero3")
+    state = TRL.main(args + flags)
+    assert not dist.is_initialized()
+    assert state.step == 2 and state.plan is not None
+    assert state.plan.zero3 == case.startswith("zero3")
+    assert isinstance(state.plan.mesh, DeviceMesh) == (case != "zero3")
+    assert (state.module.model.block_call is not None) == case.startswith("zero3")
+    for k in ("params", "ema", "opt_state"):
+        got = ckpt.load_pytree(str(tmp_path / "out" / "checkpoint-2" / f"{k}.msgpack"))
+        for (path, a), (_, b) in zip(jax.tree_util.tree_flatten_with_path(got)[0],
+                                     jax.tree_util.tree_flatten_with_path(want[k])[0]):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=f"{k}{path}")
 
 
 def test_cli_trains_saves_and_resumes_on_cpu(episodes, tmp_path):

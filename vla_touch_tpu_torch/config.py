@@ -227,7 +227,10 @@ class TrainConfig:
     param_dtype: str = "float32"     # "bfloat16" drops the float32 master and
     #                                  applies updates with stochastic
     #                                  rounding (requires use_8bit_adam)
-    zero3: bool = False              # parameter sharding: not in the port
+    zero3: bool = False              # ZeRO-3: parameters and EMA sharded over
+    #                                  the data ranks, each RDT block gathered
+    #                                  for its forward and backward
+    #                                  (train/rdt_train.py::make_sharded_train_step)
     max_train_steps: int = 40000
     checkpointing_period: int = 1000
     checkpoints_total_limit: int = 40

@@ -20,6 +20,13 @@ here are plain torch.
 the norms and the bias table stay float32, as JAX keeps them.
 :func:`t5_from_hf` reads an HF ``T5EncoderModel`` state dict into that
 tree and ``utils/from_flax.py::t5_encoder`` into the module's state.
+
+:func:`t5_tp_spec` is JAX's tensor-parallel layout; :func:`shard_t5_`
+puts a module on one model rank's shards (q/k/v and wi_0/wi_1 on their
+output rows, o and wo on their input columns with the products summed
+over the model ranks, the embedding on its vocabulary rows, each rank's
+heads' columns of the replicated bucket table), and :func:`t5_encode`
+runs either.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vla_touch_tpu_torch.ops.nn import gelu_tanh
+from vla_touch_tpu_torch.parallel import tp as TP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,34 +236,92 @@ def t5_encode(cfg: T5EncoderConfig, module: T5Encoder, input_ids, attention_mask
     input_ids = torch.as_tensor(input_ids, device=dev).long()
     attention_mask = torch.as_tensor(attention_mask, device=dev)
     B, L = input_ids.shape
-    x = module.embed.to(dtype)[input_ids]
+    tp = getattr(module, "tp", None)
+    if tp is None:
+        x = module.embed.to(dtype)[input_ids]
+        rel_bias = module.rel_bias
+    else:
+        x = TP.vocab_lookup(module.embed.to(dtype), input_ids, tp["vocab_start"], tp["group"])
+        rel_bias = module.rel_bias[:, tp["heads"][0]:tp["heads"][1]]
 
     buckets = relative_position_buckets(L, L, cfg.rel_buckets, cfg.rel_max_distance, dev)
     # (L, L, H) -> (1, H, L, L); shared by every layer
-    bias = module.rel_bias.float()[buckets.long()].permute(2, 0, 1)[None]
+    bias = rel_bias.float()[buckets.long()].permute(2, 0, 1)[None]
     neg = torch.tensor(np.finfo(np.float32).min, device=dev)
     bias = bias + torch.where(attention_mask[:, None, None, :].bool(),
                               torch.zeros((), device=dev), neg)
 
-    H, dk = cfg.num_heads, cfg.d_kv
+    def rows_summed(y):
+        return y if tp is None else TP.reduce_from(y, tp["group"])
+
+    dk = cfg.d_kv
     for lp in module.layers:
-        # T5 attention: no 1/sqrt(d) scale (it is folded into the weights)
+        # T5 attention: no 1/sqrt(d) scale (it is folded into the weights);
+        # -1 heads: tensor-parallel, this rank's
         h = _rmsnorm(x, lp.norm1, cfg.eps)
-        q = F.linear(h, lp.q.weight.to(dtype)).reshape(B, L, H, dk)
-        k = F.linear(h, lp.k.weight.to(dtype)).reshape(B, L, H, dk)
-        v = F.linear(h, lp.v.weight.to(dtype)).reshape(B, L, H, dk)
+        q = F.linear(h, lp.q.weight.to(dtype)).reshape(B, L, -1, dk)
+        k = F.linear(h, lp.k.weight.to(dtype)).reshape(B, L, -1, dk)
+        v = F.linear(h, lp.v.weight.to(dtype)).reshape(B, L, -1, dk)
         # products of the compute dtype are exact in float32: float32 scores
         s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) + bias
         a = torch.softmax(s, dim=-1).to(dtype)
-        o = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, L, H * dk)
-        x = x + F.linear(o, lp.o.weight.to(dtype))
+        o = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, L, -1)
+        x = x + rows_summed(F.linear(o, lp.o.weight.to(dtype)))
 
         h = _rmsnorm(x, lp.norm2, cfg.eps)
         g = gelu_tanh(F.linear(h, lp.wi_0.weight.to(dtype)))
         u = F.linear(h, lp.wi_1.weight.to(dtype))
-        x = x + F.linear(g * u, lp.wo.weight.to(dtype))
+        x = x + rows_summed(F.linear(g * u, lp.wo.weight.to(dtype)))
 
     return _rmsnorm(x, module.final_norm, cfg.eps)
+
+
+# ---------------------------------------------------- tensor parallelism --
+
+
+_T5_TP_LAYER = {"norm1": (), "norm2": (), "q": (None, "model"), "k": (None, "model"),
+                "v": (None, "model"), "o": ("model", None), "wi_0": (None, "model"),
+                "wi_1": (None, "model"), "wo": ("model", None)}
+
+
+def t5_tp_spec(module: T5Encoder) -> dict:
+    """name -> JAX's ``t5_tp_spec`` of each parameter, in the torch layout
+    (a linear's weight is JAX's (in, out) leaf transposed): q/k/v and
+    wi_0/wi_1 over heads / FFN columns, o and wo over rows, the embedding
+    over vocabulary, the bucket table and norms replicated."""
+    out = {}
+    for name, _ in module.named_parameters():
+        keys = name.split(".")
+        if keys[0] == "embed":
+            out[name] = ("model", None)
+        elif keys[0] == "layers":
+            spec = _T5_TP_LAYER[keys[2]]
+            out[name] = tuple(reversed(spec)) if keys[-1] == "weight" else spec
+        else:
+            out[name] = ()
+    return out
+
+
+def shard_t5_(module: T5Encoder, mesh) -> T5Encoder:
+    """Put ``module`` on this model rank's shards of :func:`t5_tp_spec`, in
+    place (heads and the vocabulary must divide by the model ranks)."""
+    from vla_touch_tpu_torch.parallel import mesh as mesh_lib
+    from vla_touch_tpu_torch.parallel.comm import Piece
+
+    _, n = mesh_lib.mesh_sizes(mesh)
+    group, rank = mesh_lib.group(mesh, mesh_lib.MODEL_AXIS), mesh_lib.model_index(mesh)
+    cfg = module.cfg
+    specs = t5_tp_spec(module)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            spec = specs[name]
+            if "model" in spec:
+                axis = spec.index("model")
+                p.data = Piece.split(axis, p.shape[axis], group, rank, n).take(p.data)
+    h = cfg.num_heads // n
+    module.tp = {"group": group, "vocab_start": rank * (cfg.vocab_size // n),
+                 "heads": (rank * h, (rank + 1) * h)}
+    return module
 
 
 class NativeT5Embedder:

@@ -58,7 +58,7 @@ class CrossAttentionSized(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int):
         super().__init__()
         self.hidden_size, self.num_heads = hidden_size, num_heads
-        hd = hidden_size // num_heads
+        self.head_dim = hd = hidden_size // num_heads
         self.q = nn.Linear(hidden_size, hidden_size)
         self.kv = nn.Linear(hidden_size, 2 * hidden_size)
         self.q_norm = RmsNorm(hd)
@@ -67,17 +67,18 @@ class CrossAttentionSized(nn.Module):
 
     def compute_kv(self, c):
         """Condition (B, L, C) -> post-norm K and V (B, L, H, D).  V stays a
-        strided view of the projection (K1 reads through strides)."""
+        strided view of the projection (K1 reads through strides).  The head
+        count comes from the projection: tensor-parallel, this rank's
+        heads."""
         B, L, _ = c.shape
-        hd = self.hidden_size // self.num_heads
-        kv = self.kv(c).reshape(B, L, 2, self.num_heads, hd)
+        kv = self.kv(c).reshape(B, L, 2, -1, self.head_dim)
         return self.k_norm(kv[:, :, 0]), kv[:, :, 1]
 
     def attend(self, x, k, v, mask=None):
-        B, N, C = x.shape
-        q = self.q_norm(self.q(x).reshape(B, N, self.num_heads, C // self.num_heads))
+        B, N, _ = x.shape
+        q = self.q_norm(self.q(x).reshape(B, N, -1, self.head_dim))
         out = A.dot_product_attention(q, k, v, kv_mask=mask)
-        return self.proj(out.reshape(B, N, C))
+        return self.proj(out.reshape(B, N, -1))
 
 
 class RDTBlock(nn.Module):
@@ -123,6 +124,9 @@ class RDT(nn.Module):
         # None: compute in the weights' dtype (serving); set for master
         # weights (training)
         self.compute_dtype = None
+        # None, or ZeRO-3's call of one block (train/rdt_train.py): it
+        # gathers the block's parameter shards for its forward and backward
+        self.block_call = None
 
     def sincos_pos_embeds(self) -> dict:
         """The sincos tables the positional embeddings start from."""
@@ -196,7 +200,9 @@ class RDT(nn.Module):
         masks = (lang_mask, img_mask)
         remat = self.cfg.remat_blocks and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            if remat:
+            if self.block_call is not None:
+                x = self.block_call(i, blk, x, conds[i % 2], masks[i % 2])
+            elif remat:
                 x = checkpoint(blk, x, conds[i % 2], masks[i % 2], use_reentrant=False)
             else:
                 x = blk(x, conds[i % 2], masks[i % 2])

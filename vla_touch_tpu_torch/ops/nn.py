@@ -238,19 +238,21 @@ class SelfAttention(nn.Module):
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
         self.num_heads = num_heads
-        head_dim = dim // num_heads
+        self.head_dim = head_dim = dim // num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.q_norm = RmsNorm(head_dim)
         self.k_norm = RmsNorm(head_dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x):
-        B, N, C = x.shape
-        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, C // self.num_heads)
+        # the head count from the projection: a tensor-parallel qkv holds
+        # this rank's heads (parallel/tp.py)
+        B, N, _ = x.shape
+        qkv = self.qkv(x).reshape(B, N, 3, -1, self.head_dim)
         q = self.q_norm(qkv[:, :, 0])
         k = self.k_norm(qkv[:, :, 1])
         out = A.dot_product_attention(q, k, qkv[:, :, 2])
-        return self.proj(out.reshape(B, N, C))
+        return self.proj(out.reshape(B, N, -1))
 
 
 class CrossAttention(nn.Module):

@@ -29,6 +29,12 @@ autograd a w4 leaf at M <= 512 runs K8 inside
 vjp (so x's gradient through a quantized product passes only through each
 row's ``amax``, as in the JAX package).  Decoding runs under ``no_grad``.
 
+Tensor parallelism (:func:`shard_llm_params`, JAX's ``llm_tp_spec``): a
+float tree's q/k/v/gate/up and lm_head on each model rank's output rows,
+o/down on its input columns with the products summed over the ranks,
+the embedding split by vocabulary, the logits gathered before argmax;
+quantized leaves stay whole on every rank.
+
 JAX's type promotion is kept where it shows: a float leaf multiplies in
 the promoted type of x and the kernel and adds its bias with promotion, and
 a LoRA residual runs in float32.  Greedy decoding takes the first maximal
@@ -52,6 +58,8 @@ from vla_touch_tpu_torch.ops import quant as Q
 from vla_touch_tpu_torch.ops import quant_matmul as QM
 from vla_touch_tpu_torch.ops import w4_fused as W4F
 from vla_touch_tpu_torch.ops.nn import silu
+from vla_touch_tpu_torch.parallel import comm as TPComm
+from vla_touch_tpu_torch.parallel import tp as TP
 from vla_touch_tpu_torch.utils.device import resolve_device
 
 
@@ -503,6 +511,15 @@ def _lora_res(y, ab, h, scale):
 
 
 def _dense(x, p, lora=None, scale=1.0):
+    kind = getattr(p, "tp_kind", None)
+    if kind is not None:
+        # a tensor-parallel float leaf (shard_llm_params)
+        if kind == "column":
+            x = TP.copy_to(x, p.tp_group)
+        y = _mm(x, p.weight.t())
+        if kind == "row":
+            y = TP.reduce_from(y, p.tp_group)
+        return _lora_res(y if p.bias is None else y + p.bias, lora, x, scale)
     if _is_quantized(p):
         if x.dtype == torch.bfloat16:
             # the serving path: int8 -> K6, grouped int4 -> K8, M > 512 plain
@@ -581,7 +598,8 @@ def _proj_qkv(cfg: LLMConfig, lp, lo, lscale, h, B, L):
         q = _dense(h, lp.q, lo.get("q"), lscale)
         k = _dense(h, lp.k, lo.get("k"), lscale)
         v = _dense(h, lp.v, lo.get("v"), lscale)
-    return q.reshape(B, L, H, hd), k.reshape(B, L, Hkv, hd), v.reshape(B, L, Hkv, hd)
+    # -1: a tensor-parallel leaf holds this rank's heads
+    return q.reshape(B, L, -1, hd), k.reshape(B, L, -1, hd), v.reshape(B, L, -1, hd)
 
 
 def _swiglu_megakernel_ok(lp, lo) -> bool:
@@ -653,12 +671,20 @@ def llm_forward(cfg: LLMConfig, params: LLM, embeds, positions=None, attn_mask=N
 
 def lm_logits(cfg: LLMConfig, params: LLM, hidden):
     if cfg.tie_embeddings:
-        return _mm(hidden, params.embed.t())
-    return _dense(hidden, params.lm_head)
+        logits = _mm(hidden, params.embed.t())
+    else:
+        logits = _dense(hidden, params.lm_head)
+    tp = getattr(params, "tp", None)
+    # tensor-parallel: each rank's vocabulary rows, gathered
+    return logits if tp is None else TP.gather_last(logits, tp["group"])
 
 
 def embed_tokens(params: LLM, ids):
-    return F.embedding(torch.as_tensor(ids, device=params.embed.device), params.embed)
+    ids = torch.as_tensor(ids, device=params.embed.device)
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        return TP.vocab_lookup(params.embed, ids, tp["vocab_start"], tp["group"])
+    return F.embedding(ids, params.embed)
 
 
 def lm_loss(cfg: LLMConfig, params: LLM, input_embeds, target_ids, loss_mask,
@@ -865,6 +891,93 @@ def train_lm(cfg: LLMConfig, params: LLM, texts, tokenizer=None, steps: int = 20
     finally:
         params.requires_grad_(False)
     return params, float(loss.detach())
+
+
+# --------------------------------------------------------------------------
+# Tensor parallelism (JAX's llm_tp_spec / shard_llm_params)
+# --------------------------------------------------------------------------
+
+
+def llm_tp_spec(path: tuple) -> tuple:
+    """JAX's Megatron rule for a leaf at the flax ``path``: q/k/v/gate/up
+    and the lm_head split on output features, o/down on input features,
+    the q/k/v biases with their outputs, ``embed`` by vocabulary.  Other
+    leaves (norms, quantized ``w4_pack`` / ``w_i8`` / scales) replicated."""
+    keys = [str(k) for k in path]
+    name = "/".join(keys)
+    if keys and keys[0] == "embed":
+        return ("model", None)
+    if name.endswith("kernel"):
+        if any(f"/{t}/" in f"/{name}/" for t in ("q", "k", "v", "gate", "up", "lm_head")):
+            return (None, "model")
+        if any(f"/{t}/" in f"/{name}/" for t in ("o", "down")):
+            return ("model", None)
+    if name.endswith("bias"):
+        if any(f"/{t}/" in f"/{name}/" for t in ("q", "k", "v")):
+            return ("model",)
+    return ()
+
+
+def llm_param_specs(params: LLM) -> dict:
+    """name -> :func:`llm_tp_spec` of each leaf of ``params`` (parameters
+    and the quantized leaves' buffers), in the torch layout (a float
+    Linear's ``weight`` is the flax kernel transposed)."""
+    out = {}
+    for name, t in list(params.named_parameters()) + list(params.named_buffers()):
+        keys = name.split(".")
+        mod = params.get_submodule(".".join(keys[:-1])) if len(keys) > 1 else params
+        linear = isinstance(mod, nn.Linear) and keys[-1] == "weight"
+        path = tuple(keys[:-1]) + ("kernel" if linear else keys[-1],)
+        spec = llm_tp_spec(path)
+        out[name] = tuple(reversed(spec)) if linear and spec else spec
+    return out
+
+
+def _tp_linear(lin: nn.Linear, kind: str, group, rank: int, n: int) -> nn.Linear:
+    axis = 0 if kind == "column" else 1
+    piece = TPComm.Piece.split(axis, lin.weight.shape[axis], group, rank, n)
+    w = piece.take(lin.weight.detach())
+    out = nn.Linear(w.shape[1], w.shape[0], bias=lin.bias is not None and kind == "column",
+                    device="meta")
+    out.weight = nn.Parameter(w, requires_grad=False)
+    if kind == "column" and lin.bias is not None:
+        out.bias = nn.Parameter(piece.take(lin.bias.detach()), requires_grad=False)
+    out.tp_kind, out.tp_group = kind, group
+    return out
+
+
+def shard_llm_params(mesh, params: LLM) -> LLM:
+    """A tree holding this rank's shards of ``params`` over the mesh's model
+    axis (:func:`llm_tp_spec`): each float q/k/v/gate/up leaf (with its
+    bias) and the float lm_head on its output rows, o/down on its input
+    columns (their products summed over the model ranks), ``embed`` on its
+    vocabulary rows (a masked lookup, summed).  The logits are gathered
+    over vocabulary before argmax and entropy.  Quantized leaves stay
+    whole, as JAX's spec leaves them: a quantized tree's linears run
+    replicated (K6 / K8 / K9 / K10 as on one device)."""
+    from vla_touch_tpu_torch.parallel import mesh as mesh_lib
+
+    _, n = mesh_lib.mesh_sizes(mesh)
+    group, rank = mesh_lib.group(mesh, mesh_lib.MODEL_AXIS), mesh_lib.model_index(mesh)
+    cfg = params.cfg
+    V = params.embed.shape[0]
+    layers = []
+    for lp in params.layers:
+        parts = dict(lp.named_parameters(recurse=False))      # the norms
+        for name, leaf in lp.leaves().items():
+            if isinstance(leaf, nn.Linear) and name in ("q", "k", "v", "gate", "up"):
+                leaf = _tp_linear(leaf, "column", group, rank, n)
+            elif isinstance(leaf, nn.Linear) and name in ("o", "down"):
+                leaf = _tp_linear(leaf, "row", group, rank, n)
+            parts[name] = leaf
+        layers.append(DecoderLayer(**parts))
+    head = getattr(params, "lm_head", None)
+    if isinstance(head, nn.Linear):
+        head = _tp_linear(head, "column", group, rank, n)
+    embed = TPComm.Piece.split(0, V, group, rank, n).take(params.embed.detach())
+    out = LLM(cfg, nn.Parameter(embed, requires_grad=False), layers, params.final_norm, head)
+    out.tp = {"group": group, "vocab_start": rank * (V // n)}
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""RDT finetuning loop (counterpart of ``vla_touch_tpu/train/rdt_loop.py``,
-one device).
+"""RDT finetuning loop (counterpart of ``vla_touch_tpu/train/rdt_loop.py``).
 
     python -m vla_touch_tpu_torch.train.rdt_loop --data_root DIR [--output_dir OUT]
+    torchrun --nproc_per_node N -m vla_touch_tpu_torch.train.rdt_loop --data_root DIR
 
 - the consumer dataset (condition masking, state noise, image aug) built
   into ``batch_size x grad_accum`` batches by host threads
@@ -10,18 +10,31 @@ one device).
   attention), masked frames set to the background after normalisation;
 - :func:`train.rdt_train.train_step` (accumulation, clipping, AdamW or
   8-bit AdamW, EMA) on the card, TF32 off (``train/optim.py::float32_math``);
+  over several ranks (a launcher's environment, or ``--coordinator`` /
+  ``--num_processes`` / ``--process_id`` in each process; ``--local_rank``
+  or ``LOCAL_RANK`` picks the card) and with ``--zero3``, the sharded step
+  (``make_sharded_train_step``, a data-parallel mesh over every rank:
+  ZeRO-2, or ZeRO-3 with ``--zero3``);
 - ``checkpoint-<step>`` directories in the JAX package's layout
   (``params.msgpack``, ``ema.msgpack``, ``opt_state.msgpack``,
   ``meta.json``; a checkpoint written by either package resumes in the
   other), optionally written on a thread, pruned to
-  ``checkpoints_total_limit``, resumed from the latest;
+  ``checkpoints_total_limit``, resumed from the latest.  A sharded state is
+  gathered leaf by leaf by every rank and written by rank 0 (under
+  ``async_save`` the gather stays synchronous and the write goes to rank
+  0's thread); each rank resumes from the full file and keeps its shards,
+  so a checkpoint written at any topology resumes at any other and in the
+  JAX package's single-process trainer;
 - the sampling eval every ``sample_period`` steps: the serving DPM-Solver++
   rollout on the current parameters (K1), ``sample_mse`` and the
-  state-norm-scaled ``sample_l2err``;
-- the metrics in ``training.jsonl``.
+  state-norm-scaled ``sample_l2err``, summed over the data ranks (the
+  global eval batch's);
+- the metrics in ``training.jsonl``, written by rank 0.
 
-The data stream's seed is the run's seed plus 31337 times the start step,
-so a resumed run draws new samples; the i-th batch of a run is drawn from
+The data stream's seed is the run's seed plus 9973 times the data rank
+(JAX's process index; the model ranks of one data index draw alike) plus
+31337 times the start step, so a resumed run draws new samples; the i-th
+batch of a run is drawn from
 generators seeded by (that seed, i) and batches are handed to the step in
 order, so a seed fixes the stream whatever the number of prefetch threads
 (the JAX trainer's free-running threads share one generator).
@@ -30,8 +43,9 @@ Weights start seeded random, or from an HF-layout ``rdt-1b`` file
 (``--pretrained_model_name_or_path``) and HF SigLIP weights
 (``--siglip_checkpoint``); ``--push_to_hub`` uploads the output directory
 after the final checkpoint (``utils/hub.py``).  ``--data_format epc`` reads
-the native episode caches ``data/pack_epc.py`` writes.  Multi-host training
-and ZeRO-3 wait for ROADMAP A11; their flags raise.
+the native episode caches ``data/pack_epc.py`` writes.  ``--scale_lr``
+multiplies the rate by batch x accumulation x world size.  Orbax
+checkpoints (``state.orbax``, JAX's multi-host layout) still raise.
 """
 
 from __future__ import annotations
@@ -51,9 +65,13 @@ from vla_touch_tpu_torch.data.pipeline import PrefetchLoader
 from vla_touch_tpu_torch.models.encoders.vit import (SIGLIP_SO400M, SiglipVisionEncoder,
                                                      ViTConfig, init_vit)
 from vla_touch_tpu_torch.models.rdt import runner as R
+from vla_touch_tpu_torch.parallel import launch
+from vla_touch_tpu_torch.parallel import mesh as mesh_lib
+from vla_touch_tpu_torch.parallel.comm import all_reduce_sum
 from vla_touch_tpu_torch.train import rdt_train as T
 from vla_touch_tpu_torch.train.optim import float32_math
 from vla_touch_tpu_torch.utils import checkpoint as ckpt
+from vla_touch_tpu_torch.utils import ema as ema_lib
 from vla_touch_tpu_torch.utils import from_flax as FF
 from vla_touch_tpu_torch.utils.device import resolve_device
 from vla_touch_tpu_torch.utils.image import siglip_normalize
@@ -89,11 +107,14 @@ _SAMPLE_KEYS = ("lang_tokens", "lang_mask", "state_tokens", "action_gt", "action
 
 @torch.no_grad()
 def sample_metrics(rcfg: R.RDTRunnerConfig, module, batch: dict, img_tokens,
-                   generator: Optional[torch.Generator] = None, init_noise=None) -> dict:
+                   generator: Optional[torch.Generator] = None, init_noise=None,
+                   group=None) -> dict:
     """The full-rollout eval: ``rdt_predict_action`` on ``module``'s current
     parameters (the serving path, K1), then ``sample_mse`` (the masked
     squared error over the masked entries) and ``sample_l2err`` (each
-    row's error norm over the state norm).  ``batch``: device tensors."""
+    row's error norm over the state norm).  ``batch``: device tensors.
+    ``group``: the data ranks, whose rows make the global batch (the sums
+    are taken over them)."""
     b = {k: batch[k] for k in _SAMPLE_KEYS}
     pred = R.rdt_predict_action(rcfg, module, b["lang_tokens"], b["lang_mask"], img_tokens,
                                 b["state_tokens"], b["action_mask"], b["ctrl_freqs"],
@@ -105,9 +126,12 @@ def sample_metrics(rcfg: R.RDTRunnerConfig, module, batch: dict, img_tokens,
     se_sum = torch.sum(torch.square(diff))
     mask_sum = torch.sum(mask) * gt.shape[1]
     l2_sum = torch.sum(torch.linalg.norm(diff, dim=-1) / norm)
-    rows = gt.shape[0] * gt.shape[1]
+    rows = torch.tensor(float(gt.shape[0] * gt.shape[1]), device=diff.device)
+    if group is not None:
+        se_sum, mask_sum, l2_sum, rows = all_reduce_sum(
+            torch.stack([se_sum, mask_sum, l2_sum, rows]), group)
     return {"sample_mse": float(se_sum / torch.clamp_min(mask_sum, 1.0)),
-            "sample_l2err": float(l2_sum / max(rows, 1))}
+            "sample_l2err": float(l2_sum / torch.clamp_min(rows, 1.0))}
 
 
 def device_batch(batch: dict, device) -> dict:
@@ -124,28 +148,41 @@ class RDTTrainer:
     output_dir: str
     vision_cfg: ViTConfig = SIGLIP_SO400M
     device: object = None
+    # the (data, model) mesh of a multi-rank run (parallel/mesh.py); the
+    # sharded step also runs without one (one rank) for tcfg.zero3
+    mesh: object = None
 
     def __post_init__(self):
-        if self.tcfg.zero3:
-            raise NotImplementedError("zero3 (parameter sharding) waits for multi-device "
-                                      "training (ROADMAP A11)")
         os.makedirs(self.output_dir, exist_ok=True)
         self.device = resolve_device(self.device)
         self.metrics = MetricsLogger(self.output_dir)
         self.metrics_log = self.metrics.jsonl_path
         self.optimizer = None
+        # a multi-rank run's generator of the rounding bits (train)
+        self.shared_generator = None
         self._ckpt_thread = None
         self._ckpt_error = None
         float32_math()
 
     # ---- checkpoint I/O ----
 
+    def is_main(self) -> bool:
+        return launch.process_index() == 0
+
     def save_checkpoint(self, state: T.TrainState, step: int) -> dict:
         """``checkpoint-<step>``: the three trees, then ``meta.json``, then
         the prune (on a thread with ``async_save``, after a snapshot to host
         memory: training goes on changing the state in place).  Returns
-        {tree: bytes} (empty when the write runs on a thread)."""
+        {tree: bytes} (empty when the write runs on a thread or on a rank
+        other than 0).  A sharded state is gathered by every rank first."""
         path = os.path.join(self.output_dir, f"checkpoint-{step}")
+        if state.plan is not None:
+            full = T.gather_train_state(state)
+            if full is None:
+                return {}
+            state = _Gathered(state.module, full["params"], full["opt_state"],
+                              ema_lib.EmaState(full["shadow"], state.ema.num_updates),
+                              state.step)
         trees = FF.rdt_train_state_to_flax(state, self.optimizer)
         trees["meta"]["step"] = step
         if not self.tcfg.async_save:
@@ -186,8 +223,8 @@ class RDTTrainer:
         """Read ``path`` (written by either package) into ``state``."""
         self._wait_ckpt()
         if os.path.exists(os.path.join(path, "state.orbax")):
-            raise NotImplementedError(f"{path}: orbax checkpoints (multi-host runs) wait for "
-                                      "ROADMAP A11")
+            raise NotImplementedError(f"{path}: orbax checkpoints (JAX's multi-host layout) "
+                                      "wait for the state.orbax reader (ROADMAP A11)")
         trees = {k: ckpt.load_pytree(os.path.join(path, f"{k}.msgpack")) for k in _TREES}
         trees["meta"] = ckpt.load_json(os.path.join(path, "meta.json"))
         return FF.rdt_train_state_from_flax(trees, state, self.optimizer)
@@ -219,8 +256,16 @@ class RDTTrainer:
             state = self.load_checkpoint(state, path)
             logger.info("resumed from %s at step %d", path, state.step)
         start_step = state.step
-        # a resumed run draws new samples and new noise
-        data_seed = seed + 31337 * start_step
+        self.shared_generator = None
+        if self.mesh is not None or tcfg.zero3:
+            _, plan = T.make_sharded_train_step(self.mesh, rcfg, tcfg)
+            state = T.shard_train_state(self.mesh, state, plan)
+            if launch.process_count() > 1:
+                # the rounding bits of replicated leaves: alike on every rank
+                self.shared_generator = torch.Generator(device=self.device).manual_seed(
+                    seed + 31337 * start_step)
+        # a resumed run draws new samples and new noise; each data rank its own
+        data_seed = seed + 9973 * mesh_lib.data_index(self.mesh) + 31337 * start_step
         dataset = VLAConsumerDataset(dcfg, seed=data_seed, file_paths=file_paths)
         generator = torch.Generator(device=self.device).manual_seed(data_seed)
         max_steps = max_steps or tcfg.max_train_steps
@@ -240,6 +285,8 @@ class RDTTrainer:
             loader.close()
         self.save_checkpoint(state, max_steps)
         self._wait_ckpt()
+        if launch.process_count() > 1:
+            torch.distributed.barrier()
         return state
 
     def step(self, state, batch: dict, vision, generator=None):
@@ -253,8 +300,14 @@ class RDTTrainer:
         dev = {k: v.reshape(shape + tuple(v.shape[1:]))
                for k, v in flat.items() if k != "state_norm"}
         dev["img_tokens"] = img_tokens.reshape(shape + tuple(img_tokens.shape[1:]))
-        state, metrics = T.train_step(self.rcfg, self.tcfg, state, dev, generator=generator,
-                                      optimizer=self.optimizer)
+        if state.plan is not None:
+            state, metrics = T.sharded_train_step(
+                state.plan, self.rcfg, self.tcfg, state, dev, generator=generator,
+                shared_generator=self.shared_generator,
+                optimizer=self.optimizer)
+        else:
+            state, metrics = T.train_step(self.rcfg, self.tcfg, state, dev,
+                                          generator=generator, optimizer=self.optimizer)
         return state, metrics, flat, img_tokens
 
     def _step(self, state, batch, vision, generator, step, on_step):
@@ -262,16 +315,32 @@ class RDTTrainer:
         state, metrics, flat, img_tokens = self.step(state, batch, vision, generator)
         if on_step is not None:
             on_step(step, state, metrics)
-        if step % 10 == 0:
+        if step % 10 == 0 and self.is_main():
             row = self.metrics.log(step, {"loss": float(metrics["loss"]),
                                           "grad_norm": float(metrics["grad_norm"])})
             logger.info("step %d loss %.4f", step, row["loss"])
         if (step + 1) % tcfg.checkpointing_period == 0:
             self.save_checkpoint(state, step + 1)
         if (step + 1) % tcfg.sample_period == 0:
-            sm = sample_metrics(self.rcfg, state.module, flat, img_tokens, generator=generator)
-            self.metrics.log(step + 1, sm, kind="sample_eval")
-            logger.info("sample eval @%d: %s", step + 1, sm)
+            group = (None if state.plan is None
+                     else mesh_lib.group(self.mesh, mesh_lib.DATA_AXIS))
+            with T.full_parameters(state) as module:
+                sm = sample_metrics(self.rcfg, module, flat, img_tokens, generator=generator,
+                                    group=group)
+            if self.is_main():
+                self.metrics.log(step + 1, sm, kind="sample_eval")
+                logger.info("sample eval @%d: %s", step + 1, sm)
+
+
+@dataclasses.dataclass
+class _Gathered:
+    """A sharded state's full leaves on the host, as ``TrainState`` reads."""
+
+    module: object
+    params: dict
+    opt_state: object
+    ema: object
+    step: int
 
 
 def _to_host(tree):
@@ -290,12 +359,14 @@ def build_parser():
     import argparse
 
     p = argparse.ArgumentParser(
-        description="Finetune RDT on one device; the flag surface of the JAX package's "
-                    "trainer")
-    # multi-host training waits for ROADMAP A11
-    p.add_argument("--coordinator", default=None, help="multi-host: not in the port (A11)")
-    p.add_argument("--num_processes", type=int, default=None, help="not in the port (A11)")
-    p.add_argument("--process_id", type=int, default=None, help="not in the port (A11)")
+        description="Finetune RDT on one or more GPUs; the flag surface of the JAX "
+                    "package's trainer")
+    # multi-rank training: one process per GPU
+    p.add_argument("--coordinator", default=None,
+                   help="rank 0's host:port (or an init URL, e.g. file:///path); also "
+                        "read from a launcher's MASTER_ADDR / RANK / WORLD_SIZE")
+    p.add_argument("--num_processes", type=int, default=None, help="the world size")
+    p.add_argument("--process_id", type=int, default=None, help="this process's rank")
     # data
     p.add_argument("--data_root", default="data/datasets")
     p.add_argument("--dataset_name", default="mango")
@@ -324,7 +395,8 @@ def build_parser():
                    help="accepted; sampling is infinite, cap with --max_train_steps")
     p.add_argument("--learning_rate", type=float, default=1e-4)
     p.add_argument("--scale_lr", action="store_true",
-                   help="scale the learning rate by the batch (batch x accumulation)")
+                   help="scale the learning rate by the global batch (batch x "
+                        "accumulation x world size)")
     p.add_argument("--lr_scheduler", default="constant",
                    choices=["constant", "linear", "cosine", "constant_with_warmup"])
     p.add_argument("--lr_warmup_steps", type=int, default=500)
@@ -336,7 +408,8 @@ def build_parser():
     p.add_argument("--adam_epsilon", type=float, default=1e-8)
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--use_8bit_adam", action="store_true")
-    p.add_argument("--zero3", action="store_true", help="not in the port (A11)")
+    p.add_argument("--zero3", action="store_true",
+                   help="shard the parameters and EMA over the data ranks (ZeRO-3)")
     p.add_argument("--accum_dtype", choices=["float32", "bfloat16"], default="float32")
     p.add_argument("--ema_dtype", choices=["float32", "bfloat16"], default="float32")
     p.add_argument("--param_dtype", choices=["float32", "bfloat16"], default="float32",
@@ -375,14 +448,11 @@ def build_parser():
                        "(TF32 stays off: float32_math)")
     p.add_argument("--gradient_checkpointing", action="store_true",
                    help="recompute each RDT block in the backward pass")
-    p.add_argument("--local_rank", type=int, default=-1, help="accepted")
-    p.add_argument("--device", default=None, help="default CUDA")
+    p.add_argument("--local_rank", type=int, default=-1,
+                   help="this process's GPU (default LOCAL_RANK, else the rank)")
+    p.add_argument("--device", default=None,
+                   help="default CUDA; 'cpu' runs the process group over Gloo")
     return p
-
-
-# flag -> the queue item its feature waits for
-_WAITING = {"coordinator": "A11", "num_processes": "A11", "process_id": "A11",
-            "zero3": "A11"}
 
 
 def load_pretrained_rdt(rcfg: R.RDTRunnerConfig, path: str, seed: int, device):
@@ -409,19 +479,33 @@ def load_siglip(vision_cfg: ViTConfig, path: str, device, dtype):
 
 
 def main(argv=None):
+    args = build_parser().parse_args(argv)
+    started = not (torch.distributed.is_available() and torch.distributed.is_initialized())
+    distributed = launch.initialize(args.coordinator, args.num_processes, args.process_id,
+                                    device=args.device, local_rank=args.local_rank)
+    try:
+        return _main(args, distributed)
+    finally:
+        if distributed and started:
+            launch.shutdown()
+
+
+def _main(args, distributed: bool):
     from vla_touch_tpu_torch.config import NoiseSchedulerConfig, rdt_1b, rdt_170m, rdt_tiny
 
-    args = build_parser().parse_args(argv)
-    for name, item in _WAITING.items():
-        if getattr(args, name) is not None and getattr(args, name) is not False:
-            raise NotImplementedError(f"--{name} is not in the port yet (ROADMAP {item})")
+    mesh = device = None
+    if distributed:
+        device = launch.local_device()
+        mesh = mesh_lib.make_mesh(n_data=launch.process_count(), n_model=1)
+        logger.info("distributed: rank %d of %d on %s", launch.process_index(),
+                    launch.process_count(), device)
     model_cfg = {"1b": rdt_1b, "170m": rdt_170m, "tiny": rdt_tiny}[args.model_scale]()
     if args.gradient_checkpointing:
         model_cfg = dataclasses.replace(model_cfg, remat_blocks=True)
     rcfg = R.RDTRunnerConfig(model=model_cfg, noise=NoiseSchedulerConfig())
     lr = args.learning_rate
     if args.scale_lr:
-        lr *= args.batch_size * args.grad_accum
+        lr *= args.batch_size * args.grad_accum * launch.process_count()
     tcfg = TrainConfig(
         batch_size=args.batch_size, grad_accum=args.grad_accum,
         max_train_steps=args.max_train_steps, learning_rate=lr,
@@ -429,7 +513,7 @@ def main(argv=None):
         weight_decay=args.adam_weight_decay, adam_beta1=args.adam_beta1,
         adam_beta2=args.adam_beta2, adam_epsilon=args.adam_epsilon,
         max_grad_norm=args.max_grad_norm, use_8bit_adam=args.use_8bit_adam,
-        accum_dtype=args.accum_dtype, ema_dtype=args.ema_dtype,
+        zero3=args.zero3, accum_dtype=args.accum_dtype, ema_dtype=args.ema_dtype,
         param_dtype=args.param_dtype, checkpointing_period=args.checkpointing_period,
         async_save=args.async_save, checkpoints_total_limit=args.checkpoints_total_limit,
         sample_period=args.sample_period, seed=args.seed,
@@ -443,7 +527,7 @@ def main(argv=None):
                       data_format=args.data_format)
     logging.basicConfig(level=logging.INFO)
     trainer = RDTTrainer(rcfg, tcfg, dcfg, args.output_dir, vision_cfg=vision_cfg,
-                         device=args.device)
+                         device=device or args.device, mesh=mesh)
     init_module = vision = None
     if args.pretrained_model_name_or_path:
         init_module = load_pretrained_rdt(rcfg, args.pretrained_model_name_or_path,
@@ -453,7 +537,7 @@ def main(argv=None):
                              model_cfg.compute_dtype)
     state = trainer.train(resume_from=args.resume_from_checkpoint, vision=vision,
                           init_module=init_module)
-    if args.push_to_hub:
+    if args.push_to_hub and trainer.is_main():
         from vla_touch_tpu_torch.utils.hub import push_checkpoint_to_hub
 
         repo = push_checkpoint_to_hub(args.output_dir, hub_model_id=args.hub_model_id,
