@@ -116,10 +116,13 @@ NVIDIA GPU.
    eval (280); before it K1's autograd route against the plain autograd at
    the three RDT training shapes and a depth-2 card step against the CPU
    step; after it the probe's loss fall (gated), the checkpoint read back
-   bit for bit, one step as a checked run and one profiled; step ms,
-   samples/s, TFLOP/s, SigLIP's share, optimizer ms, checkpoint bytes and
-   seconds, peak memory.  K1_SHAPES carries the training shapes, timed per
-   step.
+   bit for bit, JAX's committed two-process orbax checkpoint read to its
+   npz, the state written as ``state.orbax``, resumed from it in place
+   through ``load_checkpoint`` and held against the written trees bit for
+   bit, one step from that state as a checked run and one profiled; step
+   ms, samples/s, TFLOP/s, SigLIP's share, optimizer ms, both checkpoints'
+   bytes and seconds, libzstd's version, peak memory.  K1_SHAPES carries
+   the training shapes, timed per step.
 8. The planner: holds K9 (w4 SwiGLU MLP) and K10 (w4 post-attention) at
    Qwen2.5-7B width (M 1, 8, 24 and 1, 8), K8 at the planner's w4 linears
    (decode and prompt-pass M; per prompt pass of 72 and 442 tokens summed,
@@ -4649,7 +4652,9 @@ def controllers_phase() -> dict:
 
 # ---- RDT finetuning -------------------------------------------------------------
 
-RDT_STEPS = 24                     # trainer steps of the main path
+# trainer steps of the main path (24 until the orbax resume joined the
+# phase; the loss plateaus from step 8)
+RDT_STEPS = 12
 RDT_LANG_LEN = 32                  # instruction tokens of the synthetic episodes
 RDT_EPISODES, RDT_EP_STEPS = 3, 48
 RDT_SEED = 0
@@ -4969,31 +4974,129 @@ def rdt_recipes_check(vision, files) -> dict:
     return res
 
 
+def trees_equal(a, b, where: str):
+    """Trees ``a`` and ``b`` (tensors on the card or the host, numpy
+    arrays) equal leaf for leaf, bit for bit and dtype; keys compared as
+    strings.  A pair with a card side is compared on the card (the host
+    side copied there)."""
+    import torch
+
+    if isinstance(b, dict):
+        if set(map(str, a)) != set(map(str, b)):
+            raise AssertionError(f"{where}: keys differ")
+        for k in b:
+            trees_equal(a[str(k)], b[k], f"{where}/{k}")
+        return
+    got, want = (x.detach() if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+                 for x in (a, b))
+    dev = got.device if got.is_cuda else want.device
+    if got.dtype != want.dtype or not torch.equal(got.to(dev), want.to(dev)):
+        raise AssertionError(f"{where}: trees differ")
+
+
 def rdt_round_trip(path: str, trees: dict):
     """Every leaf of the checkpoint at ``path`` equal, bit for bit and
     dtype, to the state's own tree."""
-    import torch
-
     from vla_touch_tpu_torch.utils import checkpoint as ckpt
 
-    def walk(a, b, where):
-        if isinstance(b, dict):
-            if set(map(str, a)) != set(map(str, b)):
-                raise AssertionError(f"{where}: keys differ")
-            for k in b:
-                walk(a[str(k)], b[k], f"{where}/{k}")
-            return
-        want = b.detach().cpu() if isinstance(b, torch.Tensor) else torch.as_tensor(
-            np.asarray(b))
-        got = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
-        if got.dtype != want.dtype or not torch.equal(got, want.contiguous()):
-            raise AssertionError(f"{where}: checkpoint round trip differs")
-
     for k in ("params", "ema", "opt_state"):
-        walk(ckpt.load_pytree(os.path.join(path, f"{k}.msgpack")), trees[k], k)
+        trees_equal(ckpt.load_pytree(os.path.join(path, f"{k}.msgpack")), trees[k], k)
     meta = ckpt.load_json(os.path.join(path, "meta.json"))
     if meta != trees["meta"]:
         raise AssertionError(f"meta.json {meta} != {trees['meta']}")
+
+
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "orbax_2proc")
+
+
+def orbax_fixture_check() -> dict:
+    """JAX's bytes on this host: the committed two-process orbax checkpoint
+    (``tests/make_orbax_fixture.py``) read by the port's reader, every leaf
+    held against the committed npz of JAX's restore, bit for bit."""
+    from vla_touch_tpu_torch.utils import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    tree = ckpt.load_pytree_orbax(os.path.join(ORBAX_FIXTURE, "checkpoint-1", "state.orbax"))
+    read_s = time.perf_counter() - t0
+    with np.load(os.path.join(ORBAX_FIXTURE, "expected.npz")) as z:
+        want = {k: z[k] for k in z.files}
+    got = {}
+
+    def flat(t, prefix):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                flat(v, f"{prefix}{k}/")
+            elif v is not None:
+                got[f"{prefix}{k}"] = v
+
+    flat(tree, "")
+    if set(got) != set(want):
+        raise AssertionError(f"orbax fixture: leaves differ: {sorted(set(got) ^ set(want))[:8]}")
+    for k in want:
+        trees_equal(got[k], want[k], f"orbax fixture {k}")
+    log(f"orbax fixture: {len(want)} leaves of JAX's two-process checkpoint read bit for bit "
+        f"in {read_s:.3f} s")
+    return dict(leaves=len(want), read_s=read_s)
+
+
+def rdt_orbax_resume(trainer, state, root: str) -> dict:
+    """The full-width state through orbax: the host trees of
+    ``rdt_train_state_to_flax`` written as ``checkpoint-N/state.orbax`` +
+    ``meta.json`` (``save_pytree_orbax``), the state's own tensors zeroed,
+    then resumed in place through ``trainer.load_checkpoint`` (no second
+    state on the card) and every parameter, EMA and optimizer tensor held
+    against the written trees bit for bit.  Returns bytes and seconds."""
+    import shutil
+
+    import torch
+
+    from vla_touch_tpu_torch.train import rdt_loop as RL
+    from vla_touch_tpu_torch.utils import checkpoint as ckpt
+    from vla_touch_tpu_torch.utils import from_flax as FF
+    from vla_touch_tpu_torch.utils import zstd
+
+    trees = FF.rdt_train_state_to_flax(state, trainer.optimizer)
+    t0 = time.perf_counter()
+    host = {k: RL._to_host(trees[k]) for k in ("params", "ema", "opt_state")}
+    snapshot_s = time.perf_counter() - t0
+    meta = dict(trees["meta"])
+    del trees
+    path = os.path.join(root, "orbax", f"checkpoint-{meta['step']}")
+    t0 = time.perf_counter()
+    nbytes = ckpt.save_pytree_orbax(os.path.join(path, "state.orbax"), host)
+    ckpt.save_json(os.path.join(path, "meta.json"), meta)
+    write_s = time.perf_counter() - t0
+    with torch.no_grad():
+        for p in state.module.parameters():
+            p.zero_()
+        for t in state.ema.shadow.values():
+            t.zero_()
+        for name in ("mu", "nu", "m_q", "m_s", "v_q", "v_s"):
+            for t in getattr(state.opt_state, name, {}).values():
+                t.zero_()
+    step = state.step
+    state.step = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = trainer.load_checkpoint(state, path)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    if back is not state or state.step != step:
+        raise AssertionError("orbax resume: not the phase's state, or the step differs")
+    t0 = time.perf_counter()
+    got = FF.rdt_train_state_to_flax(state, trainer.optimizer)
+    for k in ("params", "ema", "opt_state"):
+        trees_equal(got[k], host[k], f"orbax resume {k}")
+    if got["meta"] != meta:
+        raise AssertionError(f"orbax resume: meta {got['meta']} != {meta}")
+    compare_s = time.perf_counter() - t0
+    del got, host
+    shutil.rmtree(os.path.join(root, "orbax"))
+    out = dict(bytes=nbytes, snapshot_s=snapshot_s, write_s=write_s, load_checkpoint_s=read_s,
+               compare_s=compare_s, zstd_version=zstd.version_number(),
+               zstd_library=zstd.find_library())
+    log(f"rdt orbax: {json.dumps(out)}; resumed in place bit for bit")
+    return out
 
 
 def rdt_train_phase() -> dict:
@@ -5108,7 +5211,18 @@ def rdt_train_phase() -> dict:
         log(f"rdt checkpoint: {json.dumps(ck)}; read back bit for bit")
         shutil.rmtree(path)
 
-        # ---- one step as a checked run
+        # ---- the same state through orbax: JAX's bytes read, then the
+        # full-width state written, resumed in place and checked
+        res["orbax_fixture"] = orbax_fixture_check()
+        gc.collect()
+        res["orbax"] = orbax = rdt_orbax_resume(trainer, state, root)
+        log(f"rdt checkpoint bytes / write s / read s: msgpack {ck['bytes']} / "
+            f"{ck['save_s']:.2f} / {ck['read_and_compare_s']:.2f} (read + compare), orbax "
+            f"{orbax['bytes']} / {orbax['write_s']:.2f} / {orbax['load_checkpoint_s']:.2f} "
+            f"(load_checkpoint to the card; compare {orbax['compare_s']:.2f}); libzstd "
+            f"{orbax['zstd_version']} ({orbax['zstd_library']})")
+
+        # ---- one step as a checked run, from the state resumed from orbax
         ds_batch = probe["batch"]
         chk = checked_run(lambda: trainer.step(state, ds_batch, vision,
                                                torch.Generator(device="cuda").manual_seed(3)))

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from vla_touch_tpu_torch.ops import flash_attention as FA
 from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ

@@ -13,6 +13,7 @@ suite's conftest imports JAX, which the port does not need).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 pytestmark = pytest.mark.cuda
 

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from tests.test_marker_tracking import CFG as JAX_TRACK_CFG
 from tests.test_marker_tracking import make_marker_frame

@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from vla_touch_tpu.config import BridgeControllerConfig as JBC
 from vla_touch_tpu.config import LSTMControllerConfig as JLC

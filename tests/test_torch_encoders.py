@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from vla_touch_tpu.models.encoders import t5 as JT5
 from vla_touch_tpu.models.encoders import t5_native as JT

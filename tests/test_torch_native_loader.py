@@ -26,6 +26,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from vla_touch_tpu.data import episode as JE
 from vla_touch_tpu.runtime import native_loader as JN
@@ -335,20 +336,28 @@ def _module_tensors(module) -> dict:
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
-def test_bridge_train_reads_epc_as_the_source(datasets, tmp_path):
+def test_bridge_train_reads_epc_as_the_source(datasets, tmp_path, monkeypatch):
     """``bridge_train --data_format epc --prefetch_workers 2``: one step
     (one batch of the one training file) on the CPU, the trained weights
-    those of the npz run bit for bit; a directory without caches raises."""
+    those of the npz run bit for bit; a directory without caches raises.
+    The trainer's checkpoints (best and final, 0.8 GB each at the default
+    widths) are recorded, not written: nothing here reads them, and the
+    controllers' tests hold the checkpoint files."""
     from vla_touch_tpu_torch.train import bridge_train as TBT
 
+    saved = []
+    monkeypatch.setattr(TBT.DiffusionControllerTrainer, "_save",
+                        lambda self, path: saved.append(os.path.basename(path)))
     argv = ["--horizon", "8", "--batch_size", "16", "--epochs", "1", "--no_visual",
             "--prefetch_workers", "2"]
     runs = {}
     for fmt, extra in (("npz", []), ("npz_ctrl", ["--data_format", "epc"])):
+        saved.clear()
         state, trainer = TBT.main(["--data_dir", datasets[fmt], "--output_dir",
                                    str(tmp_path / fmt)] + argv + extra, device="cpu")
         rows = [json.loads(r) for r in open(trainer.metrics.jsonl_path)]
         assert [r["step"] for r in rows if "loss" in r] == [0]
+        assert saved[-1] == "final"
         runs[fmt] = (_module_tensors(state.module), rows[0]["loss"])
     (a, la), (b, lb) = runs["npz"], runs["npz_ctrl"]
     assert la == lb and np.isfinite(la)

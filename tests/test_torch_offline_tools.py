@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from vla_touch_tpu.ops import marker_tracking as JM
 from vla_touch_tpu.utils import geometry as JG

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 from flax import serialization
 
 from vla_touch_tpu.config import DataConfig as JDC

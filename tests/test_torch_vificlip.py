@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from vla_touch_tpu.models.encoders import clip_text as JCT
 from vla_touch_tpu.models.encoders import vit as JV

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from vla_touch_tpu.planning import llm as JL
 from vla_touch_tpu.planning import planner as JPL

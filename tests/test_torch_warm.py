@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 from jax.experimental.pallas import tpu as pltpu
 
 from vla_touch_tpu.config import NoiseSchedulerConfig, rdt_tiny

@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

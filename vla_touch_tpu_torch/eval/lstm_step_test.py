@@ -59,6 +59,11 @@ def test_lstm_controller(ckpt_path: str, data_dir: str, num_samples: int = 50,
                   len(batch["states"]))
 
 
+def test(argv=None):
+    """The reference-named entry: :func:`main`."""
+    main(argv)
+
+
 def main(argv=None, device=None):
     import argparse
 

@@ -220,12 +220,15 @@ class RDTTrainer:
             raise RuntimeError("async checkpoint write failed") from err
 
     def load_checkpoint(self, state: T.TrainState, path: str) -> T.TrainState:
-        """Read ``path`` (written by either package) into ``state``."""
+        """Read ``path`` (written by either package) into ``state``: its
+        ``state.orbax`` directory where there is one (JAX's multi-process
+        runs write only that), else the msgpack files."""
         self._wait_ckpt()
-        if os.path.exists(os.path.join(path, "state.orbax")):
-            raise NotImplementedError(f"{path}: orbax checkpoints (JAX's multi-host layout) "
-                                      "wait for the state.orbax reader (ROADMAP A11)")
-        trees = {k: ckpt.load_pytree(os.path.join(path, f"{k}.msgpack")) for k in _TREES}
+        orbax_path = os.path.join(path, "state.orbax")
+        if os.path.exists(orbax_path):
+            trees = ckpt.load_pytree_orbax(orbax_path)
+        else:
+            trees = {k: ckpt.load_pytree(os.path.join(path, f"{k}.msgpack")) for k in _TREES}
         trees["meta"] = ckpt.load_json(os.path.join(path, "meta.json"))
         return FF.rdt_train_state_from_flax(trees, state, self.optimizer)
 

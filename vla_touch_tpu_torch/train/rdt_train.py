@@ -147,6 +147,13 @@ def train_draws(rcfg: R.RDTRunnerConfig, tcfg: TrainConfig, state: TrainState,
     return out
 
 
+def _grads(loss, leaves: list, dtype) -> list:
+    """d loss / d leaves in ``dtype``; zeros for a leaf the loss does not
+    reach (as JAX's grad: at depth 1 no block reads the image adaptor)."""
+    return [torch.zeros_like(x, dtype=dtype) if g is None else g.to(dtype)
+            for x, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+
+
 def train_step(rcfg: R.RDTRunnerConfig, tcfg: TrainConfig, state: TrainState, batch: dict,
                draws: Optional[dict] = None, generator: Optional[torch.Generator] = None,
                optimizer: Optional[RDTOptimizer] = None):
@@ -170,7 +177,7 @@ def train_step(rcfg: R.RDTRunnerConfig, tcfg: TrainConfig, state: TrainState, ba
         mb = {k: v[i] for k, v in batch.items()}
         loss = R.rdt_compute_loss(rcfg, state.module, mb, noise=draws["noise"][i],
                                   timesteps=draws["timesteps"][i])
-        g = [x.to(acc_dtype) for x in torch.autograd.grad(loss, leaves)]
+        g = _grads(loss, leaves, acc_dtype)
         if g_sum is None:
             g_sum = g
         else:
@@ -464,7 +471,7 @@ def sharded_train_step(plan: ShardPlan, rcfg: R.RDTRunnerConfig, tcfg: TrainConf
         outer = _zero3_outer(plan, module) if plan.zero3 else {}
         loss = R.rdt_compute_loss(rcfg, _Bound(module, outer) if outer else module, mb,
                                   noise=draws["noise"][i], timesteps=draws["timesteps"][i])
-        g = [x.to(acc_dtype) for x in torch.autograd.grad(loss, leaves)]
+        g = _grads(loss, leaves, acc_dtype)
         if g_sum is None:
             g_sum = g
         else:

@@ -1,5 +1,6 @@
 """Directory checkpoints of parameter trees + JSON metadata (counterpart of
-``vla_touch_tpu/utils/checkpoint.py``, its msgpack half).
+``vla_touch_tpu/utils/checkpoint.py``): flax msgpack files, and orbax
+directories (below, ``save_pytree_orbax``).
 
 A tree file is flax's msgpack state-dict format, byte for byte as
 ``flax.serialization.to_bytes`` writes a tree of numpy leaves that
@@ -19,13 +20,18 @@ never held twice in host memory.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
 import json
 import mmap
 import os
 import re
 import shutil
 import struct
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
 import numpy as np
@@ -338,6 +344,200 @@ def save_stats(path: str, stats: dict) -> None:
 
 def load_stats(path: str) -> dict:
     return {k: np.asarray(v, np.float32) for k, v in load_json(path).items()}
+
+
+# ---- orbax directories ---------------------------------------------------------
+#
+# What orbax's StandardCheckpointer writes (use_ocdbt, zarr v2): ``_METADATA``
+# (JSON: each leaf's key path and value type), ``_CHECKPOINT_METADATA`` and
+# one OCDBT database (utils/ocdbt.py) holding each array as zarr v2
+# (utils/zarr2.py) under the name of its key path joined by ".".  JAX's
+# multi-process runs also leave ``ocdbt.process_<i>/`` databases that the
+# root one refers to; the reader follows the root's references.
+
+ORBAX_METADATA = "_METADATA"
+ORBAX_CHECKPOINT_METADATA = "_CHECKPOINT_METADATA"
+ORBAX_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+                 "StandardCheckpointHandler")
+KEY_SEQUENCE, KEY_DICT = 1, 2
+_ARRAY_TYPES = ("jax.Array", "np.ndarray")
+# an empty container's value type
+_EMPTY_TYPES = {dict: "Dict", list: "List", tuple: "Tuple"}
+
+
+def _io_threads() -> int:
+    return max(1, min(16, os.cpu_count() or 1))
+
+
+def _bounded_map(pool, fn, items, window: int):
+    """``pool.map`` in order with at most ``window`` results in flight."""
+    it = iter(items)
+    pending = collections.deque(pool.submit(fn, x) for x in itertools.islice(it, window))
+    while pending:
+        done = pending.popleft().result()
+        pending.extend(pool.submit(fn, x) for x in itertools.islice(it, 1))
+        yield done
+
+
+def _orbax_leaves(tree, keys=()):
+    """[(((key, key_type), ...), leaf)] of a nested dict / list / tuple tree;
+    an empty container is a leaf of its own (orbax records it)."""
+    if isinstance(tree, dict) and tree:
+        return [x for k, v in tree.items() for x in _orbax_leaves(v, keys + ((str(k), KEY_DICT),))]
+    if isinstance(tree, (list, tuple)) and tree:
+        return [x for i, v in enumerate(tree)
+                for x in _orbax_leaves(v, keys + ((str(i), KEY_SEQUENCE),))]
+    return [(keys, tree)]
+
+
+def save_pytree_orbax(path: str, tree: Any) -> int:
+    """Write ``tree`` (nested dicts / lists / tuples of numpy arrays,
+    numbers, tensors and None) as orbax's StandardCheckpointer does, so that
+    JAX's ``load_pytree_orbax`` reads it.  The directory is written beside
+    ``path`` and renamed into place when complete (an existing ``path`` is
+    replaced).  Chunks are compressed on a thread pool.  Returns the bytes
+    written."""
+    from vla_touch_tpu_torch.utils import ocdbt, zarr2
+
+    path = os.path.abspath(path)
+    t0 = time.time_ns()
+    tmp = f"{path}.orbax-checkpoint-tmp-{t0}"
+    try:
+        writer = ocdbt.Writer(tmp)
+        tree_meta, chunks = {}, []
+        for keys, leaf in _orbax_leaves(tree):
+            if not keys:
+                raise ValueError("the tree must be a dict, list or tuple")
+            name = ".".join(k for k, _ in keys)
+            entry = {"key_metadata": [{"key": k, "key_type": t} for k, t in keys]}
+            if leaf is None or (isinstance(leaf, (dict, list, tuple)) and not leaf):
+                kind = "None" if leaf is None else next(
+                    v for t, v in _EMPTY_TYPES.items() if isinstance(leaf, t))
+                entry["value_metadata"] = {"value_type": kind, "skip_deserialize": True}
+            else:
+                arr, dtype = zarr2.host_array(leaf)
+                shape = zarr2.chunk_shape(arr.shape, arr.itemsize)
+                writer.put(f"{name}/.zarray".encode(), zarr2.zarray(arr.shape, shape, dtype))
+                chunks += zarr2.array_chunks(name, arr, shape)
+                entry["value_metadata"] = {"value_type": "jax.Array", "skip_deserialize": False,
+                                           "write_shape": list(shape)}
+            tree_meta[str(tuple(k for k, _ in keys))] = entry
+        threads = _io_threads()
+        with ThreadPoolExecutor(threads) as pool:
+            for key, data in _bounded_map(pool, lambda kv: (kv[0], zarr2.encode_chunk(kv[1])),
+                                          chunks, 2 * threads):
+                writer.put(key, data)
+        nbytes = writer.commit()
+        for name, obj in ((ORBAX_METADATA, {"tree_metadata": tree_meta, "use_ocdbt": True,
+                                            "use_zarr3": False,
+                                            "store_array_data_equal_to_fill_value": True,
+                                            "custom_metadata": None}),
+                          (ORBAX_CHECKPOINT_METADATA, {
+                              "item_handlers": ORBAX_HANDLER, "metrics": {},
+                              "performance_metrics": {}, "init_timestamp_nsecs": t0,
+                              "commit_timestamp_nsecs": time.time_ns(),
+                              "custom_metadata": {}})):
+            data = json.dumps(obj).encode()
+            with open(os.path.join(tmp, name), "wb") as f:
+                f.write(data)
+            nbytes += len(data)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+        return nbytes
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def load_pytree_orbax(path: str, target: Any = None) -> Any:
+    """An orbax directory (JAX's ``save_pytree_orbax``, or the port's) as
+    :func:`load_pytree` returns a msgpack file of the same tree: nested
+    string-keyed dicts (sequence indices as "0", "1", ...), numpy arrays,
+    bfloat16 leaves as torch tensors, None leaves as None and empty
+    containers as {}.  Arrays are read on a thread pool.  With ``target``,
+    restricted to its structure (keys and shapes validated)."""
+    from vla_touch_tpu_torch.utils import ocdbt, zarr2
+
+    path = os.path.abspath(path)
+    meta = load_json(os.path.join(path, ORBAX_METADATA))
+    if not meta.get("use_ocdbt", False) or meta.get("use_zarr3", False):
+        raise ValueError(f"{path}: only OCDBT + zarr v2 checkpoints are read "
+                         f"(use_ocdbt {meta.get('use_ocdbt')}, use_zarr3 {meta.get('use_zarr3')})")
+    leaves, names = [], []
+    for entry in meta["tree_metadata"].values():
+        keys = [k["key"] for k in entry["key_metadata"]]
+        vm = entry["value_metadata"]
+        kind = vm["value_type"]
+        if kind in _ARRAY_TYPES:
+            names.append(".".join(keys))
+        elif kind != "None" and kind not in _EMPTY_TYPES.values():
+            raise ValueError(f"{path}: leaf {'/'.join(keys)} of value type {kind} is not read")
+        leaves.append((keys, kind))
+    with ocdbt.Database(path) as db, ThreadPoolExecutor(_io_threads()) as pool:
+        arrays = dict(zip(names, pool.map(lambda n: zarr2.read_array(db, n, where=path),
+                                          names)))
+    tree: dict = {}
+    for keys, kind in leaves:
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        if kind == "None":
+            value = None
+        elif kind in _EMPTY_TYPES.values():
+            value = {}
+        else:
+            value = arrays[".".join(keys)]
+        node[keys[-1]] = value
+    return tree if target is None else _match(tree, target)
+
+
+def _host_copy(tree):
+    """A host copy of every array leaf (tensors and numpy arrays alike)."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
+class AsyncOrbaxSaver:
+    """Overlapped :func:`save_pytree_orbax` writes.  ``save`` waits for the
+    previous write (at most one in flight), copies the tree to host memory
+    and writes it on a background thread; ``wait`` blocks until it has
+    landed and re-raises its failure; call ``close`` (or ``wait``) before
+    the process exits."""
+
+    def __init__(self):
+        self._thread = None
+        self._error = None
+
+    def save(self, path: str, tree: Any) -> None:
+        self.wait()
+        host = _host_copy(tree)
+
+        def write():
+            try:
+                save_pytree_orbax(path, host)
+            except BaseException as e:  # raised by wait
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async orbax checkpoint write failed") from err
+
+    def close(self) -> None:
+        self.wait()
 
 
 # ---- step-numbered checkpoint directories -------------------------------------

@@ -545,14 +545,16 @@ def flax_paths(module: torch.nn.Module) -> dict:
     return out
 
 
-def _torch(a) -> torch.Tensor:
-    """A numpy leaf (bfloat16 as ml_dtypes stores it) or tensor -> tensor."""
+def _torch(a, copy: bool = True) -> torch.Tensor:
+    """A numpy leaf (bfloat16 as ml_dtypes stores it) or tensor -> tensor
+    (``copy`` False: a writable array's own memory, for a caller that
+    copies it on)."""
     if isinstance(a, torch.Tensor):
         return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a))
+    return torch.from_numpy(np.array(a) if copy or not a.flags.writeable else a)
 
 
 def nest(paths: dict, values: dict, transpose: bool = True) -> dict:
@@ -579,9 +581,12 @@ def unnest(paths: dict, tree: dict, device=None, transpose: bool = True) -> dict
             if p not in node:
                 raise KeyError(f"{'/'.join(path)} missing from the tree")
             node = node[p]
-        v = _torch(node)
-        v = (v.t() if t and transpose else v).contiguous()
-        out[name] = v if device is None else v.to(device)
+        # to another device: one copy there, transposed where it lands
+        away = device is not None and torch.device(device).type != "cpu"
+        v = _torch(node, copy=not away)
+        if device is not None:
+            v = v.to(device)
+        out[name] = (v.t() if t and transpose else v).contiguous()
     return out
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Mapping
 
+import numpy as np
 import torch
 
 DEFAULT_PADDING_FACTOR = 1.4
@@ -54,3 +55,20 @@ def denormalize_actions(normalized: torch.Tensor, stats: Mapping,
     padded_mins, safe_range = _padded_bounds(mins, maxs, padding_factor,
                                              normalized.device)
     return (normalized + 1.0) / 2.0 * safe_range + padded_mins
+
+
+def compute_minmax_stats(expert_actions: np.ndarray, vla_actions: np.ndarray) -> dict:
+    """Global per-dimension min/max stats over the whole dataset: everything
+    but the last axis flattened.  float32 numpy arrays.  (No range floor:
+    ``ControllerDataset.get_normalization_stats`` floors a range below 1e-6
+    to 1 and does not call this, as in the JAX package.)"""
+    ea = np.asarray(expert_actions, dtype=np.float32).reshape(-1, np.shape(expert_actions)[-1])
+    va = np.asarray(vla_actions, dtype=np.float32).reshape(-1, np.shape(vla_actions)[-1])
+    return {
+        "action_mins": ea.min(axis=0),
+        "action_maxs": ea.max(axis=0),
+        "action_range": ea.max(axis=0) - ea.min(axis=0),
+        "vla_mins": va.min(axis=0),
+        "vla_maxs": va.max(axis=0),
+        "vla_range": va.max(axis=0) - va.min(axis=0),
+    }
