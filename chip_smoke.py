@@ -3,11 +3,12 @@
 pool and replay CLI, its language and tactile encoders, GelSight force
 sequences and warm-replan quality, its episode data path (capture,
 distillation, ``.epc`` caches, training from them), its residual
-controllers' training and evaluation, RDT-1B finetuning, its planner and
-the planner's LLM training, the planner's VLM, the training and
-evaluation of the planner's tactile encoder, and multi-device training and
-serving (world 1 over NCCL, two ranks sharing the card over Gloo) on one
-NVIDIA GPU.
+controllers' training and evaluation, the README's two walkthroughs
+(``examples/torch_full_pipeline.py``, ``torch_planning_pipeline.py``),
+RDT-1B finetuning, its planner and the planner's LLM training, the
+planner's VLM, the training and evaluation of the planner's tactile
+encoder, and multi-device training and serving (world 1 over NCCL, two
+ranks sharing the card over Gloo) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -18,8 +19,10 @@ NVIDIA GPU.
 2. Holds each kernel against its plain PyTorch version on the card at every
    shape the tick gives it (K1 flash attention: SigLIP, DinoV2 and the three
    RDT-1B attentions, plus a ragged and a fully masked language mask, with
-   q/k/v laid out as the modules pass them; K2 fused residual block: the
-   12 BRIDGeR block shapes, and check-only at horizon 32) and times kernel,
+   q/k/v laid out as the modules pass them, and head dims 8, 12, 20, 96,
+   128 and the walkthroughs' shapes; K2 fused residual block: the 12
+   BRIDGeR block shapes, the 12 at horizons 64 and 48 (three and four m16
+   time tiles), and check-only at horizon 32) and times kernel,
    plain version, a library yardstick (SDPA for K1) and the bound.  Kernel,
    plain and library times are device times (calls captured in a CUDA
    graph and replayed); the eager back-to-back loop, which the host's
@@ -108,12 +111,13 @@ NVIDIA GPU.
    runs (every K1/K2 call against its plain version); the LSTM's
    step-by-step rollout against its sequence mode; step ms, samples/s,
    peak memory, the DinoV2 share of a step and the refine ms.
-   Then RDT finetuning (``rdt_train_phase``): RDT-1B and SigLIP So400m at
-   batch 4 x accumulation 4 on seeded synthetic npz episodes (384^2
-   frames, a 32-token instruction) through ``RDTTrainer.train`` for
-   RDT_STEPS steps, one sampling eval and the final checkpoint, with K1's
-   launches asserted a step (SigLIP 27, the micro-batches' 224) and for the
-   eval (280); before it K1's autograd route against the plain autograd at
+   Then RDT finetuning (``rdt_train_phase``): RDT-1B at full width and
+   RDT_DEPTH blocks and SigLIP So400m at batch 4 x accumulation 4 on seeded
+   synthetic npz episodes (384^2 frames, a 32-token instruction) through
+   ``RDTTrainer.train`` for RDT_STEPS steps, one sampling eval and the final
+   checkpoint, with K1's launches asserted a step (SigLIP 27, then 2 a block
+   in each micro-batch) and for the eval (2 a block a solver step); before
+   it K1's autograd route against the plain autograd at
    the three RDT training shapes and a depth-2 card step against the CPU
    step; after it the probe's loss fall (gated), the checkpoint read back
    bit for bit, JAX's committed two-process orbax checkpoint read to its
@@ -135,11 +139,12 @@ NVIDIA GPU.
    projector) and serves ``describe``, ``guess``, ``ask`` (a 24-token
    prompt, so K9 runs in the prompt pass) and ``reason_llm`` (a greedy
    turn, then best-of-8 sampling) on the fused tree with ``MEGAKERNELS`` on,
-   64 new tokens each, with the K1/K8/K9/K10 launches asserted from the
+   PLAN_TOKENS new tokens each, with the K1/K8/K9/K10 launches asserted from the
    code, plus one int8 request (K6); then the tactile feature corr and the
    teacher-forced per-step logits corr against the plain versions; every
-   request again at 4 tokens (and the int8 request at 2) with each kernel
-   call held to its plain version on its own operands; the decode tiers (unfused, fused, fused + megakernels),
+   request again at 2 tokens (the int8 request too) with each kernel
+   call held to its plain version on its own operands; the decode tiers
+   (unfused, fused, fused + megakernels),
    best-of-8 throughput and a profiled decode.
    Then the planner's LLM training (``llm_train_phase``) on the same
    fused w4 tree and CLIP encoder: PR 16's seeded PhysiCLeAR tree, its QA
@@ -162,13 +167,13 @@ NVIDIA GPU.
    seeded weights (the decoder in grouped int4 layer by layer, its fused
    twin and an int8 tree; the tower as float32 copies of bf16-rounded
    weights); request A (one image, 64 greedy tokens) and request B (both
-   images in one tower run, 64 tokens) on the fused tree with
+   images in one tower run, VLM_TOKENS tokens) on the fused tree with
    ``MEGAKERNELS`` on, request C (A on the int8 tree, 16 tokens), each
    with its launches asserted from ``planner_launches`` (K1 one per vision
    block a tower run; K8/K9/K10 per prompt pass and step, none in a prompt
    pass above 512 rows; K6 per int8 linear); the vision-token corr against
    the tower with float32 attention and the teacher-forced logits corr at
-   the M-RoPE positions; A and B at 4 tokens and C at 2 as checked runs;
+   the M-RoPE positions; A, B and C at 2 tokens as checked runs;
    the tower ms, TTFT and decode ms a token; a three-turn planner session
    (``PlannerSession``, the VLM over request A's image and the messages,
    feedback from the marker-tracked force of a GelSight frame and the
@@ -226,14 +231,22 @@ NVIDIA GPU.
    threads; ``rdt_loop`` (RDT-1B) and ``bridge_train`` (DinoV2 on K1, 2
    prefetch threads) from ``.epc``, K1 asserted, their losses equal to the
    npz runs' step by step; ``process_dataset`` from both.
+   Then the README's walkthroughs (``examples_phase``, under
+   ``build/examples``): both through their own ``main`` on the card, each
+   stage's seconds, launches by kernel and K1's by head dim, the JAX
+   walkthrough test's assertions; one walkthrough tick and one BRIDGeR
+   evaluation batch as checked runs, and each against float32 plain
+   attention (corr); and BRIDGeR at its deployment width
+   over the 64-step chunk (10 SDE steps, K2 120) against the plain UNet
+   path (corr) and as a checked run.
 13. Multi-device training and serving (``parallel_phase``, after the
    tactile encoder): K1 at the 16-head TP shapes against its plain version
    and SDPA; RDT-1B at full depth through ``rdt_loop.main`` with
-   ``--coordinator`` at world 1 over NCCL (subprocesses of this script,
-   ``--record-rdt-loop``), ZeRO-2 and ``--zero3``, losses and grad norms
+   ``--coordinator`` at world 1 over NCCL (in this process, each run
+   starting and destroying its group), ZeRO-2 and ``--zero3``, losses and grad norms
    equal to the one-device run's bit for bit and K1 a step asserted; two
-   ranks sharing the card over Gloo (``--parallel-rank``; 4 blocks at full
-   width): DP2 ZeRO-2 / ZeRO-3 and TP2 steps against one process, the
+   ranks sharing the card over Gloo (``--parallel-rank``; PAR_DEPTH blocks
+   at full width): DP2 ZeRO-2 / ZeRO-3 and TP2 steps against one process, the
    ZeRO-3 checkpoint gathered, written by rank 0 and read back, TP2
    serving, a checked TP2 step and chunk, the planner's TP2 decode (tokens
    equal) and T5's TP2 encode against float32.
@@ -241,16 +254,18 @@ NVIDIA GPU.
    tick's, the serving pool's, the replay's, the controllers phase's, RDT
    finetuning's, the VLM's, the tactile encoder's, the T5-embedded tick's,
    Sparsh's, the warm-quality run's, the data path's (distillation, RDT-1B
-   and BRIDGeR from ``.epc``) and the parallel path's, K2's the tick's, the replay's and the
-   controllers', K6's tick (a)'s, the serving pool's and the VLM's, K8's
+   and BRIDGeR from ``.epc``), the parallel path's and the walkthroughs',
+   K2's the tick's, the replay's, the controllers' and the walkthroughs'
+   (with the horizon-64 refine), K6's tick (a)'s, the serving pool's and the VLM's, K8's
    tick (e)'s, the VLM's and the LLM training's, K9's and K10's the
    planner's, the VLM's and the LLM training's,
    each path counted from 0 (``launches_by_path``); K1 also carries its
    sums over an RDT training step's calls (``train_step``) and over a
    contrastive step's (``contrastive_step``), K8 over a LoRA step's
    (``llm_train_step``) and K8's and K9's backward ms a step;
-   K5's and K7's are the shadow calls of (f)'s checked tick), the ``nvidia-smi`` line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+   K5's and K7's are the shadow calls of (f)'s checked tick), a line of
+   every phase's wall seconds before it, the ``nvidia-smi`` line, and as
+   the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without a result line, when CUDA is absent, when the port
 package is not beside this script, or when any phase fails.
@@ -350,8 +365,12 @@ LOGITS_CORR_MIN = 0.995
 INT8_CHUNK_CORR_MIN = 0.999
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A line of output, after the seconds since this module was loaded."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *a, flush=True)
 
 
 def gpu_line() -> str:
@@ -406,6 +425,11 @@ def graph_time_ms(fn, calls: int = 20, replays: int = 5) -> float:
     ms = start.elapsed_time(end) / (calls * replays)
     del graph
     return ms
+
+
+# replays of a plain version's captured calls when it is timed (its
+# kernel's take the default 5)
+PLAIN_REPLAYS = 2
 
 
 def corr(a, b) -> float:
@@ -721,6 +745,20 @@ K1_SHAPES = [
     # the 3 after
     ("vificlip_prompt_self", 32, 201, 201, 12, 64, "vit", None, 9),
     ("vificlip_self", 32, 197, 197, 12, 64, "vit", None, 3),
+    # the head dims the JAX package takes (any D <= 128; D 72 is SigLIP's
+    # above): D not a multiple of 8 runs on zero-padded columns.  Timed once
+    # each at a SigLIP-sized call, and the examples phase's shapes: the full
+    # walkthrough's ViT (D 12, 4 patches) and cut DinoV2 (D 96, 5 tokens),
+    # the planning walkthrough's CLIP (D 8, 5 tokens)
+    ("vit_d8", 6, 729, 729, 16, 8, "vit", None, 1),
+    ("vit_d12", 6, 729, 729, 16, 12, "vit", None, 1),
+    ("cross_d20_ragged", 1, 67, 4374, 32, 20, "cross", "ragged", 1),
+    ("fused_d20", 6, 729, 729, 16, 20, "fused", None, 1),
+    ("vit_d96", 2, 730, 730, 4, 96, "vit", None, 1),
+    ("vit_d128", 6, 729, 729, 8, 128, "vit", None, 1),
+    ("walk_vit_d12", 6, 4, 4, 4, 12, "vit", None, 0),
+    ("walk_dino_d96", 2, 5, 5, 4, 96, "vit", None, 0),
+    ("walk_clip_d8", 3, 5, 5, 4, 8, "vit", None, 0),
 ]
 # the rows whose calls are per training step, not per tick: an RDT training
 # step's, a contrastive step of the tactile encoder's, and the warm-replan
@@ -730,7 +768,9 @@ K1_STEP_ROWS = {"rdt_train_self": "train_step", "rdt_train_image_cross": "train_
                 "vificlip_prompt_self": "contrastive_step", "vificlip_self": "contrastive_step",
                 "warm_train_self": "warm_train_step", "warm_train_lang_cross": "warm_train_step",
                 "warm_train_image_cross": "warm_train_step", "warm_chunk_self": "warm_chunk",
-                "warm_chunk_lang_cross": "warm_chunk", "warm_chunk_image_cross": "warm_chunk"}
+                "warm_chunk_lang_cross": "warm_chunk", "warm_chunk_image_cross": "warm_chunk",
+                "vit_d8": "head_dims", "vit_d12": "head_dims", "cross_d20_ragged": "head_dims",
+                "fused_d20": "head_dims", "vit_d96": "head_dims", "vit_d128": "head_dims"}
 
 
 def k1_operands(gen, B, Lq, Lkv, H, D, layout):
@@ -879,7 +919,7 @@ def check_k1(gen, shapes=None):
 
         ms = graph_time_ms(run_kernel)
         eager_ms = cuda_time_ms(run_kernel)
-        plain_ms = graph_time_ms(run_plain, calls=5)
+        plain_ms = graph_time_ms(run_plain, calls=5, replays=PLAIN_REPLAYS)
         lib_ms = graph_time_ms(run_library)
         b_ms, o_ms = k1_bound_ms(B, Lq, Lkv, H, D, mask is not None)
         bound = max(b_ms, o_ms)
@@ -908,16 +948,27 @@ def check_k1(gen, shapes=None):
 
 # ---- K2 ----------------------------------------------------------------------
 
-# (name, T, Cin, C) of the 12 blocks of one BRIDGeR UNet pass, S = 2, B = 1
-K2_SHAPES = [
-    ("down0_res0", 16, 10, 256), ("down0_res1", 16, 256, 256),
-    ("down1_res0", 8, 256, 512), ("down1_res1", 8, 512, 512),
-    ("down2_res0", 4, 512, 512), ("down2_res1", 4, 512, 512),
-    ("mid0", 4, 512, 512), ("mid1", 4, 512, 512),
-    ("up0_res0", 4, 1024, 512), ("up0_res1", 4, 512, 512),
-    ("up1_res0", 8, 1024, 256), ("up1_res1", 8, 256, 256),
-]
+
+
+def k2_unet_shapes(horizon: int) -> list:
+    """(name, T, Cin, C) of the 12 blocks of one BRIDGeR UNet pass at its
+    deployment width, down_dims (256, 512, 512), over ``horizon`` steps."""
+    h2, h4 = horizon // 2, horizon // 4
+    return [("down0_res0", horizon, 10, 256), ("down0_res1", horizon, 256, 256),
+            ("down1_res0", h2, 256, 512), ("down1_res1", h2, 512, 512),
+            ("down2_res0", h4, 512, 512), ("down2_res1", h4, 512, 512),
+            ("mid0", h4, 512, 512), ("mid1", h4, 512, 512),
+            ("up0_res0", h4, 1024, 512), ("up0_res1", h4, 512, 512),
+            ("up1_res0", h2, 1024, 256), ("up1_res1", h2, 256, 256)]
+
+
+# S = 2, B = 1: the tick refines 16 steps
+K2_SHAPES = k2_unet_shapes(16)
 K2_G, K2_K, K2_S, K2_STEPS = 512, 5, 2, 10
+# the horizons the JAX BRIDGeR takes above K2's first two m16 tiles: the
+# reference's 64-step chunk (its first level four tiles) and 48 (three),
+# held against plain and timed per UNet pass (summed over its 12 blocks)
+K2_HORIZONS = (64, 48)
 # check only: the first level of a horizon-32 UNet (the trainers' default
 # horizon; the controllers phase's evaluation runs it at B 50) and a time
 # axis that ends inside the second m16 tile
@@ -959,47 +1010,57 @@ def check_k2(gen):
 
     from vla_touch_tpu_torch.ops import unet_kernels as UK
 
+    def sums():
+        return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes_ms=0.0, ops_ms=0.0)
+
     rows = []
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes_ms=0.0, ops_ms=0.0)
+    tot = sums()
     S, B, G, K = K2_S, 1, K2_G, K2_K
-    for name, T, Cin, C in K2_SHAPES:
-        x = torch.randn((S, B, T, Cin), generator=gen, device="cuda").to(torch.bfloat16)
-        cond = torch.randn((S, B, G), generator=gen, device="cuda").to(torch.bfloat16)
-        # the block's weights per tick are streamed once per SDE step; keep
-        # enough copies that the timing loop misses the L2 cache
-        sets = [k2_params(gen, S, Cin, C, G, K) for _ in range(4)]
-        got = UK.resblock_fused(x, cond, sets[0])
-        want = UK.resblock_ref(x, cond, sets[0])
-        torch.cuda.synchronize()
-        err = float((got.float() - want).abs().max())
-        max_plain = float(want.abs().max())
-        if not np.isfinite(err) or err > K2_TOL:
-            raise AssertionError(f"K2 {name}: max abs err {err} > {K2_TOL}")
-        it = [0]
+    # the tick's blocks (K2_STEPS calls each a tick, summed in ``tot``), then
+    # each horizon's UNet pass (each block once, summed in tot["h<horizon>"]);
+    # the plain version of a horizon's block is timed over fewer calls
+    passes = [("", K2_SHAPES, K2_STEPS, tot)] + [
+        (f"h{h}", k2_unet_shapes(h), 0, tot.setdefault(f"h{h}", sums())) for h in K2_HORIZONS]
+    for label, shapes, calls, acc in passes:
+        for name, T, Cin, C in shapes:
+            shape = f"{label}_{name}" if label else name
+            x = torch.randn((S, B, T, Cin), generator=gen, device="cuda").to(torch.bfloat16)
+            cond = torch.randn((S, B, G), generator=gen, device="cuda").to(torch.bfloat16)
+            # the block's weights per tick are streamed once per SDE step;
+            # keep enough copies that the timing loop misses the L2 cache
+            sets = [k2_params(gen, S, Cin, C, G, K) for _ in range(4)]
+            want = UK.resblock_ref(x, cond, sets[0])
+            max_plain = float(want.abs().max())
+            err, _ = hold(f"K2 {shape}", UK.resblock_fused(x, cond, sets[0]), want,
+                          K2_TOL / max_plain)
+            it = [0]
 
-        def nxt():
-            it[0] = (it[0] + 1) % len(sets)
-            return sets[it[0]]
+            def nxt():
+                it[0] = (it[0] + 1) % len(sets)
+                return sets[it[0]]
 
-        ms = graph_time_ms(lambda: UK.resblock_fused(x, cond, nxt()))
-        eager_ms = cuda_time_ms(lambda: UK.resblock_fused(x, cond, nxt()))
-        plain_ms = graph_time_ms(
-            lambda: UK.resblock_ref(x, cond, nxt()).to(torch.bfloat16))
-        b_ms, o_ms = k2_bound_ms(S, B, T, Cin, C, G, K)
-        bound = max(b_ms, o_ms)
-        rows.append(dict(shape=name, T=T, Cin=Cin, C=C, calls=K2_STEPS,
-                         max_abs_err=err, max_plain=max_plain, ms=ms, eager_ms=eager_ms,
-                         plain_ms=plain_ms, bound_ms=bound))
-        log(f"K2 {name:11s} S{S} B{B} T{T:2d} Cin{Cin:5d} C{C}: err {err:.3e} "
-            f"(tol {K2_TOL}, max|plain| {max_plain:.2f}) kernel {ms:.4f} ms "
-            f"(eager loop {eager_ms:.4f}) "
-            f"plain {plain_ms:.4f} ms bound {bound:.4f} ms x{K2_STEPS}/tick")
-        tot["ms"] += K2_STEPS * ms
-        tot["plain_ms"] += K2_STEPS * plain_ms
-        tot["bound_ms"] += K2_STEPS * bound
-        tot["bytes_ms"] += K2_STEPS * b_ms
-        tot["ops_ms"] += K2_STEPS * o_ms
-        tot["err"] = max(tot["err"], err)
+            ms = graph_time_ms(lambda: UK.resblock_fused(x, cond, nxt()))
+            eager_ms = cuda_time_ms(lambda: UK.resblock_fused(x, cond, nxt())) if calls else None
+            plain_ms = graph_time_ms(
+                lambda: UK.resblock_ref(x, cond, nxt()).to(torch.bfloat16),
+                **({} if calls else dict(calls=5, replays=PLAIN_REPLAYS)))
+            b_ms, o_ms = k2_bound_ms(S, B, T, Cin, C, G, K)
+            bound = max(b_ms, o_ms)
+            rows.append(dict(shape=shape, T=T, Cin=Cin, C=C, calls=calls, max_abs_err=err,
+                             max_plain=max_plain, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                             bound_ms=bound))
+            log(f"K2 {shape:15s} S{S} B{B} T{T:2d} Cin{Cin:5d} C{C}: err {err:.3e} "
+                f"(tol {K2_TOL}, max|plain| {max_plain:.2f}) kernel {ms:.4f} ms"
+                + (f" (eager loop {eager_ms:.4f})" if calls else "")
+                + f" plain {plain_ms:.4f} ms bound {bound:.4f} ms"
+                + (f" x{calls}/tick" if calls else ""))
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                           ("bytes_ms", b_ms), ("ops_ms", o_ms)):
+                acc[key] += (calls or 1) * v
+            acc["err"] = max(acc["err"], err)
+        if label:
+            log(f"K2 horizon {label[1:]} UNet pass (12 blocks): kernel {acc['ms']:.4f} ms "
+                f"plain {acc['plain_ms']:.4f} ms bound {acc['bound_ms']:.4f} ms")
     for name, T, Cin, C, Bc in K2_CHECK_ONLY:
         x = torch.randn((S, Bc, T, Cin), generator=gen, device="cuda").to(torch.bfloat16)
         cond = torch.randn((S, Bc, G), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1130,7 +1191,8 @@ def check_q8(gen, kernel):
 
         ms = graph_time_ms(lambda: fn(*nxt(), kv_mask=mask))
         eager_ms = cuda_time_ms(lambda: fn(*nxt(), kv_mask=mask))
-        plain_ms = graph_time_ms(lambda: plain(*nxt(), kv_mask=mask), calls=5)
+        plain_ms = graph_time_ms(lambda: plain(*nxt(), kv_mask=mask), calls=5,
+                                 replays=PLAIN_REPLAYS)
         lib_ms = graph_time_ms(run_library)
         b_ms, o_ms = q8_bound_ms(B, Lq, Lkv, H, D, mask is not None)
         bound = max(b_ms, o_ms)
@@ -1309,7 +1371,7 @@ def check_qmm(gen, kernel, shapes=None):
 
         ms = graph_time_ms(lambda: fn(x, *nxt()))
         eager_ms = cuda_time_ms(lambda: fn(x, *nxt()))
-        plain_ms = graph_time_ms(lambda: plain(x, *nxt()), calls=5)
+        plain_ms = graph_time_ms(lambda: plain(x, *nxt()), calls=5, replays=PLAIN_REPLAYS)
         lib_ms = None if library is None else graph_time_ms(run_library)
         del library, sets
         int_mm_ms = int_mm_yardstick_ms(gen, x, N) if kernel == "K8" and M in K8_PROMPT_MS \
@@ -1608,7 +1670,10 @@ def profile_run(run, top: int = 12) -> dict:
     of each kernel of the port (PROFILE_GROUPS) and of everything else, the
     kernels with the most device time, and the host's waits on the device
     (``host_syncs``: CUDA runtime synchronise calls; ``htod_copies``: host
-    to device copies, each a wait when its source is pageable)."""
+    to device copies, each a wait when its source is pageable).  The
+    profiler's raw events are read: ``prof.events()`` would first build an
+    event tree of every host op, seconds of host time a step of a large
+    model."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1620,12 +1685,14 @@ def profile_run(run, top: int = 12) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
     host_syncs = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                        "cudaEventSynchronize"):
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        elif e.name() in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                          "cudaEventSynchronize"):
             host_syncs += 1
     htod = sum(n for name, (_, n) in by_name.items() if "HtoD" in name)
     busy = sum(ms for ms, _ in by_name.values())
@@ -1849,7 +1916,7 @@ def warm_feed(t, n: int, seed: int = 7) -> list:
     return [triples[i] + triples[i + 1] for i in range(n)]
 
 
-def host_p50(run, n: int = 5):
+def host_p50(run, n: int = 3):
     ticks = []
     for _ in range(n):
         t1 = time.perf_counter()
@@ -2104,7 +2171,7 @@ def warm_phase(t, int8_runner) -> dict:
 SERVE_BATCHES = ((1, 1), (2, 2), (4, 3), (8, 7))
 SERVE_WAIT_MS = 200.0              # the deterministic batches' coalescing window
 SERVE_ROBOTS = 8
-SERVE_ROUNDS = 4                   # requests per robot thread, one after another
+SERVE_ROUNDS = 2                   # requests per robot thread, one after another
 SERVE_TIMEOUT_S = 120.0
 
 
@@ -2324,7 +2391,7 @@ def serving_phase(t, int8_runner) -> dict:
     return res
 
 
-REPLAY_STEPS = 48
+REPLAY_STEPS = 32
 REPLAY_EPISODE_STEPS = 96
 
 
@@ -2511,7 +2578,7 @@ K5_SHAPES = QMM_SHAPES + [(1, K, N, 0) for M, K, N, _ in K6_LLM_SHAPES
 K1_CLIP_SHAPES = [("clip_self", 4, 197, 197, 12, 64, "vit", None, 12)]
 ASK_QUERY = "Which feels softer, A/B?"      # 24 byte tokens: K9 in the prompt pass
 assert len(ASK_QUERY.encode()) == 24
-PLAN_TOKENS = 64
+PLAN_TOKENS = 16
 PLAN_SAMPLES = 8
 
 
@@ -2889,18 +2956,19 @@ def planner_phase(gen) -> dict:
         "agreement not gated)")
     if not all(t[1] > LOGITS_CORR_MIN for t in tf):
         raise AssertionError("planner: kernel logits disagree with the plain versions'")
-    # every request again, 4 tokens each, with every kernel call held to its
-    # plain version on its own operands: each prompt pass's M, both decode M
+    # every request again, 2 tokens each (a prompt pass and a decode step),
+    # with every kernel call held to its plain version on its own operands:
+    # each prompt pass's M, both decode M
     with recording_generate() as calls4:
-        chk = checked_run(lambda: planner_requests(P, T=4))
-    check_chk("planner checked requests (4 tokens each)", chk,
+        chk = checked_run(lambda: planner_requests(P, T=2))
+    check_chk("planner checked requests (2 tokens each)", chk,
               planner_need(planner_launches(calls4, nl, encodes=3, clip_layers=clip_layers)))
     res.update(feature_corr=c_feat, teacher_forced=tf,
                checked={k: v for k, v in chk.items() if v["calls"]},
                checked_int8={k: v for k, v in chk8.items() if v["calls"]})
 
     # ---- timing: three tiers, best-of-8, one profiled decode
-    def timed(fn, reps=3):
+    def timed(fn, reps=2):
         ts = []
         for _ in range(reps):
             torch.cuda.synchronize()
@@ -2979,7 +3047,7 @@ LLM_RANK = 8
 LLM_PROJ_LR = 1e-4
 LLM_PROJ_EPOCHS = 2
 LLM_SHORT = (("the surface is <tact>", "soft"), ("the surface is <tact>", "hard"))
-LLM_TEST_TOKENS = 16
+LLM_TEST_TOKENS = 8
 # The LoRA run's loss fall, mean of the first epoch's losses minus the
 # last's (the same rows), in nats; written before the first run on the
 # card from the controls of tools/torch_qlora_loss_fall.py (the 2-layer
@@ -3509,7 +3577,7 @@ VLM_PATCHES_B = 576
 VLM_TEXT_A = ("Describe the object in the image, then name the one primitive action "
               "the robot should take next to test how ripe it is without bruising it.")
 VLM_TEXT_B = "Which mango is riper?"
-VLM_TOKENS = 64
+VLM_TOKENS = 16
 VLM_INT8_TOKENS = 16
 VLM_SESSION_TOKENS = 16
 VLM_SESSION_TURNS = 3
@@ -3633,16 +3701,17 @@ def vlm_requests(V, T=VLM_TOKENS) -> dict:
 @contextlib.contextmanager
 def plain_vision():
     """The tower's attention as JAX computes it: float32 operands, no bf16
-    rounding for K1 (comparison runs only)."""
+    rounding for K1 (comparison runs only; the tower is the block's one
+    caller of ``ops/attention.py``)."""
+    from vla_touch_tpu_torch.ops import attention as A
     from vla_touch_tpu_torch.ops import flash_attention as FA
-    from vla_touch_tpu_torch.planning import qwen2vl as VL
 
-    orig = VL.frame_attention
-    VL.frame_attention = FA.attention_plain
+    orig = A.dot_product_attention
+    A.dot_product_attention = FA.attention_plain
     try:
         yield
     finally:
-        VL.frame_attention = orig
+        A.dot_product_attention = orig
 
 
 def marker_frame(shift, rows=7, cols=9, H=140, W=180, radius=3):
@@ -3885,10 +3954,10 @@ def vlm_phase(gen) -> dict:
             and all(t[1] > LOGITS_CORR_MIN for t in res["teacher_forced"])):
         raise AssertionError("VLM: the kernel run disagrees with the plain run")
 
-    # ---- checked runs: A and B at 4 tokens, C at 2
+    # ---- checked runs: A, B and C at 2 tokens
     with recording_generate() as calls4:
-        chk = checked_run(lambda: vlm_requests(V, T=4))
-    check_chk(f"VLM checked requests A and B (4 tokens) [{card}]", chk,
+        chk = checked_run(lambda: vlm_requests(V, T=2))
+    check_chk(f"VLM checked requests A and B (2 tokens) [{card}]", chk,
               planner_need(planner_launches(calls4, nl, encodes=0, vision_blocks=2 * depth)))
     chk8 = checked_run(lambda: vlm_request(V, V["i8"], REQ_A, 2))
     check_chk(f"VLM checked request C (int8, 2 tokens) [{card}]", chk8,
@@ -4282,7 +4351,7 @@ def tactile_encoder_phase(gen) -> dict:
 # Training steps per controller, the steps before the timed ones, and the
 # learning rate of the smoke run (the trainers' CLI flag; their default 1e-4
 # moves a randomly initialised net too little in 30 steps to see).
-CTRL_STEPS = 30
+CTRL_STEPS = 20
 CTRL_WARMUP = 5
 CTRL_LR = 1e-3
 CTRL_HORIZON = 32                  # bridge_train / lstm_train main's default
@@ -4654,7 +4723,8 @@ def controllers_phase() -> dict:
 
 # trainer steps of the main path (24 until the orbax resume joined the
 # phase; the loss plateaus from step 8)
-RDT_STEPS = 12
+RDT_STEPS = 8
+RDT_DEPTH = 8                      # RDT-1B blocks of the main path (full width)
 RDT_LANG_LEN = 32                  # instruction tokens of the synthetic episodes
 RDT_EPISODES, RDT_EP_STEPS = 3, 48
 RDT_SEED = 0
@@ -4726,8 +4796,8 @@ def rdt_episodes(root: str) -> list:
                                   with_vla=False)
 
 
-def rdt_configs(depth=None, **train_kw):
-    """RDT-1B (``depth`` cut when given), the JAX package's default recipe
+def rdt_configs(depth=RDT_DEPTH, **train_kw):
+    """RDT-1B at ``depth`` blocks, the JAX package's default recipe
     (f32 master, AdamW, batch 4 x accumulation 4, f32 accumulator and EMA,
     lr 1e-4) without the 500-step warm-up (it would hold the rate at or
     under 24/500 of 1e-4 for the whole run), one sampling eval and no
@@ -4737,7 +4807,7 @@ def rdt_configs(depth=None, **train_kw):
                                             rdt_1b)
     from vla_touch_tpu_torch.models.rdt import runner as R
 
-    m = rdt_1b() if depth is None else rdt_1b(depth=depth)
+    m = rdt_1b(depth=depth)
     rcfg = R.RDTRunnerConfig(model=m, noise=NoiseSchedulerConfig())
     tcfg = TrainConfig(**dict(dict(lr_warmup_steps=0, max_train_steps=RDT_STEPS,
                                    sample_period=RDT_STEPS, checkpointing_period=10 ** 9,
@@ -5100,7 +5170,8 @@ def rdt_orbax_resume(trainer, state, root: str) -> dict:
 
 
 def rdt_train_phase() -> dict:
-    """Finetune RDT-1B at full width through ``RDTTrainer.train`` on seeded
+    """Finetune RDT-1B at full width (RDT_DEPTH blocks) through
+    ``RDTTrainer.train`` on seeded
     synthetic npz episodes (batch 4 x accumulation 4, SigLIP So400m on the
     16 x 6 frames of a step): K1's autograd route checked at the training
     shapes, one depth-2 step on the card against the CPU, the main path
@@ -5722,13 +5793,13 @@ DATA_BRIDGE_HORIZON, DATA_BRIDGE_BATCH, DATA_BRIDGE_STEPS = 16, 8, 5
 # RDT-1B steps from each source: step 1's loss does not depend on the frames
 # (it reads the same on the JPEG cache), so steps 2 and 3 carry the
 # comparison
-DATA_RDT_STEPS = 3
+DATA_RDT_STEPS = 2
 # samples/s through the consumer: batches of the RDT trainer's micro-batch
 # (4 samples), the rate read from the batches that arrive after batch
 # DATA_SAMPLE_SKIP, past the prefetcher's first fill (4 threads + depth 2
 # batches start at once)
-DATA_SAMPLE_BATCHES, DATA_SAMPLE_BATCH, DATA_SAMPLE_SKIP = 40, 4, 6
-DATA_DECODE_REPS = 5
+DATA_SAMPLE_BATCHES, DATA_SAMPLE_BATCH, DATA_SAMPLE_SKIP = 24, 4, 6
+DATA_DECODE_REPS = 3
 # nvJPEG's frames against cv2.imdecode's (libjpeg, through OpenCV) on the
 # same blobs, in uint8 levels: the two decoders' inverse DCT, chroma
 # upsampling and colour conversion round differently.  The first reading on
@@ -6233,10 +6304,306 @@ def data_phase(t) -> dict:
 
 
 
+# ---- the README's walkthroughs on the port ------------------------------------------
+
+EXAMPLES_DIR = os.path.join(ROOT, "examples")
+BRIDGE_H64 = 64                    # the reference's chunk: K2's first UNet level, four m16 tiles
+# A float32 module attends through K1 on q, k, v rounded to bf16
+# (ops/attention.py); JAX's default computes that attention in float32.  The
+# walkthrough tick's RDT hidden states (its output layer starts at zero) and
+# the BRIDGeR evaluation's refined actions, each against a run with float32
+# plain attention: corr above this, the refined-action gate
+# (REFINED_CORR_MIN).
+F32_ATTN_CORR_MIN = REFINED_CORR_MIN
+
+
+def example_module(name: str):
+    """``examples/<name>.py`` imported as a module."""
+    import importlib
+
+    sys.path.insert(0, EXAMPLES_DIR)
+    try:
+        return importlib.import_module(name)
+    finally:
+        sys.path.remove(EXAMPLES_DIR)
+
+
+@contextlib.contextmanager
+def stage_clock(stages: dict):
+    """Standard output passed through; the host seconds from each line that
+    starts with "== " (a walkthrough's stage header) to the next one, or to
+    the block's end, under that line's text."""
+    class Clock:
+        def __init__(self):
+            self.head, self.t0, self.pending = None, time.perf_counter(), ""
+
+        def close(self):
+            if self.head is not None:
+                stages[self.head] = round(time.perf_counter() - self.t0, 3)
+
+        def write(self, text):
+            sys.__stdout__.write(text)
+            self.pending += text
+            *lines, self.pending = self.pending.split("\n")
+            for line in lines:
+                if line.startswith("== "):
+                    self.close()
+                    self.head, self.t0 = line[3:].split(";")[0].strip(), time.perf_counter()
+            return len(text)
+
+        def flush(self):
+            sys.__stdout__.flush()
+
+    clock = Clock()
+    with contextlib.redirect_stdout(clock):
+        yield
+    clock.close()
+
+
+@contextlib.contextmanager
+def k1_by_head_dim(by_d: dict):
+    """K1's launches in the block counted by head dim into ``by_d`` (the
+    wrapper's own count moves as always)."""
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+
+    k1 = FA.flash_attention
+
+    def counted(q, k, v, kv_mask=None, scale=None):
+        before = counted.launches
+        out = k1(q, k, v, kv_mask=kv_mask, scale=scale)
+        if counted.launches > before:
+            by_d[q.shape[-1]] = by_d.get(q.shape[-1], 0) + 1
+        return out
+
+    # the wrapper bumps the count of the function its module name holds
+    counted.launches = 0
+    try:
+        with swapped(K1=counted):
+            yield
+    finally:
+        k1.launches += counted.launches
+
+
+def counted_and_checked(what: str, run) -> dict:
+    """``run()`` once counted from 0, then once under :func:`checked_run`,
+    which must see the same kernel calls, each within its tolerance of its
+    plain version on its own operands."""
+    zero_counts()
+    run()
+    need = {k: n for k, n in read_counts().items() if n}
+    check_chk(what, checked_run(run), need)
+    return need
+
+
+def bridge_h64_refine(t, actions) -> dict:
+    """BRIDGeR at its deployment width (down_dims 256/512/512), horizon 64,
+    bf16: one full-width refine (10 SDE steps, stacked v/s) of the tick's
+    64-step chunk through ``bridge_predict``, K2 120 launches, against the
+    card's plain UNet path (corr > REFINED_CORR_MIN) and as a checked run;
+    host ms p50 of 3."""
+    import torch
+
+    from vla_touch_tpu_torch.config import BridgeControllerConfig
+    from vla_touch_tpu_torch.models.controllers import bridge as BR
+    from vla_touch_tpu_torch.ops import marker_tracking as MT
+    from vla_touch_tpu_torch.utils.image import imagenet_normalize
+
+    inp, dev = t["inp"], torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(64)
+    bcfg = BridgeControllerConfig(inference_dtype="bfloat16", horizon=BRIDGE_H64)
+    bridge = BR.deployable(BR.init_bridge_controller(bcfg, seed=64, device=dev))
+    stacked = BR.stacked_vs(bridge)
+    with torch.inference_mode():
+        feats = t["dino"](imagenet_normalize(inp["dino_frames"]).to(torch.bfloat16)).float()
+    force = MT.estimate_force(inp["gel"], inp["baseline"])["force"]
+    vla = torch.as_tensor(actions[:, :BRIDGE_H64], device=dev)
+    noise = torch.randn((bcfg.interpolant.diffusion_steps, 1, BRIDGE_H64, 10), generator=gen,
+                        device=dev)
+
+    def refine():
+        out = BR.bridge_predict(bcfg, bridge, t["stats"], inp["state10"], vla, feats[:1],
+                                feats[1:], force[None], stacked=stacked, noise_seq=noise)
+        torch.cuda.synchronize()
+        return out
+
+    refine()                                    # warm-up
+    zero_counts()
+    got = refine()
+    counts = read_counts()
+    check_counts("bridger horizon-64 refine", counts, {"K2": 120})
+    with plain_kernels():
+        want = refine()
+    c = action_corr(t, got.float().cpu().numpy(), want.float().cpu().numpy())
+    log(f"bridger horizon-64 refine: kernel vs plain corr {c:.6f} (min {REFINED_CORR_MIN})")
+    if not (got.shape == (1, BRIDGE_H64, 10) and c > REFINED_CORR_MIN):
+        raise AssertionError(f"bridger horizon-64 refine: shape {tuple(got.shape)}, corr {c}")
+    check_chk("bridger horizon-64 checked refine", checked_run(refine), {"K2": 120})
+    p50, runs = host_p50(refine, 3)
+    with plain_kernels():
+        plain_p50, _ = host_p50(refine, 1)
+    return dict(corr=c, launches=counts["K2"], ms_p50=p50, ms=runs, plain_ms=plain_p50)
+
+
+def final_hidden(model, run):
+    """``run()``'s inputs to the policy's RDT output layer, every solver
+    step stacked (that layer starts at zero, so a random policy's actions
+    are 0 whatever its attention computes)."""
+    import torch
+
+    hs = []
+    hook = model.rdt.model.final_ffn.register_forward_pre_hook(
+        lambda m, a: hs.append(a[0].detach().float().cpu()))
+    try:
+        run()
+    finally:
+        hook.remove()
+    return torch.stack(hs).numpy()
+
+
+def refined_actions(run):
+    """The refined actions that ``run()``'s BRIDGeR evaluation reports."""
+    from vla_touch_tpu_torch.eval import bridge_test as BT
+
+    got, report = [], BT.report
+
+    def recorded_report(what, refined, *a, **kw):
+        got.append(np.asarray(refined))
+        return report(what, refined, *a, **kw)
+
+    BT.report = recorded_report
+    try:
+        run()
+    finally:
+        BT.report = report
+    return got[0]
+
+
+def examples_phase(t, actions) -> dict:
+    """The README's two walkthroughs through their own ``main`` on the card
+    (``examples/torch_full_pipeline.py``, ``torch_planning_pipeline.py`` at
+    its default 100 epochs), under ``build/examples`` (removed after): each
+    stage's seconds, the launches by kernel and K1's by head dim (the full
+    one's ViT D 12, ``rdt_tiny`` D 32, DinoV2 D 96; the planning one's CLIP
+    D 8), ``tests/test_examples.py``'s assertions and a finite
+    ``summary.json``; one walkthrough tick and one BRIDGeR evaluation batch
+    as checked runs, and each against a run with float32 plain attention
+    (F32_ATTN_CORR_MIN); then :func:`bridge_h64_refine`."""
+    import shutil
+
+    from vla_touch_tpu_torch.eval import bridge_test as BT
+    from vla_touch_tpu_torch.models.encoders import dinov2_runtime as dino
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+    from vla_touch_tpu_torch.runtime import policy as P
+    from vla_touch_tpu_torch.runtime.control_loop import EpisodeReplay
+
+    t0 = time.perf_counter()
+    full_w, plan_w = example_module("torch_full_pipeline"), example_module(
+        "torch_planning_pipeline")
+    root = os.path.join(ROOT, "build", "examples")
+    shutil.rmtree(root, ignore_errors=True)
+    dino_cfg = dino._CONFIGS["dinov2-small"]
+    res = {}
+    try:
+        # ---- the full walkthrough
+        zero_counts()
+        by_d, stages = {}, {}
+        with k1_by_head_dim(by_d), stage_clock(stages):
+            summary = full_w.main(os.path.join(root, "full"), device="cuda")
+        counts = {k: n for k, n in read_counts().items() if n}
+        with open(os.path.join(root, "full", "summary.json")) as f:
+            written = json.load(f)
+        nums = [v for ev in ("bridge_eval", "lstm_eval") for v in written[ev].values()
+                if not isinstance(v, str)] + [written["replay_tracking_mse"]]
+        if not (written == json.loads(json.dumps(summary)) and all(np.isfinite(nums))
+                and written["replay_steps"] == 12
+                and written["bridge_eval"]["num_samples"] == 12
+                and written["bridge_eval"]["inference_dtype"] == "bfloat16"):
+            raise AssertionError(f"full walkthrough: summary {written}")
+        if not (set(counts) == {"K1", "K2"} and {12, 32, 96} <= set(by_d)
+                and sum(by_d.values()) == counts["K1"]):
+            raise AssertionError(f"full walkthrough: launches {counts}, K1 by D {by_d}")
+        res["full"] = dict(stages_s=stages, launches=counts, k1_by_head_dim=by_d,
+                           summary=written)
+        log("examples: full walkthrough " + json.dumps(res["full"]))
+
+        # ---- one walkthrough tick and one BRIDGeR evaluation batch, checked
+        ep = EpisodeReplay(os.path.join(root, "full", "episodes", "episode_0.npz"))
+        model = P.create_model(full_w.policy_config(), seed=0, device="cuda")
+        obs = [ep.observation(9), ep.observation(10)]
+        images = [im for o in obs for im in o.images]
+        text = full_w.instruction()
+        def tick():
+            model.reset()                       # every frame encoded, as the first tick
+            model.generator.manual_seed(0)
+            return model.step(obs[1].state, images, text)
+
+        def evaluate():
+            return BT.test_diffusion_controller(
+                os.path.join(root, "full", "bridge_ckpt", "final"),
+                os.path.join(root, "full", "episodes"), num_samples=12, device="cuda")
+
+        res["checked_tick"] = counted_and_checked("walkthrough checked tick", tick)
+        res["checked_eval"] = counted_and_checked(
+            "walkthrough checked bridger evaluation batch", evaluate)
+        # the float32 towers' attention on K1 (q, k, v rounded to bf16)
+        # against JAX's float32 attention (the plain version, no K1 launch)
+        f32 = {}
+        for what, run in (("tick_hidden", lambda: final_hidden(model, tick)),
+                          ("eval_refined", lambda: refined_actions(evaluate))):
+            got = run()
+            k1 = FA.flash_attention.launches
+            with plain_vision():
+                want = run()
+            if FA.flash_attention.launches != k1 or got.shape != want.shape:
+                raise AssertionError(f"float32 attention {what}: K1 launched or shapes differ")
+            f32[what] = corr(got, want)
+        res["f32_attention_corr"] = f32
+        log(f"examples: K1 on bf16-rounded q, k, v vs float32 plain attention: corr "
+            f"{json.dumps(f32)} (min {F32_ATTN_CORR_MIN})")
+        if not all(c > F32_ATTN_CORR_MIN for c in f32.values()):
+            raise AssertionError(f"float32 attention: corr {f32}")
+        dino._CONFIGS["dinov2-small"] = dino_cfg
+
+        # ---- the planning walkthrough
+        zero_counts()
+        by_d, stages = {}, {}
+        with k1_by_head_dim(by_d), stage_clock(stages):
+            out = plan_w.main(os.path.join(root, "plan"), device="cuda")
+        counts = {k: n for k, n in read_counts().items() if n}
+        llm_out = os.path.join(root, "plan", "llm_out")
+        with open(os.path.join(llm_out, "predictions.json")) as f:
+            preds = json.load(f)
+        with open(os.path.join(llm_out, "reason", "sorting_sponge.json")) as f:
+            rec = json.load(f)[0]
+        if not (len(preds) == 1 and isinstance(preds[0]["prediction"], str)
+                and rec["final_true_answer"] == "A" and rec["reasoning_sampling_num"] == 4
+                and os.path.exists(os.path.join(llm_out, "llm_training.jsonl"))
+                and all(np.isfinite(out["losses"]))):
+            raise AssertionError(f"planning walkthrough: predictions {preds}, record {rec}")
+        if not (set(counts) == {"K1"} and set(by_d) == {8}):
+            raise AssertionError(f"planning walkthrough: launches {counts}, K1 by D {by_d}")
+        res["planning"] = dict(stages_s=stages, launches=counts, k1_by_head_dim=by_d,
+                               loss_first_last=[out["losses"][0], out["losses"][-1]],
+                               prediction=preds[0]["prediction"],
+                               option_counts=rec["option_counts"])
+        log("examples: planning walkthrough " + json.dumps(res["planning"]))
+    finally:
+        dino._CONFIGS["dinov2-small"] = dino_cfg
+        shutil.rmtree(root, ignore_errors=True)
+
+    # ---- BRIDGeR at full width over the 64-step chunk
+    res["bridge_h64"] = bridge_h64_refine(t, actions)
+    res["launches"] = {k: res["full"]["launches"].get(k, 0) + res["planning"]["launches"].get(k, 0)
+                       + (res["bridge_h64"]["launches"] if k == "K2" else 0)
+                       for k in ("K1", "K2")}
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
 # ---- multi-device training and serving ----------------------------------------------
 
-PAR_STEPS = 3                      # rdt_loop steps of each world-1 run
-PAR_DEPTH = 4                      # RDT-1B / Qwen2.5-7B / T5-XXL blocks of the two-rank runs
+PAR_STEPS = 2                      # rdt_loop steps of each world-1 run
+PAR_DEPTH = 2                      # RDT-1B / Qwen2.5-7B / T5-XXL blocks of the two-rank runs
 PAR_TRAIN_STEPS = 2                # sharded steps of each two-rank mode
 PAR_LR = 1e-4
 PAR_DECODE = 8                     # planner tokens
@@ -6267,8 +6634,9 @@ PAR_T5_REL = T5_REL_TOL
 PAR_RANK_TIMEOUT_S = 400
 PAR_DEVICE = "cuda:0"              # the two ranks share this card
 # K1 at the two-rank runs' shapes (16 heads: TP2 of RDT-1B's 32): per TP2
-# training step (batch 4 x accumulation 2, depth PAR_DEPTH: 4 self, 2 image
-# and 2 language cross-attentions a micro-batch), per TP2 serving chunk
+# training step (batch 4 x accumulation 2, depth PAR_DEPTH: PAR_DEPTH self
+# and PAR_DEPTH / 2 image and language cross-attentions a micro-batch), per
+# TP2 serving chunk
 # (B 1, 5 solver steps, the condition K/V once)
 K1_TP_SHAPES = [
     ("tp_train_self", 4, 67, 67, 16, 64, "self", None, 2 * PAR_DEPTH),
@@ -6290,13 +6658,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def record_rdt_loop(argv: list, out_path=None) -> dict:
+def record_rdt_loop(argv: list) -> dict:
     """``rdt_loop.main(argv)`` (what ``python -m
     vla_touch_tpu_torch.train.rdt_loop`` runs) with each step's loss, grad
     norm, host ms and K1 launches recorded; the final checkpoint (RDT-1B:
-    19.65 GB, written and read back by ``rdt_train_phase``) recorded, not
-    written.  The counts start at 0.  Written to ``out_path`` as JSON when
-    given (a subprocess's report)."""
+    19.65 GB) recorded, not written.  The counts start at 0."""
     import torch
 
     from vla_touch_tpu_torch.ops import flash_attention as FA
@@ -6329,9 +6695,6 @@ def record_rdt_loop(argv: list, out_path=None) -> dict:
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                zero3=bool(state.plan is not None and state.plan.zero3),
                sharded=state.plan is not None)
-    if out_path:
-        with open(out_path, "w") as f:
-            json.dump(res, f)
     return res
 
 
@@ -6683,15 +7046,13 @@ def parallel_phase(gen) -> dict:
         torch.cuda.empty_cache()
         runs = {}
         for mode, extra in (("world1_zero2", []), ("world1_zero3", ["--zero3"])):
-            out = os.path.join(root, f"{mode}.json")
-            cmd = [sys.executable, os.path.abspath(__file__), "--record-rdt-loop", out, "--",
-                   *args, "--output_dir", os.path.join(root, mode), "--coordinator",
-                   f"127.0.0.1:{free_port()}", "--num_processes", "1", "--process_id", "0",
-                   *extra]
-            subprocess.run(cmd, cwd=ROOT, check=True, timeout=PAR_RANK_TIMEOUT_S)
-            with open(out) as f:
-                runs[mode] = json.load(f)
-            r = runs[mode]
+            # in this process: rdt_loop starts the NCCL group and destroys it
+            r = runs[mode] = record_rdt_loop(
+                args + ["--output_dir", os.path.join(root, mode), "--coordinator",
+                        f"127.0.0.1:{free_port()}", "--num_processes", "1", "--process_id",
+                        "0", *extra])
+            gc.collect()
+            torch.cuda.empty_cache()
             k1 = [s["k1"] for s in r["steps"]]
             want_k1 = need3 if extra else need
             same = [(s["loss"], s["grad_norm"]) for s in r["steps"]] == [
@@ -6741,6 +7102,14 @@ def main() -> int:
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
+    # every phase's wall seconds, printed before the kernels line
+    phase_s, since = {}, [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - since[0], 1)
+        since[0] = now
+
     build.build_all(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     kernel_ptxas()
@@ -6749,6 +7118,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    lap("build")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1_rows, k1 = check_k1(gen)
     k2_rows, k2 = check_k2(gen)
@@ -6758,6 +7128,7 @@ def main() -> int:
     k8_rows, k8 = check_qmm(gen, "K8")
     k7_rows, k7 = check_qmm(gen, "K7", K7_SHAPES)
     k5_rows, k5 = check_qmm(gen, "K5", K5_SHAPES)
+    lap("kernel_checks")
 
     # ---- the bf16 tick
     t = build_tick(seed=0)
@@ -6805,6 +7176,8 @@ def main() -> int:
     if not prof["groups_ms"]["K1 flash_combine_kernel"] > 0.0:
         raise AssertionError("the bf16 tick ran no K1 combine launch: no split call")
 
+    lap("tick")
+
     # ---- the quantized tick
     q = quant_ticks(t, out["actions"])
     qa = dict(rdt=q["runners"]["int8"], kv_cache="int8")
@@ -6817,31 +7190,45 @@ def main() -> int:
     log("quant tick (b) profile: " + json.dumps(
         profile_tick(t, rdt=q["runners"]["int8"], kv_cache="int8t")))
     log("quant ticks: " + json.dumps({k: v for k, v in q.items() if k != "runners"}))
+    lap("quant_ticks")
 
     # ---- the steady-state tick
     warm = warm_phase(t, q["runners"]["int8"])
     log("warm ticks: " + json.dumps(warm))
+    lap("warm")
 
     # ---- the deployment entry points: the serving pool and the replay CLI
     t1 = time.perf_counter()
     serve = serving_phase(t, q["runners"]["int8"])
     log(f"serving phase: {time.perf_counter() - t1:.1f} s")
     log("serving: " + json.dumps({k: v for k, v in serve.items()}))
+    lap("serving")
     t1 = time.perf_counter()
     rep = replay_phase(t)
     log(f"replay phase: {time.perf_counter() - t1:.1f} s")
     log("replay: " + json.dumps(rep))
+    lap("replay")
 
     # ---- the encoders off the tick (T5-XXL into the tick, Sparsh), force
     # sequences and the warm-replan quality
     enc = encoders_phase(t, gen)
     log(f"encoders phase: {enc['phase_s']:.1f} s")
     log("encoders: " + json.dumps(enc))
+    lap("encoders")
 
     # ---- the episode data path: capture, distillation with the tick's
     # policy, .epc caches, decode routes, training from .epc
     data = data_phase(t)
     log("data: " + json.dumps(data))
+    lap("data")
+
+    # ---- the README's walkthroughs on the card, and BRIDGeR over the
+    # 64-step chunk at full width
+    ex = examples_phase(t, out["actions"])
+    log(f"examples phase: {ex['phase_s']:.1f} s")
+    log("examples: " + json.dumps({k: ex[k] for k in ("checked_tick", "checked_eval",
+                                                      "bridge_h64", "launches")}))
+    lap("examples")
     del q["runners"], qa, t
 
     # ---- the residual controllers, trained and evaluated
@@ -6851,28 +7238,35 @@ def main() -> int:
     log(f"controllers phase: {time.perf_counter() - t1:.1f} s")
     log("controllers: " + json.dumps({k: v for k, v in ctrl.items()}))
     torch.cuda.empty_cache()
+    lap("controllers")
 
     # ---- RDT finetuning
     t1 = time.perf_counter()
     rdt = rdt_train_phase()
     log(f"rdt_train phase: {time.perf_counter() - t1:.1f} s")
     log("rdt_train: " + json.dumps(rdt))
+    lap("rdt_train")
 
     # ---- the planner, its LLM training on the same trees, then its VLM
     pl = planner_phase(gen)
+    lap("planner")
     lt = llm_train_phase(pl.pop("P"), gen)
     torch.cuda.empty_cache()
+    lap("llm_train")
     vl = vlm_phase(gen)
     torch.cuda.empty_cache()
+    lap("vlm")
 
     # ---- the planner's tactile encoder, trained and evaluated
     te = tactile_encoder_phase(gen)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("tactile_encoder")
 
     # ---- multi-device training and serving
     par = parallel_phase(gen)
     log("parallel: " + json.dumps({k: par[k] for k in ("k1_tp", "launches", "phase_s")}))
+    lap("parallel")
     for name, rows in (("k1", k1_rows), ("k2", k2_rows), ("k3", k3_rows), ("k4", k4_rows),
                        ("k5", k5_rows), ("k6", k6_rows), ("k7", k7_rows), ("k8", k8_rows),
                        ("k8 llm", pl["k8_llm_rows"]),
@@ -6901,9 +7295,10 @@ def main() -> int:
                     bound_ms=tot["bound_ms"], bound_by=bound_by(tot),
                     library_ms=tot.get("library_ms"), **extra)
 
-    # K1 runs on thirteen main paths, K2 on three: the cold tick, the serving
+    # K1 runs on fourteen main paths, K2 on four: the cold tick, the serving
     # pool, the replay CLI, the controllers phase (training and evaluation),
-    # RDT finetuning and (K1) the planner's VLM, its tactile encoder's
+    # RDT finetuning, the README's walkthroughs (and K2's horizon-64 refine)
+    # and (K1) the planner's VLM, its tactile encoder's
     # training and evaluation, its LLM training, the T5-embedded tick, Sparsh,
     # the warm-replan quality run, and the data path's distillation and its
     # RDT-1B and BRIDGeR training from .epc, each counted from 0; K6 on
@@ -6924,6 +7319,8 @@ def main() -> int:
                                         for k in ("epc_raw", "epc_jpeg"))
     by_path["K1"]["data_bridge_epc"] = data["bridge"]["epc_raw"]["launches"]["K1"]
     by_path["K1"]["parallel"] = par["launches"]["K1"]
+    for k in ("K1", "K2"):
+        by_path[k]["examples"] = ex["launches"][k]
     by_path["K6"] = {"tick_a": q["a"]["launches"]["K6"], "serving": serve["launches"]["K6"],
                      "replay": rep["launches"]["K6"], "vlm": vl["counts"]["K6"]}
     by_path["K8"] = {"tick_e": q["e"]["launches"]["K8"], "vlm": vl["counts"]["K8"],
@@ -6961,6 +7358,8 @@ def main() -> int:
               sum(by_path["K10"].values()), planner_kernel_totals(pl, "K10"),
               launches_by_path=by_path["K10"]),
     ]
+    phase_s["total"] = round(time.perf_counter() - t0, 1)
+    log("phase seconds: " + json.dumps(phase_s))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6972,8 +7371,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
-    if sys.argv[1:2] == ["--record-rdt-loop"]:
-        sys.path.insert(0, ROOT)
-        record_rdt_loop(sys.argv[4:], sys.argv[2])
-        sys.exit(0)
     sys.exit(main())

@@ -153,9 +153,55 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 4, 2, 64), device=cuda)
     with pytest.raises(TypeError):
         flash_attention(q, q, q)                        # float32
-    q = torch.zeros((1, 4, 2, 20), device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros((1, 4, 2, 136), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        flash_attention(q, q, q)                        # D not a multiple of 8
+        flash_attention(q, q, q)                        # D above 128
+
+
+@pytest.mark.parametrize("B,Lq,Lkv,H,D,masked", [
+    (6, 4, 4, 4, 12, False),             # the full walkthrough's ViT
+    (3, 5, 5, 4, 8, False),              # the planning walkthrough's CLIP
+    (2, 5, 5, 4, 96, False),             # its cut DinoV2
+    (6, 729, 729, 16, 12, False),
+    (1, 67, 4374, 32, 20, True),         # split, ragged mask, D 20
+    (2, 130, 300, 3, 100, True),
+    (1, 67, 500, 4, 1, False),
+])
+def test_flash_attention_kernel_at_every_head_dim(cuda, B, Lq, Lkv, H, D, masked):
+    """Any D <= 128 launches the kernel (a D off the 8-column piece on zero
+    columns): one counted launch a call, within 2e-2 x max|plain| of the
+    plain version at the true D's scale, and a CUDA graph of the call
+    replays the eager call's bits."""
+    from vla_touch_tpu_torch.ops import flash_attention as FA
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, k, v = mk(B, Lq, H, D), mk(B, Lkv, H, D), mk(B, Lkv, H, D)
+    mask = None
+    if masked:
+        mask = torch.ones((B, Lkv), dtype=torch.bool, device=cuda)
+        mask[0, 50:] = False
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, kv_mask=mask)
+    assert FA.flash_attention.launches == before + 1
+    assert got.shape == (B, Lq, H, D) and got.is_contiguous()
+    want = FA.attention_plain(q, k, v, kv_mask=mask).float()
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        FA.flash_attention(q, k, v, kv_mask=mask)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = FA.flash_attention(q, k, v, kv_mask=mask)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
 
 
 # (T, Cin, C) of the 12 blocks of one BRIDGeR UNet pass (chip_smoke.K2_SHAPES)
@@ -238,6 +284,43 @@ def test_resblock_kernel_repeats_bit_for_bit_under_graph_replay(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, got)
+
+
+# (T, Cin, C) of the first two levels of the UNet at the reference's
+# 64-step chunk (four and two m16 time tiles) and at horizon 48 (three)
+K2_LONG = [(64, 10, 256), (64, 256, 256), (32, 256, 512), (32, 1024, 256), (48, 10, 256),
+           (48, 256, 256), (24, 1024, 256), (61, 256, 512)]
+
+
+@pytest.mark.parametrize("T,Cin,C", K2_LONG)
+def test_resblock_kernel_at_the_64_step_chunk(cuda, T, Cin, C):
+    """T up to 64 launches the kernel: one counted launch, within 3e-2 of
+    the plain version (GroupNorm over the whole time axis), B 2 as the
+    batch loop, and a CUDA graph of the call replays the eager bits."""
+    from vla_touch_tpu_torch.ops import unet_kernels as UK
+
+    g = torch.Generator(device=cuda).manual_seed(24)
+    x, cond, p = _k2_case(g, T, Cin, C, cuda, B=2)
+    before = UK.resblock_fused.launches
+    got = UK.resblock_fused(x, cond, p)
+    assert UK.resblock_fused.launches == before + 1
+    want = UK.resblock_ref(x, cond, p)
+    torch.cuda.synchronize()
+    err = float((got.float() - want).abs().max())
+    assert np.isfinite(err) and err < 3e-2, err
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        UK.resblock_fused(x, cond, p)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = UK.resblock_fused(x, cond, p)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+    with pytest.raises(ValueError):
+        UK.resblock_fused(x.new_zeros((2, 2, 65, Cin)), cond, p)     # T above 64
 
 
 def test_resblock_kernel_refuses_a_grid_that_cannot_be_resident(cuda):

@@ -13,7 +13,7 @@
 // products take bf16 operands (x, the FiLM'd h, Mish(cond)) and the bf16
 // weights, with float32 sums; bias, GroupNorm, Mish and FiLM are float32.
 //
-// What bounds it on an H100: bytes.  At batch 1 each weight meets T <= 32
+// What bounds it on an H100: bytes.  At batch 1 each weight meets T <= 64
 // time steps, so the block streams its weights (up to 13 MB a call) at
 // under 16 operations a byte.  The design spreads every weight matrix over
 // the whole card and reads each weight byte once, in ONE cooperative
@@ -27,7 +27,9 @@
 //            of 16 rows a slot) and runs mma.sync
 //            m16n8k16 bf16 -> f32 on ldmatrix fragments: the time axis is
 //            one M = 16 tile (T = 4, 8 zero-padded) or, above 16 steps, two
-//            (the trained horizon 32), each warp one 8-column tile; a tap d of the conv reads the staged input rows
+//            (the trained horizon 32), three or four (up to the 64-step
+//            chunk), a kernel per count; each warp one 8-column tile; a tap
+//            d of the conv reads the staged input rows
 //            shifted by d; the item writes its float32 partial to scratch;
 //   --- grid barrier
 //   phase 2  one item per (s, b, group): conv0's splits summed in split
@@ -70,7 +72,8 @@ constexpr int WPITCH = CT + 8;              // bf16 per ring row: 144 bytes
 constexpr int STAGE_ELEMS = SR * KS * WPITCH;
 constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
 constexpr int MT = 16;                      // time rows of one m16 tile
-constexpr int MAXT = 2 * MT;                // the time axis: at most two m16 tiles
+constexpr int MAXNM = 4;                    // m16 tiles of the longest time axis
+constexpr int MAXT = MAXNM * MT;            // the time axis: at most 64 steps
 
 // m16 tiles of a time axis of T steps
 __host__ __device__ __forceinline__ int mtiles(int T) { return (T + MT - 1) / MT; }
@@ -450,9 +453,14 @@ size_t resblock_smem(int T, int Cin, int C, int G, int K, int n_groups) {
   return resblock_hv_off(T, Cin, C, G, K) + 4 * (5 * (size_t)T * (C / n_groups) + NWARP);
 }
 
-// The kernel for a time axis of T steps: one m16 tile, or two.
+// The kernel for a time axis of T steps: one to four m16 tiles.
 const void* resblock_kernel_for(int T) {
-  return mtiles(T) == 1 ? (const void*)resblock_kernel<1> : (const void*)resblock_kernel<2>;
+  switch (mtiles(T)) {
+    case 1: return (const void*)resblock_kernel<1>;
+    case 2: return (const void*)resblock_kernel<2>;
+    case 3: return (const void*)resblock_kernel<3>;
+    default: return (const void*)resblock_kernel<4>;
+  }
 }
 
 // The grid of the cooperative launch of the kernel for T steps: every block
@@ -465,7 +473,7 @@ cudaError_t resblock_grid(size_t smem, int T, int* grid) {
   struct Entry { size_t smem; int nm, grid; };
   static Entry cache[32];
   static int n = 0;
-  static size_t limit[2] = {0, 0};
+  static size_t limit[MAXNM] = {};
   const int nm = mtiles(T);
   const void* kern = resblock_kernel_for(T);
   for (int i = 0; i < n; ++i)
@@ -517,7 +525,7 @@ int resblock_ctas(int T, int Cin, int C, int G, int K, int n_groups, int* ctas) 
 // x (S, B, T, Cin), cond (S, B, G), w0 (S, K, Cin, C), w1 (S, K, C, C),
 // fw (S, G, 2C), wr (S, Cin, C) or null (identity residual), vectors
 // (S, C) / fb (S, 2C); all bf16 contiguous, weights 16-byte aligned, C %
-// 16 == 0, T <= 32.  The splits p0, pf, pr, p1 of conv0, FiLM, the
+// 16 == 0, T <= 64.  The splits p0, pf, pr, p1 of conv0, FiLM, the
 // residual and conv1 come from k2_plan; scratch holds
 // float32 partials (S, B, p0, T, C), (S, B, pf, 2C), (S, B, pr, T, C) (with
 // wr), (S, B, p1, T, C), then conv1's bf16 operand (S, B, T, C):

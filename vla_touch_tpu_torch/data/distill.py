@@ -57,8 +57,9 @@ def _distill(f, policy_step: Callable, instruction_key: str, image_size: int) ->
 
 def record_vla_actions_for_episode(h5_in: str, h5_out: str, policy_step: Callable,
                                    instruction_key: str = "instruct_embeddings",
-                                   image_size: int = 384) -> str:
+                                   image_size: int = 384, batch_hint: int = 1) -> str:
     """Augment one episode (h5 or npz; the output in the input's format).
+    ``batch_hint`` is accepted and unused, as in the JAX package.
 
     ``policy_step(proprio (10,), images [6 x HxWx3 or None], text_embeds
     (L, D)) -> (1, chunk, 10)``: the deployment policy wrapper's ``step``

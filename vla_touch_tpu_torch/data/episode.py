@@ -208,7 +208,9 @@ class EpisodeFile:
                  "gelsight_force/displacement": "disps"}[key]
         return c.read_window(0, c.T)[field]
 
-    def __getitem__(self, key: str):
+    def get(self, key: str):
+        """The record at h5-style ``key`` ('camera1/camera1', 'ee_poses',
+        ...); ``KeyError`` when the episode has none."""
         if self.is_epc:
             return self._get_epc(key)
         if self.is_h5:
@@ -216,6 +218,8 @@ class EpisodeFile:
         name = NPZ_ALIASES.get(key, key)
         mapped = npz_member_map(self.path, self._f.zip, name)
         return self._f[name] if mapped is None else mapped
+
+    __getitem__ = get
 
 
 def qpos_from_episode(f) -> np.ndarray:

@@ -203,7 +203,8 @@ def si_training_loss(cfg: InterpolantConfig, nets: dict, obs_cond, expert_act,
 @torch.inference_mode()
 def sde_sample(cfg: InterpolantConfig, nets: dict, x_prior, cond,
                diffuse_steps: Optional[int] = None, score_weight: float = 1.0,
-               noise_seq=None, generator: Optional[torch.Generator] = None):
+               noise_seq=None, generator: Optional[torch.Generator] = None,
+               record_traj: bool = False):
     """Forward Euler-Maruyama simulation of the bridge SDE.
 
     ``nets``: for sde_type 'vs' ``{"vs_fused": fn}`` returning (v, s) from
@@ -212,6 +213,8 @@ def sde_sample(cfg: InterpolantConfig, nets: dict, x_prior, cond,
     (x, t, cond) -> drift term.
     ``noise_seq`` (n_steps,) + x.shape standard normals fixes the Brownian
     increments; otherwise they are drawn with ``generator``.
+    ``record_traj``: return ``(x_final, traj)``, ``traj`` (n + 1,) +
+    x.shape, the states from ``x_prior`` (as float32) to ``x_final``.
     """
     n = diffuse_steps or cfg.diffusion_steps
     delta_t = 1.0 / n
@@ -219,6 +222,7 @@ def sde_sample(cfg: InterpolantConfig, nets: dict, x_prior, cond,
     B = x.shape[0]
     if noise_seq is not None:
         noise_seq = torch.as_tensor(noise_seq, dtype=torch.float32, device=x.device)
+    traj = [x] if record_traj else None
     for step in range(n):
         # t in float32, as the JAX scan computes it
         t_scalar = np.clip(np.float32(step + 1) / np.float32(n),
@@ -251,4 +255,8 @@ def sde_sample(cfg: InterpolantConfig, nets: dict, x_prior, cond,
         dw = cfg.beta_max * z
         x = x + (b_val + score_weight * eps_t * s_val) * delta_t
         x = x + noise_scale * dw
+        if record_traj:
+            traj.append(x)
+    if record_traj:
+        return x, torch.stack(traj)
     return x

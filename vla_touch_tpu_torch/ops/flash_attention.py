@@ -20,6 +20,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from vla_touch_tpu_torch.utils.device import sm_count as _sm_count
 
@@ -105,8 +106,9 @@ def _resident(D: int, rows: int) -> int:
 
 
 def card_plan(B, Lq, Lkv, H, D, index=0):
-    """:func:`k1_plan` on CUDA device ``index``."""
-    return k1_plan(B, Lq, Lkv, H, _sm_count(index), _resident(D, cta_rows(Lq)))
+    """:func:`k1_plan` on CUDA device ``index`` (at D padded to a multiple
+    of 8, as the wrapper launches it)."""
+    return k1_plan(B, Lq, Lkv, H, _sm_count(index), _resident(-(-D // 8) * 8, cta_rows(Lq)))
 
 
 def _check_operand(name, t, B, H, D):
@@ -139,8 +141,11 @@ def mask_arg(what, kv_mask, B, Lkv, device):
 def flash_attention(q, k, v, kv_mask=None, scale=None):
     """Attention q (B, Lq, H, D), k/v (B, Lkv, H, D) -> (B, Lq, H, D).
 
-    CUDA: bf16 operands, D <= 128 and a multiple of 8, mask (B, Lkv) bool
-    or uint8; anything else raises.  CPU: :func:`attention_plain`.
+    CUDA: bf16 operands, D <= 128, mask (B, Lkv) bool or uint8; anything
+    else raises.  A D that is not a multiple of 8 (the kernel's 16-byte
+    column piece) runs on zero columns padded to the next multiple: the
+    scores do not change, the extra output columns are dropped, and the
+    scale stays D ** -0.5 of the true D.  CPU: :func:`attention_plain`.
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_mask=kv_mask, scale=scale)
@@ -177,6 +182,15 @@ class FlashAttentionFn(torch.autograd.Function):
         return tuple(next(grads) if t.requires_grad else None for t in ops) + (None, None)
 
 
+def pad_head_dim(*ts):
+    """``ts`` with zero columns appended to the head dim up to a multiple of
+    8, the kernel's 16-byte column piece.  Zero q and k columns add nothing
+    to a score and zero v columns give zero output columns, so attention of
+    the padded operands at the true D's scale, cut back to D columns, is
+    the attention of ``ts``."""
+    return tuple(F.pad(t, (0, -t.shape[-1] % 8)) for t in ts)
+
+
 def _launch(q, k, v, kv_mask, scale, plan):
     """Check the operands and launch K1 on CUDA tensors with ``plan(B, Lq,
     Lkv, H, D, device index)`` -> (rows per CTA, splits, tiles per split)."""
@@ -184,9 +198,15 @@ def _launch(q, k, v, kv_mask, scale, plan):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Lq, H, D = q.shape
     Lkv = k.shape[1]
-    if D % 8 or D > 128:
-        raise ValueError(f"flash_attention: head dim {D} must be a multiple "
-                         f"of 8 and <= 128")
+    if D > 128:
+        raise ValueError(f"flash_attention: head dim {D} must be <= 128")
+    scale = D ** -0.5 if scale is None else float(scale)
+    if D % 8:
+        for name, t in (("k", k), ("v", v)):
+            if t.dim() != 4 or t.shape[3] != D:
+                raise ValueError(f"flash_attention: {name} has shape {tuple(t.shape)}")
+        out = _launch(*pad_head_dim(q, k, v), kv_mask, scale, plan)
+        return out[..., :D].contiguous()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}")
@@ -194,7 +214,6 @@ def _launch(q, k, v, kv_mask, scale, plan):
     if v.shape[1] != Lkv:
         raise ValueError("flash_attention: k and v lengths differ")
     mask_ptr, m_sb = mask_arg("flash_attention", kv_mask, B, Lkv, q.device)
-    scale = D ** -0.5 if scale is None else float(scale)
     out = torch.empty((B, Lq, H, D), dtype=torch.bfloat16, device=q.device)
     if out.numel() == 0:
         return out

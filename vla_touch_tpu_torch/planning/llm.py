@@ -856,13 +856,14 @@ def sample_generate(cfg: LLMConfig, params: LLM, prompt_embeds, seed: int = 0,
 
 
 def train_lm(cfg: LLMConfig, params: LLM, texts, tokenizer=None, steps: int = 200,
-             lr: float = 1e-2):
+             lr: float = 1e-2, seed: int = 0):
     """Full-parameter causal-LM training of a float tree on a list of
     strings, in place: each text framed as BOS + bytes + EOS, padded with
     PAD, every position after BOS predicted (the mask shifted with the
     targets), all positions attendable; Adam (``optax.adam``: b1 0.9, b2
     0.999, eps 1e-8, no decay) over every parameter.  Returns (params, the
-    last step's loss, taken before its update)."""
+    last step's loss, taken before its update).  ``seed`` is accepted and
+    unused (the step draws nothing), as in the JAX package."""
     from vla_touch_tpu_torch.train import optim
 
     tok = tokenizer or ByteTokenizer()

@@ -10,12 +10,13 @@ builds.
 The tower computes as the JAX package does on its checkpoint's bf16
 weights: float32 patches times bf16-valued weights promote to float32, so
 the residual stream, the norms, the rotary and the MLPs run in float32.
-Its attention (:func:`frame_attention`) is K1 (``ops/flash_attention.py``)
-on the card, with the frames as the batch: (frames, longest frame, heads,
-head dim), q, k and v rounded to bf16 for the kernel, a frame shorter than
-the longest padded and its pad keys masked (pad query rows are computed
-and dropped).  On the CPU it is K1's plain version in float32, which is the
-JAX package's segment-masked float32 attention.
+Its attention (``ops/attention.py::dot_product_attention``) is K1
+(``ops/flash_attention.py``) on the card, with the frames as the batch:
+(frames, longest frame, heads, head dim), q, k and v rounded to bf16 for
+the kernel, a frame shorter than the longest padded and its pad keys
+masked (pad query rows are computed and dropped).  On the CPU it is K1's
+plain version in float32, which is the JAX package's segment-masked float32
+attention.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vla_touch_tpu_torch.ops import flash_attention as FA
+from vla_touch_tpu_torch.ops import attention as A
 from vla_touch_tpu_torch.ops.nn import gelu_erf, quick_gelu
 from vla_touch_tpu_torch.planning.llm import (LLMConfig, _mm, _require, load_llm_from_hf,
                                               read_safetensors_dir)
@@ -201,16 +202,6 @@ def _vision_rope(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
 
 
-def frame_attention(q, k, v, kv_mask=None):
-    """Attention within frames, q/k/v (F, L, H, hd) -> (F, L, H, hd) in q's
-    dtype; ``kv_mask`` (F, L) True = a real key.  On the card K1, its
-    operands rounded to bf16; on the CPU its plain version, in q's dtype."""
-    if q.device.type == "cuda":
-        bf16 = torch.bfloat16
-        return FA.flash_attention(q.to(bf16), k.to(bf16), v.to(bf16), kv_mask=kv_mask).to(q.dtype)
-    return FA.flash_attention(q, k, v, kv_mask=kv_mask)
-
-
 class FrameLayout:
     """The patches of each attention segment laid out as one batch row:
     (F, L) with L the longest segment.  Rows of equal-length segments that
@@ -248,7 +239,8 @@ class FrameLayout:
 
     def attend(self, q, k, v):
         """Attention of (N, H, hd) q/k/v within segments -> (N, H·hd)."""
-        out = frame_attention(self.rows(q), self.rows(k), self.rows(v), kv_mask=self.mask)
+        out = A.dot_product_attention(self.rows(q), self.rows(k), self.rows(v),
+                                      kv_mask=self.mask)
         out = out.reshape(self.F * self.L, -1)
         return out if self.scatter is None else out[self.scatter]
 

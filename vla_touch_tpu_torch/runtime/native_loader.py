@@ -54,11 +54,12 @@ def has_libjpeg() -> bool:
     return probe.returncode == 0
 
 
-def build_library(libjpeg: Optional[bool] = None, build_dir=None) -> str:
+def build_library(force: bool = False, libjpeg: Optional[bool] = None, build_dir=None) -> str:
     """Compile the shared library into ``build_dir`` (default
     ``build/native``) as ``episode_cache.<hash>.so``, the hash over the
-    source and the flags; returns its path.  ``libjpeg`` (default: where the
-    header is found) defines ``EC_HAVE_LIBJPEG`` and links ``-ljpeg``."""
+    source and the flags; returns its path.  An existing build is reused
+    unless ``force``.  ``libjpeg`` (default: where the header is found)
+    defines ``EC_HAVE_LIBJPEG`` and links ``-ljpeg``."""
     from vla_touch_tpu_torch.utils.filelock import FileLock
 
     libjpeg = has_libjpeg() if libjpeg is None else libjpeg
@@ -68,10 +69,10 @@ def build_library(libjpeg: Optional[bool] = None, build_dir=None) -> str:
     out_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / f"episode_cache.{digest}.so"
-    if path.exists():
+    if path.exists() and not force:
         return str(path)
     with open(out_dir / ".lock", "a+") as lock_file, FileLock(lock_file):
-        if path.exists():                        # another process built it
+        if path.exists() and not force:          # another process built it
             return str(path)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         run = subprocess.run(["g++", *flags, str(SRC), "-o", str(tmp), *libs],
@@ -108,7 +109,7 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def pack_episode(path: str, out_path: str, jpeg_quality: int = 90,
+def pack_episode(h5_path: str, out_path: str, jpeg_quality: int = 90,
                  use_resized: bool = False, codec: str = "jpeg") -> str:
     """An episode (h5 or npz, read through ``data/episode.py::EpisodeFile``)
     -> ``.epc`` cache (v2): the cameras ``camera1``/``camera2``, or with
@@ -126,7 +127,7 @@ def pack_episode(path: str, out_path: str, jpeg_quality: int = 90,
 
     if codec not in ("jpeg", "raw"):
         raise ValueError(f"codec {codec!r} not in ('jpeg', 'raw')")
-    with EpisodeFile(path) as f:
+    with EpisodeFile(h5_path) as f:
         qpos = qpos_from_episode(f).astype(np.float32)
         T = qpos.shape[0]
         forces = np.asarray(f["gelsight_force/forces"], np.float32)

@@ -95,10 +95,10 @@ def leaf_names(module: R.RDTRunnerModule) -> list:
     return [n for n, _ in sorted(flax_paths(module).items(), key=lambda kv: kv[1][0])]
 
 
-def make_optimizer(tcfg: TrainConfig, module: R.RDTRunnerModule) -> RDTOptimizer:
+def make_optimizer(cfg: TrainConfig, module: R.RDTRunnerModule) -> RDTOptimizer:
     """The optimizer of ``module``'s parameters (8-bit moments blocked in
     the JAX layout)."""
-    return RDTOptimizer(tcfg, transposed={n for n, (_, t) in flax_paths(module).items() if t})
+    return RDTOptimizer(cfg, transposed={n for n, (_, t) in flax_paths(module).items() if t})
 
 
 def _check_param_dtype(tcfg: TrainConfig) -> None:

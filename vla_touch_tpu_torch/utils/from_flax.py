@@ -179,9 +179,10 @@ def to_flax(module: torch.nn.Module, state: dict = None) -> dict:
     norms' ``weight`` -> ``scale``; ``blocks.{i}`` -> ``block{i}``."""
     from vla_touch_tpu_torch.ops import nn as N
 
-    def leaf(name, t):
-        t = state[name] if state is not None else t
-        return t.detach().float().cpu().numpy()
+    def leaf(name, t, transpose=False):
+        t = (state[name] if state is not None else t).detach().float()
+        # a kernel is transposed where it lies (on the card: no strided host copy)
+        return (t.T.contiguous() if transpose else t).cpu().numpy()
 
     tree: dict = {}
 
@@ -198,12 +199,12 @@ def to_flax(module: torch.nn.Module, state: dict = None) -> dict:
         path = re.sub(r"(^|\.)blocks\.(\d+)", r"\1block\2", mname).split(".") if mname else []
         full = {k: (f"{mname}.{k}" if mname else k) for k in own}
         if isinstance(m, torch.nn.Linear):
-            w = leaf(full["weight"], m.weight)
+            w = leaf(full["weight"], m.weight, transpose=True)
             if path and path[-1] == "patch_embed":
-                p = int(round((w.shape[1] // 3) ** 0.5))
-                put(path, "kernel", w.T.reshape(p, p, w.shape[1] // (p * p), w.shape[0]))
+                p = int(round((w.shape[0] // 3) ** 0.5))
+                put(path, "kernel", w.reshape(p, p, w.shape[0] // (p * p), w.shape[1]))
             else:
-                put(path, "kernel", w.T)
+                put(path, "kernel", w)
             if m.bias is not None:
                 put(path, "bias", leaf(full["bias"], m.bias))
         elif isinstance(m, (N.Conv1d, N.ConvTranspose1d)):

@@ -20,3 +20,6 @@ class MetricsLogger:
         with open(self.jsonl_path, "a") as f:
             f.write(json.dumps(row) + "\n")
         return row
+
+    def close(self):
+        """Nothing to release: each record opens and closes the file."""

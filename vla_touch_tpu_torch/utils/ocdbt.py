@@ -13,7 +13,8 @@ tree node is one encoded unit::
     body
     crc32c      u32 little-endian, CRC-32C of every byte before it
 
-``manifest.ocdbt`` holds one unit: the config (uuid[16], manifest kind,
+``manifest.ocdbt`` (manifest kind 0, single: orbax's, and what the writer
+writes) holds one unit: the config (uuid[16], manifest kind,
 max_inline_value_bytes, max_decoded_node_bytes, version_tree_arity_log2
 u8, compression: varint method, zstd level i32 LE), a data-file table, the
 newest versions inline (columns: generation, root height, file id, offset,
@@ -34,12 +35,16 @@ its entry key's first ``subtree_common_prefix_length`` bytes.  Version
 tree node body: arity_log2 u8, height u8, a data-file table, num_entries,
 then version columns (leaf) or node references without height (interior).
 Out-of-line values lie raw in the data files (``d/<32 hex>``), beside the
-nodes.
+nodes.  Manifest kind 1 (numbered): ``manifest.ocdbt`` holds the config
+alone, and each commit writes ``manifest.<generation, 16 hex digits>``, a
+whole manifest unit as above; the reader takes the highest-numbered one
+that decodes.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import struct
 import threading
 import time
@@ -53,6 +58,8 @@ MANIFEST_MAGIC = 0x0CDB3A2A
 BTREE_MAGIC = 0x0CDB20DE
 VERSION_MAGIC = 0x0CDB1234
 MANIFEST_NAME = "manifest.ocdbt"
+MANIFEST_SINGLE, MANIFEST_NUMBERED = 0, 1   # the config's manifest kinds
+_NUMBERED = re.compile(r"manifest\.[0-9a-f]{16}")
 NO_OFFSET = (1 << 64) - 1
 # the writer's config: orbax's (its `ocdbt` kvstore spec; zstd level 0 is
 # zstd's default, as tensorstore writes it)
@@ -273,19 +280,19 @@ class Database(Mapping):
         self._lock = threading.Lock()
         path = os.path.join(root, MANIFEST_NAME)
         with open(path, "rb") as f:
-            body = decode_unit(f.read(), MANIFEST_MAGIC, path)
-        r = _In(body, path)
-        self.uuid = bytes(r.take(16))
-        kind = r.varint()
-        if kind != 0:
-            r.fail(f"manifest kind {kind}: only single-file manifests are read")
-        self.max_inline_value_bytes = r.varint()
-        self.max_decoded_node_bytes = r.varint()
-        self.version_tree_arity_log2 = r.byte()
-        method = r.varint()
-        self.compression_level = struct.unpack("<i", r.take(4))[0] if method == 1 else None
-        if method not in (0, 1):
-            r.fail(f"unknown compression method {method}")
+            r = _In(decode_unit(f.read(), MANIFEST_MAGIC, path), path)
+        self.manifest_kind = self._read_config(r)
+        if self.manifest_kind == MANIFEST_NUMBERED:
+            # manifest.ocdbt holds the config alone; the versions are in the
+            # newest numbered manifest that decodes
+            r.end()
+            r = self._numbered_manifest()
+            if r is None:                        # no commit yet: empty
+                self.generation, self.height, self._index = 0, 0, {}
+                return
+            self._read_config(r)
+        elif self.manifest_kind != MANIFEST_SINGLE:
+            r.fail(f"unknown manifest kind {self.manifest_kind}")
         files = _read_file_table(r)
         versions = self._read_versions(r, files)
         nodes = self._read_version_refs(r, files, with_height=True)
@@ -297,6 +304,36 @@ class Database(Mapping):
         self._index: dict = {}
         if root_ref is not None:
             self._walk(*root_ref, prefix=b"")
+
+    def _read_config(self, r: _In) -> int:
+        """The config at the start of a manifest; returns its manifest kind."""
+        self.uuid = bytes(r.take(16))
+        kind = r.varint()
+        self.max_inline_value_bytes = r.varint()
+        self.max_decoded_node_bytes = r.varint()
+        self.version_tree_arity_log2 = r.byte()
+        method = r.varint()
+        self.compression_level = struct.unpack("<i", r.take(4))[0] if method == 1 else None
+        if method not in (0, 1):
+            r.fail(f"unknown compression method {method}")
+        return kind
+
+    def _numbered_manifest(self) -> Optional[_In]:
+        """The highest-numbered ``manifest.<16 hex digits>`` of the root that
+        decodes (a reader can meet a newer one half written), or None when
+        there is none."""
+        names = sorted((n for n in os.listdir(self.root) if _NUMBERED.fullmatch(n)),
+                       reverse=True)
+        for name in names:
+            path = os.path.join(self.root, name)
+            with open(path, "rb") as f:
+                data = f.read()
+            try:
+                return _In(decode_unit(data, MANIFEST_MAGIC, path), path)
+            except FormatError:
+                if name == names[-1]:
+                    raise
+        return None
 
     # -- version tree --
 
@@ -569,7 +606,7 @@ class Writer:
 
     def _write_manifest(self, root: Optional[dict], height: int) -> None:
         body = bytearray(uuid_lib.uuid4().bytes)
-        _varint(0, body)  # single-file manifest
+        _varint(MANIFEST_SINGLE, body)
         _varint(self.max_inline, body)
         _varint(self.max_node, body)
         body.append(VERSION_TREE_ARITY_LOG2)

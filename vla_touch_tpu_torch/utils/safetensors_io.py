@@ -140,7 +140,12 @@ def _as_numpy(name: str, t):
         return dt, (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
     a = np.asarray(t)
     if not a.flags.c_contiguous:
-        a = a.copy(order="C")       # (np.ascontiguousarray makes a 0-d array 1-d)
+        fast = (a.dtype.kind == "f" and a.dtype.isnative and a.flags.writeable
+                and min(a.strides, default=0) >= 0)
+        # a transposed view (a flax kernel in torch's layout): torch's copy
+        # runs on every core, numpy's strided one on one
+        a = (torch.from_numpy(a).contiguous().numpy() if fast
+             else a.copy(order="C"))  # (np.ascontiguousarray makes a 0-d array 1-d)
     key = a.dtype.newbyteorder("<") if a.dtype.byteorder == ">" else a.dtype
     if key not in _FROM_NUMPY:
         raise ValueError(f"{name!r}: dtype {a.dtype} has no safetensors name")
