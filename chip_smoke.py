@@ -759,6 +759,16 @@ K1_SHAPES = [
     ("walk_vit_d12", 6, 4, 4, 4, 12, "vit", None, 0),
     ("walk_dino_d96", 2, 5, 5, 4, 96, "vit", None, 0),
     ("walk_clip_d8", 3, 5, 5, 4, 8, "vit", None, 0),
+    # above D 128 (CTAs of 128-column pieces of V): D 160 at a SigLIP-sized
+    # call and D 256 at the image cross-attention's shape, timed once each;
+    # D 200 ragged over several splits, check only.  RDT-170M's bf16 tick
+    # (rdt170m_ticks): its D 72 self-attention and image cross-attention,
+    # check only (the tick's checked run holds every call)
+    ("vit_d160", 6, 729, 729, 8, 160, "vit", None, 1),
+    ("cross_d256", 1, 67, 4374, 16, 256, "cross", None, 1),
+    ("cross_d200_ragged", 2, 67, 1000, 8, 200, "cross", "empty_wide", 0),
+    ("rdt170m_self", 1, 67, 67, 16, 72, "self", None, 0),
+    ("rdt170m_image_cross", 1, 67, 4374, 16, 72, "cross", None, 0),
 ]
 # the rows whose calls are per training step, not per tick: an RDT training
 # step's, a contrastive step of the tactile encoder's, and the warm-replan
@@ -770,7 +780,8 @@ K1_STEP_ROWS = {"rdt_train_self": "train_step", "rdt_train_image_cross": "train_
                 "warm_train_image_cross": "warm_train_step", "warm_chunk_self": "warm_chunk",
                 "warm_chunk_lang_cross": "warm_chunk", "warm_chunk_image_cross": "warm_chunk",
                 "vit_d8": "head_dims", "vit_d12": "head_dims", "cross_d20_ragged": "head_dims",
-                "fused_d20": "head_dims", "vit_d96": "head_dims", "vit_d128": "head_dims"}
+                "fused_d20": "head_dims", "vit_d96": "head_dims", "vit_d128": "head_dims",
+                "vit_d160": "head_dims", "cross_d256": "head_dims"}
 
 
 def k1_operands(gen, B, Lq, Lkv, H, D, layout):
@@ -973,7 +984,17 @@ K2_HORIZONS = (64, 48)
 # horizon; the controllers phase's evaluation runs it at B 50) and a time
 # axis that ends inside the second m16 tile
 K2_CHECK_ONLY = [("h32_down0_res0", 32, 10, 256, 1), ("h32_down0_res1", 32, 256, 256, 1),
-                 ("h32_b50_down0_res1", 32, 256, 256, 50), ("t20_ragged", 20, 256, 512, 1)]
+                 ("h32_b50_down0_res1", 32, 256, 256, 50), ("t20_ragged", 20, 256, 512, 1),
+                 ("t200_ragged", 200, 256, 512, 1), ("wide_t128_b2", 128, 1024, 1024, 2)]
+# past the 64-step time chunk and past one SM's shared memory, each block
+# timed once (summed in tot["long"]): horizon 128's first level (two time
+# chunks) and horizon 256's first two, and the widest blocks of the UNet's
+# default down_dims (256, 512, 1024) at horizon 256 (its third level, T 64:
+# C 1024, and the up path's 2048 input channels), which take splits of at
+# most 256 input channels and stream the norm items' values
+K2_LONG = [("h128_down0_res0", 128, 10, 256), ("h128_down0_res1", 128, 256, 256),
+           ("h256_down0_res1", 256, 256, 256), ("h256_down1_res0", 128, 256, 512),
+           ("wide_c1024_t64", 64, 1024, 1024), ("wide_cin2048_t64", 64, 2048, 1024)]
 
 
 def k2_params(gen, S, Cin, C, G, K):
@@ -1020,7 +1041,8 @@ def check_k2(gen):
     # each horizon's UNet pass (each block once, summed in tot["h<horizon>"]);
     # the plain version of a horizon's block is timed over fewer calls
     passes = [("", K2_SHAPES, K2_STEPS, tot)] + [
-        (f"h{h}", k2_unet_shapes(h), 0, tot.setdefault(f"h{h}", sums())) for h in K2_HORIZONS]
+        (f"h{h}", k2_unet_shapes(h), 0, tot.setdefault(f"h{h}", sums())) for h in K2_HORIZONS] \
+        + [("long", K2_LONG, 0, tot.setdefault("long", sums()))]
     for label, shapes, calls, acc in passes:
         for name, T, Cin, C in shapes:
             shape = f"{label}_{name}" if label else name
@@ -1049,7 +1071,7 @@ def check_k2(gen):
             rows.append(dict(shape=shape, T=T, Cin=Cin, C=C, calls=calls, max_abs_err=err,
                              max_plain=max_plain, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                              bound_ms=bound))
-            log(f"K2 {shape:15s} S{S} B{B} T{T:2d} Cin{Cin:5d} C{C}: err {err:.3e} "
+            log(f"K2 {shape:20s} S{S} B{B} T{T:3d} Cin{Cin:5d} C{C}: err {err:.3e} "
                 f"(tol {K2_TOL}, max|plain| {max_plain:.2f}) kernel {ms:.4f} ms"
                 + (f" (eager loop {eager_ms:.4f})" if calls else "")
                 + f" plain {plain_ms:.4f} ms bound {bound:.4f} ms"
@@ -1059,7 +1081,8 @@ def check_k2(gen):
                 acc[key] += (calls or 1) * v
             acc["err"] = max(acc["err"], err)
         if label:
-            log(f"K2 horizon {label[1:]} UNet pass (12 blocks): kernel {acc['ms']:.4f} ms "
+            log(f"K2 {'long and wide blocks' if label == 'long' else 'horizon ' + label[1:]}"
+                f" ({len(shapes)} blocks): kernel {acc['ms']:.4f} ms "
                 f"plain {acc['plain_ms']:.4f} ms bound {acc['bound_ms']:.4f} ms")
     for name, T, Cin, C, Bc in K2_CHECK_ONLY:
         x = torch.randn((S, Bc, T, Cin), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1092,6 +1115,17 @@ Q8_SHAPES = [
     ("split_ragged_1000", 1, 67, 1000, 32, 64, None, 0),
     ("image_dead_split", 1, 67, 4374, 32, 64, "dead_split", 0),
     ("image_b2_empty_row", 2, 67, 4374, 32, 64, "empty", 0),
+]
+# other head dims, timed once each (summed in tot["head_dims"]): RDT-170M's
+# int8 cache (16 heads of D 72: K3 only, as JAX's K4 asserts D % 32, which
+# the port's K4 refuses too) and D 160 (fewer query rows a CTA); check only:
+# RDT-170M's ragged language cache and D 160 over several splits with an
+# empty row
+Q8_HEAD_DIM_SHAPES = [
+    ("rdt170m_image_cross", 1, 67, 4374, 16, 72, None, 1),
+    ("rdt170m_lang_cross", 1, 67, 64, 16, 72, "ragged", 0),
+    ("d160_image_cross", 1, 67, 4374, 8, 160, None, 1),
+    ("d160_split_empty_row", 2, 67, 1000, 8, 160, "empty", 0),
 ]
 
 
@@ -1154,15 +1188,28 @@ def check_q8(gen, kernel):
     transposed = kernel == "K4"
     fn, plain = ((FQ.flash_attention_q8t, FQ.attention_q8t_plain) if transposed else
                  (FQ.flash_attention_q8, FQ.attention_q8_plain))
+    def sums():
+        return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
+                    bytes_ms=0.0, ops_ms=0.0)
+
     rows = []
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
-               bytes_ms=0.0, ops_ms=0.0)
-    for name, B, Lq, Lkv, H, D, mask_kind, calls in Q8_SHAPES:
+    tot = sums()
+    tot["head_dims"] = sums()
+    for name, B, Lq, Lkv, H, D, mask_kind, calls in Q8_SHAPES + Q8_HEAD_DIM_SHAPES:
+        acc = tot if (name, B, Lq, Lkv, H, D, mask_kind, calls) in Q8_SHAPES else \
+            tot["head_dims"]
+        if transposed and D % 16:
+            try:
+                fn(*q8_operands(gen, 1, 1, 16, 1, D, True))
+            except ValueError as e:
+                log(f"{kernel} {name}: D {D} refused, as JAX's kernel refuses it ({e})")
+                continue
+            raise AssertionError(f"{kernel} took D {D}: JAX's K4 asserts D % 32")
         n_sets = max(1, min(8, -(-2 * L2_BYTES // (2 * B * Lkv * H * D))))
         sets = [q8_operands(gen, B, Lq, Lkv, H, D, transposed) for _ in range(n_sets)]
         mask = q8_mask(B, Lq, Lkv, H, mask_kind)
         err, tol = q8_check(kernel, sets[0], mask)
-        tot["err"] = max(tot["err"], err)
+        acc["err"] = max(acc["err"], err)
         splits, tps = q8_splits(B, Lq, Lkv, H)
         where = (f"{kernel} {name:26s} B{B} Lq{Lq} Lkv{Lkv} H{H} D{D} splits {splits} x "
                  f"{tps} tiles")
@@ -1204,7 +1251,8 @@ def check_q8(gen, kernel):
             f"bound {bound:.4f} ms x{calls}/tick")
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                        ("bound_ms", bound), ("bytes_ms", b_ms), ("ops_ms", o_ms)):
-            tot[key] += calls * v
+            acc[key] += calls * v
+    tot["err"] = max(tot["err"], tot["head_dims"]["err"])
     return rows, tot
 
 
@@ -1613,7 +1661,8 @@ def run_tick(t, stage_ms=None, rdt=None, kv_cache="bf16", refine=True, model=Non
 
 # (kernel, library) whose ptxas report kernel_ptxas holds: no register spills
 PTXAS_CHECKED = (("K1", "flash_attention"), ("K8", "w4a8_matmul"), ("K2", "resblock"),
-                 ("K5", "w8a16_matmul"), ("K7", "a8w8_matmul_large"))
+                 ("K5", "w8a16_matmul"), ("K7", "a8w8_matmul_large"),
+                 ("K3", "flash_attention_q8"))
 
 
 def kernel_ptxas():
@@ -1852,6 +1901,90 @@ def quant_ticks(t, bf16_actions) -> dict:
     check_outputs(out)
     res["step"] = dict(launches=read_counts())
     res["runners"] = runners
+    return res
+
+
+# ---- RDT-170M's cold tick ---------------------------------------------------------
+
+# RDT-170M (config.rdt_170m: 1152 x 28 blocks, 16 heads of D 72) as the
+# tick's chunk, SigLIP and BRIDGeR as the RDT-1B tick's: bf16 through
+# ``create_model(cfg).step`` and tier (a) (int8 weights, the int8 condition
+# cache: K3 at D 72) through ``policy_step``; the launches of RDT-1B's
+# ticks, its structure being the same
+RDT170M_TICKS = (("bf16", None, None, {"K1": 319, "K2": 120}),
+                 ("a", "int8", "int8", {"K1": 179, "K2": 120, "K3": 140, "K6": 870}))
+
+
+def rdt170m_ticks(t) -> dict:
+    """RDT-170M's cold tick, bf16 and (a), each counted, checked against
+    its plain version (chunk and refine corr), as a checked run, timed
+    (p50 of two) and once with a synchronise after each stage; (a)'s chunk
+    against the bf16 chunk's corr; then the bf16 tick of RDT-1B and of
+    RDT-170M timed in turns (1B, 170M, 170M, 1B)."""
+    import torch
+
+    from vla_touch_tpu_torch.config import rdt_170m
+    from vla_touch_tpu_torch.models.rdt import quant_serve as QS
+    from vla_touch_tpu_torch.models.rdt import runner as R
+    from vla_touch_tpu_torch.runtime import policy as P
+
+    pcfg = P.franka_eef_policy_config(rdt=R.RDTRunnerConfig(model=rdt_170m()))
+    model = P.create_model(pcfg, seed=0, vision=t["model"].vision, cache_frames=False)
+    # the zero-initialised final projection would make every chunk 0
+    gen = torch.Generator(device="cuda").manual_seed(170)
+    fc2 = model.rdt.model.final_ffn.fc2.weight
+    fc2.copy_((torch.randn(fc2.shape, generator=gen, device="cuda") * 0.02).to(fc2.dtype))
+    t170 = dict(t, pcfg=pcfg, model=model)
+    res = {}
+    for name, weights, kv, need in RDT170M_TICKS:
+        kw = {} if weights is None else dict(
+            rdt=QS.quantize_rdt_params(model.rdt, weights), kv_cache=kv)
+        what = f"RDT-170M tick ({name})"
+        run_tick(t170, **kw)                         # warm-up
+        zero_counts()
+        out = run_tick(t170, **kw)
+        counts = read_counts()
+        check_counts(what, counts, need)
+        check_outputs(out)
+        with plain_kernels():
+            out_p = run_tick(t170, **kw)
+        c_chunk = action_corr(t170, out["actions"], out_p["actions"])
+        c_ref = action_corr(t170, out["refined"], out_p["refined"])
+        c_bf16 = action_corr(t170, out["actions"], res["bf16"]["actions"]) if kw else None
+        log(f"{what}: kernel vs plain chunk corr {c_chunk:.6f} (min {CHUNK_CORR_MIN}), "
+            f"refined corr {c_ref:.6f} (min {REFINED_CORR_MIN})"
+            + (f"; chunk vs the bf16 chunk corr {c_bf16:.6f} (min {INT8_CHUNK_CORR_MIN})"
+               if kw else ""))
+        if not (c_chunk > CHUNK_CORR_MIN and c_ref > REFINED_CORR_MIN):
+            raise AssertionError(f"{what}: kernel tick disagrees with the plain tick")
+        if kw and not c_bf16 > INT8_CHUNK_CORR_MIN:
+            raise AssertionError(f"{what}: int8 chunk vs bf16 chunk corr {c_bf16}")
+        chk = checked_tick(t170, **kw)
+        check_chk(f"{what} checked", chk, need)
+        ticks = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            run_tick(t170, **kw)
+            ticks.append(1e3 * (time.perf_counter() - t1))
+        stages = {}
+        run_tick(t170, stage_ms=stages, **kw)
+        log(f"{what}: tick p50 {np.median(ticks):.2f} ms (ticks "
+            f"{[round(x, 2) for x in ticks]}); stage ms (a synchronise after each): "
+            + json.dumps({k: round(v[0], 3) for k, v in stages.items()}))
+        res[name] = dict(launches=counts, corr_vs_plain=c_chunk, refined_corr_vs_plain=c_ref,
+                         corr_vs_bf16_chunk=c_bf16, p50_ms=float(np.median(ticks)),
+                         stage_ms={k: v[0] for k, v in stages.items()},
+                         checked={k: v for k, v in chk.items() if v["calls"]},
+                         actions=out["actions"])
+    for r in res.values():
+        r.pop("actions")
+    turns = {"rdt_1b": [], "rdt_170m": []}
+    for who in ("rdt_1b", "rdt_170m", "rdt_170m", "rdt_1b"):
+        t1 = time.perf_counter()
+        run_tick(t if who == "rdt_1b" else t170)
+        turns[who].append(1e3 * (time.perf_counter() - t1))
+    log("bf16 tick in turns (1B, 170M, 170M, 1B), ms: " + json.dumps(turns))
+    res["bf16_in_turns_ms"] = turns
     return res
 
 
@@ -7192,6 +7325,11 @@ def main() -> int:
     log("quant ticks: " + json.dumps({k: v for k, v in q.items() if k != "runners"}))
     lap("quant_ticks")
 
+    # ---- RDT-170M's cold tick, bf16 and (a)
+    r170 = rdt170m_ticks(t)
+    log("rdt170m ticks: " + json.dumps(r170))
+    lap("rdt170m_ticks")
+
     # ---- the steady-state tick
     warm = warm_phase(t, q["runners"]["int8"])
     log("warm ticks: " + json.dumps(warm))
@@ -7295,14 +7433,16 @@ def main() -> int:
                     bound_ms=tot["bound_ms"], bound_by=bound_by(tot),
                     library_ms=tot.get("library_ms"), **extra)
 
-    # K1 runs on fourteen main paths, K2 on four: the cold tick, the serving
+    # K1 runs on fifteen main paths, K2 on five: the cold tick, the serving
     # pool, the replay CLI, the controllers phase (training and evaluation),
-    # RDT finetuning, the README's walkthroughs (and K2's horizon-64 refine)
+    # RDT finetuning, the README's walkthroughs (and K2's horizon-64 refine),
+    # RDT-170M's ticks
     # and (K1) the planner's VLM, its tactile encoder's
     # training and evaluation, its LLM training, the T5-embedded tick, Sparsh,
     # the warm-replan quality run, and the data path's distillation and its
-    # RDT-1B and BRIDGeR training from .epc, each counted from 0; K6 on
-    # quantized tick (a), the serving pool's int8 batches and the VLM's int8
+    # RDT-1B and BRIDGeR training from .epc, each counted from 0; K3 on
+    # quantized tick (a) of RDT-1B and of RDT-170M; K6 on those, the serving
+    # pool's int8 batches and the VLM's int8
     # request; K8 on tick (e) and the VLM; K9 and K10 on the planner and the
     # VLM
     by_path = {k: {"tick": counts[k], "serving": serve["launches"][k],
@@ -7321,8 +7461,11 @@ def main() -> int:
     by_path["K1"]["parallel"] = par["launches"]["K1"]
     for k in ("K1", "K2"):
         by_path[k]["examples"] = ex["launches"][k]
+        by_path[k]["rdt170m"] = sum(r170[c]["launches"][k] for c in ("bf16", "a"))
+    by_path["K3"] = {"tick_a": q["a"]["launches"]["K3"], "rdt170m_a": r170["a"]["launches"]["K3"]}
     by_path["K6"] = {"tick_a": q["a"]["launches"]["K6"], "serving": serve["launches"]["K6"],
-                     "replay": rep["launches"]["K6"], "vlm": vl["counts"]["K6"]}
+                     "replay": rep["launches"]["K6"], "vlm": vl["counts"]["K6"],
+                     "rdt170m_a": r170["a"]["launches"]["K6"]}
     by_path["K8"] = {"tick_e": q["e"]["launches"]["K8"], "vlm": vl["counts"]["K8"],
                      "llm_train": lt["counts"].get("K8", 0)}
     for k in ("K9", "K10"):
@@ -7331,13 +7474,16 @@ def main() -> int:
     kernels = [
         entry("flash_attention", "flash_attention.cu", "ops/pallas_attention.py:126",
               sum(by_path["K1"].values()), k1, launches_by_path=by_path["K1"],
-              train_step=k1["train_step"], contrastive_step=k1["contrastive_step"]),
+              train_step=k1["train_step"], contrastive_step=k1["contrastive_step"],
+              head_dims=k1["head_dims"]),
         entry("resblock_fused", "resblock.cu", "ops/pallas_unet.py:203",
-              sum(by_path["K2"].values()), k2, launches_by_path=by_path["K2"]),
+              sum(by_path["K2"].values()), k2, launches_by_path=by_path["K2"],
+              long_and_wide=k2["long"]),
         entry("flash_attention_q8", "flash_attention_q8.cu", "ops/pallas_attention.py:275",
-              q["a"]["launches"]["K3"], k3),
+              sum(by_path["K3"].values()), k3, launches_by_path=by_path["K3"],
+              head_dims=k3["head_dims"]),
         entry("flash_attention_q8t", "flash_attention_q8.cu", "ops/pallas_attention.py:424",
-              q["b"]["launches"]["K4"], k4),
+              q["b"]["launches"]["K4"], k4, head_dims=k4["head_dims"]),
         # K5 and K7: no module dispatches them (0 launches on every main path
         # run above); their launches are the shadow calls of (f)'s checked tick
         entry("w8a16_matmul", "w8a16_matmul.cu", "ops/pallas_matmul.py:98",

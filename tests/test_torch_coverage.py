@@ -1,6 +1,7 @@
 """PyTorch port, the last gaps against the JAX package, on the CPU: K1 at
-head dims off the kernel's 8-column piece, K2 at time axes above 32 steps
-(the 64-step chunk), ``sde_sample(record_traj=True)``,
+head dims off the kernel's 8-column piece and above 128, K2 at time axes
+above 32 steps (the 64-step chunk and past it) and at a width past one SM,
+BRIDGeR at horizons 64 and 128, ``sde_sample(record_traj=True)``,
 ``EpisodeFile.get``, ``build_library(force=True)``,
 ``record_vla_actions_for_episode(batch_hint=)`` and an orbax directory
 whose OCDBT database has a numbered manifest.  The kernels themselves run
@@ -34,9 +35,10 @@ NUMBERED = os.path.join(ROOT, "tests", "fixtures", "orbax_numbered")
 # ---- K1 at any head dim ------------------------------------------------------
 
 
-@pytest.mark.parametrize("D", [12, 20])
+@pytest.mark.parametrize("D", [12, 20, 160, 200, 256])
 def test_k1_at_a_head_dim_off_the_column_piece_matches_jax(D):
-    """The port's K1 wrapper (its plain version on the CPU) at D 12 and 20
+    """The port's K1 wrapper (its plain version on the CPU) at D 12 and 20,
+    and above 128 (160, 200, 256: the kernel's 128-column pieces of V)
     against JAX's default attention (the einsum) to 1e-5 x max|jax|, and
     against JAX's Pallas kernel in interpret mode (it pads D to 128 lanes,
     rounds p and the output to bf16) to 2e-2 x max|jax|; a ragged mask on
@@ -100,12 +102,15 @@ def _block_case(seed, S, B, T, Cin, C, G):
     return x, cond, stacked_j, stacked_t
 
 
-@pytest.mark.parametrize("T,Cin,C", [(48, 10, 32), (64, 16, 32), (64, 64, 64)])
+@pytest.mark.parametrize("T,Cin,C", [(48, 10, 32), (64, 16, 32), (64, 64, 64), (96, 10, 32),
+                                     (128, 16, 32), (256, 16, 32), (64, 1024, 1024)])
 def test_k2_at_long_time_axes_matches_pallas_interpret(T, Cin, C):
-    """K2's wrapper (plain on the CPU) at T 48 and 64 against JAX's Pallas
-    block in interpret mode (bf16 matmul operands: 2e-2, as the JAX
-    package's own kernel test) and its float32 reference (1e-5):
-    GroupNorm's statistics over the whole (group, T) slab."""
+    """K2's wrapper (plain on the CPU) at T 48 and 64, past the kernel's
+    64-step time chunk (96, 128, 256) and at a block too wide for one SM
+    as it is (Cin = C = 1024 at T 64) against JAX's Pallas block in
+    interpret mode (bf16 matmul operands: 2e-2, as the JAX package's own
+    kernel test) and its float32 reference (1e-5): GroupNorm's statistics
+    over the whole (group, T) slab."""
     from vla_touch_tpu.ops.pallas_unet import resblock_fused as j_fused
     from vla_touch_tpu.ops.pallas_unet import resblock_ref as j_ref
 
@@ -120,10 +125,37 @@ def test_k2_at_long_time_axes_matches_pallas_interpret(T, Cin, C):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("horizon", [64])
+@pytest.mark.parametrize("Cin,C,k,S,n_ctas,has_res,cap", [
+    (1024, 1024, 5, 2, 264, False, 16), (512, 1024, 5, 2, 264, True, 16),
+    (1024, 512, 5, 1, 132, True, 16), (2048, 2048, 3, 2, 264, False, 16),
+    (256, 512, 5, 2, 264, True, 0)])
+def test_k2_plan_keeps_each_split_within_the_staged_width(Cin, C, k, S, n_ctas, has_res, cap):
+    """``k2_plan(max_chunks=cap)``: the splits of every product (conv0,
+    FiLM, the residual, conv1) cover every mma step once, in ranges that span at most
+    ``cap`` 16-channel chunks of input (the kernel's staged A of a block too
+    wide for one SM); with no cap the plan is the one it was."""
+    plan = UK.k2_plan(Cin, C, 512, k, S, n_ctas, has_res, cap)
+    assert plan == UK.k2_plan(Cin, C, 512, k, S, n_ctas, has_res) or cap
+    steps = UK.k2_steps(Cin, C, 512, k, has_res)
+    for job, taps, rci in (("conv0", k, Cin), ("film", 1, 512), ("res", 1, Cin),
+                           ("conv1", k, C)):
+        if job not in plan:
+            continue
+        n, splits = steps[job][0], plan[job]
+        ranges = [UK.k2_split_steps(n, splits, z) for z in range(splits)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(b0 < e0 == b1 for (b0, e0), (b1, _) in zip(ranges, ranges[1:]))
+        if cap:
+            assert UK.k2_split_chunks(-(-rci // 16), taps, splits) <= cap
+            for b, e in ranges:
+                assert (e - 1) // taps + 1 - b // taps <= cap
+
+
+@pytest.mark.parametrize("horizon", [64, 128])
 def test_bridge_predict_at_the_64_step_chunk_matches_jax(horizon):
     """BRIDGeR at horizon 64 (its first UNet level four m16 tiles of K2,
-    the second two; horizon 48's three are held block by block above): the
+    the second two; horizon 48's three are held block by block above) and
+    128 (the first level two of K2's 64-step time chunks): the
     port's stacked v/s serving UNet (float32, K2's
     plain version on the CPU) against JAX's ``bridge_predict`` on its
     default path (flax taps), the same ``noise_seq``: atol 1e-4 / rtol

@@ -153,9 +153,9 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 4, 2, 64), device=cuda)
     with pytest.raises(TypeError):
         flash_attention(q, q, q)                        # float32
-    q = torch.zeros((1, 4, 2, 136), device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros((1, 4, 2, 264), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        flash_attention(q, q, q)                        # D above 128
+        flash_attention(q, q, q)                        # D above 256
 
 
 @pytest.mark.parametrize("B,Lq,Lkv,H,D,masked", [
@@ -166,12 +166,17 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     (1, 67, 4374, 32, 20, True),         # split, ragged mask, D 20
     (2, 130, 300, 3, 100, True),
     (1, 67, 500, 4, 1, False),
+    (1, 67, 4374, 8, 160, False),        # above D 128: pieces of V, split
+    (2, 200, 700, 4, 200, True),         # two q tiles, two pieces, ragged
+    (6, 729, 729, 4, 256, False),
+    (1, 67, 1000, 16, 144, True),
+    (1, 67, 67, 16, 72, False),          # RDT-170M's self-attention
 ])
 def test_flash_attention_kernel_at_every_head_dim(cuda, B, Lq, Lkv, H, D, masked):
-    """Any D <= 128 launches the kernel (a D off the 8-column piece on zero
-    columns): one counted launch a call, within 2e-2 x max|plain| of the
-    plain version at the true D's scale, and a CUDA graph of the call
-    replays the eager call's bits."""
+    """Any D <= 256 launches the kernel (a D off the 8-column piece on zero
+    columns; above 128, CTAs of 128-column pieces of V): one counted launch
+    a call, within 2e-2 x max|plain| of the plain version at the true D's
+    scale, and a CUDA graph of the call replays the eager call's bits."""
     from vla_touch_tpu_torch.ops import flash_attention as FA
 
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -287,16 +292,22 @@ def test_resblock_kernel_repeats_bit_for_bit_under_graph_replay(cuda):
 
 
 # (T, Cin, C) of the first two levels of the UNet at the reference's
-# 64-step chunk (four and two m16 time tiles) and at horizon 48 (three)
+# 64-step chunk (four and two m16 time tiles) and at horizon 48 (three);
+# past one 64-step time chunk (horizons 96 to 256); and blocks too wide for
+# one SM as they are (the default down_dims' 1024 channels at T 64 and 128,
+# the up path's 2048 inputs)
 K2_LONG = [(64, 10, 256), (64, 256, 256), (32, 256, 512), (32, 1024, 256), (48, 10, 256),
-           (48, 256, 256), (24, 1024, 256), (61, 256, 512)]
+           (48, 256, 256), (24, 1024, 256), (61, 256, 512), (96, 10, 256), (128, 256, 256),
+           (200, 256, 512), (256, 256, 256), (64, 1024, 1024), (64, 2048, 1024),
+           (128, 1024, 1024)]
 
 
 @pytest.mark.parametrize("T,Cin,C", K2_LONG)
 def test_resblock_kernel_at_the_64_step_chunk(cuda, T, Cin, C):
-    """T up to 64 launches the kernel: one counted launch, within 3e-2 of
-    the plain version (GroupNorm over the whole time axis), B 2 as the
-    batch loop, and a CUDA graph of the call replays the eager bits."""
+    """Any T launches the kernel: one counted launch, within 3e-2 of the
+    plain version (GroupNorm over the whole time axis), B 2 as the batch
+    loop, and a CUDA graph of the call replays the eager bits (T 128 too,
+    two time chunks; and the wide blocks' capped splits)."""
     from vla_touch_tpu_torch.ops import unet_kernels as UK
 
     g = torch.Generator(device=cuda).manual_seed(24)
@@ -319,21 +330,26 @@ def test_resblock_kernel_at_the_64_step_chunk(cuda, T, Cin, C):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, got)
-    with pytest.raises(ValueError):
-        UK.resblock_fused(x.new_zeros((2, 2, 65, Cin)), cond, p)     # T above 64
 
 
 def test_resblock_kernel_refuses_a_grid_that_cannot_be_resident(cuda):
-    """A block too wide for one SM's shared memory (its input rows alone
-    need ~650 KB) cannot be a cooperative launch: a clear error, no launch."""
+    """A block too wide for one SM's shared memory as it is (its input rows
+    alone would need ~650 KB; a FiLM condition of 8192 channels) was
+    refused as a grid that cannot be resident.  Now every block is: its
+    splits span at most 256 input channels (the staged A), so it launches
+    once and matches the plain version within 3e-2."""
     from vla_touch_tpu_torch.ops import unet_kernels as UK
 
     g = torch.Generator(device=cuda).manual_seed(23)
-    x, cond, p = _k2_case(g, 4, 16384, 64, cuda, S=1)
-    before = UK.resblock_fused.launches
-    with pytest.raises(RuntimeError, match="does not fit an SM"):
-        UK.resblock_fused(x, cond, p)
-    assert UK.resblock_fused.launches == before
+    for T, Cin, C, G in ((4, 16384, 64, 512), (16, 256, 256, 8192)):
+        x, cond, p = _k2_case(g, T, Cin, C, cuda, S=1, G=G)
+        before = UK.resblock_fused.launches
+        got = UK.resblock_fused(x, cond, p)
+        assert UK.resblock_fused.launches == before + 1
+        want = UK.resblock_ref(x, cond, p)
+        torch.cuda.synchronize()
+        err = float((got.float() - want).abs().max())
+        assert np.isfinite(err) and err < 3e-2, (T, Cin, C, G, err)
 
 
 # ---- K6 / K8: the int8 and int4 serving matmuls --------------------------------
@@ -543,6 +559,30 @@ def test_w4a8_tile_plans_agree(cuda, plan):
     got = QM._w4a8_launch(x, qp.w4_pack, qp.scale4, qp.bias, plan)
     torch.cuda.synchronize()
     assert float((got.float() - want).abs().max()) <= 2 ** -8 * float(want.abs().max())
+
+
+def test_qdense_kernel_a8w8_routes_k_off_16_as_jax_routes_to_xla(cuda):
+    """An int8 leaf whose K is off K6's 16-column piece (which K6 refuses)
+    goes to the plain ``qdense``, as JAX's dispatch sends K off 128 to XLA:
+    no launch, the plain version's bits; K 48 launches K6 (one bf16 step
+    of the plain version)."""
+    from vla_touch_tpu_torch.ops import quant_matmul as QM
+
+    g = torch.Generator(device=cuda).manual_seed(31)
+    for K, launched in ((40, 0), (48, 1)):
+        lin, Q = _int8_linear(g, 128, K, cuda)
+        qp = Q.quantize_linear(lin)
+        x = torch.randn((67, K), generator=g, device=cuda).to(torch.bfloat16)
+        before = QM.a8w8_matmul.launches
+        got = QM.qdense_kernel_a8w8(x, qp)
+        assert QM.a8w8_matmul.launches == before + launched
+        want = Q.qdense(x, qp)
+        torch.cuda.synchronize()
+        if launched:
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= 2 ** -7 * float(want.float().abs().max())
+        else:
+            assert torch.equal(got, want)
 
 
 def test_int8_matmul_kernels_refuse_what_they_do_not_take(cuda):
@@ -768,26 +808,32 @@ def test_k5_k7_refuse_or_route_what_they_do_not_take(cuda):
 
 # ---- K3 / K4: flash attention over an int8 K/V cache ---------------------------
 
-@pytest.mark.parametrize("B,Lq,Lkv,H,mask_kind", [
-    (1, 67, 4374, 32, None),             # the image cache: 18 splits, combined
-    (2, 67, 4374, 32, "fully_masked"),   # row 0 loses its last quarter, row 1 all
-    (1, 67, 4374, 32, "dead_split"),     # every key of the second split masked
-    (1, 67, 64, 32, "ragged"),           # the language cache: one split
-    (1, 67, 1, 32, None),
-    (1, 67, 65, 32, "ragged"),           # two tiles, the second ragged
-    (1, 67, 1000, 32, None),             # a ragged last tile at 8 splits
-    (1, 200, 1000, 4, "ragged"),         # two query tiles, each split
-    (2, 35, 300, 4, "fully_masked"),
+@pytest.mark.parametrize("B,Lq,Lkv,H,D,mask_kind", [
+    (1, 67, 4374, 32, 64, None),         # the image cache: 18 splits, combined
+    (2, 67, 4374, 32, 64, "fully_masked"),   # row 0 loses its last quarter, row 1 all
+    (1, 67, 4374, 32, 64, "dead_split"),     # every key of the second split masked
+    (1, 67, 64, 32, 64, "ragged"),       # the language cache: one split
+    (1, 67, 1, 32, 64, None),
+    (1, 67, 65, 32, 64, "ragged"),       # two tiles, the second ragged
+    (1, 67, 1000, 32, 64, None),         # a ragged last tile at 8 splits
+    (1, 200, 1000, 4, 64, "ragged"),     # two query tiles, each split
+    (2, 35, 300, 4, 64, "fully_masked"),
+    (1, 67, 4374, 16, 72, None),         # RDT-170M's image cache (K4: refused, as JAX)
+    (1, 67, 64, 16, 72, "ragged"),       # ... and its language cache
+    (1, 67, 4374, 8, 160, None),         # above D 128: fewer query rows a CTA
+    (2, 67, 1000, 8, 160, "fully_masked"),
+    (1, 130, 600, 4, 256, "ragged"),     # D 256: 32 query rows a CTA, 5 q tiles
+    (1, 20, 300, 2, 40, None),
 ])
 @pytest.mark.parametrize("transposed", [False, True])
-def test_flash_attention_q8_kernels_match_plain(cuda, B, Lq, Lkv, H, mask_kind, transposed):
+def test_flash_attention_q8_kernels_match_plain(cuda, B, Lq, Lkv, H, D, mask_kind, transposed):
     """K3 (B, L, H, D cache) and K4 (B, H, D, L cache) vs the plain version:
     max abs error <= 2e-2 x max|plain| (bf16 p and output); fully masked
-    rows exactly 0; one launch counted per call, combine included."""
+    rows exactly 0; one launch counted per call, combine included.  K4 at a
+    D off 16 raises, as JAX's K4 asserts D % 32."""
     from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
 
     g = torch.Generator(device=cuda).manual_seed(4)
-    D = 64
 
     def mk(*shape):
         return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
@@ -809,6 +855,11 @@ def test_flash_attention_q8_kernels_match_plain(cuda, B, Lq, Lkv, H, mask_kind, 
     fn = FQ.flash_attention_q8t if transposed else FQ.flash_attention_q8
     plain = FQ.attention_q8t_plain if transposed else FQ.attention_q8_plain
     before = fn.launches
+    if transposed and D % 16:
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fn(q, *cache, kv_mask=mask)
+        assert fn.launches == before
+        return
     got = fn(q, *cache, kv_mask=mask)
     assert fn.launches == before + 1
     want = plain(q.float(), *cache, kv_mask=mask)
@@ -831,6 +882,30 @@ def test_flash_attention_q8_refuses_what_it_does_not_take(cuda):
     kt = torch.zeros((1, 2, 64, 20), device=cuda, dtype=torch.int8)
     with pytest.raises(ValueError):
         FQ.flash_attention_q8t(q, kt, s, kt, s)          # rows not 16-byte aligned
+    q = torch.zeros((1, 4, 2, 272), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 20, 2, 272), device=cuda, dtype=torch.int8)
+    s = torch.ones((1, 2, 272), device=cuda)
+    with pytest.raises(ValueError, match="<= 256"):
+        FQ.flash_attention_q8(q, k, s, k, s)             # D above 256
+
+
+def test_flash_attention_q8_copies_a_cache_off_the_16_byte_rows(cuda):
+    """K3 at D 72 on a contiguous cache (rows 72 bytes: not 16-byte aligned)
+    gives the bits of the same codes in quantize_kv's row-aligned storage
+    (the wrapper copies them into it), one launch a call."""
+    from vla_touch_tpu_torch.ops import flash_attention_q8 as FQ
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((1, 67, 16, 72), generator=g, device=cuda).to(torch.bfloat16)
+    kv = torch.randn((1, 700, 2, 16, 72), generator=g, device=cuda).to(torch.bfloat16)
+    k8, sk, v8, sv = FQ.quantize_kv(kv[:, :, 0], kv[:, :, 1])
+    assert k8.stride(2) == 80 and not k8.is_contiguous()
+    before = FQ.flash_attention_q8.launches
+    aligned = FQ.flash_attention_q8(q, k8, sk, v8, sv)
+    packed = FQ.flash_attention_q8(q, k8.contiguous(), sk, v8.contiguous(), sv)
+    assert FQ.flash_attention_q8.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(aligned, packed)
 
 
 def _w4_leaf(g, N, K, device, bias=False):

@@ -349,23 +349,35 @@ def _kv_case(rng, B, Lq, Lkv, H, D):
     return q, k, v, mask
 
 
-def test_quantize_kv_matches_jax(rng):
-    """int8 codes and per-(B, H, D) scales bit-equal in both layouts."""
-    _, k, v, _ = _kv_case(rng, 2, 3, 70, 2, 32)
+@pytest.mark.parametrize("D", [32, 72, 160])
+def test_quantize_kv_matches_jax(rng, D):
+    """int8 codes and per-(B, H, D) scales bit-equal in both layouts, at
+    D 32, RDT-170M's 72 and 160.  K3's codes at a D off 16 lie in storage
+    whose rows are D rounded up to 16 wide, zero past D (16-byte aligned
+    rows for the kernel's loads)."""
+    _, k, v, _ = _kv_case(rng, 2, 3, 70, 2, D)
     for jfn, tfn in ((JPA.quantize_kv, FQ.quantize_kv), (JPA.quantize_kv_t, FQ.quantize_kv_t)):
         want = jfn(k, v)
         got = tfn(_t(_np(k)).to(torch.bfloat16), _t(_np(v)).to(torch.bfloat16))
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        if tfn is FQ.quantize_kv:
+            for codes in (got[0], got[2]):
+                Dp = -(-D // 16) * 16
+                assert codes.stride() == (70 * 2 * Dp, 2 * Dp, Dp, 1)
+                store = torch.as_strided(codes, codes.shape[:3] + (Dp,), codes.stride())
+                assert not store[..., D:].any()
 
 
-@pytest.mark.parametrize("transposed", [False, True])
-def test_attention_q8_plain_matches_jax_kernels(rng, transposed):
+@pytest.mark.parametrize("transposed,D", [(False, 64), (True, 64), (False, 72), (False, 160),
+                                         (True, 160)])
+def test_attention_q8_plain_matches_jax_kernels(rng, transposed, D):
     """``attention_q8_plain`` vs ``flash_cross_attention_q8`` / ``_q8t`` in
     interpret mode over 600 keys (two 512-key blocks, the last partial),
-    with a ragged mask: <= 2e-2 x max|jax| (the Pallas kernel rounds p to
+    with a ragged mask, at D 64, RDT-170M's 72 (K3 only: JAX's K4 asserts
+    D % 32) and 160: <= 2e-2 x max|jax| (the Pallas kernel rounds p to
     bf16 for p.v and writes bf16).  Fully masked rows are exactly 0."""
-    q, k, v, mask = _kv_case(rng, 2, 67, 600, 2, 64)
+    q, k, v, mask = _kv_case(rng, 2, 67, 600, 2, D)
     jq, tq = (JPA.quantize_kv_t, FQ.quantize_kv_t) if transposed else \
         (JPA.quantize_kv, FQ.quantize_kv)
     kern = JPA.flash_cross_attention_q8t if transposed else JPA.flash_cross_attention_q8

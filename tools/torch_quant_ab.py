@@ -746,7 +746,8 @@ def k2_with(lib):
         S, B, T, Cin = x.shape
         k, C, G = p["w0"].shape[1], p["w0"].shape[-1], cond.shape[-1]
         has_res = "wr" in p
-        plan = UK.k2_plan(Cin, C, G, k, S, UK._ctas(0, T, Cin, C, G, k, n_groups), has_res)
+        ctas, wcap = UK._ctas(0, T, Cin, C, G, k, n_groups)
+        plan = UK.k2_plan(Cin, C, G, k, S, ctas, has_res, wcap)
         nbytes = UK.k2_scratch_bytes(S, B, T, C, plan)
         scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
         out = torch.empty((S, B, T, C), dtype=torch.bfloat16, device=x.device)
@@ -881,8 +882,8 @@ def k2_part(CS, gen, parent):
         ok = all(np.isfinite(e) and e <= CS.K2_TOL for e in errs.values())
         rows.append(dict(shape=name, T=T, Cin=Cin, C=C, err=errs, tol=CS.K2_TOL, ok=ok,
                          parent_ms=ms["parent"], new_ms=ms["new"], new_cut_ms=cut_ms,
-                         plan=UK.k2_plan(Cin, C, G, K, S, UK._ctas(0, T, Cin, C, G, K, 8),
-                                         Cin != C),
+                         plan=UK.k2_plan(Cin, C, G, K, S, UK._ctas(0, T, Cin, C, G, K, 8)[0],
+                                         Cin != C, UK._ctas(0, T, Cin, C, G, K, 8)[1]),
                          bound_ms=max(CS.k2_bound_ms(S, B, T, Cin, C, G, K))))
         for who in ("parent", "new"):
             for i in range(2):

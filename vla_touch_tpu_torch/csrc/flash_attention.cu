@@ -45,6 +45,15 @@
 //     padded by 16 bytes, so ldmatrix has no bank conflicts; D is padded to
 //     a multiple of 16 (72 -> 80) for the depth of q.k^T.
 //
+// Head dims above 128 (DP 160, 192, 224, 256: D rounded up to 32): the
+// output accumulator would take DP/2 registers a thread.  Instead each CTA
+// owns one 128-column piece of V's output (the grid's slowest index): it
+// stages K at the full DP and only its piece of V, computes the scores
+// over the full depth (every piece recomputes them: at D 256, twice the
+// q.k^T of one CTA, against half the p.v each) and keeps q in shared
+// memory, loading its fragments per tile rather than holding DP/4
+// registers of them.  D <= 128 keeps its path: q in registers, one piece.
+//
 // Not done (later work, if the measured times call for them): wgmma and
 // TMA.  Both calls are bound by bytes or at the balance point, where
 // mma.sync's rate is not the limit.
@@ -63,7 +72,8 @@ constexpr int BK = 64;            // keys per tile
 constexpr int STAGES = 3;         // ring slots of K and V tiles
 constexpr int MAX_WARPS = 8;      // 16 query rows each: up to 128 rows per CTA
 constexpr int MIN_WARPS = 4;
-constexpr int MAX_DP = 128;
+constexpr int MAX_DP = 256;       // the widest head dim taken
+constexpr int PIECE = 128;        // V columns of a CTA above D 128
 constexpr int PAD = 8;            // row padding of shared tiles, bf16 (16 bytes)
 constexpr int COMBINE_WARPS = 8;
 constexpr float NEG_INF = -1e30f;
@@ -83,8 +93,17 @@ struct Args {
   float scale_log2;  // softmax scale x log2(e): scores in the log2 domain
 };
 
+// V columns one CTA computes at tile depth DP: all of them up to 128, else
+// one PIECE
+__host__ __device__ constexpr int v_cols(int DP) { return DP > PIECE ? PIECE : DP; }
+
+// CTAs per (q tile, split) at head dim D: the 128-column pieces of V
+__host__ __device__ inline int n_pieces(int D) { return D > PIECE ? (D + PIECE - 1) / PIECE : 1; }
+
 __host__ __device__ inline size_t smem_bytes(int rows, int DP) {
-  return (size_t)(rows + 2 * STAGES * BK) * (DP + PAD) * sizeof(bf16) + STAGES * BK;
+  return ((size_t)rows * (DP + PAD) + (size_t)STAGES * BK * (DP + v_cols(DP) + 2 * PAD)) *
+             sizeof(bf16) +
+         STAGES * BK;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -139,14 +158,23 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 template <int DP>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_fwd_kernel(const Args a) {
-  constexpr int LD = DP + PAD;      // shared row stride, bf16
+  constexpr bool WIDE = DP > PIECE; // one 128-column piece of V a CTA, q in shared memory
+  constexpr int LD = DP + PAD;      // shared row stride of q and K, bf16
+  constexpr int NV = v_cols(DP);    // V columns of this CTA
+  constexpr int LDV = NV + PAD;     // shared row stride of V
   constexpr int KT = DP / 16;       // depth steps of q.k^T
-  constexpr int NO = DP / 8;        // n8 fragments of the output
+  constexpr int NO = NV / 8;        // n8 fragments of the output
   constexpr int CV = DP / 8;        // 16-byte pieces per staged row
   const int nthreads = blockDim.x;
   const int BQ = a.rows;
   const int split = blockIdx.x % a.n_splits;
-  const int q0 = (blockIdx.x / a.n_splits) * BQ;
+  int q0 = (blockIdx.x / a.n_splits) * BQ;
+  int v0 = 0;                       // its V columns: [v0, v0 + NV)
+  if constexpr (WIDE) {
+    const int q_tiles = (a.Lq + BQ - 1) / BQ;
+    q0 = (blockIdx.x / a.n_splits % q_tiles) * BQ;
+    v0 = blockIdx.x / (a.n_splits * q_tiles) * PIECE;
+  }
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -157,9 +185,10 @@ flash_fwd_kernel(const Args a) {
   const int DV = a.D / 8;           // pieces that hold data
 
   extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int SLOT = BK * (LD + LDV);                                // K [BK][LD], V [BK][LDV]
   bf16* qs = reinterpret_cast<bf16*>(smem);                            // [BQ][LD]
-  bf16* ring = qs + BQ * LD;                                           // [STAGES][K|V][BK][LD]
-  uint8_t* valid_s = reinterpret_cast<uint8_t*>(ring + STAGES * 2 * BK * LD);  // [STAGES][BK]
+  bf16* ring = qs + BQ * LD;                                           // [STAGES][SLOT]
+  uint8_t* valid_s = reinterpret_cast<uint8_t*>(ring + STAGES * SLOT); // [STAGES][BK]
 
   const bf16* qb = a.q + b * a.q_sb + h * a.q_sh;
   const bf16* kb = a.k + b * a.k_sb + h * a.k_sh;
@@ -169,20 +198,37 @@ flash_fwd_kernel(const Args a) {
   const int t0 = split * a.tiles_per_split;
   const int t1 = min(t0 + a.tiles_per_split, n_tiles);
 
-  // K and V of tile t into ring slot (t - t0) % STAGES; keys past Lkv and
-  // channels past D are zero
+  // K and V (its NV columns from v0) of tile t into ring slot (t - t0) %
+  // STAGES; keys past Lkv and channels past D are zero
   auto issue = [&](int t) {
     if (t < t1) {
-      bf16* kd = ring + ((t - t0) % STAGES) * 2 * BK * LD;
+      bf16* kd = ring + ((t - t0) % STAGES) * SLOT;
       bf16* vd = kd + BK * LD;
       const int k0 = t * BK;
-      for (int i = tid; i < BK * CV; i += nthreads) {
-        const int r = i / CV, c = i - r * CV;
-        const bool in = k0 + r < a.Lkv && c < DV;
-        const long long ko = in ? (long long)(k0 + r) * a.k_sl + c * 8 : 0;
-        const long long vo = in ? (long long)(k0 + r) * a.v_sl + c * 8 : 0;
-        cp_async16(kd + r * LD + c * 8, kb + ko, in ? 16 : 0);
-        cp_async16(vd + r * LD + c * 8, vb + vo, in ? 16 : 0);
+      if constexpr (!WIDE) {
+        for (int i = tid; i < BK * CV; i += nthreads) {
+          const int r = i / CV, c = i - r * CV;
+          const bool in = k0 + r < a.Lkv && c < DV;
+          const long long ko = in ? (long long)(k0 + r) * a.k_sl + c * 8 : 0;
+          const long long vo = in ? (long long)(k0 + r) * a.v_sl + c * 8 : 0;
+          cp_async16(kd + r * LD + c * 8, kb + ko, in ? 16 : 0);
+          cp_async16(vd + r * LD + c * 8, vb + vo, in ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < BK * CV; i += nthreads) {
+          const int r = i / CV, c = i - r * CV;
+          const bool in = k0 + r < a.Lkv && c < DV;
+          cp_async16(kd + r * LD + c * 8, kb + (in ? (long long)(k0 + r) * a.k_sl + c * 8 : 0),
+                     in ? 16 : 0);
+        }
+        constexpr int CVV = NV / 8;
+        for (int i = tid; i < BK * CVV; i += nthreads) {
+          const int r = i / CVV, c = i - r * CVV;
+          const int col = v0 + c * 8;
+          const bool in = k0 + r < a.Lkv && col < a.D;
+          cp_async16(vd + r * LDV + c * 8, vb + (in ? (long long)(k0 + r) * a.v_sl + col : 0),
+                     in ? 16 : 0);
+        }
       }
     }
     cp_async_commit();                              // an empty group past the split
@@ -211,10 +257,13 @@ flash_fwd_kernel(const Args a) {
   cp_async_wait<STAGES - 1>();   // q has landed
   __syncthreads();
 
-  unsigned qf[KT][4];
+  // q's fragments: held in registers up to D 128, loaded per tile above
+  unsigned qf[WIDE ? 1 : KT][4];
+  if constexpr (!WIDE) {
 #pragma unroll
-  for (int kt = 0; kt < KT; ++kt)
-    ldsm_x4(qf[kt], qs + (row0 + (lane & 15)) * LD + kt * 16 + (lane >> 4) * 8);
+    for (int kt = 0; kt < KT; ++kt)
+      ldsm_x4(qf[kt], qs + (row0 + (lane & 15)) * LD + kt * 16 + (lane >> 4) * 8);
+  }
 
   const int c2 = (lane & 3) * 2;
   float o[NO][4];
@@ -233,7 +282,7 @@ flash_fwd_kernel(const Args a) {
     issue(t + STAGES - 1);         // into the slot of tile t - 1
     vq[STAGES - 2] = key_valid(t + STAGES - 1);
     if (!active) continue;
-    const bf16* ks = ring + slot * 2 * BK * LD;
+    const bf16* ks = ring + slot * SLOT;
     const bf16* vs = ks + BK * LD;
     const uint8_t* vt = valid_s + slot * BK;
 
@@ -243,13 +292,15 @@ flash_fwd_kernel(const Args a) {
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kt = 0; kt < KT; ++kt) {
+      if constexpr (WIDE)
+        ldsm_x4(qf[0], qs + (row0 + (lane & 15)) * LD + kt * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         unsigned r[4];
         ldsm_x4(r, ks + (jp * 16 + ((lane >> 4) << 3) + (lane & 7)) * LD + kt * 16 +
                        ((lane >> 3) & 1) * 8);
-        mma16816(s[2 * jp], qf[kt], r[0], r[1]);
-        mma16816(s[2 * jp + 1], qf[kt], r[2], r[3]);
+        mma16816(s[2 * jp], qf[WIDE ? 0 : kt], r[0], r[1]);
+        mma16816(s[2 * jp + 1], qf[WIDE ? 0 : kt], r[2], r[3]);
       }
     }
 
@@ -300,13 +351,13 @@ flash_fwd_kernel(const Args a) {
       pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
     }
 
-    // O (16 x DP) += p v: output fragments 2np and 2np + 1 per ldmatrix.x4.trans
+    // O (16 x NV) += p v: output fragments 2np and 2np + 1 per ldmatrix.x4.trans
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int np = 0; np < NO / 2; ++np) {
         unsigned r[4];
-        ldsm_x4_trans(r, vs + (kk * 16 + (((lane >> 3) & 1) << 3) + (lane & 7)) * LD +
+        ldsm_x4_trans(r, vs + (kk * 16 + (((lane >> 3) & 1) << 3) + (lane & 7)) * LDV +
                              np * 16 + ((lane >> 4) << 3));
         mma16816(o[2 * np], pf[kk], r[0], r[1]);
         mma16816(o[2 * np + 1], pf[kk], r[2], r[3]);
@@ -332,7 +383,7 @@ flash_fwd_kernel(const Args a) {
       bf16* orow = a.out + (((long long)b * a.Lq + qi) * a.H + h) * a.D;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        const int col = n * 8 + c2;
+        const int col = (WIDE ? v0 : 0) + n * 8 + c2;
         if (col < a.D)
           *reinterpret_cast<__nv_bfloat162*>(orow + col) =
               __floats2bfloat162_rn(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
@@ -343,11 +394,11 @@ flash_fwd_kernel(const Args a) {
       float* prow = a.part_acc + i * a.D;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        const int col = n * 8 + c2;
+        const int col = (WIDE ? v0 : 0) + n * 8 + c2;
         if (col < a.D)
           *reinterpret_cast<float2*>(prow + col) = make_float2(o[n][2 * half], o[n][2 * half + 1]);
       }
-      if (c2 == 0) {
+      if (c2 == 0 && (!WIDE || v0 == 0)) {
         a.part_m[i] = m_r[half];
         a.part_l[i] = l_r[half];
       }
@@ -356,7 +407,8 @@ flash_fwd_kernel(const Args a) {
 }
 
 // One warp per (b, q, h) output row: merge the splits' partial softmax
-// states in split order (the same sum every run), then write bf16.
+// states in split order (the same sum every run), then write bf16; D in
+// pieces of 128 columns (one up to D 128).
 __global__ void __launch_bounds__(COMBINE_WARPS * 32)
 flash_combine_kernel(const Args a) {
   const int r = blockIdx.x * COMBINE_WARPS + (threadIdx.x >> 5);
@@ -365,31 +417,35 @@ flash_combine_kernel(const Args a) {
   const int h = r % a.H, bq = r / a.H;
   const int qi = bq % a.Lq, b = bq / a.Lq;
   const int S = a.n_splits;
-  const int n_used = S;
   const long long base = ((long long)b * a.H + h) * S * a.Lq + qi;   // split s: + s * Lq
   float m_star = NEG_INF;
-  for (int s = 0; s < n_used; ++s) m_star = fmaxf(m_star, a.part_m[base + (long long)s * a.Lq]);
+  for (int s = 0; s < S; ++s) m_star = fmaxf(m_star, a.part_m[base + (long long)s * a.Lq]);
   float l_star = 0.f;
-  float o[MAX_DP / 32];
-#pragma unroll
-  for (int j = 0; j < MAX_DP / 32; ++j) o[j] = 0.f;
-  for (int s = 0; s < n_used; ++s) {
+  for (int s = 0; s < S; ++s) {
     const long long i = base + (long long)s * a.Lq;
-    const float w = exp2f(a.part_m[i] - m_star);
-    l_star += w * a.part_l[i];
-    const float* acc = a.part_acc + i * a.D;
-#pragma unroll
-    for (int j = 0; j < MAX_DP / 32; ++j) {
-      const int c = lane + 32 * j;
-      if (c < a.D) o[j] += w * acc[c];
-    }
+    l_star += exp2f(a.part_m[i] - m_star) * a.part_l[i];
   }
   const float inv = 1.f / fmaxf(l_star, 1e-30f);
   bf16* orow = a.out + (long long)r * a.D;
+  for (int c0 = 0; c0 < a.D; c0 += PIECE) {
+    float o[PIECE / 32];
 #pragma unroll
-  for (int j = 0; j < MAX_DP / 32; ++j) {
-    const int c = lane + 32 * j;
-    if (c < a.D) orow[c] = __float2bfloat16(o[j] * inv);
+    for (int j = 0; j < PIECE / 32; ++j) o[j] = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const long long i = base + (long long)s * a.Lq;
+      const float w = exp2f(a.part_m[i] - m_star);
+      const float* acc = a.part_acc + i * a.D + c0;
+#pragma unroll
+      for (int j = 0; j < PIECE / 32; ++j) {
+        const int c = lane + 32 * j;
+        if (c0 + c < a.D) o[j] += w * acc[c];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < PIECE / 32; ++j) {
+      const int c = c0 + lane + 32 * j;
+      if (c < a.D) orow[c] = __float2bfloat16(o[j] * inv);
+    }
   }
 }
 
@@ -422,7 +478,7 @@ template <int DP>
 int launch(const Args& a, cudaStream_t stream) {
   cudaError_t cap = raise_cap<DP>();
   if (cap != cudaSuccess) return (int)cap;
-  const dim3 grid(((a.Lq + a.rows - 1) / a.rows) * a.n_splits, a.H, a.B);
+  const dim3 grid(((a.Lq + a.rows - 1) / a.rows) * a.n_splits * n_pieces(a.D), a.H, a.B);
   flash_fwd_kernel<DP><<<grid, a.rows * 2, smem_bytes(a.rows, DP), stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.n_splits == 1) return (int)err;
@@ -441,7 +497,8 @@ const char* vtt_error_string(int err) {
 }
 
 // *n = the CTAs of `rows` query rows (a multiple of 16, 64..128) at head
-// dim D one SM holds at once: the split plan fills one wave of them.
+// dim D one SM holds at once: the split plan fills one wave of them (above
+// D 128, n_pieces(D) CTAs per q tile and split).
 int flash_attention_resident(int D, int rows, int* n) {
   if (D % 8 || D < 8 || D > MAX_DP || rows % 16 || rows < MIN_WARPS * 16 ||
       rows > MAX_WARPS * 16)
@@ -454,14 +511,18 @@ int flash_attention_resident(int D, int rows, int* n) {
     case 80: return resident<80>(rows, n);
     case 96: return resident<96>(rows, n);
     case 112: return resident<112>(rows, n);
-    default: return resident<128>(rows, n);
+    case 128: return resident<128>(rows, n);
+    case 144: case 160: return resident<160>(rows, n);
+    case 176: case 192: return resident<192>(rows, n);
+    case 208: case 224: return resident<224>(rows, n);
+    default: return resident<256>(rows, n);
   }
 }
 
 // q (B, Lq, H, D), k/v (B, Lkv, H, D) bf16 with unit stride on D and
 // strides that are multiples of 8 elements (16-byte aligned rows); mask
 // (B, Lkv) uint8 or null; out (B, Lq, H, D) contiguous.  Strides are in
-// elements.  D % 8 == 0, D <= 128.  `rows` query rows per CTA (a multiple
+// elements.  D % 8 == 0, D <= 256.  `rows` query rows per CTA (a multiple
 // of 16, 64..128); the keys are cut into n_splits splits of
 // tiles_per_split 64-key tiles (the last may hold fewer; none is empty).
 // n_splits > 1 needs scratch of B * H * n_splits * Lq * (D + 2) float32
@@ -507,7 +568,11 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, const void
     case 80: return launch<80>(a, s);
     case 96: return launch<96>(a, s);
     case 112: return launch<112>(a, s);
-    default: return launch<128>(a, s);
+    case 128: return launch<128>(a, s);
+    case 144: case 160: return launch<160>(a, s);
+    case 176: case 192: return launch<192>(a, s);
+    case 208: case 224: return launch<224>(a, s);
+    default: return launch<256>(a, s);
   }
 }
 

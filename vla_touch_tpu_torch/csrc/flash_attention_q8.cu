@@ -42,6 +42,16 @@
 //     online softmax in f32 one row at a time, p rounded to bf16 for p.v as
 //     the TPU kernel does.
 //
+// Head dims.  The tiles are D padded to the next multiple of 16 (DP) wide.
+// K3's cache rows must start 16-byte aligned, so quantize_kv keeps a D off
+// 16 (RDT-170M's 72) in storage DP wide (zero columns), built once per
+// chunk; the loads copy D bytes of a row and zero-fill the rest, and the
+// wrapper pads the pre-scaled q with zero columns, so the extra columns add
+// nothing to a score and their outputs are never written.  Every buffer of
+// the CTA grows with DP; above D 128 the launch takes fewer warps (query
+// rows per CTA) until the layout fits one SM's shared memory (D 160: 80
+// rows; D 256: 32), and the combine walks D in pieces of 128 columns.
+//
 // Not done yet: the scores, p and acc in registers (mma.sync fragments, no
 // shared-memory round trip per tile), TMA and wgmma.
 
@@ -61,7 +71,8 @@ namespace {
 constexpr int BK = 64;            // keys per tile
 constexpr int MAX_WARPS = 8;      // 16 query rows each: up to 128 rows per CTA
 constexpr int MIN_WARPS = 4;      // warps that stage tiles even for few rows
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;         // the widest head dim taken
+constexpr int COMBINE_D = 128;     // output columns a combine warp holds at once
 constexpr int PAD_BF16 = 8;       // row padding of bf16 tiles (16 bytes)
 constexpr int PAD_F32 = 4;        // row padding of float32 tiles (16 bytes)
 constexpr int COMBINE_WARPS = 8;
@@ -103,6 +114,7 @@ struct Args {
   float* part_m;     // (B, H, splits, Lq)
   float* part_l;     // (B, H, splits, Lq)
   int B, Lq, Lkv, H, D, n_splits, tiles_per_split;
+  int DP;            // D padded to a multiple of 16: the tiles' width and q's row
   long long k_sb, k_sh, k_sld, v_sb, v_sh, v_sld, m_sb;
 };
 
@@ -146,7 +158,7 @@ flash_q8_kernel(const Args a) {
   typedef typename std::conditional<TRANS, wmma::col_major, wmma::row_major>::type VLayout;
   const int nthreads = blockDim.x;
   const int BQ = (nthreads >> 5) * 16;
-  const int D = a.D;
+  const int D = a.DP;                        // the tiles' width
   const int LDQ = D + PAD_BF16, LDS = BK + PAD_F32, LDP = BK + PAD_BF16, LDO = D + PAD_F32;
   const int LDT = TRANS ? BK + PAD_BF16 : D + PAD_BF16;
   const int split = blockIdx.x % a.n_splits;
@@ -190,11 +202,12 @@ flash_q8_kernel(const Args a) {
         const int DV = D / 16;                      // 16-byte pieces per key
         for (int i = tid; i < BK * DV; i += nthreads) {
           const int r = i / DV, c = i - r * DV;
-          const bool in = k0 + r < a.Lkv;
-          const long long off = in ? (long long)(k0 + r) * a.k_sld + c * 16 : 0;
-          const long long voff = in ? (long long)(k0 + r) * a.v_sld + c * 16 : 0;
-          cp_async16(kd + r * D + c * 16, kb + off, in ? 16 : 0);
-          cp_async16(vd + r * D + c * 16, vb + voff, in ? 16 : 0);
+          // bytes of this piece inside the row's true D (16 but at D's edge)
+          const int n = k0 + r < a.Lkv ? min(16, a.D - c * 16) : 0;
+          const long long off = n ? (long long)(k0 + r) * a.k_sld + c * 16 : 0;
+          const long long voff = n ? (long long)(k0 + r) * a.v_sld + c * 16 : 0;
+          cp_async16(kd + r * D + c * 16, kb + off, n);
+          cp_async16(vd + r * D + c * 16, vb + voff, n);
         }
       } else {
         constexpr int LV = BK / 16;                 // 16-key pieces per channel
@@ -232,7 +245,7 @@ flash_q8_kernel(const Args a) {
   issue(t0 + 1);
   int vcur = key_valid(t0), vnext = key_valid(t0 + 1);
 
-  // q (B, Lq, H, D) contiguous, pre-scaled; rows past Lq are zero
+  // q (B, Lq, H, DP) contiguous, pre-scaled, zero past D; rows past Lq are zero
   const int DV8 = D / 8;
   for (int i = tid; i < BQ * DV8; i += nthreads) {
     const int r = i / DV8, c = i - r * DV8;
@@ -327,11 +340,11 @@ flash_q8_kernel(const Args a) {
   if (a.n_splits == 1) {
     // one split: finalise in place; a fully masked row has l == 0 and
     // acc == 0 and returns 0
-    const float* vsc = a.vscale + ((long long)b * a.H + h) * D;
+    const float* vsc = a.vscale + ((long long)b * a.H + h) * a.D;
     for (int r = 0; r < nr; ++r) {
       const int row = row0 + r;
-      bf16* orow = a.out + (((long long)b * a.Lq + q0 + row) * a.H + h) * D;
-      for (int c = lane; c < D; c += 32)
+      bf16* orow = a.out + (((long long)b * a.Lq + q0 + row) * a.H + h) * a.D;
+      for (int c = lane; c < a.D; c += 32)
         orow[c] = __float2bfloat16(finish(os[row * LDO + c], l_s[row], vsc[c]));
     }
   } else {
@@ -339,8 +352,8 @@ flash_q8_kernel(const Args a) {
     const long long base = (((long long)b * a.H + h) * a.n_splits + split) * a.Lq + q0;
     for (int r = 0; r < nr; ++r) {
       const int row = row0 + r;
-      float* prow = a.part_acc + (base + row) * D;
-      for (int c = lane; c < D; c += 32) prow[c] = os[row * LDO + c];
+      float* prow = a.part_acc + (base + row) * a.D;
+      for (int c = lane; c < a.D; c += 32) prow[c] = os[row * LDO + c];
       if (lane == 0) {
         a.part_m[base + row] = m_s[row];
         a.part_l[base + row] = l_s[row];
@@ -350,7 +363,8 @@ flash_q8_kernel(const Args a) {
 }
 
 // One warp per (b, q, h) output row: merge the splits' partial softmax
-// states in split order (the same sum every run), then write bf16.
+// states in split order (the same sum every run), then write bf16; D in
+// pieces of COMBINE_D columns (one piece up to D 128).
 __global__ void __launch_bounds__(COMBINE_WARPS * 32)
 flash_q8_combine_kernel(const Args a) {
   const int r = blockIdx.x * COMBINE_WARPS + (threadIdx.x >> 5);
@@ -359,32 +373,46 @@ flash_q8_combine_kernel(const Args a) {
   const int h = r % a.H, bq = r / a.H;
   const int qi = bq % a.Lq, b = bq / a.Lq;
   const int S = a.n_splits;
-  const int n_used = S;
   const long long base = ((long long)b * a.H + h) * S * a.Lq + qi;   // split s: + s * Lq
   float m_star = NEG_INF;
-  for (int s = 0; s < n_used; ++s) m_star = fmaxf(m_star, a.part_m[base + (long long)s * a.Lq]);
+  for (int s = 0; s < S; ++s) m_star = fmaxf(m_star, a.part_m[base + (long long)s * a.Lq]);
   float l_star = 0.f;
-  float o[MAX_D / 32];
-#pragma unroll
-  for (int j = 0; j < MAX_D / 32; ++j) o[j] = 0.f;
-  for (int s = 0; s < n_used; ++s) {
+  for (int s = 0; s < S; ++s) {
     const long long i = base + (long long)s * a.Lq;
-    const float w = __expf(a.part_m[i] - m_star);
-    l_star += w * a.part_l[i];
-    const float* acc = a.part_acc + i * a.D;
-#pragma unroll
-    for (int j = 0; j < MAX_D / 32; ++j) {
-      const int c = lane + 32 * j;
-      if (c < a.D) o[j] += w * acc[c];
-    }
+    l_star += __expf(a.part_m[i] - m_star) * a.part_l[i];
   }
   const float* vsc = a.vscale + ((long long)b * a.H + h) * a.D;
   bf16* orow = a.out + (long long)r * a.D;
+  for (int c0 = 0; c0 < a.D; c0 += COMBINE_D) {
+    float o[COMBINE_D / 32];
 #pragma unroll
-  for (int j = 0; j < MAX_D / 32; ++j) {
-    const int c = lane + 32 * j;
-    if (c < a.D) orow[c] = __float2bfloat16(finish(o[j], l_star, vsc[c]));
+    for (int j = 0; j < COMBINE_D / 32; ++j) o[j] = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const long long i = base + (long long)s * a.Lq;
+      const float w = __expf(a.part_m[i] - m_star);
+      const float* acc = a.part_acc + i * a.D + c0;
+#pragma unroll
+      for (int j = 0; j < COMBINE_D / 32; ++j) {
+        const int c = lane + 32 * j;
+        if (c0 + c < a.D) o[j] += w * acc[c];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < COMBINE_D / 32; ++j) {
+      const int c = c0 + lane + 32 * j;
+      if (c < a.D) orow[c] = __float2bfloat16(finish(o[j], l_star, vsc[c]));
+    }
   }
+}
+
+// The warps (16 query rows each) of a CTA at Lq rows and tile width DP: one
+// per 16 rows up to MAX_WARPS, at least MIN_WARPS, then as many fewer as
+// the layout needs to fit `smem_max` bytes; 0 when not one warp fits.
+template <bool TRANS>
+int cta_warps(int Lq, int DP, int smem_max) {
+  int nw = std::max(MIN_WARPS, (std::min(Lq, MAX_WARPS * 16) + 15) / 16);
+  while (nw > 0 && layout<TRANS>(nw * 16, DP).total > (size_t)smem_max) --nw;
+  return nw;
 }
 
 template <bool TRANS>
@@ -395,21 +423,26 @@ int launch(const Args& a, cudaStream_t stream) {
       (long long)a.n_splits * a.tiles_per_split < tiles ||
       (a.n_splits > 1 && a.part_acc == nullptr))
     return (int)cudaErrorInvalidValue;
-  // raise the shared-memory cap once, to the most any call needs (128 rows,
-  // D 128), so that no later launch, inside a CUDA graph capture or not,
-  // makes an attribute call
-  static bool cap_raised = false;
-  if (!cap_raised) {
-    cudaError_t err = cudaFuncSetAttribute(flash_q8_kernel<TRANS>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)layout<TRANS>(MAX_WARPS * 16, MAX_D).total);
+  // raise the shared-memory cap once, to the most one block may take, so
+  // that no later launch, inside a CUDA graph capture or not, makes an
+  // attribute call
+  static int smem_max = 0;
+  if (smem_max == 0) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_q8_kernel<TRANS>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return (int)err;
-    cap_raised = true;
+    smem_max = optin;
   }
-  const int nw = std::max(MIN_WARPS, (std::min(a.Lq, MAX_WARPS * 16) + 15) / 16);
+  const int nw = cta_warps<TRANS>(a.Lq, a.DP, smem_max);
+  if (nw < 1) return (int)cudaErrorInvalidValue;
   const int BQ = nw * 16;
   const dim3 grid(((a.Lq + BQ - 1) / BQ) * a.n_splits, a.H, a.B);
-  flash_q8_kernel<TRANS><<<grid, nw * 32, layout<TRANS>(BQ, a.D).total, stream>>>(a);
+  flash_q8_kernel<TRANS><<<grid, nw * 32, layout<TRANS>(BQ, a.DP).total, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.n_splits == 1) return (int)err;
   const int out_rows = a.B * a.Lq * a.H;
@@ -426,11 +459,13 @@ const char* vtt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q (B, Lq, H, D) bf16 contiguous, pre-scaled; D % 16 == 0, D <= 128.
+// q (B, Lq, H, DP) bf16 contiguous, pre-scaled, zero past D, DP = D
+// rounded up to a multiple of 16; D <= 256.
 // transposed == 0 (K3): k/v (B, Lkv, H, D) int8, D contiguous; strides
-//   (s_b, s_h, s_l) in elements, 16-byte aligned rows.
-// transposed == 1 (K4): k/v (B, H, D, Lkv) int8, Lkv contiguous; strides
-//   (s_b, s_h, s_d), 16-byte aligned rows.
+//   (s_b, s_h, s_l) in elements, 16-byte aligned rows (a D off 16 in
+//   storage DP wide).
+// transposed == 1 (K4): k/v (B, H, D, Lkv) int8, Lkv contiguous, D % 16 ==
+//   0; strides (s_b, s_h, s_d), 16-byte aligned rows.
 // vscale (B, H, D) float32 contiguous; mask (B, Lkv) uint8 or null; out
 // (B, Lq, H, D) bf16 contiguous.  The keys are cut into n_splits splits of
 // tiles_per_split 64-key tiles (the last may hold fewer; none is empty).
@@ -443,6 +478,7 @@ int flash_attention_q8(int transposed, const void* q, const void* k, const void*
                        long long k_sld, long long v_sb, long long v_sh,
                        long long v_sld, long long m_sb, int n_splits,
                        int tiles_per_split, void* scratch, void* stream) {
+  if (D < 1 || D > MAX_D || (transposed && D % 16)) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = (const bf16*)q;
   a.k = (const int8_t*)k;
@@ -455,6 +491,7 @@ int flash_attention_q8(int transposed, const void* q, const void* k, const void*
   a.part_m = scratch ? a.part_acc + n_part * D : nullptr;
   a.part_l = scratch ? a.part_m + n_part : nullptr;
   a.B = B; a.Lq = Lq; a.Lkv = Lkv; a.H = H; a.D = D;
+  a.DP = (D + 15) / 16 * 16;
   a.n_splits = n_splits;
   a.tiles_per_split = tiles_per_split;
   a.k_sb = k_sb; a.k_sh = k_sh; a.k_sld = k_sld;

@@ -50,6 +50,22 @@
 // same bits on every call.  Data written by other blocks before a barrier
 // is read with ld.global.cg (from L2).
 //
+// Long time axes and wide blocks.  Above 64 steps the product items walk
+// the time axis in chunks of 64 (the four-tile kernel), each chunk staging
+// its rows of A and streaming the item's weights again (from L2 after the
+// first).  A block whose layout (the ring, A over all input channels, and a
+// group's values held for the norm phases: 20 T C / G bytes) does not fit
+// one SM's shared memory takes two measures, in turn, until it does: the
+// plan cuts the products (FiLM's too) into splits of at most WCAP_CHUNKS
+// 16-channel chunks of input (A at most 256 channels wide), then the norm
+// items stream
+// a group's values over T from the float32 partials in L2 (three passes:
+// the sum, the squared deviations, the output) instead of holding them.
+// The sums run in the held version's order, so both give the same bits.
+// Those shapes take their own kernels (BIG: the time-chunk loop and both
+// norm routes, one block an SM, so that nothing spills); every shape of at
+// most 64 steps that fits as it is keeps its layout, plan and kernel.
+//
 // Not yet done (later work): one persistent launch per UNet pass, and
 // overlapping the next block's weight stream with this block's epilogue.
 
@@ -72,11 +88,15 @@ constexpr int WPITCH = CT + 8;              // bf16 per ring row: 144 bytes
 constexpr int STAGE_ELEMS = SR * KS * WPITCH;
 constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
 constexpr int MT = 16;                      // time rows of one m16 tile
-constexpr int MAXNM = 4;                    // m16 tiles of the longest time axis
-constexpr int MAXT = MAXNM * MT;            // the time axis: at most 64 steps
+constexpr int MAXNM = 4;                    // m16 tiles of one time chunk
+constexpr int TCH = MAXNM * MT;             // time steps of one chunk: 64
+constexpr int WCAP_CHUNKS = 16;             // 16-channel chunks of A past one SM's layout
 
-// m16 tiles of a time axis of T steps
-__host__ __device__ __forceinline__ int mtiles(int T) { return (T + MT - 1) / MT; }
+// m16 tiles a product item holds at a time for a time axis of T steps
+__host__ __device__ __forceinline__ int mtiles(int T) {
+  const int m = (T + MT - 1) / MT;
+  return m < MAXNM ? m : MAXNM;
+}
 
 // One product of a phase: y[t, n] = sum_{d, ci} A[t + d + shift, ci] *
 // w[s, d, ci, n] over `taps` taps of `rci` input channels, cut into
@@ -99,7 +119,8 @@ struct Args {
   Job jobs[4];                              // phase 1: conv0, film[, residual]; [3]: conv1
   int n1, has_res;
   int S, B, T, C, K, n_groups;
-  int hv_off;                               // bytes: a group's float32 values in smem
+  int hold;                                 // the norm items hold a group's values in smem
+  int hv_off;                               // bytes: a group's float32 values (or the sums' scratch)
   float eps;
 };
 
@@ -237,11 +258,12 @@ __device__ __forceinline__ void load_stage(const Job& jb, int s, int n0, int2 st
 }
 
 // One product item: network s, batch row b, output columns [n0, n0 + 64),
-// split z of the job's mma steps.  NM: the m16 tiles of the time axis (a
-// template argument, so that T <= 16 compiles to one tile's code).
+// split z of the job's mma steps, time rows [t0, t0 + 16 NM).  NM: the m16
+// tiles of the time chunk (a template argument, so that T <= 16 compiles to
+// one tile's code).
 template <int NM>
 __device__ void product_item(const Args& a, const Job& jb, int s, int b, int n0, int z,
-                             unsigned char* smem) {
+                             int t0, unsigned char* smem) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int sb = s * a.B + b;
@@ -260,8 +282,8 @@ __device__ void product_item(const Args& a, const Job& jb, int s, int b, int n0,
     cp_async_commit();
   }
 
-  // A: the item's input channels, bf16.  Row r holds time r - K/2 (zero
-  // outside [0, T)), so tap d of output row t reads row t + d and the
+  // A: the item's input channels, bf16.  Row r holds time t0 + r - K/2
+  // (zero outside [0, T)), so tap d of output row t0 + t reads row t + d and the
   // residual (shift K/2) row t + K/2.  The film product: one row.  The
   // loops are unrolled so that a thread's loads share one round trip.
   if (jb.src == SRC_COND) {
@@ -276,7 +298,7 @@ __device__ void product_item(const Args& a, const Job& jb, int s, int b, int n0,
 #pragma unroll 4
     for (int e = tid; e < rows * width; e += NT) {
       const int r = e / width, cc = e - r * width;
-      const int tau = r - pad, ci = c_lo * KS + cc;
+      const int tau = t0 + r - pad, ci = c_lo * KS + cc;
       float v = 0.f;
       if (tau >= 0 && tau < a.T && ci < rci) {
         const bf16* p = sp + (size_t)tau * rci + ci;
@@ -325,7 +347,7 @@ __device__ void product_item(const Args& a, const Job& jb, int s, int b, int n0,
     for (int m = 0; m < NM; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = m * MT + g + h * 8;
+        const int row = t0 + m * MT + g + h * 8;
         if (m < nm && row < jb.rows) {
           part[(size_t)row * ncols] = acc[m][h * 2];
           part[(size_t)row * ncols + 1] = acc[m][h * 2 + 1];
@@ -354,13 +376,95 @@ __device__ __forceinline__ bool item_of(const Args& a, const Job* jobs, int njob
   return false;
 }
 
-// Every item of the phase's jobs over the grid.
-template <int NM>
+// Every item of the phase's jobs over the grid, each over every batch row
+// and (BIG) time chunk (the film product: one row).
+template <int NM, bool BIG>
 __device__ void product_phase(const Args& a, const Job* jobs, int njobs, unsigned char* smem) {
   Job jb;
   int s, n0, z;
   for (int it = blockIdx.x; item_of(a, jobs, njobs, it, jb, s, n0, z); it += gridDim.x)
-    for (int b = 0; b < a.B; ++b) product_item<NM>(a, jb, s, b, n0, z, smem);
+    for (int b = 0; b < a.B; ++b) {
+      if constexpr (BIG) {
+        for (int t0 = 0; t0 < jb.rows; t0 += TCH) product_item<NM>(a, jb, s, b, n0, z, t0, smem);
+      } else {
+        product_item<NM>(a, jb, s, b, n0, z, 0, smem);
+      }
+    }
+}
+
+// GroupNorm statistics (mean, rstd) of channels [c0, c0 + gsz) of a conv of
+// network s, row sb, streamed: value(e) recomputes element e (its split
+// sums + bias) from L2 in each pass, summed in group_stats' order.
+template <typename Value>
+__device__ float2 group_stats_stream(const Args& a, int n, float* red, Value value) {
+  float sum = 0.f;
+  for (int e = threadIdx.x; e < n; e += NT) sum += value(e);
+  const float mean = block_sum(sum, red) / n;
+  float sq = 0.f;
+  for (int e = threadIdx.x; e < n; e += NT) {
+    const float d = value(e) - mean;
+    sq += d * d;
+  }
+  return make_float2(mean, rsqrtf(block_sum(sq, red) / n + a.eps));
+}
+
+// norm0_phase over a group streamed from L2 (a.hold == 0)
+__device__ void norm0_phase_stream(const Args& a, unsigned char* smem) {
+  const int C = a.C, T = a.T, gsz = C / a.n_groups, n = T * gsz;
+  float* red = reinterpret_cast<float*>(smem + a.hv_off);
+  const Job& cj = a.jobs[0];
+  const Job& fj = a.jobs[1];
+  for (int it = blockIdx.x; it < a.S * a.B * a.n_groups; it += gridDim.x) {
+    const int sb = it / a.n_groups, q = it - sb * a.n_groups;
+    const int s = sb / a.B;
+    const float* part = cj.part + (size_t)sb * cj.splits * T * C;
+    const float* fp = fj.part + (size_t)sb * fj.splits * 2 * C;
+    auto value = [&](int e) {
+      const int t = e / gsz, c = q * gsz + e - t * gsz;
+      return split_sum(part + (size_t)t * C + c, cj.splits, (size_t)T * C) +
+             bf(a.b0 + (size_t)s * C + c);
+    };
+    const float2 st = group_stats_stream(a, n, red, value);
+    for (int e = threadIdx.x; e < n; e += NT) {
+      const int t = e / gsz, c = q * gsz + e - t * gsz;
+      const float y = mish((value(e) - st.x) * st.y * bf(a.g0w + (size_t)s * C + c) +
+                           bf(a.g0b + (size_t)s * C + c));
+      const float fs = split_sum(fp + c, fj.splits, 2 * (size_t)C) +
+                       bf(a.fb + (size_t)s * 2 * C + c);
+      const float fo = split_sum(fp + C + c, fj.splits, 2 * (size_t)C) +
+                       bf(a.fb + (size_t)s * 2 * C + C + c);
+      a.h[((size_t)sb * T + t) * C + c] = __float2bfloat16(fs * y + fo);
+    }
+  }
+}
+
+// out_phase over a group streamed from L2 (a.hold == 0)
+__device__ void out_phase_stream(const Args& a, unsigned char* smem) {
+  const int C = a.C, T = a.T, gsz = C / a.n_groups, n = T * gsz;
+  float* red = reinterpret_cast<float*>(smem + a.hv_off);
+  const Job& cj = a.jobs[3];
+  const Job& rj = a.jobs[2];
+  for (int it = blockIdx.x; it < a.S * a.B * a.n_groups; it += gridDim.x) {
+    const int sb = it / a.n_groups, q = it - sb * a.n_groups;
+    const int s = sb / a.B;
+    const float* part = cj.part + (size_t)sb * cj.splits * T * C;
+    auto value = [&](int e) {
+      const int t = e / gsz, c = q * gsz + e - t * gsz;
+      return split_sum(part + (size_t)t * C + c, cj.splits, (size_t)T * C) +
+             bf(a.b1 + (size_t)s * C + c);
+    };
+    const float2 st = group_stats_stream(a, n, red, value);
+    for (int e = threadIdx.x; e < n; e += NT) {
+      const int t = e / gsz, c = q * gsz + e - t * gsz;
+      const float y = mish((value(e) - st.x) * st.y * bf(a.g1w + (size_t)s * C + c) +
+                           bf(a.g1b + (size_t)s * C + c));
+      const float res =
+          a.has_res ? split_sum(rj.part + (size_t)sb * rj.splits * T * C + (size_t)t * C + c,
+                                rj.splits, (size_t)T * C) + bf(a.br + (size_t)s * C + c)
+                    : bf(a.x + ((size_t)sb * T + t) * C + c);     // Cin == C
+      a.out[((size_t)sb * T + t) * C + c] = __float2bfloat16(y + res);
+    }
+  }
 }
 
 // One item per (s, b, group): conv0's split sums + b0, GroupNorm0, Mish and
@@ -424,43 +528,103 @@ __device__ void out_phase(const Args& a, unsigned char* smem) {
   }
 }
 
-template <int NM>
-__global__ void __launch_bounds__(NT, 2) resblock_kernel(Args a) {
+// BIG: a time axis past one 64-step chunk or a layout not held as it is
+// (one block an SM)
+template <int NM, bool BIG>
+__global__ void __launch_bounds__(NT, BIG ? 1 : 2) resblock_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  product_phase<NM>(a, a.jobs, a.n1, smem);              // conv0, film, residual
+  product_phase<NM, BIG>(a, a.jobs, a.n1, smem);         // conv0, film, residual
   grid.sync();
-  norm0_phase(a, smem);                                  // GN0, Mish, FiLM -> h
+  if (!BIG || a.hold)                                    // GN0, Mish, FiLM -> h
+    norm0_phase(a, smem);
+  else
+    norm0_phase_stream(a, smem);
   grid.sync();
-  product_phase<NM>(a, a.jobs + 3, 1, smem);             // conv1
+  product_phase<NM, BIG>(a, a.jobs + 3, 1, smem);        // conv1
   grid.sync();
-  out_phase(a, smem);                                    // GN1, Mish, + residual
+  if (!BIG || a.hold)                                    // GN1, Mish, + residual
+    out_phase(a, smem);
+  else
+    out_phase_stream(a, smem);
 }
 
 // Dynamic shared memory of a block: the ring, the widest A (the m16 tiles
-// of T plus K - 1 rows of all input channels, or the film row), then at
-// hv_off a group's float32 values, the block sums' scratch and four float32
-// values per element of the group (the norm phases' ex).
-size_t resblock_hv_off(int T, int Cin, int C, int G, int K) {
-  const int wmax = ((Cin > C ? Cin : C) + KS - 1) / KS * KS + 8;
-  size_t a_elems = (size_t)(mtiles(T) * MT + K - 1) * wmax;
-  const size_t film = (size_t)(G + KS - 1) / KS * KS + 8;
+// of a time chunk plus K - 1 rows of `chunks` 16-channel chunks of input,
+// or the film row of `gchunks`), then at hv_off a group's float32 values,
+// the block sums' scratch and four float32 values per element of the group
+// (the norm phases' ex) when `hold`, else the block sums' scratch alone.
+size_t resblock_hv_off(int T, int chunks, int gchunks, int K) {
+  size_t a_elems = (size_t)(mtiles(T) * MT + K - 1) * (chunks * KS + 8);
+  const size_t film = (size_t)gchunks * KS + 8;
   if (film > a_elems) a_elems = film;
   return (RING_BYTES + 2 * a_elems + 15) / 16 * 16;
 }
 
-size_t resblock_smem(int T, int Cin, int C, int G, int K, int n_groups) {
-  return resblock_hv_off(T, Cin, C, G, K) + 4 * (5 * (size_t)T * (C / n_groups) + NWARP);
+struct Layout {
+  int wcap;       // 16-channel chunks of input a split may span (0: any)
+  int hold;       // the norm items hold a group's values
+  size_t hv_off, smem;
+  bool big;       // the BIG kernels: past 64 steps or not held as it is
+};
+
+// The block's layout on one SM of `optin` bytes of shared memory: as it is
+// where it fits, else A capped at WCAP_CHUNKS chunks, then the norm values
+// streamed (see the head of this file).
+Layout resblock_layout(int T, int Cin, int C, int G, int K, int n_groups, int optin) {
+  const int chunks = ((Cin > C ? Cin : C) + KS - 1) / KS, gchunks = (G + KS - 1) / KS;
+  const size_t held = 4 * (5 * (size_t)T * (C / n_groups) + NWARP);
+  Layout L{0, 1, resblock_hv_off(T, chunks, gchunks, K), 0, T > TCH};
+  L.smem = L.hv_off + held;
+  if (L.smem <= (size_t)optin) return L;
+  L.big = true;
+  if (chunks > WCAP_CHUNKS || gchunks > WCAP_CHUNKS) {
+    L.wcap = WCAP_CHUNKS;
+    L.hv_off = resblock_hv_off(T, chunks < WCAP_CHUNKS ? chunks : WCAP_CHUNKS,
+                               gchunks < WCAP_CHUNKS ? gchunks : WCAP_CHUNKS, K);
+    L.smem = L.hv_off + held;
+    if (L.smem <= (size_t)optin) return L;
+  }
+  L.hold = 0;
+  L.smem = L.hv_off + 4 * NWARP;
+  return L;
 }
 
-// The kernel for a time axis of T steps: one to four m16 tiles.
-const void* resblock_kernel_for(int T) {
-  switch (mtiles(T)) {
-    case 1: return (const void*)resblock_kernel<1>;
-    case 2: return (const void*)resblock_kernel<2>;
-    case 3: return (const void*)resblock_kernel<3>;
-    default: return (const void*)resblock_kernel<4>;
+// The most 16-channel chunks of input one of `splits` splits of a product
+// of `taps` taps over `chunks` chunks spans (item_steps' ranges).
+int split_chunks(int chunks, int taps, int splits) {
+  const int steps = taps * chunks;
+  int most = 0;
+  for (int z = 0; z < splits; ++z) {
+    const int st0 = (int)((long long)z * steps / splits);
+    const int st1 = (int)((long long)(z + 1) * steps / splits);
+    const int n = (st1 - 1) / taps + 1 - st0 / taps;
+    if (n > most) most = n;
   }
+  return most;
+}
+
+cudaError_t smem_optin(int* optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// The kernel for a time axis of T steps (one to four m16 tiles a chunk),
+// BIG or not.
+template <bool BIG>
+const void* kernel_of(int T) {
+  switch (mtiles(T)) {
+    case 1: return (const void*)resblock_kernel<1, BIG>;
+    case 2: return (const void*)resblock_kernel<2, BIG>;
+    case 3: return (const void*)resblock_kernel<3, BIG>;
+    default: return (const void*)resblock_kernel<4, BIG>;
+  }
+}
+
+const void* resblock_kernel_for(int T, bool big) {
+  return big ? kernel_of<true>(T) : kernel_of<false>(T);
 }
 
 // The grid of the cooperative launch of the kernel for T steps: every block
@@ -469,15 +633,15 @@ const void* resblock_kernel_for(int T) {
 // so that a launch inside CUDA-graph capture makes none; each kernel's
 // shared-memory limit only rises (the largest size any launch asked for),
 // so a narrower call never lowers it under a wider one's cached launch.
-cudaError_t resblock_grid(size_t smem, int T, int* grid) {
-  struct Entry { size_t smem; int nm, grid; };
+cudaError_t resblock_grid(size_t smem, int T, bool big, int* grid) {
+  struct Entry { size_t smem; int nm, grid; bool big; };
   static Entry cache[32];
   static int n = 0;
-  static size_t limit[MAXNM] = {};
+  static size_t limit[2][MAXNM] = {};
   const int nm = mtiles(T);
-  const void* kern = resblock_kernel_for(T);
+  const void* kern = resblock_kernel_for(T, big);
   for (int i = 0; i < n; ++i)
-    if (cache[i].smem == smem && cache[i].nm == nm) {
+    if (cache[i].smem == smem && cache[i].nm == nm && cache[i].big == big) {
       *grid = cache[i].grid;
       return cudaSuccess;
     }
@@ -491,10 +655,10 @@ cudaError_t resblock_grid(size_t smem, int T, int* grid) {
     *grid = 0;
     return cudaSuccess;
   }
-  if (smem > limit[nm - 1]) {
+  if (smem > limit[big][nm - 1]) {
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    limit[nm - 1] = smem;
+    limit[big][nm - 1] = smem;
   }
   int sms = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
@@ -503,7 +667,7 @@ cudaError_t resblock_grid(size_t smem, int T, int* grid) {
       cudaSuccess)
     return err;
   *grid = per_sm * sms;
-  if (n < 32) cache[n++] = Entry{smem, nm, *grid};
+  if (n < 32) cache[n++] = Entry{smem, nm, *grid, big};
   return cudaSuccess;
 }
 
@@ -516,17 +680,24 @@ const char* vtt_error_string(int err) {
 }
 
 // *ctas = the blocks of one cooperative launch at this shape (0: one block
-// does not fit an SM); the plan (ops/unet_kernels.py::k2_plan) sizes its
+// does not fit an SM) and *wcap the 16-channel chunks of input one split
+// may span (0: any); the plan (ops/unet_kernels.py::k2_plan) sizes its
 // splits to them.
-int resblock_ctas(int T, int Cin, int C, int G, int K, int n_groups, int* ctas) {
-  return (int)resblock_grid(resblock_smem(T, Cin, C, G, K, n_groups), T, ctas);
+int resblock_ctas(int T, int Cin, int C, int G, int K, int n_groups, int* ctas, int* wcap) {
+  int optin = 0;
+  cudaError_t err = smem_optin(&optin);
+  if (err != cudaSuccess) return (int)err;
+  const Layout L = resblock_layout(T, Cin, C, G, K, n_groups, optin);
+  *wcap = L.wcap;
+  return (int)resblock_grid(L.smem, T, L.big, ctas);
 }
 
 // x (S, B, T, Cin), cond (S, B, G), w0 (S, K, Cin, C), w1 (S, K, C, C),
 // fw (S, G, 2C), wr (S, Cin, C) or null (identity residual), vectors
 // (S, C) / fb (S, 2C); all bf16 contiguous, weights 16-byte aligned, C %
-// 16 == 0, T <= 64.  The splits p0, pf, pr, p1 of conv0, FiLM, the
-// residual and conv1 come from k2_plan; scratch holds
+// 16 == 0, any T.  The splits p0, pf, pr, p1 of conv0, FiLM, the
+// residual and conv1 come from k2_plan (each split of conv0, the residual
+// and conv1 within resblock_ctas' wcap chunks of input); scratch holds
 // float32 partials (S, B, p0, T, C), (S, B, pf, 2C), (S, B, pr, T, C) (with
 // wr), (S, B, p1, T, C), then conv1's bf16 operand (S, B, T, C):
 // scratch_bytes at least that.  out (S, B, T, C) bf16.
@@ -539,8 +710,17 @@ int resblock_bf16(const void* x, const void* cond, const void* w0, const void* b
   const int has_res = wr != nullptr;
   const int st0 = K * ((Cin + KS - 1) / KS), stf = (G + KS - 1) / KS;
   const int str = (Cin + KS - 1) / KS, st1 = K * ((C + KS - 1) / KS);
-  if (T < 1 || T > MAXT || C % 16 || C % n_groups || K % 2 == 0 || p0 < 1 || p0 > st0 ||
+  if (T < 1 || C % 16 || C % n_groups || K % 2 == 0 || p0 < 1 || p0 > st0 ||
       pf < 1 || pf > stf || p1 < 1 || p1 > st1 || (has_res && (pr < 1 || pr > str)))
+    return (int)cudaErrorInvalidValue;
+  int optin = 0;
+  cudaError_t err = smem_optin(&optin);
+  if (err != cudaSuccess) return (int)err;
+  const Layout L = resblock_layout(T, Cin, C, G, K, n_groups, optin);
+  if (L.wcap && (split_chunks((Cin + KS - 1) / KS, K, p0) > L.wcap ||
+                 split_chunks((C + KS - 1) / KS, K, p1) > L.wcap ||
+                 split_chunks((G + KS - 1) / KS, 1, pf) > L.wcap ||
+                 (has_res && split_chunks((Cin + KS - 1) / KS, 1, pr) > L.wcap)))
     return (int)cudaErrorInvalidValue;
   const size_t tc = (size_t)S * B * T * C;
   float* part0 = (float*)scratch;
@@ -576,16 +756,17 @@ int resblock_bf16(const void* x, const void* cond, const void* w0, const void* b
   a.C = C;
   a.K = K;
   a.n_groups = n_groups;
-  a.hv_off = (int)resblock_hv_off(T, Cin, C, G, K);
+  a.hold = L.hold;
+  a.hv_off = (int)L.hv_off;
   a.eps = eps;
 
-  const size_t smem = resblock_smem(T, Cin, C, G, K, n_groups);
+  const size_t smem = L.smem;
   int grid = 0;
-  cudaError_t err = resblock_grid(smem, T, &grid);
+  err = resblock_grid(smem, T, L.big, &grid);
   if (err != cudaSuccess) return (int)err;
   if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(resblock_kernel_for(T), dim3(grid), dim3(NT), params,
+  err = cudaLaunchCooperativeKernel(resblock_kernel_for(T, L.big), dim3(grid), dim3(NT), params,
                                     smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

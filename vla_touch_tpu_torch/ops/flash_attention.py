@@ -27,6 +27,8 @@ from vla_touch_tpu_torch.utils.device import sm_count as _sm_count
 _NEG_INF = -1e30
 BK = 64              # keys per tile of the attention kernels
 MAX_ROWS = 128       # query rows per CTA of the attention kernels
+MAX_D = 256          # the widest head dim K1 takes
+PIECE = 128          # V columns of one K1 CTA above D 128
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -105,10 +107,17 @@ def _resident(D: int, rows: int) -> int:
     return n.value
 
 
+def pieces(D):
+    """K1's CTAs per q tile and split: above D 128 each computes one
+    ``PIECE``-column piece of the output (over the scores of the full D)."""
+    return -(-D // PIECE) if D > PIECE else 1
+
+
 def card_plan(B, Lq, Lkv, H, D, index=0):
     """:func:`k1_plan` on CUDA device ``index`` (at D padded to a multiple
-    of 8, as the wrapper launches it)."""
-    return k1_plan(B, Lq, Lkv, H, _sm_count(index), _resident(-(-D // 8) * 8, cta_rows(Lq)))
+    of 8, as the wrapper launches it; above D 128 the pieces count as heads)."""
+    D8 = -(-D // 8) * 8
+    return k1_plan(B, Lq, Lkv, H * pieces(D8), _sm_count(index), _resident(D8, cta_rows(Lq)))
 
 
 def _check_operand(name, t, B, H, D):
@@ -141,7 +150,7 @@ def mask_arg(what, kv_mask, B, Lkv, device):
 def flash_attention(q, k, v, kv_mask=None, scale=None):
     """Attention q (B, Lq, H, D), k/v (B, Lkv, H, D) -> (B, Lq, H, D).
 
-    CUDA: bf16 operands, D <= 128, mask (B, Lkv) bool or uint8; anything
+    CUDA: bf16 operands, D <= 256, mask (B, Lkv) bool or uint8; anything
     else raises.  A D that is not a multiple of 8 (the kernel's 16-byte
     column piece) runs on zero columns padded to the next multiple: the
     scores do not change, the extra output columns are dropped, and the
@@ -198,8 +207,8 @@ def _launch(q, k, v, kv_mask, scale, plan):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Lq, H, D = q.shape
     Lkv = k.shape[1]
-    if D > 128:
-        raise ValueError(f"flash_attention: head dim {D} must be <= 128")
+    if D > MAX_D:
+        raise ValueError(f"flash_attention: head dim {D} must be <= {MAX_D}")
     scale = D ** -0.5 if scale is None else float(scale)
     if D % 8:
         for name, t in (("k", k), ("v", v)):

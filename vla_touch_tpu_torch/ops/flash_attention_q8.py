@@ -17,6 +17,13 @@ do; a fully masked query row gives 0.  On CUDA tensors the wrappers launch
 the kernel (``.launches`` counts them, one per call); on CPU tensors they
 compute :func:`attention_q8_plain`; anything else raises.
 
+Head dims: any D <= :data:`MAX_D` for K3; K4 a multiple of 16 (JAX's K4
+asserts D % 32).  K3's cache rows must start 16-byte aligned: for a D off
+16 (RDT-170M's 72) :func:`quantize_kv` returns (B, L, H, D) views of
+storage whose rows are D padded to the next multiple of 16 wide, zero
+past D, so the chunk builds that layout once; a cache in any other layout
+is copied into it on each call.
+
 The kernel cuts the keys into :func:`split_plan`'s splits (the plan of
 ``ops/flash_attention.py``, which K1 shares) of 64-key tiles.
 With more than one split, each writes its partial softmax state into
@@ -30,6 +37,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from vla_touch_tpu_torch.csrc import build
 from vla_touch_tpu_torch.ops.flash_attention import (BK, _sm_count,  # noqa: F401
@@ -37,6 +45,7 @@ from vla_touch_tpu_torch.ops.flash_attention import (BK, _sm_count,  # noqa: F40
 from vla_touch_tpu_torch.ops.quant import true_div
 
 _NEG_INF = -1e30
+MAX_D = 256          # the widest head dim the kernel takes
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -50,12 +59,21 @@ def _quantize(x):
     return xi, true_div(amax[:, 0], 127.0)
 
 
+def _row_aligned(x_i8):
+    """(B, L, H, D) int8 codes as K3 reads them: ``x_i8`` when D is a
+    multiple of 16, else a (B, L, H, D) view of zero-padded storage whose
+    rows are D rounded up to 16 wide (16-byte aligned)."""
+    pad = -x_i8.shape[-1] % 16
+    return x_i8 if pad == 0 else F.pad(x_i8, (0, pad))[..., :x_i8.shape[-1]]
+
+
 def quantize_kv(k, v):
     """(B, L, H, D) K and V -> (k_i8, k_scale, v_i8, v_scale): int8 codes
-    (B, L, H, D) and per-(B, H, D) float32 scales."""
+    (B, L, H, D) and per-(B, H, D) float32 scales.  A D off 16 gives codes
+    in row-aligned storage (:func:`_row_aligned`)."""
     k_i8, sk = _quantize(k)
     v_i8, sv = _quantize(v)
-    return k_i8, sk, v_i8, sv
+    return _row_aligned(k_i8), sk, _row_aligned(v_i8), sv
 
 
 def _to_bhdl(x_i8):
@@ -105,13 +123,21 @@ def attention_q8t_plain(q, k_t, k_scale, v_t, v_scale, kv_mask=None, scale=None)
                               v_t.permute(0, 3, 1, 2), v_scale, kv_mask, scale)
 
 
+def _aligned(t):
+    """Whether the kernel can read ``t``: unit last stride, the other strides
+    multiples of 16 bytes, a 16-byte aligned start."""
+    return t.stride(3) == 1 and not any(s % 16 for s in t.stride()[:3]) \
+        and t.data_ptr() % 16 == 0
+
+
 def _launch(name, transposed, q, k, k_scale, v, v_scale, kv_mask, scale):
     build.refuse_grad(name, None, q, k_scale, v_scale)
     B, Lq, H, D = q.shape
     if q.dtype != torch.bfloat16:
         raise TypeError(f"{name}: q must be bfloat16, got {q.dtype}")
-    if D % 16 or D > 128:
-        raise ValueError(f"{name}: head dim {D} must be a multiple of 16 and <= 128")
+    if D > MAX_D or (transposed and D % 16):
+        raise ValueError(f"{name}: head dim {D} must be <= {MAX_D}"
+                         + (" and a multiple of 16" if transposed else ""))
     if transposed:
         Lkv = k.shape[3]
         want = (B, H, D, Lkv)
@@ -122,7 +148,10 @@ def _launch(name, transposed, q, k, k_scale, v, v_scale, kv_mask, scale):
         if t.dtype != torch.int8 or tuple(t.shape) != want or t.device != q.device:
             raise ValueError(f"{name}: {what} must be int8 {want} on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-        if t.stride(3) != 1 or any(s % 16 for s in t.stride()[:3]) or t.data_ptr() % 16:
+    if not transposed and D % 16 and not all(_aligned(t) for t in (k, v)):
+        k, v = _row_aligned(k.contiguous()), _row_aligned(v.contiguous())
+    for what, t in (("k", k), ("v", v)):
+        if not _aligned(t):
             raise ValueError(f"{name}: {what} needs a unit last stride, strides that are "
                              f"multiples of 16 and a 16-byte aligned start "
                              f"(strides {t.stride()})")
@@ -134,6 +163,8 @@ def _launch(name, transposed, q, k, k_scale, v, v_scale, kv_mask, scale):
     if out.numel() == 0:
         return out
     qs = prescale_q(q, k_scale, scale)
+    if D % 16:
+        qs = F.pad(qs, (0, -D % 16))
     vs = v_scale.float().contiguous()
     if transposed:
         ks_, vs_ = (k.stride(0), k.stride(1), k.stride(2)), (v.stride(0), v.stride(1),

@@ -553,9 +553,11 @@ def qdense_kernel_w8a16(x, qp: Q.QLinear):
 
 
 def qdense_kernel_a8w8(x, qp: Q.QLinear):
-    """An int8 leaf, bf16 out: M > 512 -> plain :func:`ops.quant.qdense`
-    (the JAX package's XLA route; ``torch._int_mm`` on the card), else K6."""
-    if math.prod(x.shape[:-1]) > 512:
+    """An int8 leaf, bf16 out: M > 512 or K off K6's 16-column piece ->
+    plain :func:`ops.quant.qdense` (the JAX package's XLA route, which it
+    takes at M > 512 and K or N off 128; ``torch._int_mm`` on the card),
+    else K6."""
+    if math.prod(x.shape[:-1]) > 512 or x.shape[-1] % 16:
         return Q.qdense(x, qp)
     return a8w8_matmul(x, qp.w_i8, qp.scale, qp.bias)
 

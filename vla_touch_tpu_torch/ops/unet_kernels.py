@@ -12,7 +12,10 @@ axis S (the v and s nets of the stochastic interpolant), in kernel layout::
 :func:`resblock_fused` launches the kernel on CUDA tensors and computes
 :func:`resblock_ref` on CPU tensors; ``resblock_fused.launches`` counts
 calls that launched the kernel (one cooperative launch each, under
-:func:`k2_plan`).
+:func:`k2_plan`).  Any time axis (the kernel walks it in chunks of 64
+steps); a block too wide for one SM's shared memory as it is takes splits
+of at most 256 input channels, and then, if it must, its norm items stream
+a group's values from L2 (``csrc/resblock.cu``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ import torch.nn.functional as F
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_MAX_T = 64          # four m16 tiles of time rows (the 64-step chunk at the first level)
 
 # K2's plan: the kernel's products (conv0, FiLM, the 1x1 residual; then
 # conv1) are cut into items of K2_COLS output columns x one range of their
@@ -116,13 +118,33 @@ def _phase_splits(jobs: dict, S: int, n_ctas: int) -> dict:
         target += 1
 
 
-def k2_plan(Cin: int, C: int, G: int, k: int, S: int, n_ctas: int, has_res: bool) -> dict:
+def k2_split_chunks(chunks: int, taps: int, splits: int) -> int:
+    """The most 16-channel chunks of input one of ``splits`` splits of a
+    product of ``taps`` taps over ``chunks`` chunks spans (the kernel's
+    ``split_chunks``)."""
+    steps = taps * chunks
+    return max((e - 1) // taps + 1 - b // taps
+               for b, e in (k2_split_steps(steps, splits, z) for z in range(splits)))
+
+
+def k2_plan(Cin: int, C: int, G: int, k: int, S: int, n_ctas: int, has_res: bool,
+            max_chunks: int = 0) -> dict:
     """Splits of conv0, FiLM, the residual (when ``has_res``) and conv1 for
     a grid of ``n_ctas`` blocks: phase 1 (conv0, FiLM, residual) and phase
-    3 (conv1) each fill the grid with items of about equal weight bytes."""
+    3 (conv1) each fill the grid with items of about equal weight bytes.
+    ``max_chunks`` > 0 (a block too wide for one SM as it is): every
+    product's splits span at most that many 16-channel chunks of input, the
+    width of the kernel's staged input."""
     steps = k2_steps(Cin, C, G, k, has_res)
     plan = _phase_splits({j: v for j, v in steps.items() if j != "conv1"}, S, n_ctas)
     plan.update(_phase_splits({"conv1": steps["conv1"]}, S, n_ctas))
+    if max_chunks:
+        ch = lambda n: -(-n // K2_STEP)                      # noqa: E731
+        for job, chunks, taps in (("conv0", ch(Cin), k), ("film", ch(G), 1),
+                                  ("res", ch(Cin), 1), ("conv1", ch(C), k)):
+            if job in plan:
+                while k2_split_chunks(chunks, taps, plan[job]) > max_chunks:
+                    plan[job] += 1
     return plan
 
 
@@ -142,22 +164,24 @@ def _lib():
         lib.resblock_bf16.argtypes = [_P] * 15 + [ctypes.c_longlong, _P] + [_I] * 8 \
             + [ctypes.c_float] + [_I] * 4 + [_P]
         lib.resblock_bf16.restype = _I
-        lib.resblock_ctas.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
+        lib.resblock_ctas.argtypes = [_I] * 6 + [ctypes.POINTER(_I)] * 2
         lib.resblock_ctas.restype = _I
     return lib
 
 
 @functools.cache
-def _ctas(device_index: int, T: int, Cin: int, C: int, G: int, k: int, n_groups: int) -> int:
-    """Blocks of one cooperative launch of the kernel at this shape."""
+def _ctas(device_index: int, T: int, Cin: int, C: int, G: int, k: int,
+          n_groups: int) -> tuple:
+    """(blocks of one cooperative launch of the kernel at this shape, the
+    16-channel chunks of input a split may span: 0 for any)."""
     from vla_touch_tpu_torch.csrc import build
 
     lib = _lib()
-    n = ctypes.c_int(0)
+    n, wcap = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        build.check(lib, lib.resblock_ctas(T, Cin, C, G, k, n_groups, ctypes.byref(n)),
-                    "resblock_fused")
-    return n.value
+        build.check(lib, lib.resblock_ctas(T, Cin, C, G, k, n_groups, ctypes.byref(n),
+                                           ctypes.byref(wcap)), "resblock_fused")
+    return n.value, wcap.value
 
 
 def _check(name, t, shape, device):
@@ -175,7 +199,8 @@ def resblock_fused(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
 
     x (S, B, T, Cin), cond (S, B, G), ``p`` in the module's kernel layout
     -> (S, B, T, C) in x's dtype.  CUDA: everything bf16 and contiguous,
-    T <= 64, C a multiple of 16 and of ``n_groups``; anything else raises.
+    C a multiple of 16 and of ``n_groups``, an odd kernel size; anything
+    else raises.
     """
     if x.device.type == "cpu":
         return resblock_ref(x, cond, p, n_groups=n_groups, eps=eps).to(x.dtype)
@@ -187,7 +212,7 @@ def resblock_fused(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
     S, B, T, Cin = x.shape
     k, C = p["w0"].shape[1], p["w0"].shape[-1]
     G = cond.shape[-1]
-    if T > _MAX_T or C % 16 or C % n_groups or k % 2 == 0:
+    if C % 16 or C % n_groups or k % 2 == 0:
         raise ValueError(f"resblock_fused: unsupported T={T}, C={C}, k={k}, "
                          f"groups={n_groups}")
     dev = x.device
@@ -205,12 +230,12 @@ def resblock_fused(x, cond, p: dict, *, n_groups: int = 8, eps: float = 1e-5):
         _check(name, p[name], shape, dev)
         if p[name].data_ptr() % 16:
             raise ValueError(f"resblock_fused: {name} must be 16-byte aligned")
-    ctas = _ctas(dev.index if dev.index is not None else torch.cuda.current_device(),
-                 T, Cin, C, G, k, n_groups)
+    ctas, wcap = _ctas(dev.index if dev.index is not None else torch.cuda.current_device(),
+                       T, Cin, C, G, k, n_groups)
     if ctas < 1:
         raise RuntimeError(f"resblock_fused: one block of T={T}, Cin={Cin}, C={C}, G={G}, "
                            f"k={k} does not fit an SM: no cooperative launch is possible")
-    plan = k2_plan(Cin, C, G, k, S, ctas, has_res)
+    plan = k2_plan(Cin, C, G, k, S, ctas, has_res, wcap)
     nbytes = k2_scratch_bytes(S, B, T, C, plan)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     out = torch.empty((S, B, T, C), dtype=torch.bfloat16, device=dev)
