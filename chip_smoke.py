@@ -6795,14 +6795,19 @@ def record_rdt_loop(argv: list) -> dict:
     """``rdt_loop.main(argv)`` (what ``python -m
     vla_touch_tpu_torch.train.rdt_loop`` runs) with each step's loss, grad
     norm, host ms and K1 launches recorded; the final checkpoint (RDT-1B:
-    19.65 GB) recorded, not written.  The counts start at 0."""
+    19.65 GB) taken through ``save_checkpoint`` with the files it would
+    write recorded, not written (``meta.json`` is written), and its state
+    left on the card.  The counts start at 0."""
     import torch
 
     from vla_touch_tpu_torch.ops import flash_attention as FA
     from vla_touch_tpu_torch.train import rdt_loop as RL
+    from vla_touch_tpu_torch.train import rdt_train as T
+    from vla_touch_tpu_torch.utils import checkpoint as ckpt
 
-    steps, saved = [], []
+    steps, saved, files = [], [], []
     step, save = RL.RDTTrainer.step, RL.RDTTrainer.save_checkpoint
+    writers = (ckpt.save_pytree, ckpt.save_pytree_orbax, T.gather_train_state)
 
     def recorded_step(self, state, batch, vision, generator=None):
         torch.cuda.synchronize()
@@ -6814,8 +6819,17 @@ def record_rdt_loop(argv: list) -> dict:
                           k1=FA.flash_attention.launches - k))
         return out
 
-    RL.RDTTrainer.step = recorded_step
-    RL.RDTTrainer.save_checkpoint = lambda self, state, s: saved.append(s) or {}
+    def recorded_save(self, state, s):
+        saved.append(s)
+        return save(self, state, s)
+
+    def record(path, tree, **kw):
+        files.append(os.path.basename(path))
+        return 0
+
+    RL.RDTTrainer.step, RL.RDTTrainer.save_checkpoint = recorded_step, recorded_save
+    ckpt.save_pytree = ckpt.save_pytree_orbax = record
+    T.gather_train_state = lambda state, to_host=True: writers[2](state, to_host=False)
     try:
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -6824,7 +6838,8 @@ def record_rdt_loop(argv: list) -> dict:
         run_s = time.perf_counter() - t1
     finally:
         RL.RDTTrainer.step, RL.RDTTrainer.save_checkpoint = step, save
-    res = dict(steps=steps, saved=saved, run_s=run_s, launches=read_counts(),
+        ckpt.save_pytree, ckpt.save_pytree_orbax, T.gather_train_state = writers
+    res = dict(steps=steps, saved=saved, files=files, run_s=run_s, launches=read_counts(),
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                zero3=bool(state.plan is not None and state.plan.zero3),
                sharded=state.plan is not None)
@@ -6859,11 +6874,144 @@ def par_batch(m, tcfg, device, seed: int = 5) -> tuple:
     return batch, draws
 
 
+def par_orbax(rank: int, d: str, rcfg, tcfg, state, full, step_fn, batch, draws, b, dr,
+              device) -> dict:
+    """The DP2 ZeRO-3 state after PAR_TRAIN_STEPS steps as ``state.orbax``
+    (``RDTTrainer.save_checkpoint`` at world 2: each rank its own shards,
+    nothing gathered), synchronously, then with ``async_save`` while the
+    uninterrupted run takes its next two steps; the synchronous one
+    resumed by one process (rank 0: the gathered ``full`` parameters bit
+    for bit) and the asynchronous one at DP1 x TP2 (each rank reading the
+    chunks its regions overlap), each for the same two steps, their losses
+    against the uninterrupted run's to RDT_LOSS_RTOL_BF16."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from vla_touch_tpu_torch.config import DataConfig
+    from vla_touch_tpu_torch.parallel import launch
+    from vla_touch_tpu_torch.parallel import mesh as mesh_lib
+    from vla_touch_tpu_torch.train import rdt_loop as RL
+    from vla_touch_tpu_torch.train import rdt_train as T
+    from vla_touch_tpu_torch.utils import checkpoint as ckpt
+    from vla_touch_tpu_torch.utils import from_flax as FF
+    from vla_touch_tpu_torch.utils import ocdbt
+
+    def trainer(name, t, mesh):
+        tr = RL.RDTTrainer(rcfg, t, DataConfig(), os.path.join(d, name), device=device,
+                           mesh=mesh)
+        tr.optimizer = T.make_optimizer(t, state.module)
+        return tr
+
+    def shard_bytes(st, opt):
+        def size(tree):
+            if isinstance(tree, dict):
+                return sum(size(v) for v in tree.values())
+            return tree.local.numel() * tree.local.element_size() \
+                if isinstance(tree, ckpt.Shard) else 0
+        trees = FF.rdt_train_state_shards(st, opt)
+        return sum(size(trees[k]) for k in ("params", "ema", "opt_state"))
+
+    def losses(run):
+        out = []
+        for _ in range(2):
+            _, m = run()
+            out.append(float(m["loss"]))
+        return out
+
+    step = PAR_TRAIN_STEPS
+    res = {}
+    sync = trainer("orbax_sync", tcfg, state.plan.mesh)
+    res["shard_bytes"] = shard_bytes(state, sync.optimizer)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res["write_bytes"] = sync.save_checkpoint(state, step)["state.orbax"]
+    res["write_s"] = time.perf_counter() - t1
+    res["write_gb_s"] = res["shard_bytes"] / res["write_s"] / 1e9
+    sync_path = os.path.join(d, "orbax_sync", f"checkpoint-{step}")
+
+    asy = trainer("orbax_async", dataclasses.replace(tcfg, async_save=True), state.plan.mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    asy.save_checkpoint(state, step)
+    res["async_return_s"] = time.perf_counter() - t1
+    in_flight = os.path.exists(os.path.join(asy.output_dir, f"checkpoint-{step}", "meta.json"))
+    k1 = kernel_fns()["K1"].launches
+    res["after"] = losses(lambda: step_fn(state, b, draws=dr))
+    res["k1_after"] = kernel_fns()["K1"].launches - k1
+    asy._wait_ckpt()
+    res["async_s"] = time.perf_counter() - t1
+    async_path = os.path.join(d, "orbax_async", f"checkpoint-{step}")
+    res["async_bytes"] = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(
+        os.path.join(async_path, "state.orbax", f"ocdbt.process_{rank}")) for f in fs)
+    if in_flight or sorted(os.listdir(async_path)) != ["meta.json", "state.orbax"]:
+        raise AssertionError(f"rank {rank}: async checkpoint {os.listdir(async_path)}, "
+                             f"meta before the steps: {in_flight}")
+    dist.barrier()
+
+    # the asynchronous checkpoint at DP1 x TP2, each rank its regions
+    mesh = mesh_lib.make_mesh(1, 2)
+    t_tp = dataclasses.replace(tcfg, zero3=False)
+    step_tp, plan = T.make_sharded_train_step(mesh, rcfg, t_tp)
+    st = T.shard_train_state(mesh, T.init_train_state(rcfg, t_tp, 1, device), plan)
+    tp = trainer("orbax_tp2", t_tp, mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st = tp.load_checkpoint(st, async_path)
+    torch.cuda.synchronize()
+    res["resume_s"] = time.perf_counter() - t1
+    res["resume_bytes"] = shard_bytes(st, tp.optimizer)
+    res["resume_gb_s"] = res["resume_bytes"] / res["resume_s"] / 1e9
+    res["chunks_read"] = tp.load_stats["chunks_read"]
+    res["chunks_overlapped"] = tp.load_stats["chunks_overlapped"]
+    with ocdbt.Database(os.path.join(async_path, "state.orbax")) as db:
+        res["chunks_total"] = sum(not k.endswith(b"/.zarray") for k in db)
+    b_tp = launch.host_local_batch(mesh, batch, spec=(None, "data"), device=device)
+    dr_tp = launch.host_local_batch(mesh, draws, spec=(None, "data"), device=device)
+    k1 = kernel_fns()["K1"].launches
+    res["resumed_tp2"] = losses(lambda: step_tp(st, b_tp, draws=dr_tp))
+    res["k1_resumed"] = kernel_fns()["K1"].launches - k1
+    del st, step_tp, plan, b_tp, dr_tp
+    torch.cuda.empty_cache()
+    if rank == 0:
+        # the synchronous checkpoint in one process, read whole
+        t_one = dataclasses.replace(tcfg, zero3=False)
+        one = trainer("orbax_one", t_one, None)
+        back = one.load_checkpoint(T.init_train_state(rcfg, t_one, 1, device), sync_path)
+        if any(not torch.equal(back.params[n], p) for n, p in full["params"].items()):
+            raise AssertionError("two-rank ZeRO-3 state.orbax: read back unequal")
+        res["resumed_one"] = losses(lambda: T.train_step(rcfg, t_one, back, batch,
+                                                         draws=draws))
+        del back
+        torch.cuda.empty_cache()
+    dist.barrier()
+    res["loss_rel"] = {k: [abs(a - w) / abs(w) for a, w in zip(res[k], res["after"])]
+                       for k in ("resumed_tp2", "resumed_one") if k in res}
+    if max(x for v in res["loss_rel"].values() for x in v) > RDT_LOSS_RTOL_BF16:
+        raise AssertionError(f"rank {rank}: resumed losses against the uninterrupted run's: "
+                             f"{res}")
+    if not (res["chunks_read"] == res["chunks_overlapped"] < res["chunks_total"]):
+        raise AssertionError(f"rank {rank}: TP2 resume read {res['chunks_read']} chunks, "
+                             f"its regions overlap {res['chunks_overlapped']} of "
+                             f"{res['chunks_total']}")
+    log(f"rank {rank} state.orbax: wrote {res['write_bytes']} bytes ({res['shard_bytes']} "
+        f"bytes of shards) in {res['write_s']:.2f} s ({res['write_gb_s']:.2f} GB/s); async: "
+        f"returned after {res['async_return_s']:.2f} s, landed after {res['async_s']:.2f} s "
+        f"with two steps in flight, {res['async_bytes']} bytes; TP2 resume "
+        f"{res['resume_s']:.2f} s for {res['resume_bytes']} bytes "
+        f"({res['resume_gb_s']:.2f} GB/s), chunks read {res['chunks_read']} of the "
+        f"{res['chunks_overlapped']} its regions overlap ({res['chunks_total']} in the "
+        f"checkpoint); losses after {res['after']}, resumed at TP2 {res['resumed_tp2']}"
+        + (f", in one process {res['resumed_one']}" if "resumed_one" in res else ""))
+    return res
+
+
 def par_train_modes(rank: int, d: str, device) -> dict:
     """The two-rank RDT-1B steps (depth PAR_DEPTH, full width, batch 4 x
     accumulation 2): one process's train_step (rank 0), then DP2 ZeRO-2,
-    DP2 ZeRO-3 (its checkpoint gathered by both ranks and written by rank
-    0) and TP2, each from the same seeded state, against it."""
+    DP2 ZeRO-3 (its state written as state.orbax by both ranks and resumed:
+    ``par_orbax``) and TP2, each from the same seeded state, against it."""
     import dataclasses
 
     import torch
@@ -6945,25 +7093,8 @@ def par_train_modes(rank: int, d: str, device) -> dict:
                     or max(row["grad_norm_rel"]) > PAR_GNORM_RTOL):
                 raise AssertionError(f"two-rank {mode} against one process: {row}")
         if zero3:
-            out = os.path.join(d, "ckpt")
-            trainer = RL.RDTTrainer(rcfg, t, DataConfig(), out, device=device, mesh=mesh)
-            trainer.optimizer = T.make_optimizer(t, state.module)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            trainer.save_checkpoint(state, PAR_TRAIN_STEPS)
-            dist.barrier()
-            row["checkpoint_s"] = time.perf_counter() - t1
-            path = os.path.join(out, f"checkpoint-{PAR_TRAIN_STEPS}")
-            if rank == 0:
-                row["checkpoint_bytes"] = sum(os.path.getsize(os.path.join(path, f))
-                                              for f in os.listdir(path))
-                back = T.init_train_state(rcfg, t, 1, device)
-                trainer.optimizer = T.make_optimizer(t, back.module)
-                back = trainer.load_checkpoint(back, path)
-                if any(not torch.equal(back.params[n], p) for n, p in full["params"].items()):
-                    raise AssertionError("two-rank ZeRO-3 checkpoint: read back unequal")
-                del back
-            dist.barrier()
+            row["orbax"] = par_orbax(rank, d, rcfg, t, state, full, step_fn, batch, draws,
+                                     b, dr, device)
         if mode == "tp2":
             # K1 on the TP step's own operands (16 heads a rank)
             need = {"K1": row["k1"] // PAR_TRAIN_STEPS}
@@ -7104,8 +7235,10 @@ def parallel_rank(rank: int, world: int, d: str) -> int:
                serving=par_serving(rank, device), planner=par_planner(device),
                t5=par_t5(device))
     # the sharded paths' launches (not the one-process references')
-    res["launches"] = {"K1": sum(r["k1"] for r in res["train"].values()
-                                 if isinstance(r, dict)) + res["serving"]["k1"]}
+    res["launches"] = {"K1": sum(r["k1"] + r.get("orbax", {}).get("k1_after", 0)
+                                 + r.get("orbax", {}).get("k1_resumed", 0)
+                                 for r in res["train"].values() if isinstance(r, dict))
+                       + res["serving"]["k1"]}
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     launch.shutdown()
     with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
@@ -7149,9 +7282,11 @@ def parallel_phase(gen) -> dict:
     same seed and data (losses and grad norms bit for bit, K1 a step
     asserted); then two ranks sharing the card over Gloo (depth cut to
     PAR_DEPTH): DP2 ZeRO-2, DP2 ZeRO-3 and TP2 training steps against one
-    process, the ZeRO-3 checkpoint gathered and written by rank 0 and read
-    back, TP2 serving, a checked TP2 step and chunk, the planner's TP2
-    greedy decode and T5's TP2 encode."""
+    process, the ZeRO-3 state written as state.orbax by both ranks (no
+    gather; sync and async) and resumed at TP2 and in one process, TP2
+    serving, a checked TP2 step and chunk, the planner's TP2 greedy decode
+    and T5's TP2 encode.  The world-1 runs' final checkpoints take the
+    msgpack route."""
     import gc
     import shutil
 
@@ -7203,6 +7338,9 @@ def parallel_phase(gen) -> dict:
                 raise AssertionError(f"{mode}: losses / grad norms differ from one device")
             if k1 != [want_k1] * PAR_STEPS or r["saved"] != [PAR_STEPS]:
                 raise AssertionError(f"{mode}: K1 a step {k1}, final save {r['saved']}")
+            # world 1 writes msgpack, as the JAX trainer at one process
+            if sorted(r["files"]) != ["ema.msgpack", "opt_state.msgpack", "params.msgpack"]:
+                raise AssertionError(f"{mode}: the final checkpoint wrote {r['files']}")
         res["world1"] = dict(runs, one_device=ref)
         ranks = run_ranks(2, root)
         for rk in ranks:

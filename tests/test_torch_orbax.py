@@ -244,11 +244,16 @@ def _ts_write(root, mode):
 
 @pytest.mark.parametrize("mode", ["generations", "interior", "out_of_line"])
 def test_ocdbt_reader_reads_tensorstore_layouts(tmp_path, mode):
+    """Every key as tensorstore wrote it, and the generation tensorstore
+    says it committed last (a transaction may commit as more than one
+    generation under load, so the number is read, not fixed)."""
     want = _ts_write(str(tmp_path), mode)
+    dump = ts.ocdbt.dump(ts.KvStore.open(f"file://{tmp_path}/").result()).result()
     with ocdbt.Database(str(tmp_path)) as db:
         assert dict(db.items()) == want
         assert db.height > 0 or mode != "interior"
-        assert db.generation == (41 if mode == "generations" else
+        assert db.generation == dump["versions"][-1]["generation_number"]
+        assert db.generation >= (41 if mode == "generations" else
                                  3 if mode == "interior" else 4)
 
 

@@ -1,8 +1,9 @@
 """PyTorch port, multi-device training and serving, against the JAX package
 (CPU, Gloo): the sharding tables, the sharded RDT step (DP + ZeRO-2,
 ZeRO-3, TP and ZeRO-3 + TP; 8-bit and bf16 recipes), TP serving, the
-planner's TP decode, T5's TP encode, a checkpoint resumed across
-topologies, and the multi-rank trainer CLI.
+planner's TP decode, T5's TP encode, a checkpoint (state.orbax, every rank
+its shards) resumed across topologies by region, and the multi-rank
+trainer CLI.
 
 One module fixture starts the ranks once (``tests/torch_parallel_worker.py``:
 two processes, and four for the (2, 2) mesh), each meeting the others
@@ -13,6 +14,7 @@ test asserts its part.  Sizes: ``rdt_tiny`` (batch 2 x 4 rows), the
 CPU devices of ``tests/conftest.py``.  Tolerances are stated per test.
 """
 
+import itertools
 import json
 import os
 import subprocess
@@ -42,6 +44,7 @@ from vla_touch_tpu_torch.planning import llm as TL
 from vla_touch_tpu_torch.train import rdt_loop as TRL
 from vla_touch_tpu_torch.train import rdt_train as TT
 from vla_touch_tpu_torch.utils import from_flax as FF
+from vla_touch_tpu_torch.utils import ocdbt
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_parallel_worker.py")
@@ -483,11 +486,12 @@ def test_t5_tp2_encode_matches_jax(runs):
 
 
 def test_checkpoint_resumes_across_topologies(runs):
-    """Saved after two steps at DP2 + ZeRO-3 (gathered by both ranks,
-    written by rank 0), then resumed at DP1 x TP2 and on one device: the
-    next two losses equal the uninterrupted run's to 1e-5 relative; JAX's
-    single-process RDTTrainer.load_checkpoint reads the same directory
-    (the parameters bit for bit)."""
+    """Saved after two steps at DP2 + ZeRO-3 (state.orbax: each rank its
+    own shards, nothing gathered), then resumed at DP1 x TP2 (each rank
+    reading its regions) and on one device: the next two losses equal the
+    uninterrupted run's to 1e-5 relative; JAX's single-process
+    RDTTrainer.load_checkpoint reads the same directory (the parameters bit
+    for bit)."""
     from vla_touch_tpu.train import rdt_loop as JRL
 
     r = runs["out"][0]["resume"]
@@ -517,10 +521,48 @@ def test_checkpoint_resumes_across_topologies(runs):
         np.testing.assert_array_equal(np.asarray(_at(jstate.params, p)), w.T if t else w)
 
 
+def _overlapped_keys(db, regions: dict) -> set:
+    """The chunk keys of every array of ``db`` that ``regions`` (array
+    name -> per-axis (start, stop) runs; absent: the whole array)
+    overlap, from each array's .zarray."""
+    keys = set()
+    for k in db:
+        if not k.endswith(b"/.zarray"):
+            continue
+        name = k.decode()[:-len("/.zarray")]
+        meta = json.loads(db[k])
+        region = regions.get(name, [[(0, n)] for n in meta["shape"]])
+        axes = [sorted({i for a, b in runs for i in range(a // c, (b - 1) // c + 1)})
+                for runs, c in zip(region, meta["chunks"])]
+        keys |= {f"{name}/{'.'.join(map(str, i)) if i else '0'}"
+                 for i in itertools.product(*axes)}
+    return keys
+
+
+def test_resume_reads_only_the_chunks_its_regions_overlap(runs):
+    """Resuming the DP2 + ZeRO-3 state.orbax at DP1 x TP2, each rank reads
+    (counted at the database, value by value) exactly the chunks its
+    regions overlap, each once, and fewer than the checkpoint holds; the
+    trainer's load_stats agree.  Each rank wrote its own part (bytes > 0)."""
+    r0 = runs["out"][0]["resume"]
+    path = os.path.join(r0["dir"], "checkpoint-2", "state.orbax")
+    with ocdbt.Database(path) as db:
+        total = sum(not k.endswith(b"/.zarray") for k in db)
+        for o in runs["out"]:
+            r = o["resume"]
+            want = _overlapped_keys(db, {k.replace("/", "."): v
+                                         for k, v in r["regions_tp2"].items()})
+            assert r["keys_read"] == sorted(want)
+            assert r["load_stats"] == {"chunks_read": len(want),
+                                       "chunks_overlapped": len(want)}
+            assert len(want) < total, (len(want), total)
+            assert r["saved"]["state.orbax"] > 0
+
+
 def test_cli_trains_on_two_ranks(runs):
     """rdt_loop.main with --coordinator / --num_processes 2 / --process_id
-    / --device cpu on each rank: 2 steps, one checkpoint written by rank
-    0, metrics logged by rank 0 only; the sampling eval's metrics equal on
+    / --device cpu on each rank: 2 steps, one checkpoint (state.orbax,
+    written by both ranks, and meta.json), metrics logged by rank 0 only; the sampling eval's metrics equal on
     both ranks and equal to one process's on the global eval batch (the
     ranks' rows, image tokens and noise concatenated, the checkpoint's
     parameters) to 2e-4 relative (JAX's multi-host tolerance)."""
@@ -529,6 +571,8 @@ def test_cli_trains_on_two_ranks(runs):
     assert a["metrics"] == b["metrics"]
     out = runs["inp"]["cli_args"][runs["inp"]["cli_args"].index("--output_dir") + 1]
     assert sorted(os.listdir(out)) == ["checkpoint-2", "training.jsonl"]
+    assert sorted(os.listdir(os.path.join(out, "checkpoint-2"))) == ["meta.json",
+                                                                     "state.orbax"]
     with open(os.path.join(out, "training.jsonl")) as f:
         rows = [json.loads(x) for x in f]
     assert [(r["step"], r.get("kind")) for r in rows] == [(0, None), (2, "sample_eval")]

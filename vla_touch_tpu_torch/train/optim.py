@@ -249,6 +249,16 @@ class RDTOptimizer:
                                      "nu": nest(state.nu)},
                                "1": {}, "2": {"count": count}}}
 
+    def orbax_tree(self, tree: dict) -> tuple:
+        """:meth:`to_tree`'s tree in optax's containers, as orbax records
+        them: the chains as tuples and the empty states as None (flax's
+        msgpack writes both as dicts).  Read back, it is :meth:`to_tree`'s
+        tree with None for ``{}``."""
+        inner = tree["1"]
+        if self.tcfg.use_8bit_adam:
+            return (None, inner)
+        return (None, (inner["0"], None, inner["2"]))
+
     def from_tree(self, tree: dict, unnest: Callable, unnest_blocks: Callable):
         """The inverse of :meth:`to_tree`."""
         inner = tree["1"]

@@ -15,16 +15,21 @@
   or ``LOCAL_RANK`` picks the card) and with ``--zero3``, the sharded step
   (``make_sharded_train_step``, a data-parallel mesh over every rank:
   ZeRO-2, or ZeRO-3 with ``--zero3``);
-- ``checkpoint-<step>`` directories in the JAX package's layout
-  (``params.msgpack``, ``ema.msgpack``, ``opt_state.msgpack``,
-  ``meta.json``; a checkpoint written by either package resumes in the
-  other), optionally written on a thread, pruned to
-  ``checkpoints_total_limit``, resumed from the latest.  A sharded state is
-  gathered leaf by leaf by every rank and written by rank 0 (under
-  ``async_save`` the gather stays synchronous and the write goes to rank
-  0's thread); each rank resumes from the full file and keeps its shards,
-  so a checkpoint written at any topology resumes at any other and in the
-  JAX package's single-process trainer;
+- ``checkpoint-<step>`` directories in the JAX package's layouts (a
+  checkpoint written by either package resumes in the other), optionally
+  written on a thread, pruned to ``checkpoints_total_limit``, resumed from
+  the latest.  One process writes ``params.msgpack``, ``ema.msgpack``,
+  ``opt_state.msgpack`` (a sharded state gathered first) and
+  ``meta.json``.  Several ranks write ``state.orbax`` as JAX's
+  multi-process trainer does: each rank its own shards into
+  ``ocdbt.process_<rank>/``, nothing gathered, and rank 0 the root that
+  joins them (``utils/checkpoint.py::save_pytree_orbax``; with
+  ``async_save``, ``AsyncOrbaxSaver``), then ``meta.json`` once the
+  directory is committed, then the prune.  A sharded state resumes by
+  region: each rank reads the chunks of ``state.orbax`` its shards overlap
+  (a msgpack file whole, keeping its shards), so a checkpoint written at
+  any topology resumes at any other, and in either package's
+  single-process trainer;
 - the sampling eval every ``sample_period`` steps: the serving DPM-Solver++
   rollout on the current parameters (K1), ``sample_mse`` and the
   state-norm-scaled ``sample_l2err``, summed over the data ranks (the
@@ -44,8 +49,7 @@ Weights start seeded random, or from an HF-layout ``rdt-1b`` file
 (``--siglip_checkpoint``); ``--push_to_hub`` uploads the output directory
 after the final checkpoint (``utils/hub.py``).  ``--data_format epc`` reads
 the native episode caches ``data/pack_epc.py`` writes.  ``--scale_lr``
-multiplies the rate by batch x accumulation x world size.  Orbax
-checkpoints (``state.orbax``, JAX's multi-host layout) still raise.
+multiplies the rate by batch x accumulation x world size.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import shutil
 import threading
 from typing import Optional
 
@@ -162,6 +167,9 @@ class RDTTrainer:
         self.shared_generator = None
         self._ckpt_thread = None
         self._ckpt_error = None
+        self._async_saver = None
+        # the chunks the last load_checkpoint read (state.orbax)
+        self.load_stats = {}
         float32_math()
 
     # ---- checkpoint I/O ----
@@ -170,16 +178,19 @@ class RDTTrainer:
         return launch.process_index() == 0
 
     def save_checkpoint(self, state: T.TrainState, step: int) -> dict:
-        """``checkpoint-<step>``: the three trees, then ``meta.json``, then
-        the prune (on a thread with ``async_save``, after a snapshot to host
-        memory: training goes on changing the state in place).  Returns
-        {tree: bytes} (empty when the write runs on a thread or on a rank
-        other than 0).  A sharded state is gathered by every rank first."""
+        """``checkpoint-<step>``: the state, then ``meta.json``, then the
+        prune (with ``async_save``, on a thread after a snapshot to host
+        memory: training goes on changing the state in place).  One
+        process writes the three msgpack trees (a sharded state gathered
+        first); several ranks write ``state.orbax``, each its own shards
+        (collective: every rank calls this).  Returns {tree or
+        "state.orbax": bytes this process wrote} (empty when the write
+        runs on a thread)."""
         path = os.path.join(self.output_dir, f"checkpoint-{step}")
+        if launch.process_count() > 1:
+            return self._save_orbax(state, path, step)
         if state.plan is not None:
             full = T.gather_train_state(state)
-            if full is None:
-                return {}
             state = _Gathered(state.module, full["params"], full["opt_state"],
                               ema_lib.EmaState(full["shadow"], state.ema.num_updates),
                               state.step)
@@ -205,30 +216,89 @@ class RDTTrainer:
         sizes = {k: ckpt.save_pytree(os.path.join(path, f"{k}.msgpack"), trees[k])
                  for k in _TREES}
         # meta lands after the data: resume never picks a partial checkpoint
-        ckpt.save_json(os.path.join(path, "meta.json"), trees["meta"])
-        ckpt.prune_checkpoints(self.output_dir, self.tcfg.checkpoints_total_limit)
+        self._finish(path, trees["meta"])
         return sizes
+
+    def _finish(self, path: str, meta: dict) -> None:
+        if self.is_main():
+            ckpt.save_json(os.path.join(path, "meta.json"), meta)
+            ckpt.prune_checkpoints(self.output_dir, self.tcfg.checkpoints_total_limit)
+
+    def _save_orbax(self, state: T.TrainState, path: str, step: int) -> dict:
+        """Every rank's shards into ``path/state.orbax`` (JAX's
+        multi-process layout), then rank 0's ``meta.json`` and prune; under
+        ``async_save`` the write and then a finalize thread, in the order
+        of the JAX trainer's."""
+        trees = FF.rdt_train_state_shards(state, self.optimizer)
+        meta = dict(trees.pop("meta"), step=step)
+        trees["opt_state"] = self.optimizer.orbax_tree(trees["opt_state"])
+        orbax = os.path.join(path, "state.orbax")
+        mesh = self.mesh if state.plan is None else state.plan.mesh
+        if not self.tcfg.async_save:
+            try:
+                nbytes = ckpt.save_pytree_orbax(orbax, trees, mesh=mesh)
+            except BaseException:
+                self._drop(path)
+                raise
+            self._finish(path, meta)
+            return {"state.orbax": nbytes}
+        if self._async_saver is None:
+            self._async_saver = ckpt.AsyncOrbaxSaver()
+        self._wait_ckpt()
+        self._async_saver.save(orbax, trees, mesh=mesh)
+
+        def finalize():
+            # meta.json only once state.orbax is renamed into place
+            try:
+                self._async_saver.wait()
+                self._finish(path, meta)
+            except BaseException as e:  # raised by _wait_ckpt
+                self._drop(path)
+                self._ckpt_error = e
+
+        self._ckpt_thread = threading.Thread(target=finalize, daemon=True)
+        self._ckpt_thread.start()
+        return {}
+
+    def _drop(self, path: str) -> None:
+        """A checkpoint whose write failed on some rank: rank 0 removes its
+        directory (every rank has stopped writing), so resume never picks
+        it."""
+        if self.is_main():
+            shutil.rmtree(path, ignore_errors=True)
 
     def _wait_ckpt(self):
         """Block until an in-flight checkpoint write has landed; re-raise its
-        failure."""
+        failure (at several ranks: any rank's, on every rank)."""
         if self._ckpt_thread is not None:
             self._ckpt_thread.join()
             self._ckpt_thread = None
+        if self._async_saver is not None:
+            self._async_saver.wait()
         if self._ckpt_error is not None:
             err, self._ckpt_error = self._ckpt_error, None
             raise RuntimeError("async checkpoint write failed") from err
 
     def load_checkpoint(self, state: T.TrainState, path: str) -> T.TrainState:
-        """Read ``path`` (written by either package) into ``state``: its
-        ``state.orbax`` directory where there is one (JAX's multi-process
-        runs write only that), else the msgpack files."""
+        """Read ``path`` (written by either package, at any topology) into
+        ``state``: its ``state.orbax`` directory where there is one (JAX's
+        multi-process runs and the port's several ranks write only that),
+        else the msgpack files.  A sharded state takes its own regions: of
+        ``state.orbax`` only the chunks they overlap are read (counted in
+        ``self.load_stats``)."""
         self._wait_ckpt()
+        regions = None
+        if state.plan is not None:
+            shards = FF.rdt_train_state_shards(state, self.optimizer)
+            regions = {k: shards[k] for k in _TREES}
         orbax_path = os.path.join(path, "state.orbax")
+        self.load_stats = {}
         if os.path.exists(orbax_path):
-            trees = ckpt.load_pytree_orbax(orbax_path)
+            trees = ckpt.load_pytree_orbax(orbax_path, regions=regions, stats=self.load_stats)
         else:
             trees = {k: ckpt.load_pytree(os.path.join(path, f"{k}.msgpack")) for k in _TREES}
+            if regions is not None:
+                trees = ckpt.take_regions(trees, regions)
         trees["meta"] = ckpt.load_json(os.path.join(path, "meta.json"))
         return FF.rdt_train_state_from_flax(trees, state, self.optimizer)
 
@@ -253,6 +323,10 @@ class RDTTrainer:
                               rcfg.model.compute_dtype)
         state = T.init_train_state(rcfg, tcfg, seed, self.device, module=init_module)
         self.optimizer = T.make_optimizer(tcfg, state.module)
+        if self.mesh is not None or tcfg.zero3:
+            # sharded before the resume: each rank reads its own regions
+            _, plan = T.make_sharded_train_step(self.mesh, rcfg, tcfg)
+            state = T.shard_train_state(self.mesh, state, plan)
         path = (ckpt.latest_checkpoint(self.output_dir) if resume_from == "latest"
                 else resume_from)
         if path:
@@ -260,13 +334,10 @@ class RDTTrainer:
             logger.info("resumed from %s at step %d", path, state.step)
         start_step = state.step
         self.shared_generator = None
-        if self.mesh is not None or tcfg.zero3:
-            _, plan = T.make_sharded_train_step(self.mesh, rcfg, tcfg)
-            state = T.shard_train_state(self.mesh, state, plan)
-            if launch.process_count() > 1:
-                # the rounding bits of replicated leaves: alike on every rank
-                self.shared_generator = torch.Generator(device=self.device).manual_seed(
-                    seed + 31337 * start_step)
+        if state.plan is not None and launch.process_count() > 1:
+            # the rounding bits of replicated leaves: alike on every rank
+            self.shared_generator = torch.Generator(device=self.device).manual_seed(
+                seed + 31337 * start_step)
         # a resumed run draws new samples and new noise; each data rank its own
         data_seed = seed + 9973 * mesh_lib.data_index(self.mesh) + 31337 * start_step
         dataset = VLAConsumerDataset(dcfg, seed=data_seed, file_paths=file_paths)

@@ -20,6 +20,7 @@ never held twice in host memory.
 
 from __future__ import annotations
 
+import base64
 import collections
 import dataclasses
 import itertools
@@ -351,18 +352,43 @@ def load_stats(path: str) -> dict:
 # What orbax's StandardCheckpointer writes (use_ocdbt, zarr v2): ``_METADATA``
 # (JSON: each leaf's key path and value type), ``_CHECKPOINT_METADATA`` and
 # one OCDBT database (utils/ocdbt.py) holding each array as zarr v2
-# (utils/zarr2.py) under the name of its key path joined by ".".  JAX's
-# multi-process runs also leave ``ocdbt.process_<i>/`` databases that the
-# root one refers to; the reader follows the root's references.
+# (utils/zarr2.py) under the name of its key path joined by ".".
+#
+# A process group of world > 1 writes as JAX's processes do: each rank its
+# own database ``ocdbt.process_<rank>/`` holding the chunks of its shards
+# (a leaf given as a :class:`Shard`; a chunk is a shard, and a chunk that
+# several ranks hold is written by the lowest of them, as orbax writes
+# replica 0) and ``array_metadatas/process_<rank>``; rank 0 also the
+# arrays' ``.zarray``, ``_sharding`` and the two metadata files and, once
+# every rank has written, the root database that joins the ranks'
+# (``ocdbt.join``).  The reader follows the root's references, and with a
+# region per leaf reads only the chunks each region overlaps.
 
 ORBAX_METADATA = "_METADATA"
 ORBAX_CHECKPOINT_METADATA = "_CHECKPOINT_METADATA"
+ORBAX_SHARDING = "_sharding"
 ORBAX_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
                  "StandardCheckpointHandler")
 KEY_SEQUENCE, KEY_DICT = 1, 2
 _ARRAY_TYPES = ("jax.Array", "np.ndarray")
 # an empty container's value type
 _EMPTY_TYPES = {dict: "Dict", list: "List", tuple: "Tuple"}
+
+
+@dataclasses.dataclass
+class Shard:
+    """One rank's part of an array leaf of a tree that several ranks write
+    (:func:`save_pytree_orbax` at world > 1): the array's global ``shape``,
+    the rank's ``region`` of it (``utils/zarr2.py``: per axis, the (start,
+    stop) runs of positions it holds) and ``local``, the region's values
+    (a tensor or numpy array).  ``spec``: the mesh axis each array axis is
+    split over (a JAX PartitionSpec as a tuple; ``()``: replicated),
+    recorded in ``_sharding``."""
+
+    shape: tuple
+    region: tuple
+    local: Any
+    spec: tuple = ()
 
 
 def _io_threads() -> int:
@@ -390,13 +416,80 @@ def _orbax_leaves(tree, keys=()):
     return [(keys, tree)]
 
 
-def save_pytree_orbax(path: str, tree: Any) -> int:
+def _orbax_entries(tree) -> tuple:
+    """(the ``_METADATA`` tree, [(array name, its entry's value metadata,
+    leaf)]) of a tree; the arrays' ``write_shape`` is for the caller."""
+    tree_meta, arrays = {}, []
+    for keys, leaf in _orbax_leaves(tree):
+        if not keys:
+            raise ValueError("the tree must be a dict, list or tuple")
+        entry = {"key_metadata": [{"key": k, "key_type": t} for k, t in keys]}
+        if leaf is None or (isinstance(leaf, (dict, list, tuple)) and not leaf):
+            kind = "None" if leaf is None else next(
+                v for t, v in _EMPTY_TYPES.items() if isinstance(leaf, t))
+            entry["value_metadata"] = {"value_type": kind, "skip_deserialize": True}
+        else:
+            entry["value_metadata"] = {"value_type": "jax.Array", "skip_deserialize": False}
+            arrays.append((".".join(k for k, _ in keys), entry["value_metadata"], leaf))
+        tree_meta[str(tuple(k for k, _ in keys))] = entry
+    return tree_meta, arrays
+
+
+def _write_json(path: str, obj, **kw) -> int:
+    data = json.dumps(obj, **kw).encode()
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def _write_orbax_metadata(root: str, tree_meta: dict, t0: int) -> int:
+    """``_METADATA`` and ``_CHECKPOINT_METADATA`` (committed now)."""
+    return (_write_json(os.path.join(root, ORBAX_METADATA), {
+                "tree_metadata": tree_meta, "use_ocdbt": True, "use_zarr3": False,
+                "store_array_data_equal_to_fill_value": True, "custom_metadata": None})
+            + _write_json(os.path.join(root, ORBAX_CHECKPOINT_METADATA), {
+                "item_handlers": ORBAX_HANDLER, "metrics": {}, "performance_metrics": {},
+                "init_timestamp_nsecs": t0, "commit_timestamp_nsecs": time.time_ns(),
+                "custom_metadata": {}}))
+
+
+def _put_chunks(writer, chunks) -> None:
+    """Compress (key, raw chunk) pairs, or callables giving one, on a
+    thread pool and put them in order."""
+    from vla_touch_tpu_torch.utils import zarr2
+
+    def encode(kv):
+        key, raw = kv() if callable(kv) else kv
+        return key, zarr2.encode_chunk(raw)
+
+    threads = _io_threads()
+    with ThreadPoolExecutor(threads) as pool:
+        for key, data in _bounded_map(pool, encode, chunks, 2 * threads):
+            writer.put(key, data)
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def save_pytree_orbax(path: str, tree: Any, mesh=None) -> int:
     """Write ``tree`` (nested dicts / lists / tuples of numpy arrays,
-    numbers, tensors and None) as orbax's StandardCheckpointer does, so that
-    JAX's ``load_pytree_orbax`` reads it.  The directory is written beside
-    ``path`` and renamed into place when complete (an existing ``path`` is
-    replaced).  Chunks are compressed on a thread pool.  Returns the bytes
-    written."""
+    numbers, tensors, :class:`Shard` s and None) as orbax's
+    StandardCheckpointer does, so that JAX's ``load_pytree_orbax`` reads
+    it.  The directory is written beside ``path`` and renamed into place
+    when complete (an existing ``path`` is replaced).  Chunks are
+    compressed on a thread pool.  Returns the bytes this process wrote.
+
+    In a process group of world > 1 this is collective, as orbax's save
+    is in JAX's multi-process runs:
+    every rank calls it with the same tree structure, its own shards as
+    :class:`Shard` leaves (any other leaf is held whole by every rank) and
+    the same ``mesh`` (a ``DeviceMesh``, recorded in ``_sharding``); see
+    the note above.  Nothing is gathered."""
+    if _world() > 1:
+        return _RankWrite(path, tree, mesh).run()
     from vla_touch_tpu_torch.utils import ocdbt, zarr2
 
     path = os.path.abspath(path)
@@ -404,43 +497,16 @@ def save_pytree_orbax(path: str, tree: Any) -> int:
     tmp = f"{path}.orbax-checkpoint-tmp-{t0}"
     try:
         writer = ocdbt.Writer(tmp)
-        tree_meta, chunks = {}, []
-        for keys, leaf in _orbax_leaves(tree):
-            if not keys:
-                raise ValueError("the tree must be a dict, list or tuple")
-            name = ".".join(k for k, _ in keys)
-            entry = {"key_metadata": [{"key": k, "key_type": t} for k, t in keys]}
-            if leaf is None or (isinstance(leaf, (dict, list, tuple)) and not leaf):
-                kind = "None" if leaf is None else next(
-                    v for t, v in _EMPTY_TYPES.items() if isinstance(leaf, t))
-                entry["value_metadata"] = {"value_type": kind, "skip_deserialize": True}
-            else:
-                arr, dtype = zarr2.host_array(leaf)
-                shape = zarr2.chunk_shape(arr.shape, arr.itemsize)
-                writer.put(f"{name}/.zarray".encode(), zarr2.zarray(arr.shape, shape, dtype))
-                chunks += zarr2.array_chunks(name, arr, shape)
-                entry["value_metadata"] = {"value_type": "jax.Array", "skip_deserialize": False,
-                                           "write_shape": list(shape)}
-            tree_meta[str(tuple(k for k, _ in keys))] = entry
-        threads = _io_threads()
-        with ThreadPoolExecutor(threads) as pool:
-            for key, data in _bounded_map(pool, lambda kv: (kv[0], zarr2.encode_chunk(kv[1])),
-                                          chunks, 2 * threads):
-                writer.put(key, data)
-        nbytes = writer.commit()
-        for name, obj in ((ORBAX_METADATA, {"tree_metadata": tree_meta, "use_ocdbt": True,
-                                            "use_zarr3": False,
-                                            "store_array_data_equal_to_fill_value": True,
-                                            "custom_metadata": None}),
-                          (ORBAX_CHECKPOINT_METADATA, {
-                              "item_handlers": ORBAX_HANDLER, "metrics": {},
-                              "performance_metrics": {}, "init_timestamp_nsecs": t0,
-                              "commit_timestamp_nsecs": time.time_ns(),
-                              "custom_metadata": {}})):
-            data = json.dumps(obj).encode()
-            with open(os.path.join(tmp, name), "wb") as f:
-                f.write(data)
-            nbytes += len(data)
+        tree_meta, leaves = _orbax_entries(tree)
+        chunks = []
+        for name, vm, leaf in leaves:
+            arr, dtype = zarr2.host_array(leaf)
+            shape = zarr2.chunk_shape(arr.shape, arr.itemsize)
+            writer.put(f"{name}/.zarray".encode(), zarr2.zarray(arr.shape, shape, dtype))
+            chunks += zarr2.array_chunks(name, arr, shape)
+            vm["write_shape"] = list(shape)
+        _put_chunks(writer, chunks)
+        nbytes = writer.commit() + _write_orbax_metadata(tmp, tree_meta, t0)
         if os.path.exists(path):
             shutil.rmtree(path)
         os.rename(tmp, path)
@@ -449,13 +515,202 @@ def save_pytree_orbax(path: str, tree: Any) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def load_pytree_orbax(path: str, target: Any = None) -> Any:
+def _sharding_json(mesh, world: int, spec: tuple) -> str:
+    """One leaf's ``_sharding`` entry: a DeviceMesh's axes and ranks (else
+    one axis "data" over the world) and the leaf's spec."""
+    if mesh is None:
+        names, ranks = ["data"], np.arange(world)
+    else:
+        names, ranks = list(mesh.mesh_dim_names), mesh.mesh.numpy()
+    return json.dumps({
+        "sharding_type": "NamedSharding", "shape": list(ranks.shape), "axis_names": names,
+        "axis_types": ["AxisType.Auto"] * len(names), "partition_spec": list(spec),
+        "device_mesh": {"mesh": np.vectorize(lambda r: {"id": int(r)}, otypes=[object])(
+            ranks).tolist()}})
+
+
+# one array of a rank's write: its name, _METADATA value metadata, global
+# shape, this rank's region and values (host numpy), spec and zarr dtype
+_Array = collections.namedtuple("_Array", "name vm shape region spec values dtype")
+
+
+class _RankWrite:
+    """One collective write of a tree by every rank (see the note above).
+    Made on the calling thread by every rank at once: this rank's shards
+    on the host (copies with ``copy``: the caller goes on changing them)
+    and one ``all_gather_object`` of every rank's regions and rank 0's
+    temporary directory, from which each rank computes every array's
+    chunk grid and the chunks it writes.  :meth:`run` writes, on
+    any thread; the ranks then meet through the default process group's
+    key-value store, not through the group's collectives, which training
+    goes on issuing on the calling thread (a Gloo group for the writers
+    alone would have to be made collectively on that thread and keep its
+    own connections open; the store is already there, on every backend)."""
+
+    def __init__(self, path: str, tree: Any, mesh=None, copy: bool = False):
+        import torch.distributed as dist
+
+        from vla_touch_tpu_torch.utils import zarr2
+
+        self.path = os.path.abspath(path)
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        self.t0 = time.time_ns()
+        self.tree_meta, leaves = _orbax_entries(tree)
+        self.arrays = []
+        for name, vm, leaf in leaves:
+            shard = leaf if isinstance(leaf, Shard) else None
+            local = leaf if shard is None else shard.local
+            values, dtype = zarr2.host_array(local)
+            if copy and not (isinstance(local, torch.Tensor) and local.is_cuda):
+                values = values.copy()      # a card tensor's host array is a copy already
+            if shard is None:
+                shape, region, spec = values.shape, zarr2.full_region(values.shape), ()
+            else:
+                shape, region, spec = (tuple(int(n) for n in shard.shape),
+                                       tuple(tuple(map(tuple, r)) for r in shard.region),
+                                       tuple(shard.spec))
+            if zarr2.region_shape(region) != values.shape:
+                raise ValueError(f"{name}: values of shape {values.shape} for a region of "
+                                 f"{zarr2.region_shape(region)}")
+            self.arrays.append(_Array(name, vm, shape, region, spec, values, dtype))
+        tmp = f"{self.path}.orbax-checkpoint-tmp-{self.t0}-{os.getpid()}"
+        every = [None] * self.world
+        dist.all_gather_object(every, (tmp, [(a.name, a.shape, a.dtype, a.region)
+                                             for a in self.arrays]))
+        self.tmp = every[0][0]
+        self.chunks, self.mine = self._plan([leaves for _, leaves in every])
+        for a in self.arrays:
+            a.vm["write_shape"] = list(self.chunks[a.name])
+        self.mesh = mesh
+        self.store = dist.distributed_c10d._get_default_store()
+        self.key = f"orbax-checkpoint/{os.path.basename(self.tmp)}"
+
+    def _plan(self, every: list) -> tuple:
+        """({array: chunk shape}, {array: the chunk indices this rank
+        writes}): a chunk is the largest run of any rank on each axis, and
+        goes to the lowest rank that holds it.  Raises (on every rank
+        alike) where the ranks' leaves differ or leave a chunk unheld."""
+        from vla_touch_tpu_torch.utils import zarr2
+
+        head = [leaf[:3] for leaf in every[0]]
+        for r, leaves in enumerate(every):
+            if [leaf[:3] for leaf in leaves] != head:
+                raise ValueError(f"rank {r}'s leaves (names, shapes, dtypes) differ from "
+                                 f"rank 0's")
+        chunks, mine = {}, {}
+        for i, (name, shape, _) in enumerate(head):
+            regions = [leaves[i][3] for leaves in every]
+            shape_c = tuple(max([b - a for reg in regions for a, b in reg[ax]] + [1])
+                            for ax in range(len(shape)))
+            owner = {}
+            for r, reg in enumerate(regions):
+                for idx in zarr2.region_chunk_indices(reg, shape_c, shape):
+                    owner.setdefault(idx, r)
+            grid = int(np.prod([-(-n // c) for n, c in zip(shape, shape_c)]))
+            if len(owner) != grid:
+                raise ValueError(f"{name}: the ranks hold {len(owner)} of its {grid} chunks")
+            chunks[name] = shape_c
+            mine[name] = sorted(idx for idx, r in owner.items() if r == self.rank)
+        return chunks, mine
+
+    def run(self) -> int:
+        """Write this rank's part; rank 0 then joins every rank's and
+        renames the directory into place.  Returns the bytes this rank
+        wrote; raises on every rank when any rank failed (nothing is
+        renamed into place then)."""
+        error, nbytes = None, 0
+        try:
+            nbytes = self._write_rank()
+        except BaseException as e:
+            error = e
+        self.store.set(f"{self.key}/rank{self.rank}",
+                       "ok" if error is None else f"rank {self.rank}: {error!r}")
+        if self.rank == 0:
+            outcome, n = self._commit()
+            nbytes += n
+            self.store.set(f"{self.key}/commit", outcome)
+        else:
+            self.store.wait([f"{self.key}/commit"])
+            outcome = self.store.get(f"{self.key}/commit").decode()
+        if error is not None:
+            raise error
+        if outcome != "ok":
+            raise RuntimeError(f"{self.path}: not committed ({outcome})")
+        return nbytes
+
+    def _write_rank(self) -> int:
+        from vla_touch_tpu_torch.utils import ocdbt, zarr2
+
+        writer = ocdbt.Writer(os.path.join(self.tmp, f"ocdbt.process_{self.rank}"))
+        if self.rank == 0:
+            for a in self.arrays:
+                writer.put(f"{a.name}/.zarray".encode(),
+                           zarr2.zarray(a.shape, self.chunks[a.name], a.dtype))
+
+        def chunk(a, index):
+            return lambda: zarr2.region_chunks(a.name, a.values, a.region, self.chunks[a.name],
+                                               [index])[0]
+
+        _put_chunks(writer, (chunk(a, idx) for a in self.arrays for idx in self.mine[a.name]))
+        nbytes = writer.commit()
+        os.makedirs(os.path.join(self.tmp, "array_metadatas"), exist_ok=True)
+        nbytes += _write_json(
+            os.path.join(self.tmp, "array_metadatas", f"process_{self.rank}"),
+            {"array_metadatas": [{"array_metadata": {
+                "param_name": a.name, "write_shape": a.vm["write_shape"],
+                "chunk_shape": a.vm["write_shape"], "ext_metadata": None}}
+                for a in self.arrays]})
+        if self.rank == 0:
+            sharding = {base64.b64encode(a.name.encode()).decode():
+                        _sharding_json(self.mesh, self.world, a.spec) for a in self.arrays}
+            nbytes += _write_json(os.path.join(self.tmp, ORBAX_SHARDING), sharding,
+                                  separators=(",", ":"))
+        return nbytes
+
+    def _commit(self) -> tuple:
+        """Rank 0, once every rank has reported: (outcome, bytes written)."""
+        from vla_touch_tpu_torch.utils import ocdbt
+
+        keys = [f"{self.key}/rank{r}" for r in range(self.world)]
+        self.store.wait(keys)
+        failed = [v for v in (self.store.get(k).decode() for k in keys) if v != "ok"]
+        if failed:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+            return "; ".join(failed), 0
+        try:
+            n = ocdbt.join(self.tmp, [f"ocdbt.process_{r}" for r in range(self.world)])
+            n += _write_orbax_metadata(self.tmp, self.tree_meta, self.t0)
+            if os.path.exists(self.path):
+                shutil.rmtree(self.path)
+            os.rename(self.tmp, self.path)
+            return "ok", n
+        except BaseException as e:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+            return f"rank 0, joining: {e!r}", 0
+
+
+def _flat_regions(tree, keys=()) -> dict:
+    """{array name: region} of the Shards of a nested dict."""
+    if isinstance(tree, dict):
+        return {n: r for k, v in tree.items() for n, r in _flat_regions(v, keys + (str(k),)).items()}
+    return {".".join(keys): tuple(tree.region)} if isinstance(tree, Shard) else {}
+
+
+def load_pytree_orbax(path: str, target: Any = None, regions: Any = None,
+                      stats: Optional[dict] = None) -> Any:
     """An orbax directory (JAX's ``save_pytree_orbax``, or the port's) as
     :func:`load_pytree` returns a msgpack file of the same tree: nested
     string-keyed dicts (sequence indices as "0", "1", ...), numpy arrays,
     bfloat16 leaves as torch tensors, None leaves as None and empty
     containers as {}.  Arrays are read on a thread pool.  With ``target``,
-    restricted to its structure (keys and shapes validated)."""
+    restricted to its structure (keys and shapes validated).
+
+    ``regions``: a nested dict like the tree; an array with a
+    :class:`Shard` there comes back as the values of the Shard's region,
+    read from the chunks it overlaps alone (any checkpoint topology: the
+    chunks need not match the region).
+    ``stats``: a dict that gets ``chunks_read`` and ``chunks_overlapped``
+    added."""
     from vla_touch_tpu_torch.utils import ocdbt, zarr2
 
     path = os.path.abspath(path)
@@ -473,9 +728,14 @@ def load_pytree_orbax(path: str, target: Any = None) -> Any:
         elif kind != "None" and kind not in _EMPTY_TYPES.values():
             raise ValueError(f"{path}: leaf {'/'.join(keys)} of value type {kind} is not read")
         leaves.append((keys, kind))
+    region_of = {} if regions is None else _flat_regions(regions)
     with ocdbt.Database(path) as db, ThreadPoolExecutor(_io_threads()) as pool:
-        arrays = dict(zip(names, pool.map(lambda n: zarr2.read_array(db, n, where=path),
-                                          names)))
+        read = list(pool.map(lambda n: zarr2.read_region(db, n, region_of.get(n), where=path),
+                             names))
+    arrays = {n: r[0] for n, r in zip(names, read)}
+    if stats is not None:
+        for k, i in (("chunks_read", 1), ("chunks_overlapped", 2)):
+            stats[k] = stats.get(k, 0) + sum(r[i] for r in read)
     tree: dict = {}
     for keys, kind in leaves:
         node = tree
@@ -489,6 +749,20 @@ def load_pytree_orbax(path: str, target: Any = None) -> Any:
             value = arrays[".".join(keys)]
         node[keys[-1]] = value
     return tree if target is None else _match(tree, target)
+
+
+def take_regions(tree: Any, regions: Any) -> Any:
+    """``tree`` (whole leaves, e.g. :func:`load_pytree`'s) in the structure
+    of ``regions``, a nested dict like it: where ``regions`` has a
+    :class:`Shard`, that Shard's region of the array; elsewhere the leaf
+    as it is."""
+    from vla_touch_tpu_torch.utils import zarr2
+
+    if isinstance(regions, dict):
+        return {k: take_regions(tree[str(k)], v) for k, v in regions.items()}
+    if isinstance(regions, Shard):
+        return zarr2.take_region(tree, regions.region)
+    return tree
 
 
 def _host_copy(tree):
@@ -506,26 +780,35 @@ def _host_copy(tree):
 
 class AsyncOrbaxSaver:
     """Overlapped :func:`save_pytree_orbax` writes.  ``save`` waits for the
-    previous write (at most one in flight), copies the tree to host memory
-    and writes it on a background thread; ``wait`` blocks until it has
-    landed and re-raises its failure; call ``close`` (or ``wait``) before
-    the process exits."""
+    previous write (at most one in flight), copies the tree (at world > 1:
+    this rank's shards) to host memory and writes it on a background
+    thread; ``wait`` blocks until it has landed and re-raises its failure
+    (at world > 1, any rank's); call ``close`` (or ``wait``) before the
+    process exits.  At world > 1 ``save`` is collective, as
+    :func:`save_pytree_orbax`: every rank calls it at the same point of
+    its program."""
 
     def __init__(self):
         self._thread = None
         self._error = None
 
-    def save(self, path: str, tree: Any) -> None:
+    def save(self, path: str, tree: Any, mesh=None) -> None:
         self.wait()
-        host = _host_copy(tree)
+        if _world() > 1:
+            write = _RankWrite(path, tree, mesh, copy=True).run
+        else:
+            host = _host_copy(tree)
 
-        def write():
-            try:
+            def write():
                 save_pytree_orbax(path, host)
+
+        def run():
+            try:
+                write()
             except BaseException as e:  # raised by wait
                 self._error = e
 
-        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
 
     def wait(self) -> None:

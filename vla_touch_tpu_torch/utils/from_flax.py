@@ -605,15 +605,97 @@ def rdt_train_state_to_flax(state, optimizer) -> dict:
                      "ema_num_updates": int(state.ema.num_updates)}}
 
 
+def _runs(positions) -> tuple:
+    """Ascending positions as (start, stop) runs."""
+    runs = []
+    for i in positions.tolist():
+        if runs and runs[-1][1] == i:
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1])
+    return tuple((a, b) for a, b in runs)
+
+
+def _shard(shape: tuple, pieces: list, transposed: bool, local: torch.Tensor):
+    """A torch-layout leaf of full ``shape``, of which this rank holds
+    ``local`` as ``pieces`` cut it ([(parallel.comm.Piece or None, mesh
+    axis name)]), as a ``Shard`` in JAX's layout."""
+    from vla_touch_tpu_torch.utils.checkpoint import Shard
+
+    region = [((0, n),) for n in shape]
+    spec = [None] * len(shape)
+    for piece, axis_name in pieces:
+        if piece is not None:
+            region[piece.axis] = _runs(piece.index[piece.rank])
+            spec[piece.axis] = axis_name
+    spec = tuple(spec) if any(spec) else ()
+    if transposed:
+        return Shard(tuple(reversed(shape)), tuple(reversed(region)), local.t(),
+                     tuple(reversed(spec)))
+    return Shard(tuple(shape), tuple(region), local, spec)
+
+
+def rdt_train_state_shards(state, optimizer) -> dict:
+    """:func:`rdt_train_state_to_flax` of this rank's part of a sharded
+    ``TrainState``, nothing gathered: each leaf of ``params``, ``ema`` and
+    ``opt_state`` a ``utils.checkpoint.Shard`` (the leaf's global JAX shape,
+    this rank's region of it, the local tensor as a view, and its spec),
+    the update counts as they are.  The regions come from the state's
+    ``ShardPlan``: a parameter's TP piece (a fused projection's head-aligned
+    piece: three runs) and, under ZeRO-3, its data piece; the shadow's and
+    AdamW moments' both; the 8-bit moments' this data rank's whole blocks
+    of the flattened JAX-layout leaf (rows of the (blocks, 256) codes).  A
+    state without a plan holds every leaf whole."""
+    from vla_touch_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+    from vla_touch_tpu_torch.utils.checkpoint import Shard
+
+    paths = flax_paths(state.module)
+    plan = state.plan
+
+    def leaf(n, local, param):
+        if plan is None:
+            return _shard(tuple(local.shape), [], paths[n][1], local.detach())
+        lp = plan.leaves[n]
+        data = lp.data if not param or plan.zero3 else None
+        return _shard(lp.shape, [(lp.tp, MODEL_AXIS), (data, DATA_AXIS)], lp.transposed,
+                      local.detach())
+
+    def blocks(n, local):
+        if plan is None:
+            return Shard(tuple(local.shape), tuple(((0, k),) for k in local.shape), local)
+        nb, nbl = plan.n_blocks(plan.leaves[n])
+        lo = plan.data_rank * nbl
+        rows = max(0, min(lo + nbl, nb) - lo)
+        shape = (nb,) + tuple(local.shape[1:])
+        region = ((((lo, lo + rows),) if rows else ()),) + tuple(((0, k),) for k in shape[1:])
+        return Shard(shape, region, local[:rows], (DATA_AXIS,) + (None,) * (len(shape) - 1))
+
+    def tree(d, param=False):
+        return nest(paths, {n: leaf(n, v, param) for n, v in d.items()}, transpose=False)
+
+    return {"params": tree(dict(state.module.named_parameters()), param=True),
+            "ema": tree(state.ema.shadow),
+            "opt_state": optimizer.to_tree(
+                state.opt_state, tree,
+                lambda d: nest(paths, {n: blocks(n, v) for n, v in d.items()},
+                               transpose=False)),
+            "meta": {"step": int(state.step),
+                     "ema_num_updates": int(state.ema.num_updates)}}
+
+
 def rdt_train_state_from_flax(trees: dict, state, optimizer):
     """The inverse of :func:`rdt_train_state_to_flax`, into ``state``: its
     module's parameters are overwritten in place (cast to their dtype),
     the EMA shadow and optimizer state replaced, on the module's device.
-    Returns ``state``."""
+    A sharded state takes this rank's regions of the leaves (as
+    ``load_pytree_orbax`` reads them with the regions of
+    :func:`rdt_train_state_shards`), the 8-bit blocks padded to the rank's
+    block count.  Returns ``state``."""
     from vla_touch_tpu_torch.utils import ema as ema_lib
 
     paths = flax_paths(state.module)
     dev = next(state.module.parameters()).device
+    plan = state.plan
     params = unnest(paths, trees["params"], dev)
     with torch.no_grad():
         for name, p in state.module.named_parameters():
@@ -622,8 +704,16 @@ def rdt_train_state_from_flax(trees: dict, state, optimizer):
     state.ema = ema_lib.EmaState(
         shadow={n: shadow[n].to(s.dtype) for n, s in state.ema.shadow.items()},
         num_updates=torch.tensor(trees["meta"]["ema_num_updates"], dtype=torch.int32))
-    state.opt_state = optimizer.from_tree(
-        trees["opt_state"], lambda t: unnest(paths, t, dev),
-        lambda t: unnest(paths, t, dev, transpose=False))
+
+    def blocks(t):
+        out = unnest(paths, t, dev, transpose=False)
+        if plan is None:
+            return out
+        pad = {n: plan.n_blocks(plan.leaves[n])[1] - v.shape[0] for n, v in out.items()}
+        return {n: torch.nn.functional.pad(v, (0, 0) * (v.dim() - 1) + (0, pad[n]))
+                for n, v in out.items()}
+
+    state.opt_state = optimizer.from_tree(trees["opt_state"], lambda t: unnest(paths, t, dev),
+                                          blocks)
     state.step = int(trees["meta"]["step"])
     return state

@@ -23,8 +23,9 @@ u64 LE) and version tree node references (generation, file id, offset,
 length, num_generations, commit time, height).  A data-file table is
 num_files, then prefix lengths (one per file after the first), suffix
 lengths and base-path lengths, then the suffixes: each path is the
-previous one's prefix plus its suffix, relative to the database's root
-(base path ``ocdbt.process_N/`` in orbax's merged root).  B+tree node
+previous one's prefix plus its suffix, relative to the database's root;
+its first base-path-length bytes are its base path (``ocdbt.process_N/``
+in orbax's merged root, where the other databases' data files are named).  B+tree node
 body: height u8, a data-file table, num_entries, key prefix lengths (after
 the first), key suffix lengths, [interior: subtree common prefix lengths],
 the key suffixes, then a leaf's value lengths, kinds (0 inline, 1 in a data
@@ -39,6 +40,13 @@ nodes.  Manifest kind 1 (numbered): ``manifest.ocdbt`` holds the config
 alone, and each commit writes ``manifest.<generation, 16 hex digits>``, a
 whole manifest unit as above; the reader takes the highest-numbered one
 that decodes.
+
+A multi-process orbax checkpoint is one database per process
+(``ocdbt.process_<i>/``, each written alone) and a root database that
+joins them (:func:`join`): one B+tree over every process's keys, whose
+inline values are copies and whose out-of-line values are references into
+the processes' data files, with base path ``ocdbt.process_<i>/``, as
+tensorstore's merge leaves them.
 """
 
 from __future__ import annotations
@@ -221,8 +229,9 @@ def _common(a: bytes, b: bytes) -> int:
     return i
 
 
-def _write_file_table(paths: list, out: bytearray) -> None:
-    """Paths relative to the root, each with an empty base path."""
+def _write_file_table(paths: list, out: bytearray, bases: Optional[Mapping] = None) -> None:
+    """Paths relative to the root; ``bases``: path -> its base path's
+    length (0 where absent)."""
     enc = [p.encode("utf-8") for p in paths]
     _varint(len(enc), out)
     if not enc:
@@ -230,7 +239,7 @@ def _write_file_table(paths: list, out: bytearray) -> None:
     prefix = [_common(a, b) for a, b in zip(enc, enc[1:])]
     _varints(prefix, out)
     _varints([len(e) - p for e, p in zip(enc, [0] + prefix)], out)
-    _varints([0] * len(enc), out)
+    _varints([(bases or {}).get(p, 0) for p in paths], out)
     for e, p in zip(enc, [0] + prefix):
         out += e[p:]
 
@@ -444,6 +453,11 @@ class Database(Mapping):
     def __contains__(self, key) -> bool:
         return key in self._index
 
+    def entries(self) -> Iterator[tuple]:
+        """(key, value) of every key, the value as stored: the inline bytes,
+        or (data file relative to the root, offset, length)."""
+        return iter(self._index.items())
+
     def close(self) -> None:
         with self._lock:
             for fd in self._fds.values():
@@ -467,7 +481,8 @@ class Writer:
     ``put`` values in any order from one thread: a value above
     :data:`MAX_INLINE_VALUE_BYTES` goes at once, raw, to the open data file
     (``d/<32 hex>``, a new one past :data:`DATA_FILE_BYTES`); the rest stay
-    in memory for the leaves.  :meth:`commit` writes the B+tree (one leaf,
+    in memory for the leaves.  ``put_ref`` enters a value that already lies
+    in another database's data file under the root.  :meth:`commit` writes the B+tree (one leaf,
     or leaves of at most :data:`MAX_DECODED_NODE_BYTES` under interior
     nodes), zstd-compressed, then ``manifest.ocdbt``, and returns the bytes
     written."""
@@ -479,6 +494,8 @@ class Writer:
         self.data_file_bytes = DATA_FILE_BYTES
         os.makedirs(os.path.join(root, "d"), exist_ok=True)
         self._entries: dict = {}
+        # data file -> the length of its base path (put_ref's files)
+        self._bases: dict = {}
         self._file = None
         self._path = None
         self._pos = 0
@@ -510,6 +527,15 @@ class Writer:
         n = memoryview(value).nbytes
         self._entries[key] = (self._append(value) if n > self.max_inline
                               else bytes(value))
+
+    def put_ref(self, key: bytes, base: str, path: str, offset: int, length: int) -> None:
+        """``key``'s value: ``length`` bytes at ``offset`` of the data file
+        ``base + path`` (relative to the root; ``base`` is its base path,
+        e.g. ``ocdbt.process_1/``), left where it is."""
+        if key in self._entries:
+            raise KeyError(f"{key!r} put twice")
+        self._entries[key] = (base + path, offset, length)
+        self._bases[base + path] = len(base)
 
     def commit(self) -> int:
         try:
@@ -572,7 +598,7 @@ class Writer:
         files = sorted({v[0] for v in vals if isinstance(v, tuple)})
         fid = {p: i for i, p in enumerate(files)}
         body = bytearray([0])
-        _write_file_table(files, body)
+        _write_file_table(files, body, self._bases)
         _write_keys(keys, body)
         _varints([len(v) if isinstance(v, bytes) else v[2] for v in vals], body)
         _varints([0 if isinstance(v, bytes) else 1 for v in vals], body)
@@ -629,3 +655,20 @@ class Writer:
         with open(os.path.join(self.root, MANIFEST_NAME), "wb") as f:
             f.write(data)
         self.bytes_written += len(data)
+
+
+def join(root: str, parts: list) -> int:
+    """Write at ``root`` the database that joins the databases in its
+    subdirectories ``parts`` (names such as ``ocdbt.process_0``): every key
+    of every part, inline values copied, out-of-line values referred to
+    where they lie (base path ``<part>/``).  A key in two parts raises.
+    Returns the bytes written."""
+    w = Writer(root)
+    for part in parts:
+        with Database(os.path.join(root, part)) as db:
+            for key, value in db.entries():
+                if isinstance(value, bytes):
+                    w.put(key, value)
+                else:
+                    w.put_ref(key, part + "/", *value)
+    return w.commit()

@@ -9,6 +9,14 @@ The reader takes any mapping key bytes -> value bytes (an
 has none), the rest as numpy arrays.  The writer writes as orbax does: zstd
 at level 1, C order, ``fill_value`` null, and one chunk per array up to
 :data:`CHUNK_BYTES`; a larger array is cut along its first axis.
+
+A *region* is the part of an array one process holds: per axis, the
+``(start, stop)`` runs of positions it holds, ascending (one run
+``(0, size)`` where the axis is whole; several where a fused projection
+is split by heads; none where the process holds nothing).  Its values are
+the runs concatenated on each axis.  :func:`read_region` reads only the
+chunks a region overlaps; :func:`region_chunks` cuts a region's values
+into chunks of a grid that the region's runs lie on.
 """
 
 from __future__ import annotations
@@ -77,28 +85,80 @@ def read_meta(store, name: str) -> dict:
     return meta
 
 
+def full_region(shape: tuple) -> tuple:
+    return tuple(((0, int(n)),) for n in shape)
+
+
+def region_shape(region: tuple) -> tuple:
+    return tuple(sum(b - a for a, b in runs) for runs in region)
+
+
+def take_region(arr, region: tuple):
+    """The values of ``region`` of a whole numpy array or tensor."""
+    for axis, runs in enumerate(region):
+        if len(runs) == 1 and runs[0] == (0, arr.shape[axis]):
+            continue
+        parts = [arr[(slice(None),) * axis + (slice(a, b),)] for a, b in runs]
+        if isinstance(arr, torch.Tensor):
+            arr = torch.cat(parts, axis) if parts else arr.narrow(axis, 0, 0)
+        else:
+            arr = np.concatenate(parts, axis) if parts else arr[(slice(None),) * axis
+                                                                 + (slice(0, 0),)]
+    return arr
+
+
+def _axis_pieces(runs, chunk: int) -> dict:
+    """{chunk index: [(slice of the chunk, slice of the region's values)]}
+    along one axis."""
+    out, off = {}, 0
+    for a, b in runs:
+        i = a // chunk
+        while i * chunk < b:
+            lo, hi = max(a, i * chunk), min(b, (i + 1) * chunk)
+            out.setdefault(i, []).append((slice(lo - i * chunk, hi - i * chunk),
+                                          slice(off + lo - a, off + hi - a)))
+            i += 1
+        off += b - a
+    return out
+
+
 def read_array(store, name: str, where: Optional[str] = None):
     """The whole array ``name`` of ``store``.  ``where`` names the store in
     errors."""
+    return read_region(store, name, None, where)[0]
+
+
+def read_region(store, name: str, region: Optional[tuple], where: Optional[str] = None):
+    """(values of ``region`` of the array ``name``, chunks read, chunks the
+    region overlaps): only the chunks the region overlaps are read (a
+    missing one is ``fill_value``).  ``region`` None: the whole array."""
     meta = read_meta(store, name)
     shape, chunks = tuple(meta["shape"]), tuple(meta["chunks"])
     dtype = storage_dtype(meta["dtype"])
     order, sep = meta.get("order", "C"), meta.get("dimension_separator", ".")
     compressed = meta.get("compressor") is not None
-    out = np.empty(shape, dtype.newbyteorder("="))
+    whole = region is None or region == full_region(shape)
+    region = full_region(shape) if region is None else tuple(map(tuple, region))
+    if len(region) != len(shape):
+        raise ValueError(f"{name}: a region of {len(region)} axes for shape {shape}")
+    out = np.empty(region_shape(region), dtype.newbyteorder("="))
     fill = _fill(meta, dtype)
-    grid = [range(-(-s // c)) if c else range(1) for s, c in zip(shape, chunks)]
+    nbytes = math.prod(chunks) * dtype.itemsize
     what = where or name
-    for index in itertools.product(*grid):
+    # nothing to read where the region (or the array) is empty
+    pieces = [_axis_pieces(runs, c) for runs, c in zip(region, chunks)] if out.size else [{}]
+    n_read = n_overlapped = 0
+    for index in itertools.product(*[sorted(p) for p in pieces]):
+        n_overlapped += 1
         key = chunk_key(name, index, sep)
-        sl = tuple(slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(index, chunks, shape))
+        parts = list(itertools.product(*[p[i] for p, i in zip(pieces, index)]))
         if key not in store:
-            out[sl] = 0 if fill is None else fill
+            for part in parts:
+                out[tuple(o for _, o in part)] = 0 if fill is None else fill
             continue
         raw = store[key]
-        nbytes = math.prod(chunks) * dtype.itemsize
-        whole = chunks == shape and order == "C" and dtype.isnative
-        if whole:
+        n_read += 1
+        if whole and chunks == shape and order == "C" and dtype.isnative:
             # the chunk is the array: decompress straight into it
             dst = out.reshape(-1).view(np.uint8)
             if compressed:
@@ -112,10 +172,11 @@ def read_array(store, name: str, where: Optional[str] = None):
         if len(data) != nbytes:
             raise ValueError(f"{what} {key.decode()}: {len(data)} bytes, {nbytes} expected")
         chunk = np.frombuffer(data, dtype).reshape(chunks, order=order)
-        out[sl] = chunk[tuple(slice(0, s.stop - s.start) for s in sl)]
+        for part in parts:
+            out[tuple(o for _, o in part)] = chunk[tuple(c for c, _ in part)]
     if meta["dtype"] == "bfloat16":
-        return torch.from_numpy(out).view(torch.bfloat16)
-    return out
+        return torch.from_numpy(out).view(torch.bfloat16), n_read, n_overlapped
+    return out, n_read, n_overlapped
 
 
 def host_array(value) -> tuple:
@@ -172,6 +233,45 @@ def array_chunks(name: str, arr: np.ndarray, chunks: tuple):
             full[:part.shape[0]] = part
             part = full
         out.append((chunk_key(name, (i,) + rest), memoryview(part.reshape(-1)).cast("B")))
+    return out
+
+
+def region_chunk_indices(region: tuple, chunks: tuple, shape: tuple) -> list:
+    """The chunk indices of the grid ``chunks`` that ``region`` holds
+    whole: each run starts on the grid and ends on it or at the array's
+    edge (else ValueError)."""
+    axes = []
+    for runs, c, n in zip(region, chunks, shape):
+        idx = []
+        for a, b in runs:
+            if a % c or (b % c and b != n):
+                raise ValueError(f"run ({a}, {b}) of an axis of {n} is off the grid of "
+                                 f"chunk {c}")
+            idx += range(a // c, -(-b // c))
+        axes.append(idx)
+    return list(itertools.product(*axes))
+
+
+def region_chunks(name: str, values: np.ndarray, region: tuple, chunks: tuple,
+                  indices) -> list:
+    """[(key, memoryview of the raw chunk)] of the chunks ``indices`` of a
+    region's C-contiguous ``values`` (:func:`region_chunk_indices` names
+    the chunks it holds); an edge chunk is stored at the full chunk
+    shape, zero past the edge."""
+    if not values.shape:
+        return [(chunk_key(name, ()), memoryview(values.reshape(1)).cast("B"))]
+    pieces = [_axis_pieces(runs, c) for runs, c in zip(region, chunks)]
+    out = []
+    for index in indices:
+        # each chunk lies within one run of every axis: one piece
+        part = tuple(p[i][0][1] for p, i in zip(pieces, index))
+        block = values[part]
+        if block.shape != tuple(chunks):
+            full = np.zeros(chunks, values.dtype)
+            full[tuple(slice(0, n) for n in block.shape)] = block
+            block = full
+        block = np.ascontiguousarray(block)
+        out.append((chunk_key(name, tuple(index)), memoryview(block.reshape(-1)).cast("B")))
     return out
 
 
